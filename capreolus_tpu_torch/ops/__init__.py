@@ -1,0 +1,5 @@
+"""Kernels of the port: each with its plain torch version and a launch count.
+
+``simmat``: K1, the fused KNRM simmat + kernel pooling (``csrc/knrm_pool.cu``).
+``build``: nvcc build and ctypes load of the CUDA sources.
+"""

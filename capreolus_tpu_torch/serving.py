@@ -1,0 +1,185 @@
+"""Serving API: batched retrieve(-then-rerank) over a built index, on the GPU
+(the ``RetrievalService`` and ``RerankingService`` of the JAX package's
+``serving.py``).
+
+    from capreolus_tpu_torch.serving import RetrievalService
+    svc = RetrievalService.from_config(collection="dummy")         # on "cuda"
+    hits = svc.search(["distant galaxies"], k=10)                  # [(docid, score)]
+
+Services run on ``device="cuda"`` unless the caller passes another device; a
+CUDA request without a card raises. Not ported in this slice: ``shards``,
+``refresh``, ``snippets``, the dense / ColBERT / impact / hybrid services and
+the HTTP front end.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import Counter
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from capreolus_tpu_torch.utils.loginit import get_logger
+
+logger = get_logger(__name__)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means "cuda"; asking for CUDA without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
+
+
+class RetrievalService:
+    def __init__(self, index, model: str = "bm25", params: Optional[dict] = None, batch_size: int = 64,
+                 pruning: bool = True, device=None):
+        from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
+
+        self.device = resolve_device(device)
+        index.create_index()
+        self.index = index
+        self.model = model
+        self.params = dict(params or {"k1": 0.9, "b": 0.4})
+        self.batch_size = batch_size
+        self.pruning = bool(pruning)
+        if self.pruning:
+            # the JAX engine's block-max pruning is bit-identical to exhaustive
+            # scoring, so the exhaustive exact path gives the same answers
+            logger.info("pruning=True is served by the exhaustive exact path (block-max pruning "
+                        "is not ported; rankings are identical)")
+        self.engine = ScoringEngine(DeviceIndex(index.data, device=self.device))
+
+    @classmethod
+    def from_config(cls, collection: str = "dummy", collection_path: Optional[str] = None,
+                    model: str = "bm25", params: Optional[dict] = None, device=None, **index_config):
+        import capreolus_tpu_torch
+
+        capreolus_tpu_torch.load_all_modules()
+        from capreolus_tpu_torch.index import Index
+
+        coll_cfg = {"name": collection}
+        if collection_path:
+            coll_cfg["path"] = collection_path
+        index = Index.create("tpu", {**index_config, "collection": coll_cfg})
+        return cls(index, model=model, params=params, device=device)
+
+    def _analyze(self, query: str, vocab):
+        counts = Counter(self.index.analyze(query))
+        return [(vocab[t], float(c)) for t, c in counts.items() if t in vocab]
+
+    def search_async(self, queries: Sequence[str], k: int = 10):
+        """Dispatch-now / collect-later variant of ``search`` (identical results):
+        the device work is queued when this returns, and the returned zero-arg
+        callable copies the results to the host and builds the hit lists."""
+        engine = self.engine
+        host = engine.dindex.host
+        docids = host.docid_strings
+        pending = []
+        for start in range(0, len(queries), self.batch_size):
+            batch = queries[start : start + self.batch_size]
+            term_lists = [self._analyze(q, host.vocab) for q in batch]
+            res = engine.search(term_lists, model=self.model, params=self.params, topk=k, materialize=False)
+            pending.append((len(batch), res))
+
+        def collect() -> List[List[Tuple[str, float]]]:
+            results: List[List[Tuple[str, float]]] = []
+            for n, (scores, ords) in pending:
+                scores, ords = scores.cpu().numpy(), ords.cpu().numpy()
+                for qi in range(n):
+                    hits = []
+                    for s, o in zip(scores[qi], ords[qi]):
+                        if s <= 0.0:
+                            break
+                        hits.append((docids[int(o)], float(s)))
+                    results.append(hits)
+            return results
+
+        return collect
+
+    def search(self, queries: Sequence[str], k: int = 10) -> List[List[Tuple[str, float]]]:
+        """Returns, per query, the top-k (docid, score) pairs."""
+        return self.search_async(queries, k)()
+
+    def get_document(self, docid: str) -> Optional[str]:
+        return self.index.get_doc(docid)
+
+
+class RerankingService(RetrievalService):
+    """Retrieve-then-rerank serving: first-stage engine + a trained reranker.
+
+    ``checkpoint_path`` names the port's params file: the flat ``params/...``
+    npz written by ``convert.save_params``.
+    """
+
+    def __init__(self, index, reranker, checkpoint_path, topn: int = 100, device=None, **kwargs):
+        super().__init__(index, device=device, **kwargs)
+        from capreolus_tpu_torch.convert import load_params
+        from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
+
+        self.reranker = reranker
+        self.topn = topn
+        self._collate = collate
+        self._keys = ARRAY_KEYS
+        t0 = time.perf_counter()
+        if not getattr(reranker.extractor, "_preprocessed", False):
+            # a fresh serving process: build the extractor state (vocab,
+            # embeddings, doc tokens) over the whole corpus before the model,
+            # whose embedding table is sized from it. Host time, reported apart
+            # from the first request's
+            reranker.extractor.preprocess([], list(index.data.docid_strings), {})
+        self.extractor_seconds = time.perf_counter() - t0
+        self.last_stage_ms = {}
+        model = reranker.build_model()
+        model.load_state_dict(reranker.state_dict_from_params(load_params(checkpoint_path)))
+        model.to(self.device).eval()  # in place: reranker.test runs reranker.model
+
+    def search_async(self, queries: Sequence[str], k: int = 10):
+        """Two-stage dispatch/collect split: dispatch queues the first-stage
+        retrieval; collect runs extraction and the reranker.
+
+        Each collect sets ``last_stage_ms``: ``first_stage`` from dispatch until
+        the first-stage hits are on the host, ``rerank`` from there until the
+        reranked lists are built (both stages end in a device-to-host copy, so
+        each span holds its own device work)."""
+        t0 = time.perf_counter()
+        first_collect = RetrievalService.search_async(self, queries, k=max(self.topn, k))
+
+        def collect():
+            first_stage = first_collect()
+            t1 = time.perf_counter()
+            results = self._rerank_stage(queries, first_stage, k)
+            self.last_stage_ms = {"first_stage": (t1 - t0) * 1e3, "rerank": (time.perf_counter() - t1) * 1e3}
+            return results
+
+        return collect
+
+    def search(self, queries: Sequence[str], k: int = 10):
+        return self.search_async(queries, k)()
+
+    def _rerank_stage(self, queries: Sequence[str], first_stage, k: int):
+        extractor = self.reranker.extractor
+        results = []
+        for qi, (query, hits) in enumerate(zip(queries, first_stage)):
+            if not hits:
+                results.append([])
+                continue
+            qid = f"live{qi}"
+            q_toks = extractor.tokenizer.tokenize(query)
+            extractor.qid2toks[qid] = q_toks
+            # live queries were never seen at preprocess time: fetch their idf
+            # from the index now (idf-gated models read the query_idf feature)
+            if hasattr(extractor, "idf") and extractor.config.get("calcidf", True):
+                for tok in q_toks:
+                    if tok not in extractor.idf:
+                        extractor.idf[tok] = self.index.get_idf(tok)
+            samples = [extractor.id2vec(qid, docid, label=[1, 0], training=False) for docid, _ in hits]
+            batch = self._collate(samples, self._keys)
+            with torch.inference_mode():
+                scores = self.reranker.test(batch, self.device).cpu().numpy()
+            reranked = sorted(zip((d for d, _ in hits), map(float, scores)), key=lambda kv: -kv[1])
+            results.append(reranked[:k])
+        return results
