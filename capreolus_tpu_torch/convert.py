@@ -3,8 +3,8 @@
 The JAX parameter tree, flattened to ``"params/<module>/<leaf>"`` paths of
 numpy arrays, is the port's checkpoint for now: ``save_params`` writes it as an
 ``.npz`` and ``load_params`` reads it back. ``knrm_state_dict`` maps it onto
-``KNRMModel``'s ``state_dict``. Reading flax msgpack checkpoints comes with the
-trainer.
+``KNRMModel``'s ``state_dict`` and ``bert_state_dict`` onto ``_BertScorer``'s.
+Reading flax msgpack checkpoints comes with the trainer.
 """
 
 from __future__ import annotations
@@ -67,4 +67,24 @@ def knrm_state_dict(flat: dict, embedding: np.ndarray = None) -> dict:
     else:
         state.update(_dense(flat, prefix, "combine1"))
         state.update(_dense(flat, prefix, "combine2"))
+    return state
+
+
+def bert_state_dict(flat: dict) -> dict:
+    """``_BertScorer`` state_dict from the flat JAX ``_BertScorer`` params
+    (``params/bert/layer_0/attention/query/kernel``, ...,
+    ``params/classifier/bias``). The port's modules carry the flax modules'
+    names, so each path maps by name: a Dense ``kernel`` [in, out] becomes an
+    ``nn.Linear`` ``weight`` [out, in], a LayerNorm ``scale`` its ``weight``."""
+    state = {}
+    for key, value in flat.items():
+        root, *path, leaf = key.split("/")
+        if root != "params" or not path:
+            raise KeyError(f"not a flattened _BertScorer parameter: {key!r}")
+        value = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel":
+            leaf, value = "weight", value.T
+        elif leaf == "scale":
+            leaf = "weight"
+        state[".".join(path + [leaf])] = torch.from_numpy(np.array(value, order="C"))
     return state

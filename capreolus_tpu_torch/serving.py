@@ -7,9 +7,10 @@
     hits = svc.search(["distant galaxies"], k=10)                  # [(docid, score)]
 
 Services run on ``device="cuda"`` unless the caller passes another device; a
-CUDA request without a card raises. Not ported in this slice: ``shards``,
-``refresh``, ``snippets``, the dense / ColBERT / impact / hybrid services and
-the HTTP front end.
+CUDA request without a card raises. The rerank stage serves KNRM (through K1)
+and BERTMaxP (through K2 in every encoder layer). Not ported in this slice:
+``shards``, ``refresh``, ``snippets``, the dense / ColBERT / impact / hybrid
+services and the HTTP front end.
 """
 
 from __future__ import annotations
@@ -109,7 +110,9 @@ class RetrievalService:
 
 
 class RerankingService(RetrievalService):
-    """Retrieve-then-rerank serving: first-stage engine + a trained reranker.
+    """Retrieve-then-rerank serving: first-stage engine + a trained reranker
+    (KNRM over embedtext features, or a BERT cross-encoder such as BERTMaxP
+    over bertpassage features, one batch of ``topn`` docs per query).
 
     ``checkpoint_path`` names the port's params file: the flat ``params/...``
     npz written by ``convert.save_params``.
@@ -144,15 +147,17 @@ class RerankingService(RetrievalService):
         Each collect sets ``last_stage_ms``: ``first_stage`` from dispatch until
         the first-stage hits are on the host, ``rerank`` from there until the
         reranked lists are built (both stages end in a device-to-host copy, so
-        each span holds its own device work)."""
+        each span holds its own device work), and ``features``, the part of
+        ``rerank`` the host spends building the reranker's input."""
         t0 = time.perf_counter()
         first_collect = RetrievalService.search_async(self, queries, k=max(self.topn, k))
 
         def collect():
             first_stage = first_collect()
             t1 = time.perf_counter()
-            results = self._rerank_stage(queries, first_stage, k)
-            self.last_stage_ms = {"first_stage": (t1 - t0) * 1e3, "rerank": (time.perf_counter() - t1) * 1e3}
+            results, features_s = self._rerank_stage(queries, first_stage, k)
+            self.last_stage_ms = {"first_stage": (t1 - t0) * 1e3, "rerank": (time.perf_counter() - t1) * 1e3,
+                                  "features": features_s * 1e3}
             return results
 
         return collect
@@ -160,26 +165,35 @@ class RerankingService(RetrievalService):
     def search(self, queries: Sequence[str], k: int = 10):
         return self.search_async(queries, k)()
 
-    def _rerank_stage(self, queries: Sequence[str], first_stage, k: int):
+    def rerank_batch(self, qid: str, query: str, docids: Sequence[str]) -> dict:
+        """The reranker's collated input for one live query over ``docids``
+        (numpy arrays; for a BERT reranker ``pos_bert_input``, ``pos_mask`` and
+        ``pos_seg`` of shape [docs, numpassages, maxseqlen])."""
         extractor = self.reranker.extractor
-        results = []
+        q_toks = extractor.tokenizer.tokenize(query)
+        extractor.qid2toks[qid] = q_toks
+        # live queries were never seen at preprocess time: fetch their idf
+        # from the index now (idf-gated models read the query_idf feature)
+        if hasattr(extractor, "idf") and extractor.config.get("calcidf", True):
+            for tok in q_toks:
+                if tok not in extractor.idf:
+                    extractor.idf[tok] = self.index.get_idf(tok)
+        samples = [extractor.id2vec(qid, docid, label=[1, 0], training=False) for docid in docids]
+        return self._collate(samples, self._keys)
+
+    def _rerank_stage(self, queries: Sequence[str], first_stage, k: int):
+        """Returns (the reranked lists, host seconds spent building features)."""
+        results, features_s = [], 0.0
         for qi, (query, hits) in enumerate(zip(queries, first_stage)):
             if not hits:
                 results.append([])
                 continue
-            qid = f"live{qi}"
-            q_toks = extractor.tokenizer.tokenize(query)
-            extractor.qid2toks[qid] = q_toks
-            # live queries were never seen at preprocess time: fetch their idf
-            # from the index now (idf-gated models read the query_idf feature)
-            if hasattr(extractor, "idf") and extractor.config.get("calcidf", True):
-                for tok in q_toks:
-                    if tok not in extractor.idf:
-                        extractor.idf[tok] = self.index.get_idf(tok)
-            samples = [extractor.id2vec(qid, docid, label=[1, 0], training=False) for docid, _ in hits]
-            batch = self._collate(samples, self._keys)
+            docids = [d for d, _ in hits]
+            t0 = time.perf_counter()
+            batch = self.rerank_batch(f"live{qi}", query, docids)
+            features_s += time.perf_counter() - t0
             with torch.inference_mode():
                 scores = self.reranker.test(batch, self.device).cpu().numpy()
-            reranked = sorted(zip((d for d, _ in hits), map(float, scores)), key=lambda kv: -kv[1])
+            reranked = sorted(zip(docids, map(float, scores)), key=lambda kv: -kv[1])
             results.append(reranked[:k])
-        return results
+        return results, features_s

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: drives retrieve-then-rerank serving on
-one NVIDIA GPU and holds every kernel against its plain PyTorch version.
+one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width, and holds
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA device; builds the kernels
 
@@ -8,17 +9,31 @@ Phases (each prints a line; any fault exits non-zero, and the last line is
 printed only when every phase passed):
 
 1. device: the card, its power limit (nvidia-smi), TF32 off for matmul/cuDNN;
-2. build: nvcc builds every kernel of the port from ``capreolus_tpu_torch/csrc``;
-3. kernel check: K1 (``knrm_pool``) against ``knrm_pool_plain`` on the card at
-   the serving shape and at a small ragged shape, max |err| <= 2e-4, with
-   CUDA-event times of both;
-4. serving: a seeded synthetic TREC corpus (20k docs of 200-1200 words), the
-   port's index and a ``RerankingService(device="cuda")`` with KNRM at its
+2. build: nvcc builds every kernel of the port from ``capreolus_tpu_torch/csrc``,
+   one process per source, all started together;
+3. kernel check, with CUDA-event times of each kernel and its plain version:
+   K1 (``knrm_pool``) against ``knrm_pool_plain`` at the serving shape and at a
+   small ragged shape, max |err| <= 2e-4; K2 (``flash_attention``) against
+   ``attention_plain`` at the served shape (B=1600 passages, H=12, L=256, D=64,
+   every key unmasked; compared on the first 128 batch rows), at a small ragged
+   shape with a fully masked row, and in bf16: max |err| <= 1e-4 at f32 and
+   2e-2 in bf16, with ``scaled_dot_product_attention`` timed beside it as the
+   library yardstick (never called on the path);
+4. KNRM serving: a seeded synthetic TREC corpus (20k docs of 200-1200 words),
+   the port's index and a ``RerankingService(device="cuda")`` with KNRM at its
    published width (random300 embeddings, maxqlen 4, maxdoclen 800, 11 RBF
    kernels, topn 100, frozen kernels and embeddings, so the forward pass runs
    K1) serve 8 queries; the launch counts are read around that run, and the
    same queries served on the CPU must agree;
-5. a ``kernels`` JSON line, then the result line.
+5. monoBERT serving: the same corpus, fresh caches, BERTMaxP at BERT-base width
+   and depth (seeded N(0, 0.02) weights; hash-wordpiece tokenizer) over
+   bertpassage at its defaults (maxseqlen 256, 16 passages of 150 tokens,
+   stride 100), topn 100: one warm-up request, then 4 served queries with 12
+   K2 launches each (one batch of 1600 passages per layer); one profiled
+   request; K2 timed on a served request's layer-0 inputs; the GPU scores of
+   query 0's two top first-stage candidates against the same reranker on the
+   CPU, max |err| <= 1e-3;
+6. a ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -37,16 +52,22 @@ import torch
 ERR_TOL = 2e-4  # K1 vs its plain version and GPU vs CPU rerank scores: the
 # sigma=0.001 exact-match kernel amplifies f32 dot-product rounding
 # (the JAX package's own tolerance for its kernel, tests/test_ops.py)
-SERVING_DOCS = 20000  # corpus of the serving phase
+K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # K2 vs its plain version:
+# one softmax with f32 sums in another order; bf16 outputs round to 8 bits
+BERT_CPU_TOL = 1e-3  # BERT-base scores, GPU vs CPU: 12 layers of f32 matmuls
+# summed in other orders on the two devices
+SERVING_DOCS = 20000  # corpus of the serving phases
 TIMED_ROUNDS = 25  # timed rounds of 20 back-to-back calls per kernel (median)
+BERT_QUERIES = 4  # served monoBERT queries after the warm-up request
+K2_SHAPE = (1600, 12, 256, 64)  # 100 docs x 16 passages, BERT-base heads, maxseqlen 256
 
-# HBM bandwidth (bytes/s) and f32 non-tensor-core peak (FLOP/s) by card name,
-# from NVIDIA's data sheets (dense rates, full power)
+# HBM bandwidth (bytes/s), f32 non-tensor-core peak and dense bf16 tensor-core
+# peak (FLOP/s) by card name, from NVIDIA's data sheets (dense rates, full power)
 CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),
+    ("H200", 4.8e12, 67e12, 989e12),
 )
 
 
@@ -60,9 +81,10 @@ def check(cond, msg):
 
 
 def card_peaks(name):
-    for key, bw, flops in CARD_PEAKS:
+    """{"bw": bytes/s, torch.float32: FLOP/s, torch.bfloat16: FLOP/s} of the card."""
+    for key, bw, f32, bf16 in CARD_PEAKS:
         if key in name:
-            return bw, flops
+            return {"bw": bw, torch.float32: f32, torch.bfloat16: bf16}
     raise SmokeFailure(f"no bandwidth/peak entry for card {name!r}; add it to CARD_PEAKS")
 
 
@@ -120,7 +142,7 @@ def write_trec(docs, directory, files=4):
 
 
 # ---------------------------------------------------------------- timing
-def cuda_ms(fn, rounds, calls=20):
+def cuda_ms(fn, rounds=TIMED_ROUNDS, calls=20):
     """Device time per call (ms): the median over ``rounds`` of CUDA-event time
     around ``calls`` back-to-back calls, divided by ``calls``, after two warm-up
     calls. Timing one call alone would add the host's launch cost to the
@@ -186,9 +208,10 @@ def k1_bound_ms(args, bw, flops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_request(svc, query, top=6):
+def profile_request(svc, query, label, top=6):
     """Where one rerank request's time goes: device time by op (torch.profiler,
     CUPTI) against the request's wall time; the rest is host time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -201,15 +224,19 @@ def profile_request(svc, query, top=6):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
     averages = prof.key_averages()
-    ops = sorted((e for e in averages if device_us(e) > 0), key=device_us, reverse=True)
+    # the device's own events (kernels, copies, memsets): a host op such as
+    # aten::addmm also carries its kernels' time, so counting it too would
+    # count that time twice
+    ops = sorted((e for e in averages if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                 key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in ops) / 1e3
-    print(f"[4 serving] profiled request: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
+    print(f"{label} profiled request: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%); top device ops: "
           + "; ".join(f"{e.key[:40]} {device_us(e) / 1e3:.3f} ms x{e.count}" for e in ops[:top]))
     host = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)
     host_ms = sum(e.self_cpu_time_total for e in averages) / 1e3
-    print(f"[4 serving] profiled request: host time inside torch ops {host_ms:.2f} ms (the rest of the "
-          f"wall is Python); top host ops: "
+    print(f"{label} profiled request: host time inside torch ops {host_ms:.2f} ms (the rest of the "
+          f"wall is Python; a device-to-host copy waits there for the device); top host ops: "
           + "; ".join(f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in host[:top]))
 
 
@@ -244,7 +271,7 @@ def phase_build():
                 print(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_kernel_check(bw, flops, rounds):
+def phase_k1_check(peaks):
     from capreolus_tpu_torch.ops.simmat import knrm_pool, knrm_pool_plain
 
     out = {}
@@ -257,13 +284,96 @@ def phase_kernel_check(bw, flops, rounds):
         check(bool(torch.isfinite(got).all()), f"K1 {label}: non-finite output")
         err = float((got - want).abs().max())
         check(err <= ERR_TOL, f"K1 {label}: max |kernel - plain| = {err:.3g} > {ERR_TOL}")
-        ms = cuda_ms(lambda: knrm_pool(*args), rounds)
-        plain_ms = cuda_ms(lambda: knrm_pool_plain(*args), rounds)
-        bound_ms, bound_by = k1_bound_ms(args, bw, flops)
+        ms = cuda_ms(lambda: knrm_pool(*args))
+        plain_ms = cuda_ms(lambda: knrm_pool_plain(*args))
+        bound_ms, bound_by = k1_bound_ms(args, peaks["bw"], peaks[torch.float32])
         out[label] = {"shape": f"B={b} Q={q} D={d} E={e} K={args[4].shape[0]}", "max_abs_err": err,
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"[3 kernel] knrm_pool {label} {out[label]['shape']}: max|err| {err:.3g}, "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by})")
+    return out
+
+
+def k2_bound_ms(q, mask, peaks):
+    """Least time for K2 on these inputs, counted from the mask.
+
+    A key that is masked adds nothing to a row that has an unmasked key, so
+    the function needs, per batch element, only the k and v rows of its
+    unmasked keys (all L of them where every key is masked: the mean of V),
+    all of q, the output written once and the mask; those bytes go over the
+    HBM rate. It does 4*D operations (two multiply-adds) per (query row,
+    needed key) pair, over the peak for the input dtype: the f32 rate outside
+    the tensor cores, or the dense bf16 tensor-core rate. Returns (ms, "bytes"
+    or "operations")."""
+    b, h, l, d = q.shape
+    e = q.element_size()
+    keys = mask.sum(dim=1).double()
+    keys = float(torch.where(keys > 0, keys, float(l)).sum())
+    nbytes = 2.0 * b * h * l * d * e + 2.0 * h * d * e * keys + mask.numel() * mask.element_size()
+    ops = 4.0 * h * l * d * keys
+    t_bytes, t_ops = nbytes / peaks["bw"], ops / peaks[q.dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_time(q, k, v, mask, peaks):
+    """K2, its plain version and the library call (SDPA with the same boolean
+    mask) at these inputs: CUDA-event ms of each, and the bound."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from capreolus_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+
+    sdpa_mask = mask[:, None, None, :]
+    out = {"ms": cuda_ms(lambda: flash_attention(q, k, v, mask), rounds=5, calls=4),
+           "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, mask), rounds=3, calls=2),
+           "library_ms": cuda_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask),
+                                 rounds=5, calls=4)}
+    out["bound_ms"], out["bound_by"] = k2_bound_ms(q, mask, peaks)
+    return out
+
+
+def k2_error(q, k, v, mask, rows=128):
+    """max |K2 - plain| over the first ``rows`` batch elements (the plain
+    version's [rows, H, L, L] scores stay small), after checking that K2's
+    output is finite everywhere."""
+    from capreolus_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+
+    got = flash_attention(q, k, v, mask)
+    check(bool(torch.isfinite(got).all()), f"K2 {tuple(q.shape)} {q.dtype}: non-finite output")
+    want = attention_plain(q[:rows], k[:rows], v[:rows], mask[:rows])
+    torch.cuda.synchronize()
+    err = float((got[:rows].float() - want.float()).abs().max())
+    check(err <= K2_TOL[q.dtype], f"K2 {tuple(q.shape)} {q.dtype}: max |kernel - plain| = {err:.3g} "
+                                  f"> {K2_TOL[q.dtype]}")
+    return err, got
+
+
+def phase_k2_check(peaks):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    q, k, v = (torch.randn(K2_SHAPE, generator=gen, device="cuda") for _ in range(3))
+    mask = torch.ones(K2_SHAPE[0], K2_SHAPE[2], dtype=torch.bool, device="cuda")
+    out = {"shape": "B={} H={} L={} D={}".format(*K2_SHAPE), "max_abs_err": k2_error(q, k, v, mask)[0]}
+
+    # small ragged case: L off the tile size, ragged key counts, one fully masked element
+    small = (3, 2, 77, 32)
+    qs, ks, vs = (torch.randn(small, generator=gen, device="cuda") for _ in range(3))
+    ms = torch.arange(small[2], device="cuda")[None, :] < torch.tensor([[60], [5], [0]], device="cuda")
+    out["max_abs_err_small"], got = k2_error(qs, ks, vs, ms)
+    mean_v = vs[-1].mean(dim=1, keepdim=True).expand_as(vs[-1])
+    check(float((got[-1] - mean_v).abs().max()) <= K2_TOL[torch.float32], "K2: a fully masked row is not mean(V)")
+
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    out["max_abs_err_bf16"] = k2_error(qb, kb, vb, mask)[0]
+    out.update(k2_time(q, k, v, mask, peaks))
+    bf16 = k2_time(qb, kb, vb, mask, peaks)
+    out.update({f"{key}_bf16": value for key, value in bf16.items() if key != "plain_ms"})
+    print(f"[3 kernel] flash_attention {out['shape']} every key unmasked: max|err| f32 {out['max_abs_err']:.3g} "
+          f"(small ragged {out['max_abs_err_small']:.3g}, bf16 {out['max_abs_err_bf16']:.3g}); "
+          f"f32 {out['ms']:.3f} ms (plain {out['plain_ms']:.3f}, SDPA {out['library_ms']:.3f}, bound "
+          f"{out['bound_ms']:.3f} by {out['bound_by']}); bf16 {out['ms_bf16']:.3f} ms (plain {bf16['plain_ms']:.3f}, "
+          f"SDPA {out['library_ms_bf16']:.3f}, bound {out['bound_ms_bf16']:.3f} by {out['bound_by_bf16']})")
+    del q, k, v, qb, kb, vb
+    torch.cuda.empty_cache()
     return out
 
 
@@ -310,20 +420,22 @@ def phase_serving(workdir, num_docs, ckpt_seed):
     torch.cuda.synchronize()
 
     knrm_pool.launches = 0
-    gpu_results, request_ms, first_ms, rerank_ms = [], [], [], []
+    gpu_results, request_ms, first_ms, rerank_ms, features_ms = [], [], [], [], []
     for query in queries:
         t0 = time.perf_counter()
         gpu_results.append(svc.search([query], k=10)[0])
         request_ms.append((time.perf_counter() - t0) * 1e3)
         first_ms.append(svc.last_stage_ms["first_stage"])
         rerank_ms.append(svc.last_stage_ms["rerank"])
+        features_ms.append(svc.last_stage_ms["features"])
     launches = knrm_pool.launches
     print(f"[4 serving] per request (median of {len(queries)}): {np.median(request_ms):.2f} ms total, "
-          f"first stage {np.median(first_ms):.2f} ms, rerank {np.median(rerank_ms):.2f} ms "
-          f"(both timed inside each request); knrm_pool launches in the run: {launches}")
+          f"first stage {np.median(first_ms):.2f} ms, rerank {np.median(rerank_ms):.2f} ms, of which the "
+          f"host's features {np.median(features_ms):.2f} ms (timed inside each request); knrm_pool "
+          f"launches in the run: {launches}")
     check(launches == len(queries), f"knrm_pool launched {launches} times for {len(queries)} "
                                     f"queries (expected one batch of topn=100 per query)")
-    profile_request(svc, queries[0])
+    profile_request(svc, queries[0], "[4 serving]")
 
     # the same queries on the CPU: identical first stage, same reranking
     reranker_cpu = Reranker.create("KNRM", rr_cfg)
@@ -353,23 +465,164 @@ def phase_serving(workdir, num_docs, ckpt_seed):
                   f"query {qi}: doc {gd} scores {gs} on the GPU and {cpu_scores.get(gd)} on the CPU")
     print(f"[4 serving] {len(queries)} queries: first stage identical on GPU and CPU; reranked "
           f"top-10 agree within {ERR_TOL} (top hit of query 0: {gpu_results[0][0]})")
-    return launches
+    return launches, corpus_dir, topics
+
+
+def seeded_bert_params(config, seed, std=0.02):
+    """Flat ``params/...`` arrays of a ``_BertScorer`` at ``config``'s geometry,
+    named as the JAX trainer saves them: N(0, std) matrices and embeddings,
+    zero biases, LayerNorm scale 1 and bias 0."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    h, inter = config.hidden_size, config.intermediate_size
+    flat = {}
+
+    def normal(name, *shape):
+        flat[name] = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def dense(name, n_in, n_out):
+        normal(f"{name}/kernel", n_in, n_out)
+        flat[f"{name}/bias"] = np.zeros(n_out, np.float32)
+
+    def layer_norm(name):
+        flat[f"{name}/scale"], flat[f"{name}/bias"] = np.ones(h, np.float32), np.zeros(h, np.float32)
+
+    normal("params/bert/word_embeddings", config.vocab_size, h)
+    normal("params/bert/position_embeddings", config.max_position, h)
+    normal("params/bert/token_type_embeddings", config.type_vocab_size, h)
+    layer_norm("params/bert/embeddings_ln")
+    for i in range(config.num_layers):
+        pre = f"params/bert/layer_{i}"
+        for name in ("query", "key", "value", "output"):
+            dense(f"{pre}/attention/{name}", h, h)
+        layer_norm(f"{pre}/attention_ln")
+        dense(f"{pre}/intermediate", h, inter)
+        dense(f"{pre}/ffn_output", inter, h)
+        layer_norm(f"{pre}/output_ln")
+    dense("params/bert/pooler", h, h)
+    dense("params/classifier", h, 1)
+    return flat
+
+
+def phase_bert_serving(workdir, corpus_dir, topics, peaks):
+    """monoBERT-MaxP serving at BERT-base width; returns (K2 launches in the
+    served run, K2 on a served request's layer-0 inputs)."""
+    from capreolus_tpu_torch.convert import load_params, save_params
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.ops.flash_attention import flash_attention
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+    from capreolus_tpu_torch.serving import RerankingService, RetrievalService
+
+    label = "[5 monobert]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")  # a fresh serving process
+    coll = {"name": "dummy", "path": corpus_dir}
+    config = get_bert_config("bert-base-uncased")
+    t0 = time.perf_counter()
+    ckpt = save_params(seeded_bert_params(config, seed=4), os.path.join(workdir, "bert.npz"))
+    t_ckpt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = Index.create("tpu", {"collection": coll})
+    index.create_index()
+    t_index = time.perf_counter() - t0
+    rr_cfg = {"pretrained": "bert-base-uncased", "allowrandominit": True, "extractor": {"index": {"collection": coll}}}
+    t0 = time.perf_counter()
+    reranker = Reranker.create("BERTMaxP", rr_cfg)
+    svc = RerankingService(index, reranker, ckpt, topn=100, device="cuda")
+    torch.cuda.synchronize()
+    t_service = time.perf_counter() - t0
+    ext = reranker.extractor.config
+    print(f"{label} set-up: seeded BERT-base checkpoint {t_ckpt:.1f} s ({os.path.getsize(ckpt) / 1e6:.0f} MB), "
+          f"first-stage index {t_index:.1f} s, service {t_service:.1f} s (of which the bertpassage extractor's "
+          f"own index over the corpus {svc.extractor_seconds:.1f} s; the rest builds the model, loads the "
+          f"weights and moves them to the card); bertpassage maxseqlen {ext['maxseqlen']} numpassages "
+          f"{ext['numpassages']} passagelen {ext['passagelen']} stride {ext['stride']} maxqlen {ext['maxqlen']}")
+
+    queries = topics[:BERT_QUERIES]
+    svc.search(topics[BERT_QUERIES:BERT_QUERIES + 1], k=10)  # warm-up request
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    request_ms, first_ms, rerank_ms, features_ms, results = [], [], [], [], []
+    for query in queries:
+        t0 = time.perf_counter()
+        results.append(svc.search([query], k=10)[0])
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        first_ms.append(svc.last_stage_ms["first_stage"])
+        rerank_ms.append(svc.last_stage_ms["rerank"])
+        features_ms.append(svc.last_stage_ms["features"])
+    launches = flash_attention.launches
+    print(f"{label} per request (median of {len(queries)}): {np.median(request_ms):.2f} ms total, first stage "
+          f"{np.median(first_ms):.2f} ms, rerank {np.median(rerank_ms):.2f} ms, of which the host's features "
+          f"{np.median(features_ms):.2f} ms (each request: "
+          f"{', '.join(f'{t:.1f}' for t in request_ms)} ms); flash_attention launches in the run: {launches}")
+    check(launches == config.num_layers * len(queries),
+          f"flash_attention launched {launches} times for {len(queries)} queries (expected one batch of "
+          f"topn=100 docs x 16 passages per layer: {config.num_layers} per query)")
+    check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results),
+          "a served request did not return 10 finite scores")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile_request(svc, queries[0], label)
+
+    # K2 at the served path's own inputs: layer 0 of query 0's request
+    hits = RetrievalService.search_async(svc, [queries[0]], k=svc.topn)()[0]
+    docids = [d for d, _ in hits]
+    batch = svc.rerank_batch("smoke0", queries[0], docids)
+    seq_len = batch["pos_bert_input"].shape[-1]
+    with torch.inference_mode():
+        bert = svc.reranker.model.bert
+        ids, seg, mask = (torch.from_numpy(batch[key].reshape(-1, seq_len)).to(svc.device)
+                          for key in ("pos_bert_input", "pos_seg", "pos_mask"))
+        mask = mask.bool()
+        q, k, v = bert.layer_0.attention.heads(bert.embed(ids, seg))
+        served = {"shape": "B={} H={} L={} D={}".format(*q.shape), "max_abs_err": k2_error(q, k, v, mask)[0],
+                  "unmasked_key_share": float(mask.float().mean())}
+        served.update(k2_time(q, k, v, mask, peaks))
+        del q, k, v
+    print(f"{label} flash_attention on a served request's layer-0 inputs ({served['shape']}, "
+          f"{100 * served['unmasked_key_share']:.1f}% of keys unmasked): max|err| {served['max_abs_err']:.3g}, "
+          f"{served['ms']:.3f} ms (plain {served['plain_ms']:.3f}, SDPA {served['library_ms']:.3f}, bound "
+          f"{served['bound_ms']:.3f} by {served['bound_by']}); peak device memory of the served run "
+          f"{peak_gb:.1f} GB")
+
+    # query 0's two top first-stage candidates: the card against the CPU, same weights and batch
+    two = {key: value[:2] for key, value in batch.items() if isinstance(value, np.ndarray)}
+    with torch.inference_mode():
+        gpu_two = svc.reranker.test(two, svc.device).cpu().numpy()
+        served_scores = dict(svc.search([queries[0]], k=svc.topn)[0])
+        cpu_reranker = Reranker.create("BERTMaxP", rr_cfg)
+        cpu_model = cpu_reranker.build_model()
+        cpu_model.load_state_dict(cpu_reranker.state_dict_from_params(load_params(ckpt)))
+        t0 = time.perf_counter()
+        cpu_two = cpu_reranker.test(two, "cpu").numpy()
+        cpu_s = time.perf_counter() - t0
+    err = float(np.abs(gpu_two - cpu_two).max())
+    err_served = max(abs(served_scores[d] - c) for d, c in zip(docids[:2], cpu_two))
+    check(err <= BERT_CPU_TOL and err_served <= BERT_CPU_TOL,
+          f"BERT-base scores of {docids[:2]}: GPU {gpu_two} (served {[served_scores[d] for d in docids[:2]]}) "
+          f"vs CPU {cpu_two}")
+    print(f"{label} query 0's top-2 first-stage docs {docids[:2]}: GPU {gpu_two.tolist()} vs CPU "
+          f"{cpu_two.tolist()} ({cpu_s:.1f} s on the CPU): max |err| {err:.3g} on the same batch, {err_served:.3g} "
+          f"against the served 100-doc request (tolerance {BERT_CPU_TOL}); top hit of query 0: {results[0][0]}")
+    return launches, served
 
 
 def main():
     name = phase_device()
-    bw, flops = card_peaks(name)
+    peaks = card_peaks(name)
     workdir = tempfile.mkdtemp(prefix="capreolus_tpu_torch_smoke_")
     os.environ["CAPREOLUS_CACHE"] = os.path.join(workdir, "cache")
     os.environ["CAPREOLUS_RESULTS"] = os.path.join(workdir, "results")
     try:
         phase_build()
-        checks = phase_kernel_check(bw, flops, TIMED_ROUNDS)
-        launches = phase_serving(workdir, SERVING_DOCS, ckpt_seed=3)
+        k1 = phase_k1_check(peaks)
+        k2 = phase_k2_check(peaks)
+        k1_launches, corpus_dir, topics = phase_serving(workdir, SERVING_DOCS, ckpt_seed=3)
+        k2_launches, k2_served = phase_bert_serving(workdir, corpus_dir, topics, peaks)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    serving = checks["serving"]
+    serving = k1["serving"]
     kernels = [{
         "name": "knrm_pool",
         "route": "cuda",
@@ -377,14 +630,34 @@ def main():
         "replaces": "capreolus_tpu/ops/simmat.py:29",
         "tpu": "capreolus_tpu/ops/simmat.py::_knrm_kernel",
         "shape": serving["shape"],
-        "launches": launches,
+        "launches": k1_launches,
         "max_abs_err": serving["max_abs_err"],
-        "max_abs_err_small": checks["small"]["max_abs_err"],
+        "max_abs_err_small": k1["small"]["max_abs_err"],
         "ms": serving["ms"],
         "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
         "library_ms": None,  # no single PyTorch call computes KNRM kernel pooling
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "capreolus_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "capreolus_tpu/ops/flash_attention.py:47",
+        "tpu": "capreolus_tpu/ops/flash_attention.py::_flash_kernel",
+        "shape": k2_served["shape"] + " f32, layer-0 inputs of a served request",
+        "launches": k2_launches,
+        "max_abs_err": k2_served["max_abs_err"],
+        "max_abs_err_small": k2["max_abs_err_small"],
+        "max_abs_err_bf16": k2["max_abs_err_bf16"],
+        "unmasked_key_share": k2_served["unmasked_key_share"],
+        "ms": k2_served["ms"],
+        "plain_ms": k2_served["plain_ms"],
+        "bound_ms": k2_served["bound_ms"],
+        "bound_by": k2_served["bound_by"],
+        "library_ms": k2_served["library_ms"],  # scaled_dot_product_attention, same boolean mask
+        "every_key_unmasked": {key: k2[key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "ms_bf16", "library_ms_bf16", "bound_ms_bf16", "bound_by_bf16")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

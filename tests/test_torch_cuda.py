@@ -6,7 +6,10 @@ with a card and no JAX it runs on its own:
 
 K1 is held against its plain version on the card at 2e-4 (the sigma=0.001
 exact-match kernel amplifies f32 dot-product rounding); the GPU's first stage
-must equal the CPU's, and the reranked scores agree within 2e-4.
+must equal the CPU's, and the reranked scores agree within 2e-4. K2 is held
+against its plain version at 1e-4 with f32 inputs (one softmax, f32 sums in
+another order) and 2e-2 with bf16 inputs (outputs rounded to bf16); tiny
+BERTMaxP served on the card agrees with the CPU within 1e-4.
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 import capreolus_tpu_torch
 from capreolus_tpu_torch.core import constants
+from capreolus_tpu_torch.ops import flash_attention as fa
 from capreolus_tpu_torch.ops import simmat
 from capreolus_tpu_torch.reranker.common import KNRM_MUS, KNRM_SIGMAS
 
@@ -80,14 +84,7 @@ def test_reranking_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch):
 
     monkeypatch.setitem(constants, "CACHE_BASE_PATH", tmp_path / "cache")
     rng = np.random.Generator(np.random.PCG64(5))
-    words = np.array([f"w{i}" for i in range(400)])
-    corpus = tmp_path / "corpus"
-    corpus.mkdir()
-    with open(corpus / "docs.trec", "wt", encoding="utf-8") as fh:
-        for i in range(300):
-            text = " ".join(rng.choice(words, size=int(rng.integers(50, 1000))))
-            fh.write(f"<DOC>\n<DOCNO>C{i:04d}</DOCNO>\n<TEXT>\n{text}\n</TEXT>\n</DOC>\n")
-    coll = {"name": "dummy", "path": str(corpus)}
+    coll = _write_corpus(tmp_path / "corpus", rng)
     cfg = {"gradkernels": False, "finetune": False,
            "extractor": {"embeddings": "random300", "maxqlen": 4, "maxdoclen": 800, "index": {"collection": coll}}}
     ckpt = save_params({"params/combine/kernel": rng.standard_normal((11, 1)).astype(np.float32),
@@ -107,3 +104,123 @@ def test_reranking_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch):
     for g, c in zip(gpu_hits, cpu.search(queries, k=20)):
         assert len(g) == len(c) == 20
         np.testing.assert_allclose([s for _, s in g], [s for _, s in c], rtol=TOL, atol=TOL)
+
+
+def _write_corpus(directory, rng, num_docs=300, min_len=50, max_len=1000):
+    words = np.array([f"w{i}" for i in range(400)])
+    directory.mkdir()
+    with open(directory / "docs.trec", "wt", encoding="utf-8") as fh:
+        for i in range(num_docs):
+            text = " ".join(rng.choice(words, size=int(rng.integers(min_len, max_len))))
+            fh.write(f"<DOC>\n<DOCNO>C{i:04d}</DOCNO>\n<TEXT>\n{text}\n</TEXT>\n</DOC>\n")
+    return {"name": "dummy", "path": str(directory)}
+
+
+def _k2_args(shape, dtype, seed, device):
+    """q, k, v [B, H, L, D] and a [B, L] bool key mask: ragged key counts, a
+    hole, and the last batch element with every key masked."""
+    b, h, l, d = shape
+    rng = np.random.Generator(np.random.PCG64(seed))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype) for _ in range(3))
+    mask = np.zeros((b, l), dtype=bool)
+    for i, n in enumerate(rng.integers(1, l + 1, size=b)):
+        mask[i, :n] = True
+    mask[0, l // 3] = False
+    mask[-1] = False
+    return q, k, v, torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,tol", [
+    (torch.float32, (3, 2, 77, 32), 1e-4), (torch.float32, (4, 12, 256, 64), 1e-4),
+    (torch.float32, (2, 2, 300, 128), 1e-4), (torch.float32, (2, 3, 1, 64), 1e-4),
+    (torch.bfloat16, (3, 2, 77, 32), 2e-2), (torch.bfloat16, (4, 12, 256, 64), 2e-2),
+])
+def test_k2_kernel_matches_plain(card, dtype, shape, tol):
+    q, k, v, mask = _k2_args(shape, dtype, seed=sum(shape), device=card)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and got.dtype == dtype
+    want = fa.attention_plain(q, k, v, mask)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
+    # the fully masked batch element gets the mean of V
+    mean_v = v[-1].float().mean(dim=1, keepdim=True).expand_as(v[-1])
+    np.testing.assert_allclose(got[-1].float().cpu().numpy(), mean_v.cpu().numpy(), rtol=tol, atol=tol)
+    # no atomics: the same inputs give the same bits; an integer mask means the same
+    torch.testing.assert_close(fa.flash_attention(q, k, v, mask), got, rtol=0, atol=0)
+    torch.testing.assert_close(fa.flash_attention(q, k, v, mask.to(torch.int64)), got, rtol=0, atol=0)
+    torch.testing.assert_close(fa.multihead_attention(q, k, v, mask), got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_k2_wrapper_rejects_what_the_kernel_does_not_take(card):
+    q, k, v, mask = _k2_args((2, 2, 40, 64), torch.float32, seed=4, device=card)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), v.double(), mask)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), v, mask)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k, v, mask.float())
+    with pytest.raises(ValueError):  # head dim outside {32, 64, 128}
+        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous(), mask)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :, :39].contiguous(), v, mask)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, mask.cpu())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, mask[:, :39].contiguous())
+    offset = torch.empty(q.numel() + 1, device=card)[1:].view(q.shape)
+    with pytest.raises(ValueError):
+        fa.flash_attention(offset, k, v, mask)
+
+
+def seeded_bert_params(model, seed, std):
+    """Flat ``params/...`` arrays of a ``_BertScorer``'s geometry, as the JAX
+    trainer names them: N(0, std) matrices and embeddings, zero biases, unit
+    LayerNorm scales."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    flat = {}
+    for name, tensor in model.state_dict().items():
+        *path, leaf = name.split(".")
+        module = model.get_submodule(".".join(path))
+        if isinstance(module, torch.nn.LayerNorm):
+            value = np.ones(tuple(tensor.shape), np.float32) if leaf == "weight" else np.zeros(tuple(tensor.shape), np.float32)
+            leaf = "scale" if leaf == "weight" else leaf
+        elif leaf == "bias":
+            value = np.zeros(tuple(tensor.shape), np.float32)
+        else:
+            value = (rng.standard_normal(tuple(tensor.shape)) * std).astype(np.float32)
+            if isinstance(module, torch.nn.Linear):
+                leaf, value = "kernel", value.T
+        flat["/".join(["params", *path, leaf])] = value
+    return flat
+
+
+@pytest.mark.cuda
+def test_bert_reranking_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch):
+    from capreolus_tpu_torch.convert import save_params
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.serving import RerankingService
+
+    monkeypatch.setitem(constants, "CACHE_BASE_PATH", tmp_path / "cache")
+    coll = _write_corpus(tmp_path / "corpus", np.random.Generator(np.random.PCG64(6)))
+    cfg = {"pretrained": "tiny", "extractor": {"maxseqlen": 128, "maxqlen": 8, "numpassages": 4,
+                                               "passagelen": 100, "stride": 80, "index": {"collection": coll}}}
+    gpu_reranker = Reranker.create("BERTMaxP", cfg)
+    # std 0.2: at the tiny width, BERT's usual 0.02 leaves every doc within 1e-5 of the others
+    ckpt = save_params(seeded_bert_params(gpu_reranker.build_model(), seed=8, std=0.2), tmp_path / "bert.npz")
+    index = Index.create("tpu", {"collection": coll})
+    gpu = RerankingService(index, gpu_reranker, ckpt, topn=50, device=card)
+    cpu = RerankingService(index, Reranker.create("BERTMaxP", cfg), ckpt, topn=50, device="cpu")
+    queries = ["w1 w7 w30", "w2 w250", "w399 w5 w6 w8"]
+
+    before = fa.flash_attention.launches
+    gpu_hits = gpu.search(queries, k=20)
+    assert fa.flash_attention.launches == before + 2 * len(queries)  # tiny: 2 layers, one batch per query
+    for g, c in zip(gpu_hits, cpu.search(queries, k=20)):
+        assert len(g) == len(c) == 20
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in c], rtol=1e-4, atol=1e-4)

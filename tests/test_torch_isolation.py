@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
-JAX package, and its module registry is its own.
+JAX package (nor HuggingFace ``transformers``: it downloads nothing), and its
+module registry is its own.
 
 ``capreolus_tpu_torch`` starts with ``capreolus_tpu``, so a forbidden module is
 ``capreolus_tpu`` itself or a name under ``capreolus_tpu.``, never a prefix match.
@@ -16,7 +17,7 @@ import capreolus_tpu
 import capreolus_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "transformers")
 
 
 def is_forbidden(module_name: str) -> bool:
@@ -26,7 +27,7 @@ def is_forbidden(module_name: str) -> bool:
 
 def test_forbidden_name_rule():
     assert is_forbidden("capreolus_tpu") and is_forbidden("capreolus_tpu.ops.simmat")
-    assert is_forbidden("jax.numpy") and is_forbidden("flax.linen")
+    assert is_forbidden("jax.numpy") and is_forbidden("flax.linen") and is_forbidden("transformers.models")
     assert not is_forbidden("capreolus_tpu_torch") and not is_forbidden("capreolus_tpu_torch.ops")
     assert not is_forbidden("jaxtyping_like")
 
@@ -47,7 +48,10 @@ def test_importing_every_port_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {"capreolus_tpu_torch.serving", "capreolus_tpu_torch.ops.simmat",
-            "capreolus_tpu_torch.searcher.scoring", "capreolus_tpu_torch.convert"} <= set(out["imported"])
+            "capreolus_tpu_torch.searcher.scoring", "capreolus_tpu_torch.convert",
+            "capreolus_tpu_torch.ops.flash_attention", "capreolus_tpu_torch.reranker.bert_rerankers",
+            "capreolus_tpu_torch.reranker.bert.encoder", "capreolus_tpu_torch.extractor.bertpassage",
+            "capreolus_tpu_torch.tokenizer.wordpiece"} <= set(out["imported"])
     loaded = set(out["after"]) - set(out["before"])
     assert not sorted(m for m in loaded if is_forbidden(m))
     # absent altogether, unless the interpreter's own start-up had loaded it

@@ -9,6 +9,9 @@ against the JAX package's, on the CPU.
   maxdoclen 800, topn 100, frozen kernels and embeddings) and weights carried
   from a JAX ``KNRMModel.init``: the same docids in the same order, scores
   within 2e-4 (the JAX suite's tolerance for KNRM pooling).
+- Retrieve-then-rerank with BERTMaxP at the tiny config over bertpassage
+  features, weights saved by the JAX trainer: the same docids in the same
+  order, scores within 1e-4.
 """
 
 import jax
@@ -38,10 +41,12 @@ from capreolus_tpu_torch.serving import RerankingService, RetrievalService  # no
 # (test_e2e_golden's collection reads its own module state) would replace them
 from test_e2e_golden import GOLDEN, TOL as GOLDEN_TOL, _build_corpus  # noqa: E402
 from test_torch_index import torch_cache, write_trec_corpus  # noqa: E402,F401
+from test_torch_bert import EXTRACTOR_TINY, OFFLINE_TOKENIZER, assert_within  # noqa: E402
 from test_torch_knrm import flatten_params  # noqa: E402
 
 SCORE_RTOL = 1e-6
 RERANK_TOL = 2e-4
+BERT_TOL = 1e-4
 
 
 def assert_same_hits(port_results, jax_results, rtol):
@@ -153,3 +158,33 @@ def test_reranking_service_matches_jax(tmpdir_as_cache, torch_cache):
     assert_same_hits(port_results, jax_results, RERANK_TOL)
     # k below topn: the same reranked head
     assert port_svc.search(queries[:1], k=5) == [port_results[0][:5]]
+
+
+def test_bert_reranking_service_matches_jax(tmpdir_as_cache, torch_cache):
+    coll = {"name": "dummy"}
+    config = {"pretrained": "tiny", "extractor": dict(EXTRACTOR_TINY, tokenizer=OFFLINE_TOKENIZER,
+                                                      index={"collection": coll})}
+    queries = ["distant galaxies telescope", "telescope observed whales", "galaxies in orbit"]
+
+    jax_reranker = JaxReranker.create("BERTMaxP", config)
+    jax_index = capreolus_tpu.index.Index.create("tpu", {"collection": coll})
+    ckpt = tmpdir_as_cache / "bert" / "weights"
+    jax_svc = JaxRerankingService(jax_index, jax_reranker, ckpt, topn=3)
+    shape = (1, EXTRACTOR_TINY["numpassages"], EXTRACTOR_TINY["maxseqlen"])
+    example = {key: np.zeros(shape, np.int64) for key in ("pos_bert_input", "pos_mask", "pos_seg")}
+    params = jax_reranker.init_params(jax.random.PRNGKey(123), example)
+    jax_reranker.trainer.save_checkpoint(ckpt, params, {}, jax_reranker)
+    port_ckpt = save_params(flatten_params(jax_reranker.trainer._strip_frozen(jax_reranker, params)),
+                            tmpdir_as_cache / "bert.npz")
+
+    port_reranker = TorchReranker.create("BERTMaxP", config)
+    port_index = TorchIndex.create("tpu", {"collection": coll})
+    port_svc = RerankingService(port_index, port_reranker, port_ckpt, topn=3, device="cpu")
+    port_results = port_svc.search(queries, k=3)
+    jax_results = jax_svc.search(queries, k=3)
+    assert all(len(hits) >= 2 for hits in port_results)
+    assert_same_hits(port_results, jax_results, BERT_TOL)
+    assert_within([s for hits in port_results for _, s in hits], [s for hits in jax_results for _, s in hits],
+                  BERT_TOL, "BERTMaxP tiny RerankingService scores")
+    stages = port_svc.last_stage_ms
+    assert set(stages) == {"first_stage", "rerank", "features"} and 0 < stages["features"] <= stages["rerank"]
