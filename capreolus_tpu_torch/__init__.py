@@ -2,9 +2,11 @@
 
 The JAX package ``capreolus_tpu`` is the reference; this package keeps its
 layout and module names so that each module's counterpart is easy to find, and
-imports nothing of it (nor of JAX). Slice 1 covers retrieve-then-rerank serving:
-the BM25 exact scoring engine and KNRM, whose fused simmat + kernel-pooling
-kernel is hand-written CUDA for Hopper (``csrc/knrm_pool.cu``).
+imports nothing of it (nor of JAX). It serves retrieve-then-rerank search (the
+BM25 exact scoring engine, then KNRM or monoBERT-MaxP) and ColBERT
+late-interaction retrieval; each TPU kernel on those paths is hand-written CUDA
+for Hopper under ``csrc/`` (K1 ``knrm_pool.cu``, K2 ``flash_attention.cu``,
+K3 ``maxsim.cu``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``RetrievalService(..., device="cpu")``).
@@ -28,6 +30,7 @@ _MODULE_PACKAGES = (
     "tokenizer",
     "extractor",
     "reranker",
+    "searcher",
 )
 
 _loaded = False

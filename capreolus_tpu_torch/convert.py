@@ -3,7 +3,8 @@
 The JAX parameter tree, flattened to ``"params/<module>/<leaf>"`` paths of
 numpy arrays, is the port's checkpoint for now: ``save_params`` writes it as an
 ``.npz`` and ``load_params`` reads it back. ``knrm_state_dict`` maps it onto
-``KNRMModel``'s ``state_dict`` and ``bert_state_dict`` onto ``_BertScorer``'s.
+``KNRMModel``'s ``state_dict`` and ``bert_state_dict`` onto ``_BertScorer``'s
+or ``ColBERTModel``'s.
 Reading flax msgpack checkpoints comes with the trainer.
 """
 
@@ -71,9 +72,10 @@ def knrm_state_dict(flat: dict, embedding: np.ndarray = None) -> dict:
 
 
 def bert_state_dict(flat: dict) -> dict:
-    """``_BertScorer`` state_dict from the flat JAX ``_BertScorer`` params
-    (``params/bert/layer_0/attention/query/kernel``, ...,
-    ``params/classifier/bias``). The port's modules carry the flax modules'
+    """The state_dict of a BERT-based model from its flat JAX params: a
+    ``_BertScorer``'s (``params/bert/layer_0/attention/query/kernel``, ...,
+    ``params/classifier/bias``) or a ``ColBERTModel``'s (``params/bert/...``,
+    ``params/linear/kernel``). The port's modules carry the flax modules'
     names, so each path maps by name: a Dense ``kernel`` [in, out] becomes an
     ``nn.Linear`` ``weight`` [out, in], a LayerNorm ``scale`` its ``weight``."""
     state = {}

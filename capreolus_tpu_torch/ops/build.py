@@ -24,7 +24,7 @@ logger = get_logger(__name__)
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "capreolus_tpu_torch"
-KERNEL_SOURCES = {"knrm_pool": "knrm_pool.cu", "flash_attention": "flash_attention.cu"}
+KERNEL_SOURCES = {"knrm_pool": "knrm_pool.cu", "flash_attention": "flash_attention.cu", "maxsim": "maxsim.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -8,9 +8,10 @@
 
 Services run on ``device="cuda"`` unless the caller passes another device; a
 CUDA request without a card raises. The rerank stage serves KNRM (through K1)
-and BERTMaxP (through K2 in every encoder layer). Not ported in this slice:
-``shards``, ``refresh``, ``snippets``, the dense / ColBERT / impact / hybrid
-services and the HTTP front end.
+and BERTMaxP (through K2 in every encoder layer); ``ColbertRetrievalService``
+serves ColBERT late-interaction retrieval (K2 in the query encoder, K3 for
+MaxSim). Not ported yet: ``shards``, ``refresh``, ``snippets``, the dense /
+impact / hybrid services and the HTTP front end.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import time
 from collections import Counter
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from capreolus_tpu_torch.utils.loginit import get_logger
@@ -197,3 +199,108 @@ class RerankingService(RetrievalService):
             reranked = sorted(zip(docids, map(float, scores)), key=lambda kv: -kv[1])
             results.append(reranked[:k])
         return results, features_s
+
+
+class _EmbeddingRetrievalService:
+    """Shared serving core of the embedding searchers (the JAX package's;
+    ColBERT late-interaction MaxSim is the one ported so far).
+
+    Wraps the searcher's ``build_topk`` engine and keeps it warm across
+    calls: the corpus stays on the device and the query encoder stays loaded.
+    The JAX service pads every query batch to ``batch`` rows to keep one
+    compiled shape; the port does not pad (every row is independent, so the
+    results are the same, and a one-query request costs one query's work).
+    Subclasses provide the searcher's registry name and the query-embedding
+    hook; result filtering (-inf and out-of-corpus slots) lives here.
+    """
+
+    _searcher_name: str = ""
+
+    def __init__(self, searcher, max_k: int = 100, device=None):
+        self.device = resolve_device(device)
+        searcher.device = self.device
+        self.searcher = searcher
+        self._topk, self._corpus, self._n = searcher.build_topk(max_k)
+        self.max_k = min(int(max_k), self._n)
+        self._docids = searcher.index.data.docid_strings
+        self.batch_size = int(searcher.config["batch"])
+        self._prepare()
+
+    def refresh(self) -> bool:
+        raise NotImplementedError("refresh (NRT reopen with incremental embedding caches) is not ported to "
+                                  "PyTorch yet: ROADMAP.md item 6, 'ColBERT options'")
+
+    def _prepare(self):
+        """Subclass hook: warm the query encoder."""
+
+    def _embed_batch(self, chunk: List[str]):
+        """Subclass hook: encode <= batch_size queries."""
+        raise NotImplementedError
+
+    @classmethod
+    def from_config(cls, collection: str = "dummy", collection_path: Optional[str] = None,
+                    max_k: int = 100, device=None, **searcher_config):
+        import capreolus_tpu_torch
+
+        capreolus_tpu_torch.load_all_modules()
+        from capreolus_tpu_torch.searcher import Searcher
+
+        coll_cfg = {"name": collection}
+        if collection_path:
+            coll_cfg["path"] = collection_path
+        index_cfg = searcher_config.pop("index", {})
+        searcher = Searcher.create(cls._searcher_name,
+                                   {**searcher_config, "index": {**index_cfg, "collection": coll_cfg}})
+        return cls(searcher, max_k=max_k, device=device)
+
+    def search_async(self, queries: Sequence[str], k: int = 10):
+        """Dispatch-now / collect-later variant of ``search`` (identical results):
+        the device work is queued when this returns."""
+        k = min(int(k), self.max_k)
+        topk, corpus, n, docids = self._topk, self._corpus, self._n, self._docids
+        pending = []
+        for start in range(0, len(queries), self.batch_size):
+            chunk = list(queries[start : start + self.batch_size])
+            scores, ords = topk(self._embed_batch(chunk), *corpus)
+            pending.append((len(chunk), scores, ords))
+
+        def collect() -> List[List[Tuple[str, float]]]:
+            results: List[List[Tuple[str, float]]] = []
+            for cn, dscores, dords in pending:
+                scores, ords = dscores.cpu().numpy(), dords.cpu().numpy()
+                for qi in range(cn):
+                    hits = []
+                    for s, o in zip(scores[qi][:k], ords[qi][:k]):
+                        # -inf slots (fewer valid docs than k) never surface
+                        if int(o) >= n or not np.isfinite(s):
+                            continue
+                        hits.append((docids[int(o)], float(s)))
+                    results.append(hits)
+            return results
+
+        return collect
+
+    def search(self, queries: Sequence[str], k: int = 10) -> List[List[Tuple[str, float]]]:
+        """Returns, per query, the top-k (docid, score) pairs."""
+        return self.search_async(queries, k)()
+
+    def get_document(self, docid: str) -> Optional[str]:
+        return self.searcher.index.get_doc(docid)
+
+
+class ColbertRetrievalService(_EmbeddingRetrievalService):
+    """Low-latency late-interaction (ColBERT MaxSim) serving over
+    ``searcher/late_interaction.py``'s exact resident engine, MaxSim through K3.
+
+        svc = ColbertRetrievalService.from_config(collection="dummy", allowrandominit=True)
+        hits = svc.search(["distant galaxies"], k=10)              # on "cuda"
+    """
+
+    _searcher_name = "colbert"
+
+    def _prepare(self):
+        self.maxqlen = int(self.searcher.config["maxqlen"])
+        self.searcher._encoder()
+
+    def _embed_batch(self, chunk):
+        return self.searcher.encode_queries(self.searcher._tokenize(chunk, self.maxqlen))

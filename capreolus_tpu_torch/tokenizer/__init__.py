@@ -6,6 +6,7 @@ The punkt sentence tokenizer comes with sentence passages (ROADMAP)."""
 from __future__ import annotations
 
 import hashlib
+import os
 import re
 
 from capreolus_tpu_torch.analysis import get_analyzer
@@ -118,6 +119,38 @@ class BertTokenizer(Tokenizer):
     @property
     def sep_token(self):
         return self.bert_tokenizer.sep_token
+
+    @property
+    def pad_id(self):
+        return self.bert_tokenizer.pad_token_id
+
+    @property
+    def cls_id(self):
+        return self.bert_tokenizer.cls_token_id
+
+    @property
+    def sep_id(self):
+        return self.bert_tokenizer.sep_token_id
+
+    @property
+    def vocab_size(self):
+        tok = self.bert_tokenizer
+        return int(getattr(tok, "vocab_size", len(getattr(tok, "vocab", {})) or 30522))
+
+    @property
+    def fingerprint(self):
+        """Identity of the tokenizer in use, for the cache keys of tokenized
+        artifacts (the late-interaction doc embeddings): ``hashfallback``, or
+        the vocab file with its size and mtime. The JAX module's ``hf:`` branch
+        has no counterpart, because the port has no HuggingFace tokenizer."""
+        if isinstance(self.bert_tokenizer, _HashWordpieceFallback):
+            return "hashfallback"
+        vf = self.config["vocabfile"]
+        try:
+            st = os.stat(vf)
+            return f"wordpiece:{vf}:{st.st_size}:{st.st_mtime_ns}"
+        except OSError:
+            return f"wordpiece:{vf}"
 
     def convert_tokens_to_ids(self, tokens):
         return self.bert_tokenizer.convert_tokens_to_ids(tokens)

@@ -1,12 +1,15 @@
-"""TREC document-file parsing: the pure-Python branch of the JAX package's
-``utils/trec.py::iterate_trec_docs``. The JAX package reads plain ASCII files
-through a native C++ reader whose output its own tests pin equal to this
-parser's; the native reader is not ported in this slice.
+"""TREC files: the pure-Python branch of the JAX package's
+``utils/trec.py::iterate_trec_docs``, and its run-file reader and writer
+(``load_trec_run``, ``write_trec_run``). The JAX package reads plain ASCII
+files through a native C++ reader whose output its own tests pin equal to this
+parser's; the native reader is not ported yet.
 """
 
 from __future__ import annotations
 
 import gzip
+from collections import defaultdict
+from pathlib import Path
 
 # Content tags whose text is indexed, mirroring Anserini's TrecCollection
 # semantics: HEADLINE/DATE/TEXT contribute to contents; SECTION/BYLINE/LENGTH/TYPE do not.
@@ -18,6 +21,32 @@ def _open_maybe_gz(path, mode="rt"):
     if path.endswith(".gz"):
         return gzip.open(path, mode, encoding="utf-8", errors="replace")
     return open(path, mode, encoding="utf-8", errors="replace")
+
+
+def load_trec_run(path):
+    """Parse a TREC run file into {qid: {docid: score}}, preserving insertion order."""
+    run = defaultdict(dict)
+    with _open_maybe_gz(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            qid, _, docid, _, score, _ = line.split()[:6]
+            run[qid][docid] = float(score)
+    return dict(run)
+
+
+def write_trec_run(run, path, tag="capreolus_tpu", mode="wt"):
+    """Write {qid: {docid: score}} as a TREC run file sorted by descending score."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    count = 0
+    with open(path, mode, encoding="utf-8") as f:
+        for qid in sorted(run, key=lambda q: (len(q), q)):
+            ranked = sorted(run[qid].items(), key=lambda kv: (-kv[1], kv[0]))
+            for rank, (docid, score) in enumerate(ranked, start=1):
+                f.write(f"{qid} Q0 {docid} {rank} {score} {tag}\n")
+                count += 1
+    return count
 
 
 def iterate_trec_docs(path, content_tags=TREC_CONTENT_TAGS):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: drives retrieve-then-rerank serving on
-one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width, and holds
-every kernel against its plain PyTorch version.
+one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width, then
+ColBERT late-interaction serving at BERT-base width, and holds every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA device; builds the kernels
 
@@ -18,7 +19,12 @@ printed only when every phase passed):
    every key unmasked; compared on the first 128 batch rows), at a small ragged
    shape with a fully masked row, and in bf16: max |err| <= 1e-4 at f32 and
    2e-2 in bf16, with ``scaled_dot_product_attention`` timed beside it as the
-   library yardstick (never called on the path);
+   library yardstick (never called on the path); K3 (``maxsim``) against
+   ``maxsim_scores_plain`` at the served shape (Lq=32, Ld=180, C=20,000,
+   dim=128) for 1 and 64 queries on seeded inputs with docs of 64-180 valid
+   tokens, and at a small ragged shape with a fully masked doc: -inf docs
+   equal, max |err| <= 1e-4, with the bf16 product alone (one
+   ``torch.matmul``) timed beside it, since no PyTorch call computes MaxSim;
 4. KNRM serving: a seeded synthetic TREC corpus (20k docs of 200-1200 words),
    the port's index and a ``RerankingService(device="cuda")`` with KNRM at its
    published width (random300 embeddings, maxqlen 4, maxdoclen 800, 11 RBF
@@ -33,7 +39,20 @@ printed only when every phase passed):
    request; K2 timed on a served request's layer-0 inputs; the GPU scores of
    query 0's two top first-stage candidates against the same reranker on the
    CPU, max |err| <= 1e-3;
-6. a ``kernels`` JSON line, then the result line.
+6. ColBERT serving: the same corpus, fresh caches, ``ColbertRetrievalService``
+   on "cuda" at the searcher's defaults (BERT-base encoder with seeded
+   N(0, 0.02) weights and projection to dim 128 from an .npz checkpoint,
+   maxqlen 32 with query augmentation, maxdoclen 180, exact resident search):
+   set-up split into tokenization, encoding and upload; one warm-up request,
+   8 single-query requests and one 64-query batch with their K2 and K3
+   launches; one profiled request; K3 timed on the served corpus; query 0
+   scored by K3 and by the plain version on the same device corpus (equal
+   top-100 ordinals but for near-ties), and its served top 10 against the CPU
+   encoder with plain MaxSim, max |err| <= 1e-2;
+7. a ``kernels`` JSON line, then the result line.
+
+Every kernel's launch count is set to 0 just before each serving path runs
+and read just after it.
 """
 
 from __future__ import annotations
@@ -60,6 +79,16 @@ SERVING_DOCS = 20000  # corpus of the serving phases
 TIMED_ROUNDS = 25  # timed rounds of 20 back-to-back calls per kernel (median)
 BERT_QUERIES = 4  # served monoBERT queries after the warm-up request
 K2_SHAPE = (1600, 12, 256, 64)  # 100 docs x 16 passages, BERT-base heads, maxseqlen 256
+K3_TOL = 1e-4  # K3 vs its plain version: equal bf16 inputs, exact f32 products, the
+# sums in another order; L2-normalised embeddings keep a score within Lq = 32
+COLBERT_CPU_TOL = 1e-2  # served ColBERT scores vs the CPU encoder + plain MaxSim: the
+# JAX suite's tolerance for bf16 MaxSim sums (tests/test_colbert.py); embeddings that
+# differ by f32 rounding can round to neighbouring f16 / bf16 values
+K3_SHAPE = (32, 180, SERVING_DOCS, 128)  # Lq, Ld, C, dim of the served ColBERT corpus
+COLBERT = {"dim": 128, "maxqlen": 32, "maxdoclen": 180, "hits": 1000, "batch": 64,
+           "quantize": "none", "shards": 1, "prefilter": 0}  # the searcher's defaults (MS MARCO settings)
+COLBERT_QUERIES = 8  # served single-query ColBERT requests after the warm-up request
+MASKED_BIAS = -1e9  # bias of a masked doc token, as the searcher uploads it
 
 # HBM bandwidth (bytes/s), f32 non-tensor-core peak and dense bf16 tensor-core
 # peak (FLOP/s) by card name, from NVIDIA's data sheets (dense rates, full power)
@@ -419,7 +448,7 @@ def phase_serving(workdir, num_docs, ckpt_seed):
     svc.search(topics[8:9], k=10)  # warm-up request: CUDA context, kernel load
     torch.cuda.synchronize()
 
-    knrm_pool.launches = 0
+    reset_launch_counts()
     gpu_results, request_ms, first_ms, rerank_ms, features_ms = [], [], [], [], []
     for query in queries:
         t0 = time.perf_counter()
@@ -542,7 +571,7 @@ def phase_bert_serving(workdir, corpus_dir, topics, peaks):
     svc.search(topics[BERT_QUERIES:BERT_QUERIES + 1], k=10)  # warm-up request
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    reset_launch_counts()
     request_ms, first_ms, rerank_ms, features_ms, results = [], [], [], [], []
     for query in queries:
         t0 = time.perf_counter()
@@ -607,6 +636,242 @@ def phase_bert_serving(workdir, corpus_dir, topics, peaks):
     return launches, served
 
 
+# ---------------------------------------------------------------- ColBERT and K3
+def k3_bound_ms(q, docs_t, bias_t, valid, peaks):
+    """Least time for K3 on these inputs, counted from the mask.
+
+    A masked token never takes part in a max, so the function needs only the
+    valid tokens' embeddings (of valid docs), all of q (bf16, as the kernel
+    reads it), the whole bias (to know which tokens are valid), the valid
+    flags and the [Q, C] f32 output written once; those bytes go over the HBM
+    rate. It does 2*dim operations per (query token, valid doc token) pair,
+    over the dense bf16 tensor-core peak (the inputs are bf16). Returns (ms,
+    "bytes" or "operations")."""
+    nq, lq, dim = q.shape
+    tokens = float(((bias_t >= 0) & valid[None, :]).sum())
+    nbytes = (2.0 * nq * lq * dim + 2.0 * tokens * dim + bias_t.numel() * bias_t.element_size()
+              + valid.numel() + 4.0 * nq * bias_t.shape[1])
+    ops = 2.0 * nq * lq * dim * tokens
+    t_bytes, t_ops = nbytes / peaks["bw"], ops / peaks[torch.bfloat16]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k3_measure(q, docs_t, bias_t, valid, peaks):
+    """K3 against its plain version at these inputs: max |err| over the finite
+    scores (the -inf docs must match exactly), CUDA-event ms of K3, of the plain
+    version and of the bf16 product alone ([Q*Lq, dim] x [dim, C*Ld] in one
+    torch.matmul: no single PyTorch call computes MaxSim), and the bound."""
+    from capreolus_tpu_torch.ops.maxsim import maxsim, maxsim_scores_plain
+
+    got = maxsim(q, docs_t, bias_t, valid)
+    want = maxsim_scores_plain(q, docs_t, bias_t, valid)
+    torch.cuda.synchronize()
+    label = "K3 Q={} Lq={} Ld={} C={} dim={}".format(*q.shape[:2], *docs_t.shape)
+    check(torch.equal(torch.isneginf(got), torch.isneginf(want)), f"{label}: -inf entries differ from plain")
+    finite = torch.isfinite(want)
+    check(bool(torch.isfinite(got[finite]).all()), f"{label}: non-finite score of a valid doc")
+    err = float((got[finite] - want[finite]).abs().max()) if bool(finite.any()) else 0.0
+    check(err <= K3_TOL, f"{label}: max |kernel - plain| = {err:.3g} > {K3_TOL}")
+    q2d = q.to(torch.bfloat16).reshape(-1, q.shape[2])
+    d2d = docs_t.view(-1, docs_t.shape[2])
+    big = q.shape[0] > 1
+    out = {"shape": label[3:], "max_abs_err": err,
+           "ms": cuda_ms(lambda: maxsim(q, docs_t, bias_t, valid), rounds=5 if big else 25, calls=4 if big else 20),
+           "plain_ms": cuda_ms(lambda: maxsim_scores_plain(q, docs_t, bias_t, valid), rounds=3, calls=2),
+           "product_gemm_ms": cuda_ms(lambda: torch.matmul(q2d, d2d.T), rounds=5, calls=4)}
+    out["bound_ms"], out["bound_by"] = k3_bound_ms(q, docs_t, bias_t, valid, peaks)
+    out["valid_token_share"] = float(((bias_t >= 0) & valid[None, :]).float().mean())
+    return out
+
+
+def k3_line(label, r):
+    return (f"{label} {r['shape']}: max|err| {r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
+            f"bf16 product GEMM alone {r['product_gemm_ms']:.3f}, bound {r['bound_ms']:.4f} by {r['bound_by']}; "
+            f"{100 * r['valid_token_share']:.1f}% of tokens valid)")
+
+
+def phase_k3_check(peaks):
+    """K3 at the served shape on seeded inputs (L2-normalised embeddings,
+    docs of 64-180 valid tokens and 2% pad docs), for one query and for a
+    batch of 64, and at a small ragged shape with a fully masked doc."""
+    from capreolus_tpu_torch.ops.maxsim import maxsim, maxsim_scores_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    lq, ld, c, dim = K3_SHAPE
+
+    def unit(*shape):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    docs_t = unit(ld, c, dim).to(torch.bfloat16)
+    lengths = torch.randint(64, ld + 1, (c,), generator=gen, device="cuda")
+    lengths[torch.rand(c, generator=gen, device="cuda") < 0.02] = 0
+    mask = torch.arange(ld, device="cuda")[:, None] < lengths[None, :]
+    bias_t = torch.where(mask, 0.0, MASKED_BIAS).float().contiguous()
+    valid = mask.any(dim=0).contiguous()
+    out = {}
+    for nq in (1, 64):
+        out[f"q{nq}"] = k3_measure(unit(nq, lq, dim), docs_t, bias_t, valid, peaks)
+        print(k3_line("[3 kernel] maxsim", out[f"q{nq}"]))
+    del docs_t, bias_t, mask
+    torch.cuda.empty_cache()
+
+    # small ragged case: 3 queries of 5 tokens, 11 docs of 7 tokens, dim 24, doc 4 fully masked
+    q, docs = unit(3, 5, 24), unit(7, 11, 24).to(torch.bfloat16)
+    small_mask = torch.rand(7, 11, generator=gen, device="cuda") > 0.3
+    small_mask[:, 4] = False
+    small_mask[0, [0, 1, 2, 3, 5, 6, 7, 8, 9, 10]] = True
+    bias_s = torch.where(small_mask, 0.0, MASKED_BIAS).float().contiguous()
+    valid_s = small_mask.any(dim=0).contiguous()
+    got, want = maxsim(q, docs, bias_s, valid_s), maxsim_scores_plain(q, docs, bias_s, valid_s)
+    torch.cuda.synchronize()
+    check(bool(torch.isneginf(got[:, 4]).all()) and torch.equal(torch.isneginf(got), torch.isneginf(want)),
+          "K3 small: the fully masked doc is not -inf in kernel and plain alike")
+    finite = torch.isfinite(want)
+    out["max_abs_err_small"] = float((got[finite] - want[finite]).abs().max())
+    check(out["max_abs_err_small"] <= K3_TOL, f"K3 small: max |kernel - plain| = {out['max_abs_err_small']:.3g}")
+    print(f"[3 kernel] maxsim small Q=3 Lq=5 Ld=7 C=11 dim=24, doc 4 fully masked: -inf matches, max|err| "
+          f"{out['max_abs_err_small']:.3g} (tolerance {K3_TOL})")
+    return out
+
+
+def reset_launch_counts():
+    """Every kernel's launch count to 0, just before a path is driven."""
+    from capreolus_tpu_torch.ops.flash_attention import flash_attention
+    from capreolus_tpu_torch.ops.maxsim import maxsim
+    from capreolus_tpu_torch.ops.simmat import knrm_pool
+
+    knrm_pool.launches = flash_attention.launches = maxsim.launches = 0
+
+
+def colbert_params(config, dim, seed):
+    """Flat ``params/...`` of a ColBERTModel at ``config``'s geometry: the
+    encoder as ``seeded_bert_params`` draws it and the [hidden, dim]
+    projection, N(0, 0.02)."""
+    flat = {k: v for k, v in seeded_bert_params(config, seed).items() if not k.startswith("params/classifier")}
+    rng = np.random.Generator(np.random.PCG64(seed + 1))
+    flat["params/linear/kernel"] = rng.standard_normal((config.hidden_size, dim), dtype=np.float32) * np.float32(0.02)
+    return flat
+
+
+def phase_colbert_serving(workdir, corpus_dir, topics, peaks):
+    """ColBERT serving at BERT-base width over the seeded corpus; returns
+    (launches of K2 and K3 in the served run, K3 on the served corpus)."""
+    from capreolus_tpu_torch.convert import bert_state_dict, load_params, save_params
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.ops.flash_attention import flash_attention
+    from capreolus_tpu_torch.ops.maxsim import maxsim, maxsim_scores_plain
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+    from capreolus_tpu_torch.reranker.colbert import ColBERTModel
+    from capreolus_tpu_torch.searcher import Searcher
+    from capreolus_tpu_torch.searcher.late_interaction import topk_lower_ordinal_first
+    from capreolus_tpu_torch.serving import ColbertRetrievalService
+
+    label = "[6 colbert]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")  # a fresh serving process
+    config = get_bert_config("bert-base-uncased")
+    t0 = time.perf_counter()
+    ckpt = str(save_params(colbert_params(config, COLBERT["dim"], seed=7), os.path.join(workdir, "colbert.npz")))
+    t_ckpt = time.perf_counter() - t0
+    searcher = Searcher.create("colbert", {**COLBERT, "pretrained": "bert-base-uncased", "allowrandominit": True,
+                                           "checkpointfile": ckpt,
+                                           "index": {"collection": {"name": "dummy", "path": corpus_dir}}})
+    t0 = time.perf_counter()
+    searcher.index.create_index()
+    t_index = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc = ColbertRetrievalService(searcher, max_k=100, device="cuda")
+    torch.cuda.synchronize()
+    t_service = time.perf_counter() - t0
+    corpus = svc._corpus
+    corpus_gb = sum(t.numel() * t.element_size() for t in corpus) / 1e9
+    setup = searcher.setup_seconds
+    print(f"{label} set-up: seeded checkpoint {t_ckpt:.1f} s, index {t_index:.1f} s, service {t_service:.1f} s, "
+          f"of which corpus tokenization {setup['tokenize']:.1f} s, encoding {setup['encode']:.1f} s (K2 in every "
+          f"layer), upload {setup['upload']:.2f} s; resident corpus {corpus_gb:.3f} GB on the card "
+          f"(docs_t {tuple(corpus[0].shape)} bf16, bias, valid); config {COLBERT}")
+
+    queries = topics[:COLBERT_QUERIES]
+    batch = [topics[i % len(topics)] + " " + topics[(7 * i + 3) % len(topics)].split()[0] for i in range(64)]
+    svc.search(topics[COLBERT_QUERIES:COLBERT_QUERIES + 1], k=10)  # warm-up request
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    request_ms, results = [], []
+    for query in queries:
+        t0 = time.perf_counter()
+        results.append(svc.search([query], k=10)[0])
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    batch_results = svc.search(batch, k=10)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_attention": flash_attention.launches, "maxsim": maxsim.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label} per request (median of {len(queries)}): {np.median(request_ms):.2f} ms (spread "
+          f"{min(request_ms):.2f}-{max(request_ms):.2f}: {', '.join(f'{t:.2f}' for t in request_ms)}); one 64-query "
+          f"batch {batch_ms:.2f} ms; peak device memory of the served run {peak_gb:.2f} GB; launches in the run: "
+          f"maxsim {launches['maxsim']}, flash_attention {launches['flash_attention']}")
+    check(launches["maxsim"] == len(queries) + 1, f"maxsim launched {launches['maxsim']} times for "
+                                                  f"{len(queries)} requests and one batch (one per query batch)")
+    check(launches["flash_attention"] == config.num_layers * (len(queries) + 1),
+          f"flash_attention launched {launches['flash_attention']} times (expected {config.num_layers} per "
+          f"query batch)")
+    check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results + batch_results),
+          "a served request did not return 10 finite scores")
+    profile_request(svc, queries[0], label)
+
+    # K3 on the served corpus: query 0 alone and the 64-query batch
+    q0 = searcher.encode_queries(searcher._tokenize(queries[:1], COLBERT["maxqlen"]))
+    q64 = searcher.encode_queries(searcher._tokenize(batch, COLBERT["maxqlen"]))
+    served = {"q1": k3_measure(q0, *corpus, peaks), "q64": k3_measure(q64, *corpus, peaks)}
+    for key in ("q1", "q64"):
+        print(k3_line(f"{label} maxsim on the served corpus,", served[key]))
+
+    # query 0 against the plain version on the same device corpus: equal top-100
+    # ordinals, except where two docs' plain scores tie within the tolerance
+    full_k, full_p = maxsim(q0, *corpus), maxsim_scores_plain(q0, *corpus)
+    (kv, ko), (pv, po) = topk_lower_ordinal_first(full_k, 100), topk_lower_ordinal_first(full_p, 100)
+    full_p, kv, ko, pv, po = (x[0].cpu().numpy() for x in (full_p, kv, ko, pv, po))
+    top_err = float(np.abs(kv - pv).max())
+    check(top_err <= K3_TOL, f"query 0: top-100 scores of K3 and plain differ by {top_err}")
+    swapped = ko != po
+    check(bool(np.all(np.abs(full_p[ko[swapped]] - full_p[po[swapped]]) <= K3_TOL)),
+          "query 0: K3's top-100 ordinals differ from plain's beyond near-ties")
+    swaps = int(swapped.sum())
+    served_hits = dict(results[0])
+    check([searcher.index.data.docid_strings[int(o)] for o in ko[:10]] == [d for d, _ in results[0]],
+          "query 0: the served top 10 is not K3's top 10")
+
+    # query 0's top 10 on the CPU: the port's encoder and plain MaxSim, same checkpoint
+    cpu_model = ColBERTModel(config, dim=COLBERT["dim"])
+    cpu_model.load_state_dict(bert_state_dict(load_params(ckpt)))
+    cpu_model.eval()
+    docids = [d for d, _ in results[0]]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cq, _ = cpu_model.encode_query(torch.from_numpy(searcher._tokenize(queries[:1], COLBERT["maxqlen"])))
+        texts = [searcher.index.get_doc(d) for d in docids]
+        emb, dmask = cpu_model.encode_doc(torch.from_numpy(searcher._tokenize(texts, COLBERT["maxdoclen"])))
+    emb16 = emb.numpy().astype(np.float16)  # the searcher's f16 cache, then bf16 as it uploads
+    docs_cpu = torch.from_numpy(np.ascontiguousarray(emb16.swapaxes(0, 1))).to(torch.bfloat16)
+    mask_cpu = dmask.T.contiguous() > 0
+    cpu_scores = maxsim_scores_plain(cq, docs_cpu, torch.where(mask_cpu, 0.0, MASKED_BIAS).float(),
+                                     mask_cpu.any(dim=0))[0].numpy()
+    cpu_s = time.perf_counter() - t0
+    err_cpu = float(max(abs(served_hits[d] - float(s)) for d, s in zip(docids, cpu_scores)))
+    check(err_cpu <= COLBERT_CPU_TOL, f"query 0's top 10: served {[served_hits[d] for d in docids]} vs CPU "
+                                      f"{cpu_scores.tolist()}")
+    print(f"{label} query 0: K3 and plain agree on the device corpus (top-100 max |err| {top_err:.3g}, "
+          f"{swaps} ordinals swapped at near-ties); served top 10 vs the CPU encoder + plain MaxSim: max |err| "
+          f"{err_cpu:.3g} (tolerance {COLBERT_CPU_TOL}; {cpu_s:.1f} s on the CPU); top hit {results[0][0]}")
+    served["max_abs_err_cpu"] = err_cpu
+    served["request_ms"] = float(np.median(request_ms))
+    del svc, corpus, q0, q64
+    torch.cuda.empty_cache()
+    return launches, served
+
+
 def main():
     name = phase_device()
     peaks = card_peaks(name)
@@ -617,12 +882,16 @@ def main():
         phase_build()
         k1 = phase_k1_check(peaks)
         k2 = phase_k2_check(peaks)
+        k3 = phase_k3_check(peaks)
         k1_launches, corpus_dir, topics = phase_serving(workdir, SERVING_DOCS, ckpt_seed=3)
         k2_launches, k2_served = phase_bert_serving(workdir, corpus_dir, topics, peaks)
+        colbert_launches, k3_served = phase_colbert_serving(workdir, corpus_dir, topics, peaks)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     serving = k1["serving"]
+    k3_fields = ("shape", "max_abs_err", "ms", "plain_ms", "product_gemm_ms", "bound_ms", "bound_by",
+                 "valid_token_share")
     kernels = [{
         "name": "knrm_pool",
         "route": "cuda",
@@ -645,7 +914,9 @@ def main():
         "replaces": "capreolus_tpu/ops/flash_attention.py:47",
         "tpu": "capreolus_tpu/ops/flash_attention.py::_flash_kernel",
         "shape": k2_served["shape"] + " f32, layer-0 inputs of a served request",
-        "launches": k2_launches,
+        "launches": k2_launches + colbert_launches["flash_attention"],  # monoBERT's run, then ColBERT's
+        "launches_monobert": k2_launches,
+        "launches_colbert": colbert_launches["flash_attention"],
         "max_abs_err": k2_served["max_abs_err"],
         "max_abs_err_small": k2["max_abs_err_small"],
         "max_abs_err_bf16": k2["max_abs_err_bf16"],
@@ -658,6 +929,25 @@ def main():
         "every_key_unmasked": {key: k2[key] for key in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "ms_bf16", "library_ms_bf16", "bound_ms_bf16", "bound_by_bf16")},
+    }, {
+        "name": "maxsim",
+        "route": "cuda",
+        "source": "capreolus_tpu_torch/csrc/maxsim.cu",
+        "replaces": "capreolus_tpu/ops/maxsim.py:34",
+        "tpu": "capreolus_tpu/ops/maxsim.py::_maxsim_kernel",
+        "shape": k3_served["q1"]["shape"] + ", one served query over the served corpus",
+        "launches": colbert_launches["maxsim"],
+        "max_abs_err": k3_served["q1"]["max_abs_err"],
+        "max_abs_err_small": k3["max_abs_err_small"],
+        "max_abs_err_cpu_top10": k3_served["max_abs_err_cpu"],
+        "ms": k3_served["q1"]["ms"],
+        "plain_ms": k3_served["q1"]["plain_ms"],
+        "bound_ms": k3_served["q1"]["bound_ms"],
+        "bound_by": k3_served["q1"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes MaxSim
+        "product_gemm_ms": k3_served["q1"]["product_gemm_ms"],  # the bf16 [Q*Lq, dim] x [dim, C*Ld] product alone
+        "batch_64": {key: k3_served["q64"][key] for key in k3_fields},
+        "synthetic": {nq: {key: k3[nq][key] for key in k3_fields} for nq in ("q1", "q64")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,7 +9,12 @@ exact-match kernel amplifies f32 dot-product rounding); the GPU's first stage
 must equal the CPU's, and the reranked scores agree within 2e-4. K2 is held
 against its plain version at 1e-4 with f32 inputs (one softmax, f32 sums in
 another order) and 2e-2 with bf16 inputs (outputs rounded to bf16); tiny
-BERTMaxP served on the card agrees with the CPU within 1e-4.
+BERTMaxP served on the card agrees with the CPU within 1e-4. K3 is held
+against its plain version at 1e-4 (relative and absolute; equal bf16 inputs,
+exact f32 products, the sums in another order), with invalid docs at -inf in
+both; ColBERT served on the card agrees with the CPU within 1e-2, the JAX
+suite's tolerance for bf16 MaxSim sums (embeddings that differ by f32 rounding
+can round to neighbouring bf16 values).
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ import torch
 import capreolus_tpu_torch
 from capreolus_tpu_torch.core import constants
 from capreolus_tpu_torch.ops import flash_attention as fa
+from capreolus_tpu_torch.ops import maxsim as ms
 from capreolus_tpu_torch.ops import simmat
 from capreolus_tpu_torch.reranker.common import KNRM_MUS, KNRM_SIGMAS
 
@@ -224,3 +230,108 @@ def test_bert_reranking_service_on_the_card_matches_cpu(card, tmp_path, monkeypa
     for g, c in zip(gpu_hits, cpu.search(queries, k=20)):
         assert len(g) == len(c) == 20
         np.testing.assert_allclose([s for _, s in g], [s for _, s in c], rtol=1e-4, atol=1e-4)
+
+
+def _k3_args(n_q, lq, ld, c, dim, seed, device):
+    """K3's arguments: L2-normalised q [Q, Lq, dim] f32 and docs_t [Ld, C, dim]
+    bf16, ragged doc lengths with holes, docs 0 and C // 2 fully masked."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+
+    def unit(*shape):
+        x = rng.standard_normal(shape)
+        return torch.from_numpy((x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32))
+
+    mask = np.arange(ld)[:, None] < rng.integers(1, ld + 1, size=c)[None, :]  # [Ld, C]
+    mask &= rng.random((ld, c)) > 0.1
+    mask[0] |= rng.random(c) > 0.5
+    mask[:, [0, c // 2]] = False
+    bias = np.where(mask, 0.0, -1e9).astype(np.float32)
+    return (unit(n_q, lq, dim).to(device), unit(ld, c, dim).to(device, torch.bfloat16),
+            torch.from_numpy(bias).to(device), torch.from_numpy(mask.any(axis=0)).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 32, 180, 1000, 128),  # a served query over docs of Ld 180; C off every tile
+    (5, 32, 23, 203, 128),    # 160 query rows: the 128-row blocks
+    (64, 32, 20, 300, 128),   # a served batch of 64 queries
+    (5, 7, 13, 131, 24), (1, 3, 5, 7, 8), (5, 1, 4, 65, 8),
+    (3, 5, 7, 11, 20),        # dim off 8: scalar loads
+    (2, 150, 9, 70, 24),      # more query tokens than a block's rows: row chunks
+])
+def test_k3_kernel_matches_plain(card, shape):
+    q, docs_t, bias_t, valid = _k3_args(*shape, seed=sum(shape), device=card)
+    before = ms.maxsim.launches
+    got = ms.maxsim(q, docs_t, bias_t, valid)
+    torch.cuda.synchronize()
+    assert ms.maxsim.launches == before + 1 and got.shape == (shape[0], shape[3])
+    want = ms.maxsim_scores_plain(q, docs_t, bias_t, valid).cpu().numpy()
+    out = got.cpu().numpy()
+    np.testing.assert_array_equal(np.isneginf(out), np.isneginf(want))
+    assert np.isneginf(out[:, [0, shape[3] // 2]]).all()
+    finite = np.isfinite(want)
+    np.testing.assert_allclose(out[finite], want[finite], rtol=1e-4, atol=1e-4)
+    # no atomics: the same inputs give the same bits, through every entry point
+    torch.testing.assert_close(ms.maxsim(q, docs_t, bias_t, valid), got, rtol=0, atol=0)
+    torch.testing.assert_close(ms.maxsim(q.bfloat16(), docs_t, bias_t, valid), got, rtol=0, atol=0)
+    torch.testing.assert_close(ms.maxsim_scores(q, docs_t, bias_t, valid), got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_k3_wrapper_rejects_what_the_kernel_does_not_take(card):
+    q, docs_t, bias_t, valid = _k3_args(2, 4, 6, 40, 16, seed=3, device=card)
+    with pytest.raises(TypeError):
+        ms.maxsim(q.double(), docs_t, bias_t, valid)
+    with pytest.raises(TypeError):
+        ms.maxsim(q, docs_t.float(), bias_t, valid)
+    with pytest.raises(TypeError):
+        ms.maxsim(q, docs_t, bias_t.double(), valid)
+    with pytest.raises(TypeError):
+        ms.maxsim(q, docs_t, bias_t, valid.to(torch.uint8))
+    with pytest.raises(ValueError):
+        ms.maxsim(q, docs_t.cpu(), bias_t, valid)
+    with pytest.raises(ValueError):
+        ms.maxsim(q, docs_t, bias_t[:, :39].contiguous(), valid)
+    with pytest.raises(ValueError):
+        ms.maxsim(q[..., :8].contiguous(), docs_t, bias_t, valid)
+    with pytest.raises(ValueError):
+        ms.maxsim(q[0], docs_t, bias_t, valid)
+    with pytest.raises(ValueError):  # dim above the kernel's 128
+        wide = _k3_args(1, 2, 3, 5, 136, seed=4, device=card)
+        ms.maxsim(*wide)
+    with pytest.raises(ValueError):
+        ms.maxsim(q, docs_t.transpose(0, 1).contiguous().transpose(0, 1), bias_t, valid)
+    offset = torch.empty(docs_t.numel() + 1, dtype=torch.bfloat16, device=card)[1:].view(docs_t.shape)
+    offset.copy_(docs_t)
+    with pytest.raises(ValueError):
+        ms.maxsim(q, offset, bias_t, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collection", ["dummy", "corpus"])
+def test_colbert_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch, collection):
+    from capreolus_tpu_torch.serving import ColbertRetrievalService
+
+    if collection == "dummy":
+        coll = {"collection": "dummy"}
+        queries = ["galaxies collide", "whales in the ocean", "telescope orbit", "distant stars", "sea"]
+    else:
+        path = _write_corpus(tmp_path / "corpus", np.random.Generator(np.random.PCG64(7)), min_len=20, max_len=300)
+        coll = {"collection": "dummy", "collection_path": path["path"]}
+        queries = ["w1 w7 w30", "w2 w250", "w399 w5 w6 w8", "w11", "w3 w4"]
+    config = {"allowrandominit": True, "dim": 8, "maxdoclen": 32, "maxqlen": 8, "batch": 4, "max_k": 20}
+    services = {}
+    for name, device in (("gpu", card), ("cpu", "cpu")):  # separate caches: each device encodes the corpus
+        monkeypatch.setitem(constants, "CACHE_BASE_PATH", tmp_path / f"cache_{name}")
+        services[name] = ColbertRetrievalService.from_config(device=device, **coll, **config)
+    before, before_k2 = ms.maxsim.launches, fa.flash_attention.launches
+    gpu_hits = services["gpu"].search(queries, k=20)
+    assert ms.maxsim.launches == before + 2  # two query batches of at most 4
+    assert fa.flash_attention.launches == before_k2 + 2 * 2  # tiny: 2 layers per query batch
+    for g, c in zip(gpu_hits, services["cpu"].search(queries, k=20)):
+        assert len(g) == len(c) > 0
+        for (gd, gs), (cd, cs) in zip(g, c):
+            assert abs(gs - cs) <= 1e-2
+            assert gd == cd or abs(gs - cs) <= 1e-2  # a different doc only at a near-tie
+        cpu_scores = dict(c)
+        assert all(abs(cpu_scores[d] - s) <= 1e-2 for d, s in g if d in cpu_scores)

@@ -51,7 +51,9 @@ def test_importing_every_port_module_loads_no_jax():
             "capreolus_tpu_torch.searcher.scoring", "capreolus_tpu_torch.convert",
             "capreolus_tpu_torch.ops.flash_attention", "capreolus_tpu_torch.reranker.bert_rerankers",
             "capreolus_tpu_torch.reranker.bert.encoder", "capreolus_tpu_torch.extractor.bertpassage",
-            "capreolus_tpu_torch.tokenizer.wordpiece"} <= set(out["imported"])
+            "capreolus_tpu_torch.tokenizer.wordpiece", "capreolus_tpu_torch.ops.maxsim",
+            "capreolus_tpu_torch.reranker.colbert", "capreolus_tpu_torch.searcher.late_interaction",
+            "capreolus_tpu_torch.utils.caching"} <= set(out["imported"])
     loaded = set(out["after"]) - set(out["before"])
     assert not sorted(m for m in loaded if is_forbidden(m))
     # absent altogether, unless the interpreter's own start-up had loaded it
@@ -91,4 +93,4 @@ def test_registries_are_separate():
     assert capreolus_tpu.module_registry is not capreolus_tpu_torch.module_registry
     assert capreolus_tpu_torch.constants["BASE_PACKAGE"] == "capreolus_tpu_torch"
     assert json.dumps(capreolus_tpu_torch.module_registry.get_module_types()) == json.dumps(
-        ["collection", "extractor", "index", "reranker", "tokenizer"])
+        ["collection", "extractor", "index", "reranker", "searcher", "tokenizer"])
