@@ -4,7 +4,7 @@ The JAX parameter tree, flattened to ``"params/<module>/<leaf>"`` paths of
 numpy arrays, is the port's checkpoint for now: ``save_params`` writes it as an
 ``.npz`` and ``load_params`` reads it back. ``knrm_state_dict`` maps it onto
 ``KNRMModel``'s ``state_dict`` and ``bert_state_dict`` onto ``_BertScorer``'s
-or ``ColBERTModel``'s.
+(int8 stats included) or ``ColBERTModel``'s.
 Reading flax msgpack checkpoints comes with the trainer.
 """
 
@@ -72,21 +72,23 @@ def knrm_state_dict(flat: dict, embedding: np.ndarray = None) -> dict:
 
 
 def bert_state_dict(flat: dict) -> dict:
-    """The state_dict of a BERT-based model from its flat JAX params: a
+    """The state_dict of a BERT-based model from its flat JAX variables: a
     ``_BertScorer``'s (``params/bert/layer_0/attention/query/kernel``, ...,
     ``params/classifier/bias``) or a ``ColBERTModel``'s (``params/bert/...``,
     ``params/linear/kernel``). The port's modules carry the flax modules'
     names, so each path maps by name: a Dense ``kernel`` [in, out] becomes an
-    ``nn.Linear`` ``weight`` [out, in], a LayerNorm ``scale`` its ``weight``."""
+    ``nn.Linear`` ``weight`` [out, in], a LayerNorm ``scale`` its ``weight``.
+    The int8 model's ``quant_stats`` collection maps onto its buffers the same
+    way: ``quant_stats/bert/layer_i/gelu_amax`` -> ``bert.layer_i.gelu_amax``."""
     state = {}
     for key, value in flat.items():
         root, *path, leaf = key.split("/")
-        if root != "params" or not path:
-            raise KeyError(f"not a flattened _BertScorer parameter: {key!r}")
+        if root not in ("params", "quant_stats") or not path:
+            raise KeyError(f"not a flattened _BertScorer variable: {key!r}")
         value = np.asarray(value, dtype=np.float32)
-        if leaf == "kernel":
+        if root == "params" and leaf == "kernel":
             leaf, value = "weight", value.T
-        elif leaf == "scale":
+        elif root == "params" and leaf == "scale":
             leaf = "weight"
         state[".".join(path + [leaf])] = torch.from_numpy(np.array(value, order="C"))
     return state

@@ -9,8 +9,11 @@ so that a flattened JAX param tree maps onto the ``state_dict`` name by name
 ``ops.flash_attention.multihead_attention``: K2 on CUDA tensors.
 
 The port computes in f32 with f32 LayerNorm statistics (eps 1e-12) and, by
-default, the tanh GELU, as the JAX encoder does at its default dtype. Not in
-this slice: the int8 path (``Int8Dense``), ``MoeFFN``, ``LoRAAdapter``,
+default, the tanh GELU, as the JAX encoder does at its default dtype. With
+``quantize="int8"`` (inference only) every projection and both FFN matmuls are
+``Int8Linear``: int8 x int8 -> int32 products through
+``ops.int8_matmul.int8_mm`` (X1 on CUDA tensors), dequantized to f32; attention
+itself stays f32 through K2. Not in this slice: ``MoeFFN``, ``LoRAAdapter``,
 ``remat``, dropout and other dtypes; the rerankers refuse the options that
 select them. Module init draws the embeddings from N(0, 0.02) and leaves the
 linear layers at torch's default; served weights come from a checkpoint.
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from capreolus_tpu_torch.ops.flash_attention import multihead_attention
+from capreolus_tpu_torch.ops.int8_matmul import int8_mm
 from capreolus_tpu_torch.utils.loginit import get_logger
 
 logger = get_logger(__name__)
@@ -42,6 +46,7 @@ class BertConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     gelu_approximate: bool = True  # tanh GELU; False for erf
+    quantize: str = "none"  # "int8": int8 projections and FFN matmuls at inference
 
     @property
     def head_dim(self):
@@ -78,25 +83,92 @@ def get_bert_config(name: str) -> BertConfig:
     return KNOWN_CONFIGS.get(name, BertConfig())
 
 
+def _quantize_per_token(x):
+    """Dynamic per-token int8 quantization (the JAX ``_quantize_per_token``):
+    returns (int8 codes, f32 scales [..., 1]) with scale
+    ``max(amax(|x|), 1e-6) / 127`` over the last axis and codes
+    ``round(x / scale)`` (half to even) clipped to [-127, 127]."""
+    xf = x.float()
+    xs = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    xq = torch.round(xf / xs).clamp_(-127, 127).to(torch.int8)
+    return xq, xs
+
+
+class Int8Linear(nn.Linear):
+    """``nn.Linear`` computed as an int8 x int8 -> int32 product (the JAX
+    ``Int8Dense``), with ``nn.Linear``'s ``weight`` [out, in] and ``bias``, so
+    state dicts load unchanged.
+
+    The weight is quantized per output channel: ``ws = max(amax|w|, 1e-8) /
+    127`` over the inputs, ``wq = round(w / ws)``, after multiplying each input
+    channel by ``fold_scales`` when a pre-quantized input carries per-channel
+    scales. The JAX module quantizes its kernel inside the graph on every call;
+    here ``quantize_weight`` runs once, at the first forward after the weights
+    load, and again when the fold changes (``BertLayer`` owns ``ffn_output``'s
+    fold: ``requantize_ffn_output``). The codes and scales are the same values;
+    they live in unsaved buffers (``weight_q``, ``weight_scale``).
+
+    ``forward(x)`` quantizes x per token; ``forward(None, x_pre=q,
+    x_scales=s)`` takes a quantized input, with per-token scales [..., 1], or
+    none when its scales are folded into the weight. The output is ``acc *
+    xs * ws + bias`` in f32, in that order, from the int32 product of
+    ``int8_mm`` (X1 on CUDA tensors)."""
+
+    def __init__(self, in_features, out_features):
+        super().__init__(in_features, out_features)
+        self.register_buffer("weight_q", None, persistent=False)
+        self.register_buffer("weight_scale", None, persistent=False)
+
+    def quantize_weight(self, fold_scales=None):
+        with torch.no_grad():
+            kf = self.weight.float()
+            if fold_scales is not None:
+                kf = kf * fold_scales[None, :]
+            ws = kf.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+            self.weight_q = torch.round(kf / ws[:, None]).to(torch.int8)
+            self.weight_scale = ws
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.weight_q = self.weight_scale = None  # quantized again at the next forward
+
+    def forward(self, x, x_pre=None, x_scales=None):
+        if x_pre is None:
+            x_pre, x_scales = _quantize_per_token(x)
+        if self.weight_q is None:
+            self.quantize_weight()
+        lead = x_pre.shape[:-1]
+        out = int8_mm(x_pre.reshape(-1, x_pre.shape[-1]), self.weight_q).view(*lead, -1).float()
+        if x_scales is not None:
+            out.mul_(x_scales)
+        # in place: at served shapes each f32 [tokens, out] temporary is up to 5 GB
+        return out.mul_(self.weight_scale).add_(self.bias)
+
+
 class BertSelfAttention(nn.Module):
     def __init__(self, config: BertConfig):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.output = nn.Linear(h, h)
+        linear = Int8Linear if config.quantize == "int8" else nn.Linear
+        self.query = linear(h, h)
+        self.key = linear(h, h)
+        self.value = linear(h, h)
+        self.output = linear(h, h)
 
     def heads(self, hidden):
         """The projections split into heads: q, k, v [B, H, L, D], contiguous
-        (the layout K2 reads)."""
+        (the layout K2 reads). With int8, one per-token quantization of
+        ``hidden`` feeds all three projections."""
         c = self.config
         b, l, _ = hidden.shape
 
         def split(x):
             return x.view(b, l, c.num_heads, c.head_dim).transpose(1, 2).contiguous()
 
+        if c.quantize == "int8":
+            hq, hs = _quantize_per_token(hidden)
+            return tuple(split(p(None, x_pre=hq, x_scales=hs)) for p in (self.query, self.key, self.value))
         return split(self.query(hidden)), split(self.key(hidden)), split(self.value(hidden))
 
     def forward(self, hidden, mask):
@@ -106,25 +178,74 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
+    """A post-LN transformer layer. With int8, the FFN is the JAX
+    ``_int8_ffn``: int8 up-projection to f32, GELU, per-channel requantization
+    with the ``gelu_amax`` buffer (the JAX ``quant_stats`` collection; 0 marks
+    an uncalibrated channel, which takes amax = 8), and the down-projection with
+    those scales folded into its weight.
+
+    The fold depends on ``gelu_amax``, so the layer requantizes ``ffn_output``
+    whenever the stats change: when ``gelu_amax`` is assigned (calibration
+    assigns it too) and after a ``load_state_dict`` that reaches the layer."""
+
     def __init__(self, config: BertConfig):
         super().__init__()
         self.config = config
         h, eps = config.hidden_size, config.layer_norm_eps
+        linear = Int8Linear if config.quantize == "int8" else nn.Linear
         self.attention = BertSelfAttention(config)
         self.attention_ln = nn.LayerNorm(h, eps=eps)
-        self.intermediate = nn.Linear(h, config.intermediate_size)
-        self.ffn_output = nn.Linear(config.intermediate_size, h)
+        self.intermediate = linear(h, config.intermediate_size)
+        self.ffn_output = linear(config.intermediate_size, h)
         self.output_ln = nn.LayerNorm(h, eps=eps)
+        if config.quantize == "int8":
+            self.register_buffer("gelu_amax", torch.zeros(config.intermediate_size))
+            self.register_load_state_dict_post_hook(BertLayer._after_load)
 
-    def forward(self, hidden, mask):
+    @staticmethod
+    def _after_load(layer, incompatible_keys):
+        """Runs once the layer and all its children have loaded."""
+        layer.requantize_ffn_output()
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if name == "gelu_amax":
+            self.requantize_ffn_output()
+
+    def requantize_ffn_output(self):
+        """Quantize ``ffn_output``'s weight with the GELU scales folded in."""
+        self.ffn_output.quantize_weight(fold_scales=self.gelu_scales())
+
+    def forward(self, hidden, mask, calibrate=False):
         hidden = self.attention_ln(hidden + self.attention(hidden, mask))
         approximate = "tanh" if self.config.gelu_approximate else "none"
-        ff = self.ffn_output(F.gelu(self.intermediate(hidden), approximate=approximate))
+        if self.config.quantize == "int8":
+            ff = self._int8_ffn(hidden, calibrate, approximate)
+        else:
+            ff = self.ffn_output(F.gelu(self.intermediate(hidden), approximate=approximate))
         return self.output_ln(hidden + ff)
+
+    def gelu_scales(self):
+        """Per-channel scales of the GELU output: amax / 127, amax = 8 where uncalibrated."""
+        return torch.where(self.gelu_amax > 0, self.gelu_amax, 8.0) / 127.0
+
+    def _int8_ffn(self, hidden, calibrate, approximate):
+        g = F.gelu(self.intermediate(hidden), approximate=approximate)
+        if calibrate:
+            # the running max over every position of the batch, pad positions included
+            observed = g.reshape(-1, g.shape[-1]).abs().amax(dim=0)
+            self.gelu_amax = torch.maximum(self.gelu_amax, observed)  # requantizes ffn_output
+        s = self.gelu_scales()
+        gq = torch.round(g / s).clamp_(-127, 127).to(torch.int8)
+        del g
+        if self.ffn_output.weight_q is None:  # a model whose weights never loaded
+            self.requantize_ffn_output()
+        return self.ffn_output(None, x_pre=gq)
 
 
 class BertEncoder(nn.Module):
-    """Returns (sequence_output, pooled_output)."""
+    """Returns (sequence_output, pooled_output). ``calibrate=True`` (int8 only)
+    updates each layer's ``gelu_amax`` from this batch as it passes."""
 
     def __init__(self, config: BertConfig):
         super().__init__()
@@ -148,11 +269,11 @@ class BertEncoder(nn.Module):
                   + self.token_type_embeddings[token_type_ids % c.type_vocab_size])
         return self.embeddings_ln(hidden)
 
-    def forward(self, input_ids, attention_mask, token_type_ids):
+    def forward(self, input_ids, attention_mask, token_type_ids, calibrate=False):
         hidden = self.embed(input_ids, token_type_ids)
         mask = attention_mask.bool()
         for i in range(self.config.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, mask)
+            hidden = getattr(self, f"layer_{i}")(hidden, mask, calibrate)
         return hidden, torch.tanh(self.pooler(hidden[:, 0]))
 
 

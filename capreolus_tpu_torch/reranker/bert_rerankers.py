@@ -4,9 +4,11 @@ reference's configs (``ptBERTMaxP``, ``TFBERTMaxP``, ``TFVanillaBERT``).
 
 Inference only: each passage of the ``bertpassage`` features goes through the
 encoder and a linear relevance head, and a document's score aggregates its
-passages' scores (max, first, sum or avg). PARADE, CEDR-KNRM and Birch, and
-the trainer-facing parts (``score``, ``score_lce``, pipeline views, int8
-calibration), come with later slices.
+passages' scores (max, first, sum or avg). With ``quantize=int8`` the encoder
+runs its projections and FFN matmuls in int8 (``reranker/bert/encoder.py``,
+X1 on the card), after ``prepare_inference`` has calibrated the GELU scales.
+PARADE, CEDR-KNRM and Birch, and the trainer-facing parts (``score``,
+``score_lce``, pipeline views), come with later slices.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
 from capreolus_tpu_torch.reranker import Reranker
 from capreolus_tpu_torch.reranker.bert import BertConfig, BertEncoder, load_pretrained_encoder
 
-_QUANTIZE_OPT = ConfigOption("quantize", "none", "inference-time quantization: none (int8 is not ported yet)")
+_QUANTIZE_OPT = ConfigOption(
+    "quantize", "none",
+    "inference-time quantization: none or int8 (int8 FFN matmuls on the v5e MXU double-rate path; training stays bf16/f32)")
 _DROPOUT_OPT = ConfigOption("hidden_dropout_prob", 0.1, "dropout probability of the encoder's hidden layers "
                             "during training (no effect at inference)")
 _LORA_OPT = ConfigOption("lora", 0, "LoRA rank: 0 = full model (LoRA adapters are not ported yet)",
@@ -30,7 +34,6 @@ _LORA_ALPHA_OPT = ConfigOption("loraalpha", 16.0, "LoRA scaling alpha (delta = a
 
 # options whose non-default values select code this slice does not port
 _UNPORTED = (
-    ("quantize", lambda v: v not in (None, "none"), "int8 inference; ROADMAP.md, 'int8 with X1/X2'"),
     ("moeexperts", lambda v: v > 0, "the mixture-of-experts FFN; ROADMAP.md, 'the other BERT rerankers'"),
     ("lora", lambda v: v > 0, "LoRA adapters; ROADMAP.md, 'the trainer'"),
     ("remat", bool, "rematerialization in the backward pass; ROADMAP.md, 'the trainer'"),
@@ -70,9 +73,9 @@ class _BertScorer(nn.Module):
         self.bert = BertEncoder(config)
         self.classifier = nn.Linear(config.hidden_size, 1)
 
-    def forward(self, inp, mask, seg):
+    def forward(self, inp, mask, seg, calibrate=False):
         flat_inp, flat_mask, flat_seg, b, p = _flatten_passages(inp, mask, seg)
-        _, pooled = self.bert(flat_inp, flat_mask, flat_seg)
+        _, pooled = self.bert(flat_inp, flat_mask, flat_seg, calibrate=calibrate)
         return self.classifier(pooled.float())[:, 0].reshape(b, p)
 
 
@@ -82,6 +85,10 @@ class BertRerankerBase(Reranker):
     dependencies = [Dependency(key="extractor", module="extractor", name="bertpassage")]
 
     def build(self):
+        if self.config.get("quantize") not in (None, "none", "int8"):  # "none" casts to None
+            raise ConfigError(f"{self.module_name}: quantize must be 'none' or 'int8', got {self.config['quantize']!r}")
+        if self.quantized and int(self.config.get("moeexperts", 0) or 0) > 0:
+            raise ConfigError("moeexperts and quantize=int8 cannot be combined")
         for key, selects, what in _UNPORTED:
             if key in self.config and selects(self.config[key]):
                 raise ConfigError(f"{self.module_name}: {key}={self.config[key]!r} selects {what} "
@@ -93,7 +100,12 @@ class BertRerankerBase(Reranker):
     def encoder_config(self) -> BertConfig:
         cfg, _ = load_pretrained_encoder(self.config["pretrained"],
                                          allow_random_init=bool(self.config.get("allowrandominit", False)))
-        return dataclasses.replace(cfg, gelu_approximate=self.config.get("gelu", "tanh") == "tanh")
+        return dataclasses.replace(cfg, gelu_approximate=self.config.get("gelu", "tanh") == "tanh",
+                                   quantize="int8" if self.quantized else "none")
+
+    @property
+    def quantized(self) -> bool:
+        return self.config.get("quantize") == "int8"
 
     def build_model(self):
         if not hasattr(self, "model"):
@@ -101,9 +113,38 @@ class BertRerankerBase(Reranker):
         return self.model
 
     def state_dict_from_params(self, flat):
+        """The model's state_dict from flat JAX variables: ``params/...`` and,
+        for an int8 model, ``quant_stats/bert/layer_i/gelu_amax`` where the
+        checkpoint carries them. Stats it lacks start at 0 (uncalibrated)."""
         from capreolus_tpu_torch.convert import bert_state_dict
 
-        return bert_state_dict(flat)
+        state = bert_state_dict(flat)
+        for name, buf in self.build_model().named_buffers():
+            if name.endswith("gelu_amax"):
+                state.setdefault(name, torch.zeros_like(buf))
+        return state
+
+    def prepare_inference(self, batch, device):
+        """Calibrate the int8 activation scales on a sample batch (a no-op
+        unless quantize=int8), as the JAX ``prepare_inference`` does: every
+        layer's ``gelu_amax`` restarts at 0 and takes the max of |GELU| over
+        every position of the batch in one forward pass, each layer seeing the
+        output of the layers already calibrated. The stats are buffers of the
+        model, so there is no separate variables object to hand to ``test``
+        (the JAX ``inference_variables``); a model never calibrated takes
+        amax = 8 in every channel, the JAX fallback for zero stats."""
+        if not self.quantized:
+            return
+        model = self.build_model()
+
+        def put(key):
+            return torch.from_numpy(np.asarray(batch[key])).to(device)
+
+        with torch.no_grad():
+            for name, buf in model.named_buffers():
+                if name.endswith("gelu_amax"):
+                    model.get_submodule(name.rsplit(".", 1)[0]).gelu_amax = torch.zeros_like(buf)
+            model(put("pos_bert_input"), put("pos_mask"), put("pos_seg"), calibrate=True)
 
     def _passage_mask(self, mask):
         """A passage counts when any of its positions is unmasked. Every

@@ -11,13 +11,26 @@ then the top ``hits`` are taken with ties to the lower doc ordinal, as
 result, as in the JAX searcher: it bounded XLA's similarity tensor, which K3
 never materialises.
 
+``quantize=int8`` holds the corpus as int8 [N, Ld, dim] with one f32 scale per
+doc (``ops/quantization.quantize_rows`` of the f16 cache); ``quantize=int4``
+as packed nibbles [N, Ld*dim/2], unpacked to int8 a chunk at a time. Queries
+quantize per query on the device, and each chunk of docs is one int8 product
+[Q*Lq, dim] x [C*Ld, dim]^T (X1, ``ops/int8_matmul.py``, on the card) whose
+int32 similarities are rounded to bf16, as the JAX scorer's
+``preferred_element_type=bfloat16`` rounds them, then masked, maxed over doc
+tokens and summed over query tokens in f32, times the query and doc scales.
+A chunk holds as many docs as keep its int32 similarities near
+``SIM_CHUNK_BYTES``; the chunk size changes no result. int4 retrieves
+``rescore`` candidates and re-scores them at full precision from the f16 disk
+cache, as the JAX ``_rescore_wrap`` does.
+
 The searcher runs on ``self.device``, an attribute (not a config option, so
 the device never enters the module path) that the service or the caller sets;
 ``None`` means "cuda", which raises without a card.
 
 Not ported yet; each raises ``ConfigError`` naming its ROADMAP item:
-``quantize`` int8/int4, ``prefilter > 0``, ``shards > 1``, and corpora above
-``hbmbudget`` (host streaming). The doc-embedding cache covers generation 0
+``prefilter > 0``, ``shards > 1``, and corpora above ``hbmbudget`` (host
+streaming), quantized or not. The doc-embedding cache covers generation 0
 only: the port's index has no generations, and incremental reuse comes with
 ``refresh``. Reading flax msgpack checkpoints comes with the trainer; a
 ``checkpointfile`` is the port's ``.npz`` (``convert.save_params``).
@@ -43,6 +56,47 @@ logger = get_logger(__name__)
 
 MASKED_BIAS = -1e9  # additive bias of a masked doc token in bias_t, as in the JAX searcher
 UPLOAD_BYTES = 64 << 20  # f16 bytes per host-to-device copy of the corpus
+SIM_CHUNK_BYTES = 1 << 29  # int32 similarities per chunk of the quantized engine (512 MB)
+
+
+def quantized_chunk_docs(nq, lq, ld):
+    """Docs per chunk of ``quantized_maxsim_scores`` for nq queries of lq
+    tokens over docs of ld tokens: as many as keep a chunk's int32
+    similarities within ``SIM_CHUNK_BYTES``, and its N = docs * ld within X1's
+    limit, at least one."""
+    from capreolus_tpu_torch.ops.int8_matmul import MAX_N
+
+    return max(1, min(SIM_CHUNK_BYTES // (4 * nq * lq * ld), MAX_N // ld))
+
+
+def quantized_maxsim_scores(q_emb, docs, mask, dscale):
+    """MaxSim of q_emb [Q, Lq, dim] (float) over a quantized corpus -> [Q, N]
+    f32, the JAX scorer's int8 path: docs int8 [N, Ld, dim] or int4 nibbles
+    uint8 [N, ceil(Ld*dim/2)], mask [N, Ld] bool, dscale [N] f32 per-doc
+    scales. Queries quantize per query (``quantize_rows_torch``); each chunk of
+    docs is one ``int8_mm`` (X1 on the card) whose int32 similarities round to
+    bf16, masked tokens at bf16(-1e9), the max over doc tokens in bf16, the sum
+    over query tokens in f32, times the query and doc scales; a doc with no
+    valid token scores -inf."""
+    from capreolus_tpu_torch.ops.int8_matmul import int8_mm
+    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch, unpack_int4
+
+    nq, lq, dim = q_emb.shape
+    n, ld = mask.shape
+    q_i8, qscale = quantize_rows_torch(q_emb)
+    q2d = q_i8.reshape(nq * lq, dim)
+    step = quantized_chunk_docs(nq, lq, ld)
+    out = torch.empty((nq, n), dtype=torch.float32, device=q_emb.device)
+    for c0 in range(0, n, step):
+        d = docs[c0 : c0 + step]
+        c = d.shape[0]
+        if d.dtype == torch.uint8:  # int4: this chunk alone unpacks to int8
+            d = unpack_int4(d)[:, : ld * dim]
+        sim = int8_mm(q2d, d.reshape(c * ld, dim).contiguous()).to(torch.bfloat16).view(nq, lq, c, ld)
+        sim.masked_fill_(~mask[c0 : c0 + c][None, None], MASKED_BIAS)
+        per_q_token = sim.amax(dim=-1).float()  # [Q, Lq, C]
+        out[:, c0 : c0 + c] = per_q_token.sum(dim=1) * qscale[:, None] * dscale[None, c0 : c0 + c]
+    return torch.where(mask.any(dim=1)[None, :], out, float("-inf"))
 
 
 def topk_lower_ordinal_first(scores, k):
@@ -117,8 +171,6 @@ class LateInteractionSearcher(Searcher):
             raise ConfigError("colbert quantize=int4 runs the resident exact engine only: "
                               "set shards=1 and prefilter=0 (use int8 for those combos)")
         unported = (
-            ("quantize", self.config["quantize"] in ("int8", "int4"),
-             "quantized corpora; ROADMAP.md item 2, 'int8 with X1/X2'"),
             ("prefilter", int(self.config["prefilter"]) > 0,
              "two-stage candidate generation; ROADMAP.md item 6, 'ColBERT options'"),
             ("shards", int(self.config["shards"]) > 1,
@@ -128,7 +180,7 @@ class LateInteractionSearcher(Searcher):
             if selects:
                 raise ConfigError(f"colbert searcher: {key}={self.config[key]!r} selects {what} "
                                   f"(not ported to PyTorch yet)")
-        self.setup_seconds = {"tokenize": 0.0, "encode": 0.0, "upload": 0.0}
+        self.setup_seconds = {"tokenize": 0.0, "encode": 0.0, "quantize": 0.0, "upload": 0.0}
 
     # ------------------------------------------------------------------ encoder
     def _device(self):
@@ -229,11 +281,15 @@ class LateInteractionSearcher(Searcher):
         mask = np.concatenate(masks) if masks else np.zeros((0, maxlen), np.int8)
         return emb, mask
 
+    def _qmode(self):
+        return self.config["quantize"] or "none"  # "none" casts to None
+
     def _doc_tensors(self):
-        """(docs_t [Ld, N, dim] bf16, bias_t [Ld, N] f32, valid [N] bool) on the
-        device, from the disk cache of f16 embeddings and int8 masks (written
-        on first use). The f16 values are rounded to bf16 on upload, the two
-        roundings of the JAX searcher."""
+        """The device corpus, from the disk cache of f16 embeddings and int8
+        masks (written on first use): (docs_t [Ld, N, dim] bf16, bias_t [Ld, N]
+        f32, valid [N] bool), the f16 values rounded to bf16 on upload (the two
+        roundings of the JAX searcher); or, quantized, (codes, mask [N, Ld]
+        bool, scales [N] f32) from ``_upload_quantized``."""
         self.index.create_index()
         if getattr(self, "_docs_emb", None) is not None:
             return self._docs_emb
@@ -256,14 +312,38 @@ class LateInteractionSearcher(Searcher):
                 except TargetFileExists:
                     pass
         n_docs, ld, dim = emb.shape
-        dev_bytes = n_docs * 2 * ld * dim + mask.size
+        qmode = self._qmode()
+        per_doc = {"int8": ld * dim, "int4": (ld * dim + (ld * dim) % 2) // 2}.get(qmode, 2 * ld * dim)
+        dev_bytes = n_docs * per_doc + mask.size + (4 * n_docs if qmode != "none" else 0)
         budget_bytes = float(_hbm_budget_mb(self.config)) * 1e6
         if dev_bytes > budget_bytes:
             raise ConfigError(f"colbert corpus ({n_docs} docs, {dev_bytes / 1e6:.0f} MB device bytes) exceeds "
                               f"hbmbudget={budget_bytes / 1e6:.0f} MB: host streaming is not ported to PyTorch "
                               f"yet (ROADMAP.md item 6, 'ColBERT options'); raise searcher.hbmbudget")
-        self._docs_emb = self._upload(emb, mask)
+        self._docs_emb = self._upload(emb, mask) if qmode == "none" else self._upload_quantized(emb, mask, qmode)
         return self._docs_emb
+
+    def _upload_quantized(self, emb, mask, qmode):
+        """The f16 host cache quantized per doc, as the JAX searcher quantizes
+        it, then on the device: (int8 [N, Ld, dim] or int4 nibbles [N,
+        ceil(Ld*dim/2)] uint8, mask [N, Ld] bool, scales [N] f32)."""
+        from capreolus_tpu_torch.ops.quantization import quantize_rows, quantize_rows_int4
+
+        t0 = time.perf_counter()
+        n_docs, ld, dim = emb.shape
+        if qmode == "int4":
+            codes, scale = quantize_rows_int4(np.asarray(emb).reshape(n_docs, ld * dim))
+        else:
+            codes, scale = quantize_rows(np.asarray(emb))
+        t1 = time.perf_counter()
+        device = self._device()
+        corpus = (torch.from_numpy(codes).to(device), torch.from_numpy(np.asarray(mask) > 0).to(device),
+                  torch.from_numpy(scale).to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.setup_seconds["quantize"] += t1 - t0
+        self.setup_seconds["upload"] += time.perf_counter() - t1
+        return corpus
 
     def _upload(self, emb, mask):
         """The [N, Ld, dim] f16 host cache as the token-major device corpus,
@@ -295,19 +375,60 @@ class LateInteractionSearcher(Searcher):
     def build_topk(self, hits):
         """``(topk(q_emb, *corpus) -> (scores, ordinals), corpus, n_corpus)``
         of the exact resident engine: one MaxSim call over the whole corpus
-        (K3 on the card), then the top ``hits`` with ties to the lower ordinal.
-        Shared by the batch pipeline (``_search_all``) and the serving layer
+        (K3 on the card), or ``quantized_maxsim_scores`` over a quantized one,
+        then the top ``hits`` with ties to the lower ordinal. int4 takes the
+        top ``rescore`` and re-scores them (``_rescore_wrap``). Shared by the
+        batch pipeline (``_search_all``) and the serving layer
         (``serving.ColbertRetrievalService``)."""
         from capreolus_tpu_torch.ops.maxsim import maxsim_scores
 
         corpus = self._doc_tensors()
-        n = corpus[0].shape[1]
+        qmode = self._qmode()
+        n = corpus[0].shape[1] if qmode == "none" else corpus[0].shape[0]
         hits = min(int(hits), n)
+        if qmode == "none":
+            def topk(q_emb, docs_t, bias_t, valid):
+                return topk_lower_ordinal_first(maxsim_scores(q_emb, docs_t, bias_t, valid), hits)
 
-        def topk(q_emb, docs_t, bias_t, valid):
-            return topk_lower_ordinal_first(maxsim_scores(q_emb, docs_t, bias_t, valid), hits)
+            return topk, corpus, n
 
-        return topk, corpus, n
+        rescore = int(self.config["rescore"] or 0) if qmode == "int4" else 0
+        engine_hits = min(max(rescore, hits), n) if rescore else hits
+
+        def topk(q_emb, docs, mask, dscale):
+            return topk_lower_ordinal_first(quantized_maxsim_scores(q_emb, docs, mask, dscale), engine_hits)
+
+        return (self._rescore_wrap(topk, n, hits) if rescore else topk), corpus, n
+
+    def _rescore_wrap(self, base_topk, n, hits):
+        """Two-stage int4 MaxSim (the JAX ``_rescore_wrap``): the packed
+        engine's candidates are re-scored at full precision from the
+        memory-mapped f16 doc-embedding cache (per query: f32 [Lq, dim] x [dim,
+        r*Ld] on the query's device, masked max, sum), and the top ``hits`` of
+        those scores come back, ties in the engine's candidate order."""
+        cache_fn = self._doc_cache_file()
+        emb_mm = np.load(cache_fn, mmap_mode="r")
+        mask_mm = np.load(self._mask_for(cache_fn), mmap_mode="r")
+
+        def topk(q_emb, *corpus):
+            s, o = base_topk(q_emb, *corpus)
+            valid = torch.isfinite(s) & (o < n)
+            safe = torch.where(valid, o, 0).cpu().numpy()
+            qf = q_emb.float()
+            exact = torch.full(s.shape, float("-inf"), device=s.device)
+            for qi in range(o.shape[0]):
+                cand = torch.from_numpy(emb_mm[safe[qi]]).to(qf.device).float()  # [r, Ld, dim]
+                cmask = torch.from_numpy(np.asarray(mask_mm[safe[qi]]) > 0).to(qf.device)
+                r, ld, dim = cand.shape
+                sim = qf[qi] @ cand.reshape(r * ld, dim).T  # [Lq, r*Ld]
+                sim = torch.where(cmask.reshape(1, r * ld), sim, MASKED_BIAS)
+                per_tok = sim.reshape(-1, r, ld).amax(dim=-1)  # [Lq, r]
+                exact[qi] = torch.where(valid[qi], per_tok.sum(dim=0), float("-inf"))
+            values, order = torch.sort(exact, dim=1, descending=True, stable=True)
+            k = min(hits, exact.shape[1])
+            return values[:, :k], torch.gather(o, 1, order[:, :k])
+
+        return topk
 
     def _search_all(self, topicsfn, output_path):
         from capreolus_tpu_torch.searcher.tpu import _load_topics_tsv

@@ -8,9 +8,10 @@
 
 Services run on ``device="cuda"`` unless the caller passes another device; a
 CUDA request without a card raises. The rerank stage serves KNRM (through K1)
-and BERTMaxP (through K2 in every encoder layer); ``ColbertRetrievalService``
-serves ColBERT late-interaction retrieval (K2 in the query encoder, K3 for
-MaxSim). Not ported yet: ``shards``, ``refresh``, ``snippets``, the dense /
+and BERTMaxP (through K2 in every encoder layer, and X1 in every projection
+and FFN matmul with ``quantize=int8``); ``ColbertRetrievalService`` serves
+ColBERT late-interaction retrieval (K2 in the query encoder, K3 for MaxSim, or
+X1 over an int8 / int4 corpus). Not ported yet: ``shards``, ``refresh``, ``snippets``, the dense /
 impact / hybrid services and the HTTP front end.
 """
 
@@ -117,7 +118,10 @@ class RerankingService(RetrievalService):
     over bertpassage features, one batch of ``topn`` docs per query).
 
     ``checkpoint_path`` names the port's params file: the flat ``params/...``
-    npz written by ``convert.save_params``.
+    npz written by ``convert.save_params``. A BERT reranker with
+    ``quantize=int8`` calibrates its activation scales once, on the first
+    request's batch, before scoring it (the JAX ``_ensure_params``), unless
+    the checkpoint carries its ``quant_stats``, which are then used as they are.
     """
 
     def __init__(self, index, reranker, checkpoint_path, topn: int = 100, device=None, **kwargs):
@@ -139,8 +143,11 @@ class RerankingService(RetrievalService):
         self.extractor_seconds = time.perf_counter() - t0
         self.last_stage_ms = {}
         model = reranker.build_model()
-        model.load_state_dict(reranker.state_dict_from_params(load_params(checkpoint_path)))
+        flat = load_params(checkpoint_path)
+        model.load_state_dict(reranker.state_dict_from_params(flat))
         model.to(self.device).eval()  # in place: reranker.test runs reranker.model
+        self._calibrate_pending = (getattr(reranker, "quantized", False)
+                                   and not any(key.startswith("quant_stats/") for key in flat))
 
     def search_async(self, queries: Sequence[str], k: int = 10):
         """Two-stage dispatch/collect split: dispatch queues the first-stage
@@ -194,6 +201,9 @@ class RerankingService(RetrievalService):
             t0 = time.perf_counter()
             batch = self.rerank_batch(f"live{qi}", query, docids)
             features_s += time.perf_counter() - t0
+            if self._calibrate_pending:
+                self.reranker.prepare_inference(batch, self.device)
+                self._calibrate_pending = False
             with torch.inference_mode():
                 scores = self.reranker.test(batch, self.device).cpu().numpy()
             reranked = sorted(zip(docids, map(float, scores)), key=lambda kv: -kv[1])
@@ -290,7 +300,10 @@ class _EmbeddingRetrievalService:
 
 class ColbertRetrievalService(_EmbeddingRetrievalService):
     """Low-latency late-interaction (ColBERT MaxSim) serving over
-    ``searcher/late_interaction.py``'s exact resident engine, MaxSim through K3.
+    ``searcher/late_interaction.py``'s exact resident engine: MaxSim through
+    K3 over a bf16 corpus, or through X1 over an int8 / int4 corpus
+    (``quantize``), whose tuple (codes, mask, scales) the engine takes in place
+    of (docs_t, bias_t, valid).
 
         svc = ColbertRetrievalService.from_config(collection="dummy", allowrandominit=True)
         hits = svc.search(["distant galaxies"], k=10)              # on "cuda"

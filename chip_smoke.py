@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: drives retrieve-then-rerank serving on
-one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width, then
-ColBERT late-interaction serving at BERT-base width, and holds every kernel
-against its plain PyTorch version.
+one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width (f32, then
+int8), then ColBERT late-interaction serving at BERT-base width (a bf16 corpus,
+then int8 and int4 corpora), and holds every kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py            # needs one CUDA device; builds the kernels
 
@@ -25,6 +26,15 @@ printed only when every phase passed):
    tokens, and at a small ragged shape with a fully masked doc: -inf docs
    equal, max |err| <= 1e-4, with the bf16 product alone (one
    ``torch.matmul``) timed beside it, since no PyTorch call computes MaxSim;
+   X1 (``int8_matmul``) against ``int8_matmul_plain`` at the served int8 shapes
+   (monoBERT's [409,600 x 768] x [768 -> 768], [768 -> 3072] and
+   [409,600 x 3072] x [3072 -> 768], compared exactly on the first 8,192 rows;
+   ColBERT's products as the quantized engine chunks the served corpus, for one
+   query [32 x 128] x [3,600,000 -> 128] and for 64 queries [2,048 x 128] x
+   [65,520 -> 128] and its last chunk [61,920 -> 128], compared exactly in
+   full), and at small ragged shapes with -128 (one misaligned), exactly, with
+   ``torch._int_mm`` timed beside it as the library yardstick (never called on
+   the path);
 4. KNRM serving: a seeded synthetic TREC corpus (20k docs of 200-1200 words),
    the port's index and a ``RerankingService(device="cuda")`` with KNRM at its
    published width (random300 embeddings, maxqlen 4, maxdoclen 800, 11 RBF
@@ -39,6 +49,17 @@ printed only when every phase passed):
    request; K2 timed on a served request's layer-0 inputs; the GPU scores of
    query 0's two top first-stage candidates against the same reranker on the
    CPU, max |err| <= 1e-3;
+5b. monoBERT int8 serving: the same corpus, caches and checkpoint with
+   ``quantize=int8``: one warm-up request, which calibrates the GELU scales on
+   its batch, then the 4 queries with 72 X1 launches (q, k, v, output,
+   intermediate, ffn_output in 12 layers) and 12 K2 launches each; one
+   profiled request; query 0's two top candidates on the GPU against the
+   port's int8 path on the CPU with the same stats, layer by layer from the
+   card's input to each layer (max |err| <= 5e-2: a code on a rounding
+   boundary can flip by one step between devices) and the head from the card's
+   last layer (<= 1e-3); the end-to-end GPU-vs-CPU gap, the card's own gap
+   when its embeddings move by 1e-7, and the int8-vs-f32 score gap and top-10
+   overlap of query 0 are reported;
 6. ColBERT serving: the same corpus, fresh caches, ``ColbertRetrievalService``
    on "cuda" at the searcher's defaults (BERT-base encoder with seeded
    N(0, 0.02) weights and projection to dim 128 from an .npz checkpoint,
@@ -49,6 +70,14 @@ printed only when every phase passed):
    scored by K3 and by the plain version on the same device corpus (equal
    top-100 ordinals but for near-ties), and its served top 10 against the CPU
    encoder with plain MaxSim, max |err| <= 1e-2;
+6b. ColBERT int8 / int4 serving: the same doc-embedding cache with
+   ``quantize=int8``: set-up (quantization, upload), one warm-up request, the 8
+   single queries and the 64-query batch with their X1 and K2 launches; one
+   profiled request; query 0's top 10 against the CPU encoder with the port's
+   int8 scoring of those docs, max |err| <= 1e-2; then ``quantize=int4`` with
+   ``rescore`` 200: query 0's top 10 equals the ``quantize=none`` top 10 of
+   phase 6 but for near-ties (two docs that trade places score within 1e-2 of
+   each other in both lists);
 7. a ``kernels`` JSON line, then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
@@ -90,13 +119,28 @@ COLBERT = {"dim": 128, "maxqlen": 32, "maxdoclen": 180, "hits": 1000, "batch": 6
 COLBERT_QUERIES = 8  # served single-query ColBERT requests after the warm-up request
 MASKED_BIAS = -1e9  # bias of a masked doc token, as the searcher uploads it
 
-# HBM bandwidth (bytes/s), f32 non-tensor-core peak and dense bf16 tensor-core
-# peak (FLOP/s) by card name, from NVIDIA's data sheets (dense rates, full power)
+X1_BERT_SERVED = (  # (label, M, K, N) of the int8 products of a served monoBERT request
+    ("qkv_out", 409600, 768, 768),       # 1600 passages x 256 tokens: q, k, v and output projections
+    ("intermediate", 409600, 768, 3072),  # the FFN up-projection
+    ("ffn_output", 409600, 3072, 768),    # the FFN down-projection
+)
+X1_CHECK_ROWS = 8192  # rows of each served product compared with the plain version
+INT8_LAYER_TOL = 5e-2  # an int8 BERT-base layer, GPU vs CPU from the same input: a code
+# on a rounding boundary can flip by one step between the devices; a 1e-7 move of the
+# input moved such a layer's output by 9.5e-3 where the f32 layer's moved by 1.4e-6
+# (tests/test_torch_int8.py::test_int8_layer_is_a_step_function_of_its_input); a wiring
+# fault moves outputs by their own size, about 1 after LayerNorm
+X1_PER_REQUEST = 72  # q, k, v, output, intermediate, ffn_output in each of 12 layers
+COLBERT_RESCORE = 200  # the searcher's default int4 rescore depth
+
+# HBM bandwidth (bytes/s), f32 non-tensor-core peak, dense bf16 tensor-core
+# peak (FLOP/s) and dense int8 tensor-core peak (OP/s) by card name, from
+# NVIDIA's data sheets (dense rates, full power)
 CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100", 3.35e12, 67e12, 989e12),
-    ("H200", 4.8e12, 67e12, 989e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12, 1513e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12, 1671e12),
+    ("H100", 3.35e12, 67e12, 989e12, 1979e12),
+    ("H200", 4.8e12, 67e12, 989e12, 1979e12),
 )
 
 
@@ -110,10 +154,11 @@ def check(cond, msg):
 
 
 def card_peaks(name):
-    """{"bw": bytes/s, torch.float32: FLOP/s, torch.bfloat16: FLOP/s} of the card."""
-    for key, bw, f32, bf16 in CARD_PEAKS:
+    """{"bw": bytes/s, torch.float32: FLOP/s, torch.bfloat16: FLOP/s, torch.int8:
+    OP/s} of the card."""
+    for key, bw, f32, bf16, int8 in CARD_PEAKS:
         if key in name:
-            return {"bw": bw, torch.float32: f32, torch.bfloat16: bf16}
+            return {"bw": bw, torch.float32: f32, torch.bfloat16: bf16, torch.int8: int8}
     raise SmokeFailure(f"no bandwidth/peak entry for card {name!r}; add it to CARD_PEAKS")
 
 
@@ -483,15 +528,12 @@ def phase_serving(workdir, num_docs, ckpt_seed):
         cpu = svc_cpu.search([query], k=10)[0]
         gpu = gpu_results[qi]
         check(len(cpu) == len(gpu) and len(gpu) > 0, f"query {qi}: {len(gpu)} GPU hits vs {len(cpu)} CPU hits")
-        for rank, ((gd, gs), (cd, cs)) in enumerate(zip(gpu, cpu)):
-            check(np.isfinite(gs) and abs(gs - cs) <= ERR_TOL,
-                  f"query {qi} rank {rank}: GPU score {gs} vs CPU score {cs}")
-            # a different doc at a rank is allowed only for a near-tie swap
-            check(gd == cd or abs(gs - cs) <= ERR_TOL, f"query {qi} rank {rank}: {gd} vs {cd}")
-        cpu_scores = dict(cpu)
-        for gd, gs in gpu:
-            check(gd not in cpu_scores or abs(cpu_scores[gd] - gs) <= ERR_TOL,
-                  f"query {qi}: doc {gd} scores {gs} on the GPU and {cpu_scores.get(gd)} on the CPU")
+        check(all(np.isfinite(s) for _, s in gpu), f"query {qi}: a GPU score is not finite: {gpu}")
+        for rank, ((_, gs), (_, cs)) in enumerate(zip(gpu, cpu)):
+            check(abs(gs - cs) <= ERR_TOL, f"query {qi} rank {rank}: GPU score {gs} vs CPU score {cs}")
+        # a different doc at a rank is allowed only for a near-tie swap
+        faults = ranking_faults(gpu, cpu, ERR_TOL)
+        check(not faults, f"query {qi}: GPU vs CPU reranked top 10: {faults}")
     print(f"[4 serving] {len(queries)} queries: first stage identical on GPU and CPU; reranked "
           f"top-10 agree within {ERR_TOL} (top hit of query 0: {gpu_results[0][0]})")
     return launches, corpus_dir, topics
@@ -534,7 +576,9 @@ def seeded_bert_params(config, seed, std=0.02):
 
 def phase_bert_serving(workdir, corpus_dir, topics, peaks):
     """monoBERT-MaxP serving at BERT-base width; returns (K2 launches in the
-    served run, K2 on a served request's layer-0 inputs)."""
+    served run, K2 on a served request's layer-0 inputs, what the int8 phase
+    reuses: the checkpoint, query 0's served scores of all topn docs and the
+    served top 10s)."""
     from capreolus_tpu_torch.convert import load_params, save_params
     from capreolus_tpu_torch.core import constants
     from capreolus_tpu_torch.index import Index
@@ -633,7 +677,139 @@ def phase_bert_serving(workdir, corpus_dir, topics, peaks):
     print(f"{label} query 0's top-2 first-stage docs {docids[:2]}: GPU {gpu_two.tolist()} vs CPU "
           f"{cpu_two.tolist()} ({cpu_s:.1f} s on the CPU): max |err| {err:.3g} on the same batch, {err_served:.3g} "
           f"against the served 100-doc request (tolerance {BERT_CPU_TOL}); top hit of query 0: {results[0][0]}")
-    return launches, served
+    return launches, served, {"ckpt": ckpt, "scores0": served_scores, "results": results}
+
+
+def phase_bert_int8_serving(workdir, corpus_dir, topics, f32):
+    """monoBERT-MaxP with quantize=int8 over phase 5's corpus, caches and
+    checkpoint; returns the launches of X1 and K2 in the served run."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.ops.flash_attention import flash_attention
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.serving import RerankingService, RetrievalService
+
+    label = "[5b monobert int8]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")  # phase 5's index and extractor caches
+    coll = {"name": "dummy", "path": corpus_dir}
+    rr_cfg = {"pretrained": "bert-base-uncased", "allowrandominit": True, "quantize": "int8",
+              "extractor": {"index": {"collection": coll}}}
+    t0 = time.perf_counter()
+    index = Index.create("tpu", {"collection": coll})
+    index.create_index()
+    reranker = Reranker.create("BERTMaxP", rr_cfg)
+    svc = RerankingService(index, reranker, f32["ckpt"], topn=100, device="cuda")
+    torch.cuda.synchronize()
+    t_service = time.perf_counter() - t0
+    queries = topics[:BERT_QUERIES]
+    check(svc._calibrate_pending, "the int8 service has stats before its first request")
+    t0 = time.perf_counter()
+    svc.search(topics[BERT_QUERIES:BERT_QUERIES + 1], k=10)  # warm-up request: calibrates on its batch
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(not svc._calibrate_pending, "the first request did not calibrate the int8 scales")
+    model = svc.reranker.model
+    amax = torch.stack([getattr(model.bert, f"layer_{i}").gelu_amax for i in range(model.config.num_layers)])
+    check(bool((amax > 0).all()) and bool(torch.isfinite(amax).all()), "calibrated gelu_amax has zero or non-finite")
+    print(f"{label} set-up: service {t_service:.1f} s (phase 5's caches); warm-up request with calibration "
+          f"{warm_ms:.1f} ms; gelu_amax over 12 layers {float(amax.min()):.3f}-{float(amax.max()):.3f}")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    request_ms, rerank_ms, features_ms, results = [], [], [], []
+    for query in queries:
+        t0 = time.perf_counter()
+        results.append(svc.search([query], k=10)[0])
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        rerank_ms.append(svc.last_stage_ms["rerank"])
+        features_ms.append(svc.last_stage_ms["features"])
+    launches = {"int8_matmul": int8_matmul.launches, "flash_attention": flash_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label} per request (median of {len(queries)}): {np.median(request_ms):.2f} ms total, rerank "
+          f"{np.median(rerank_ms):.2f} ms, of which the host's features {np.median(features_ms):.2f} ms (each "
+          f"request: {', '.join(f'{t:.1f}' for t in request_ms)} ms); peak device memory of the served run "
+          f"{peak_gb:.1f} GB; launches in the run: int8_matmul {launches['int8_matmul']}, flash_attention "
+          f"{launches['flash_attention']}")
+    check(launches["int8_matmul"] == X1_PER_REQUEST * len(queries),
+          f"int8_matmul launched {launches['int8_matmul']} times for {len(queries)} queries (expected "
+          f"{X1_PER_REQUEST} per query)")
+    check(launches["flash_attention"] == model.config.num_layers * len(queries),
+          f"flash_attention launched {launches['flash_attention']} times in the int8 run")
+    check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results),
+          "a served int8 request did not return 10 finite scores")
+    profile_request(svc, queries[0], label)
+
+    # int8 against f32 on the same request: every reranked doc's score, and the top 10
+    int8_scores = dict(svc.search([queries[0]], k=svc.topn)[0])
+    gap = max(abs(int8_scores[d] - s) for d, s in f32["scores0"].items())
+    overlap = len({d for d, _ in results[0]} & {d for d, _ in f32["results"][0]})
+    spread = max(f32["scores0"].values()) - min(f32["scores0"].values())
+
+    # query 0's two top first-stage candidates, the card against the CPU with the same weights and
+    # stats. int8 makes each layer a step function of its input: where the two devices' f32
+    # LayerNorm, softmax and GELU round apart, a code on a rounding boundary flips by one step, and
+    # over 12 layers the flips add up (measured below: the card's own scores move about as much when
+    # the embeddings move by 1e-7). So the CPU runs each layer from the card's input to that layer.
+    hits = RetrievalService.search_async(svc, [queries[0]], k=svc.topn)()[0]
+    docids = [d for d, _ in hits[:2]]
+    batch = svc.rerank_batch("smoke_int8", queries[0], docids)
+    cpu_reranker = Reranker.create("BERTMaxP", rr_cfg)
+    cpu_model = cpu_reranker.build_model().eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    seq_len = batch["pos_bert_input"].shape[-1]
+    ids, seg, mask = (torch.from_numpy(batch[key].reshape(-1, seq_len)) for key in ("pos_bert_input", "pos_seg",
+                                                                                    "pos_mask"))
+    doc_mask = torch.from_numpy(batch["pos_mask"])
+
+    def doc_scores(scorer, rr, hidden):
+        raw = scorer.classifier(torch.tanh(scorer.bert.pooler(hidden[:, 0])).float())[:, 0]
+        return rr._head_scores(raw.reshape(doc_mask.shape[:2]), doc_mask.to(hidden.device))
+
+    def run_layers(hidden, keys):
+        for i in range(model.config.num_layers):
+            hidden = getattr(model.bert, f"layer_{i}")(hidden, keys)
+        return hidden
+
+    t0 = time.perf_counter()
+    layer_err = []
+    with torch.inference_mode():
+        gpu_two = svc.reranker.test(batch, svc.device).cpu().numpy()
+        keys = mask.bool().cuda()
+        hidden0 = model.bert.embed(ids.cuda(), seg.cuda())
+        hidden = hidden0
+        for i in range(model.config.num_layers):
+            out = getattr(model.bert, f"layer_{i}")(hidden, keys)
+            want = getattr(cpu_model.bert, f"layer_{i}")(hidden.cpu(), keys.cpu())
+            layer_err.append(float((out.cpu() - want).abs().max()))
+            hidden = out
+        head_two = doc_scores(cpu_model, cpu_reranker, hidden.cpu()).numpy()
+        cpu_two = cpu_reranker.test(batch, "cpu").numpy()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(9)
+        moved = hidden0 * (1 + 1e-7 * torch.randn(hidden0.shape, generator=gen, device="cuda"))
+        moved_two = doc_scores(model, svc.reranker, run_layers(moved, keys)).cpu().numpy()
+    cpu_s = time.perf_counter() - t0
+    err_head = float(np.abs(gpu_two - head_two).max())
+    err_e2e = float(np.abs(gpu_two - cpu_two).max())
+    moved_err = float(np.abs(gpu_two - moved_two).max())
+    check(max(layer_err) <= INT8_LAYER_TOL, f"int8 BERT-base layers, GPU vs CPU from the same input: max |err| "
+                                            f"per layer {layer_err}")
+    check(err_head <= BERT_CPU_TOL, f"int8 BERT-base scores of {docids} from the card's last hidden states: GPU "
+                                    f"{gpu_two} vs CPU head {head_two}")
+    print(f"{label} query 0's top-2 first-stage docs {docids}, GPU vs CPU ({cpu_s:.1f} s with the CPU): each layer "
+          f"from the card's input, max |err| {max(layer_err):.3g} (per layer {', '.join(f'{x:.2g}' for x in layer_err)};"
+          f" tolerance {INT8_LAYER_TOL}); scores from the card's last layer {err_head:.3g} (tolerance {BERT_CPU_TOL}); end to end GPU {gpu_two.tolist()} "
+          f"vs CPU {cpu_two.tolist()}: {err_e2e:.3g}, and the card's scores with the embeddings moved by 1e-7: "
+          f"{moved_err:.3g} (reported, not pinned)")
+    print(f"{label} int8 vs f32 on query 0's {len(f32['scores0'])} docs: max |gap| {gap:.4g} (f32 scores spread over "
+          f"{spread:.4g}), top-10 overlap {overlap}/10")
+    del svc, model, cpu_model, hidden, hidden0, moved
+    torch.cuda.empty_cache()
+    return launches, {"request_ms": float(np.median(request_ms)), "max_abs_err_layer": max(layer_err),
+                      "max_abs_err_head": err_head, "max_abs_err_end_to_end": err_e2e,
+                      "end_to_end_moved_1e-7": moved_err, "int8_f32_gap": gap, "top10_overlap_f32": overlap,
+                      "peak_gb": peak_gb}
 
 
 # ---------------------------------------------------------------- ColBERT and K3
@@ -736,13 +912,91 @@ def phase_k3_check(peaks):
     return out
 
 
+# ---------------------------------------------------------------- X1 (int8 GEMM)
+def x1_bound_ms(m, k, n, peaks):
+    """Least time for X1 at [M, K] x [N, K]^T: each int8 input read once and the
+    int32 output written once over the HBM rate, 2*M*N*K operations over the
+    dense int8 tensor-core peak. Returns (ms, "bytes" or "operations")."""
+    t_bytes = (m * k + n * k + 4.0 * m * n) / peaks["bw"]
+    t_ops = 2.0 * m * n * k / peaks[torch.int8]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def x1_served_shapes():
+    """(label, M, K, N) of every int8 product on the served paths: monoBERT's,
+    and ColBERT's as the quantized engine chunks the served corpus
+    (``quantized_chunk_docs``) for one query and for a 64-query batch, a last,
+    shorter chunk included where the docs do not fill it."""
+    from capreolus_tpu_torch.searcher.late_interaction import quantized_chunk_docs
+
+    lq, ld, dim = COLBERT["maxqlen"], COLBERT["maxdoclen"], COLBERT["dim"]
+    shapes = list(X1_BERT_SERVED)
+    for nq in (1, 64):
+        step = min(quantized_chunk_docs(nq, lq, ld), SERVING_DOCS)
+        shapes.append((f"colbert_q{nq}", nq * lq, dim, step * ld))
+        if SERVING_DOCS % step:
+            shapes.append((f"colbert_q{nq}_last", nq * lq, dim, SERVING_DOCS % step * ld))
+    return shapes
+
+
+def phase_x1_check(peaks):
+    """X1 at the served shapes on seeded int8 codes over the full range, exact
+    against the plain version on the first X1_CHECK_ROWS rows (all rows of the
+    ColBERT products), and at small ragged shapes with -128 (one operand
+    misaligned), exact everywhere."""
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    out = {}
+    for label, m, k, n in x1_served_shapes():
+        a, w = codes(m, k), codes(n, k)
+        a[0], w[0] = -128, -128
+        got = int8_matmul(a, w)
+        rows = min(m, X1_CHECK_ROWS)
+        exact = torch.equal(got[:rows], int8_matmul_plain(a[:rows], w))
+        torch.cuda.synchronize()
+        check(exact, f"X1 {label} [{m} x {k}] x [{n} x {k}]^T: kernel differs from plain on the first {rows} rows")
+        check(int(got[0, 0]) == 128 * 128 * k, f"X1 {label}: the -128 x -128 row sums to {int(got[0, 0])}")
+        del got
+        wt = w.t()  # torch._int_mm takes [K, N]: w's transposed view, the layout cuBLASLt's IMMA prefers
+        r = {"shape": f"M={m} K={k} N={n}", "max_abs_err": 0,
+             "ms": cuda_ms(lambda: int8_matmul(a, w), rounds=5, calls=4),
+             "plain_ms": cuda_ms(lambda: int8_matmul_plain(a, w), rounds=3, calls=1),
+             "library_ms": cuda_ms(lambda: torch._int_mm(a, wt), rounds=5, calls=4)}
+        r["bound_ms"], r["bound_by"] = x1_bound_ms(m, k, n, peaks)
+        out[label] = r
+        print(f"[3 kernel] int8_matmul {label} {r['shape']}: exact on {rows} rows; {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.3f}, torch._int_mm {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+        del a, w, wt
+        torch.cuda.empty_cache()
+
+    for m, k, n in ((37, 45, 29), (130, 64, 257), (5, 300, 7)):
+        a, w = codes(m, k), codes(n, k)
+        a[0, ::2], w[0] = -128, -128
+        if m == 130:  # an operand one byte off a 16-byte boundary takes the byte loads
+            shifted = torch.empty(a.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(a.shape)
+            a = shifted.copy_(a)
+        got, want = int8_matmul(a, w), int8_matmul_plain(a, w)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"X1 small [{m} x {k}] x [{n} x {k}]^T: kernel differs from plain")
+    print("[3 kernel] int8_matmul small ragged shapes [37 x 45] x [29 x 45]^T, [130 x 64] x [257 x 64]^T "
+          "(misaligned), [5 x 300] x [7 x 300]^T, with -128: exact")
+    return out
+
+
 def reset_launch_counts():
     """Every kernel's launch count to 0, just before a path is driven."""
     from capreolus_tpu_torch.ops.flash_attention import flash_attention
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
     from capreolus_tpu_torch.ops.maxsim import maxsim
     from capreolus_tpu_torch.ops.simmat import knrm_pool
 
-    knrm_pool.launches = flash_attention.launches = maxsim.launches = 0
+    knrm_pool.launches = flash_attention.launches = maxsim.launches = int8_matmul.launches = 0
 
 
 def colbert_params(config, dim, seed):
@@ -869,10 +1123,142 @@ def phase_colbert_serving(workdir, corpus_dir, topics, peaks):
     served["request_ms"] = float(np.median(request_ms))
     del svc, corpus, q0, q64
     torch.cuda.empty_cache()
-    return launches, served
+    return launches, served, {"ckpt": ckpt, "top10": results[0], "batch": batch}
+
+
+def colbert_x1_launches(n_queries, n_docs):
+    """X1 launches of one quantized query batch: one per chunk of docs."""
+    from capreolus_tpu_torch.searcher.late_interaction import quantized_chunk_docs
+
+    return -(-n_docs // quantized_chunk_docs(n_queries, COLBERT["maxqlen"], COLBERT["maxdoclen"]))
+
+
+def ranking_faults(a_hits, b_hits, tol):
+    """Where two (docid, score) rankings of the same query part beyond
+    near-ties, as messages (none when they agree): each doc in both lists
+    scores within ``tol`` in both, and where the lists hold different docs at a
+    rank, the two docs tie within ``tol`` in each list (a doc missing from the
+    other list, past its cut, takes its own score there)."""
+    a_of, b_of = dict(a_hits), dict(b_hits)
+    faults = [f"{d}: {a_of[d]} vs {b_of[d]}" for d in a_of if d in b_of and abs(a_of[d] - b_of[d]) > tol]
+    for rank, ((da, sa), (db, sb)) in enumerate(zip(a_hits, b_hits)):
+        if da != db and (abs(b_of.get(da, sa) - sb) > tol or abs(a_of.get(db, sb) - sa) > tol):
+            faults.append(f"rank {rank}: {da} {sa} vs {db} {sb}, not a near-tie")
+    return faults
+
+
+def phase_colbert_int8_serving(workdir, corpus_dir, topics, none):
+    """ColBERT over phase 6's doc-embedding cache with quantize=int8, then one
+    int4 + rescore query; returns the X1 launches of each run and numbers."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.ops.flash_attention import flash_attention
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+    from capreolus_tpu_torch.reranker.colbert import ColBERTModel
+    from capreolus_tpu_torch.convert import bert_state_dict, load_params
+    from capreolus_tpu_torch.searcher import Searcher
+    from capreolus_tpu_torch.searcher.late_interaction import quantized_maxsim_scores
+    from capreolus_tpu_torch.serving import ColbertRetrievalService
+
+    label = "[6b colbert int8]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")  # phase 6's doc-embedding cache
+    config = get_bert_config("bert-base-uncased")
+    cfg = {**COLBERT, "pretrained": "bert-base-uncased", "allowrandominit": True, "checkpointfile": none["ckpt"],
+           "index": {"collection": {"name": "dummy", "path": corpus_dir}}}
+    searcher = Searcher.create("colbert", {**cfg, "quantize": "int8"})
+    t0 = time.perf_counter()
+    svc = ColbertRetrievalService(searcher, max_k=100, device="cuda")
+    torch.cuda.synchronize()
+    t_service = time.perf_counter() - t0
+    corpus = svc._corpus
+    n_docs = corpus[0].shape[0]
+    check(n_docs == SERVING_DOCS, f"the int8 corpus holds {n_docs} docs; phase 3 checked X1 at {SERVING_DOCS}")
+    corpus_gb = sum(t.numel() * t.element_size() for t in corpus) / 1e9
+    setup = searcher.setup_seconds
+    print(f"{label} set-up: service {t_service:.1f} s, of which encoding {setup['encode']:.1f} s (0: phase 6's "
+          f"cache), quantization on the host {setup['quantize']:.1f} s, upload {setup['upload']:.2f} s; resident "
+          f"corpus {corpus_gb:.3f} GB (codes {tuple(corpus[0].shape)} int8, mask, per-doc scales)")
+
+    queries = topics[:COLBERT_QUERIES]
+    svc.search(topics[COLBERT_QUERIES:COLBERT_QUERIES + 1], k=10)  # warm-up request
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    request_ms, results = [], []
+    for query in queries:
+        t0 = time.perf_counter()
+        results.append(svc.search([query], k=10)[0])
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    batch_results = svc.search(none["batch"], k=10)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"int8_matmul": int8_matmul.launches, "flash_attention": flash_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = len(queries) * colbert_x1_launches(1, n_docs) + colbert_x1_launches(len(none["batch"]), n_docs)
+    print(f"{label} per request (median of {len(queries)}): {np.median(request_ms):.2f} ms (spread "
+          f"{min(request_ms):.2f}-{max(request_ms):.2f}); one {len(none['batch'])}-query batch {batch_ms:.2f} ms; "
+          f"peak device memory of the served run {peak_gb:.2f} GB; launches in the run: int8_matmul "
+          f"{launches['int8_matmul']} (one per chunk of docs), flash_attention {launches['flash_attention']}")
+    check(launches["int8_matmul"] == want, f"int8_matmul launched {launches['int8_matmul']} times, expected {want}")
+    check(launches["flash_attention"] == config.num_layers * (len(queries) + 1),
+          f"flash_attention launched {launches['flash_attention']} times in the int8 ColBERT run")
+    check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results + batch_results),
+          "a served int8 ColBERT request did not return 10 finite scores")
+    profile_request(svc, queries[0], label)
+
+    # query 0's top 10 against the CPU: the port's encoder and int8 scoring of those docs
+    ordinal = {d: i for i, d in enumerate(searcher.index.data.docid_strings)}
+    docids = [d for d, _ in results[0]]
+    rows = torch.tensor([ordinal[d] for d in docids], device="cuda")
+    cpu_model = ColBERTModel(config, dim=COLBERT["dim"])
+    cpu_model.load_state_dict(bert_state_dict(load_params(none["ckpt"])))
+    with torch.inference_mode():
+        cq, _ = cpu_model.eval().encode_query(torch.from_numpy(searcher._tokenize(queries[:1], COLBERT["maxqlen"])))
+    cpu_scores = quantized_maxsim_scores(cq, *(t[rows].cpu() for t in corpus))[0].numpy()
+    served = dict(results[0])
+    err_cpu = float(max(abs(served[d] - float(s)) for d, s in zip(docids, cpu_scores)))
+    check(err_cpu <= COLBERT_CPU_TOL, f"int8 query 0's top 10: served {[served[d] for d in docids]} vs CPU "
+                                      f"{cpu_scores.tolist()}")
+    overlap = len(set(docids) & {d for d, _ in none["top10"]})
+    print(f"{label} query 0's served top 10 vs the CPU encoder + int8 scoring: max |err| {err_cpu:.3g} (tolerance "
+          f"{COLBERT_CPU_TOL}); top-10 overlap with quantize=none {overlap}/10")
+    del svc, corpus, rows
+    torch.cuda.empty_cache()
+
+    # int4 with rescore: the packed engine's candidates re-scored at full precision
+    searcher4 = Searcher.create("colbert", {**cfg, "quantize": "int4", "rescore": COLBERT_RESCORE})
+    t0 = time.perf_counter()
+    svc4 = ColbertRetrievalService(searcher4, max_k=100, device="cuda")
+    torch.cuda.synchronize()
+    t_service4 = time.perf_counter() - t0
+    corpus4_gb = sum(t.numel() * t.element_size() for t in svc4._corpus) / 1e9
+    svc4.search(queries[1:2], k=10)  # warm-up request
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    top4 = svc4.search(queries[:1], k=10)[0]
+    torch.cuda.synchronize()
+    int4_ms = (time.perf_counter() - t0) * 1e3
+    launches["int8_matmul_int4"] = int8_matmul.launches
+    check(launches["int8_matmul_int4"] == colbert_x1_launches(1, n_docs),
+          f"int4: int8_matmul launched {launches['int8_matmul_int4']} times for one query")
+    check(len(top4) == 10, f"int4 + rescore returned {len(top4)} hits")
+    faults = ranking_faults(top4, none["top10"], COLBERT_CPU_TOL)
+    check(not faults, f"int4 + rescore top 10 vs quantize=none: {faults}")
+    swaps = sum(d4 != dn for (d4, _), (dn, _) in zip(top4, none["top10"]))
+    err4 = max(abs(s4 - sn) for (_, s4), (_, sn) in zip(top4, none["top10"]))
+    print(f"{label} int4 + rescore {COLBERT_RESCORE}: service {t_service4:.1f} s (quantization "
+          f"{searcher4.setup_seconds['quantize']:.1f} s), corpus {corpus4_gb:.3f} GB; query 0 {int4_ms:.2f} ms with "
+          f"{launches['int8_matmul_int4']} int8_matmul launch(es); its top 10 vs quantize=none: {swaps} rank(s) hold "
+          f"another doc at a near-tie, max |score diff| {err4:.3g} (tolerance {COLBERT_CPU_TOL})")
+    del svc4
+    torch.cuda.empty_cache()
+    return launches, {"request_ms": float(np.median(request_ms)), "batch_ms": batch_ms, "max_abs_err_cpu": err_cpu,
+                      "top10_overlap_none": overlap, "int4_rescore_ms": int4_ms, "int4_swaps": swaps}
 
 
 def main():
+    t_start = time.perf_counter()
     name = phase_device()
     peaks = card_peaks(name)
     workdir = tempfile.mkdtemp(prefix="capreolus_tpu_torch_smoke_")
@@ -883,9 +1269,12 @@ def main():
         k1 = phase_k1_check(peaks)
         k2 = phase_k2_check(peaks)
         k3 = phase_k3_check(peaks)
+        x1 = phase_x1_check(peaks)
         k1_launches, corpus_dir, topics = phase_serving(workdir, SERVING_DOCS, ckpt_seed=3)
-        k2_launches, k2_served = phase_bert_serving(workdir, corpus_dir, topics, peaks)
-        colbert_launches, k3_served = phase_colbert_serving(workdir, corpus_dir, topics, peaks)
+        k2_launches, k2_served, f32 = phase_bert_serving(workdir, corpus_dir, topics, peaks)
+        bert_int8_launches, bert_int8 = phase_bert_int8_serving(workdir, corpus_dir, topics, f32)
+        colbert_launches, k3_served, none = phase_colbert_serving(workdir, corpus_dir, topics, peaks)
+        colbert_int8_launches, colbert_int8 = phase_colbert_int8_serving(workdir, corpus_dir, topics, none)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -914,9 +1303,13 @@ def main():
         "replaces": "capreolus_tpu/ops/flash_attention.py:47",
         "tpu": "capreolus_tpu/ops/flash_attention.py::_flash_kernel",
         "shape": k2_served["shape"] + " f32, layer-0 inputs of a served request",
-        "launches": k2_launches + colbert_launches["flash_attention"],  # monoBERT's run, then ColBERT's
+        # the runs of monoBERT f32 and int8, then ColBERT's over the bf16 and int8 corpora
+        "launches": (k2_launches + bert_int8_launches["flash_attention"] + colbert_launches["flash_attention"]
+                     + colbert_int8_launches["flash_attention"]),
         "launches_monobert": k2_launches,
+        "launches_monobert_int8": bert_int8_launches["flash_attention"],
         "launches_colbert": colbert_launches["flash_attention"],
+        "launches_colbert_int8": colbert_int8_launches["flash_attention"],
         "max_abs_err": k2_served["max_abs_err"],
         "max_abs_err_small": k2["max_abs_err_small"],
         "max_abs_err_bf16": k2["max_abs_err_bf16"],
@@ -948,7 +1341,30 @@ def main():
         "product_gemm_ms": k3_served["q1"]["product_gemm_ms"],  # the bf16 [Q*Lq, dim] x [dim, C*Ld] product alone
         "batch_64": {key: k3_served["q64"][key] for key in k3_fields},
         "synthetic": {nq: {key: k3[nq][key] for key in k3_fields} for nq in ("q1", "q64")},
+    }, {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "capreolus_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "scripts/exp_pallas_int8.py:46, scripts/exp_pallas_int8b.py:32",
+        "tpu": "scripts/exp_pallas_int8.py::matmul_kernel (X1), scripts/exp_pallas_int8b.py::matmul_kernel (X2)",
+        "shape": x1["intermediate"]["shape"] + ", the served FFN up-projection",
+        # monoBERT int8's run, then ColBERT's int8 run and its int4 + rescore query
+        "launches": (bert_int8_launches["int8_matmul"] + colbert_int8_launches["int8_matmul"]
+                     + colbert_int8_launches["int8_matmul_int4"]),
+        "launches_monobert_int8": bert_int8_launches["int8_matmul"],
+        "launches_colbert_int8": colbert_int8_launches["int8_matmul"],
+        "launches_colbert_int4": colbert_int8_launches["int8_matmul_int4"],
+        "max_abs_err": max(r["max_abs_err"] for r in x1.values()),
+        "ms": x1["intermediate"]["ms"],
+        "plain_ms": x1["intermediate"]["plain_ms"],
+        "bound_ms": x1["intermediate"]["bound_ms"],
+        "bound_by": x1["intermediate"]["bound_by"],
+        "library_ms": x1["intermediate"]["library_ms"],  # torch._int_mm (cuBLASLt), same codes
+        "served_shapes": x1,
+        "monobert_int8": bert_int8,
+        "colbert_int8": colbert_int8,
     }]
+    print(f"[7 done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

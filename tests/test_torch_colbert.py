@@ -365,7 +365,7 @@ def test_checkpoint_without_linear_raises(torch_cache):
 
 
 @pytest.mark.parametrize("options,match", [
-    ({"quantize": "int8"}, "not ported"), ({"quantize": "int4"}, "not ported"),
+    ({"quantize": "int8", "shards": 2}, "not ported"), ({"quantize": "int4", "prefilter": 2}, "exact engine only"),
     ({"prefilter": 2}, "not ported"), ({"shards": 2}, "not ported"),
     ({"quantize": "fp4"}, "must be 'none'"), ({"prefilter": 2, "shards": 2}, "single-device"),
     ({"dim": 0}, "must be positive"),

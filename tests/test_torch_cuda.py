@@ -14,7 +14,19 @@ against its plain version at 1e-4 (relative and absolute; equal bf16 inputs,
 exact f32 products, the sums in another order), with invalid docs at -inf in
 both; ColBERT served on the card agrees with the CPU within 1e-2, the JAX
 suite's tolerance for bf16 MaxSim sums (embeddings that differ by f32 rounding
-can round to neighbouring bf16 values).
+can round to neighbouring bf16 values). X1 equals its plain version and int64
+products exactly. Tiny BERTMaxP with ``quantize=int8`` served on the card is
+held against the CPU with the card's weights and calibrated stats layer by
+layer, each layer from the card's input to it: an int8 layer is a step
+function of its input, so a code on a rounding boundary can flip by one step
+between the devices. A layer's outputs agree within 1e-1, and at most 5% of
+them differ by more than 1e-4: where the input of a tiny layer moves by 1e-7
+on the CPU, its outputs move by up to 5.3e-2, 1.1% of them by more than 1e-4
+(six seeds, ``tests/test_torch_int8.py``), while a wiring fault moves nearly
+every output by about 1. The head from the card's last hidden states agrees
+within 1e-4, as do the served scores. ColBERT over int8 / int4 corpora agrees
+within 1e-2. Rankings agree docid by docid but for near-ties: two docs that
+trade places score within the tolerance of each other in both lists.
 """
 
 import numpy as np
@@ -30,6 +42,26 @@ from capreolus_tpu_torch.reranker.common import KNRM_MUS, KNRM_SIGMAS
 
 capreolus_tpu_torch.load_all_modules()
 TOL = 2e-4
+INT8_LAYER_TOL = 1e-1  # a tiny int8 BERT layer, card vs CPU from the same input: max |err|
+INT8_LAYER_MOVED_SHARE = 5e-2  # and the share of its outputs that differ by more than 1e-4
+
+
+def assert_same_ranking(a_hits, b_hits, tol, what=""):
+    """Two (docid, score) rankings of one query agree: the same length, the
+    scores at each rank within ``tol``, every doc in both lists within ``tol``
+    of itself, and the same docid at each rank but for near-ties: where the
+    lists hold different docs at a rank, the two docs score within ``tol`` of
+    each other in each list (a doc missing from the other list, past its cut,
+    takes its own score there)."""
+    assert len(a_hits) == len(b_hits), (what, a_hits, b_hits)
+    a_of, b_of = dict(a_hits), dict(b_hits)
+    for d in a_of.keys() & b_of.keys():
+        assert abs(a_of[d] - b_of[d]) <= tol, (what, d, a_of[d], b_of[d])
+    for rank, ((da, sa), (db, sb)) in enumerate(zip(a_hits, b_hits)):
+        assert abs(sa - sb) <= tol, (what, rank, a_hits, b_hits)
+        if da != db:
+            assert abs(b_of.get(da, sa) - sb) <= tol and abs(a_of.get(db, sb) - sa) <= tol, \
+                (what, f"rank {rank}: {da} and {db} are not a near-tie", a_hits, b_hits)
 
 
 @pytest.fixture
@@ -189,7 +221,7 @@ def seeded_bert_params(model, seed, std):
     LayerNorm scales."""
     rng = np.random.Generator(np.random.PCG64(seed))
     flat = {}
-    for name, tensor in model.state_dict().items():
+    for name, tensor in model.named_parameters():  # an int8 model's gelu_amax buffers are not params
         *path, leaf = name.split(".")
         module = model.get_submodule(".".join(path))
         if isinstance(module, torch.nn.LayerNorm):
@@ -307,6 +339,62 @@ def test_k3_wrapper_rejects_what_the_kernel_does_not_take(card):
         ms.maxsim(q, offset, bias_t, valid)
 
 
+def _x1_args(m, n, k, seed, device):
+    """a [M, K] and w [N, K] int8 over the full range, with -128 and 127 in
+    row 0 of each, so that the extreme products are exercised."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    a = rng.integers(-128, 128, size=(m, k), dtype=np.int8)
+    w = rng.integers(-128, 128, size=(n, k), dtype=np.int8)
+    a[0, ::2], w[0, ::2] = -128, -128
+    a[0, 1::2], w[0, 1::2] = 127, -128
+    return torch.from_numpy(a).to(device), torch.from_numpy(w).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1), (37, 29, 45), (130, 257, 64), (5, 7, 300), (64, 64, 4112),
+    (300, 3072, 768),   # a slice of the served up-projection
+    (257, 768, 3072),   # the served down-projection, M off the tile
+    (32, 46080, 128),   # the ColBERT product of one query against 256 docs of 180 tokens
+])
+def test_x1_kernel_matches_plain_exactly(card, shape):
+    from capreolus_tpu_torch.ops import int8_matmul as im
+
+    a, w = _x1_args(*shape, seed=sum(shape), device=card)
+    before = im.int8_matmul.launches
+    got = im.int8_matmul(a, w)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.launches == before + 1 and got.dtype == torch.int32 and got.shape == shape[:2]
+    want = a.cpu().to(torch.int64) @ w.cpu().to(torch.int64).T
+    assert torch.equal(got.cpu().to(torch.int64), want)
+    assert torch.equal(im.int8_matmul_plain(a, w), got)
+    assert torch.equal(im.int8_mm(a, w), got)
+
+
+@pytest.mark.cuda
+def test_x1_kernel_takes_misaligned_operands(card):
+    from capreolus_tpu_torch.ops import int8_matmul as im
+
+    a, w = _x1_args(70, 40, 96, seed=5, device=card)
+    offset = torch.empty(a.numel() + 1, dtype=torch.int8, device=card)[1:].view(a.shape)
+    offset.copy_(a)
+    assert torch.equal(im.int8_matmul(offset, w), im.int8_matmul_plain(a, w))
+
+
+@pytest.mark.cuda
+def test_x1_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from capreolus_tpu_torch.ops import int8_matmul as im
+
+    a, w = _x1_args(16, 8, 32, seed=6, device=card)
+    for bad in ((a.float(), w), (a, w.to(torch.uint8)), (a.cpu(), w), (a, w.cpu()), (a, w[:, :16].contiguous()),
+                (a[0], w), (a.T.contiguous().T, w), (a, w.T.contiguous().T)):
+        with pytest.raises(ValueError):
+            im.int8_matmul(*bad)
+    with pytest.raises(ValueError):  # K above 2**17 - 1 could overflow int32
+        im.int8_matmul(torch.zeros((1, 1 << 17), dtype=torch.int8, device=card),
+                       torch.zeros((1, 1 << 17), dtype=torch.int8, device=card))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("collection", ["dummy", "corpus"])
 def test_colbert_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch, collection):
@@ -329,9 +417,83 @@ def test_colbert_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch, co
     assert ms.maxsim.launches == before + 2  # two query batches of at most 4
     assert fa.flash_attention.launches == before_k2 + 2 * 2  # tiny: 2 layers per query batch
     for g, c in zip(gpu_hits, services["cpu"].search(queries, k=20)):
-        assert len(g) == len(c) > 0
-        for (gd, gs), (cd, cs) in zip(g, c):
-            assert abs(gs - cs) <= 1e-2
-            assert gd == cd or abs(gs - cs) <= 1e-2  # a different doc only at a near-tie
-        cpu_scores = dict(c)
-        assert all(abs(cpu_scores[d] - s) <= 1e-2 for d, s in g if d in cpu_scores)
+        assert len(g) > 0
+        assert_same_ranking(g, c, 1e-2)
+
+
+@pytest.mark.cuda
+def test_int8_bert_reranking_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch):
+    from capreolus_tpu_torch.convert import save_params
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.ops import int8_matmul as im
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.serving import RerankingService
+
+    monkeypatch.setitem(constants, "CACHE_BASE_PATH", tmp_path / "cache")
+    coll = _write_corpus(tmp_path / "corpus", np.random.Generator(np.random.PCG64(6)))
+    cfg = {"pretrained": "tiny", "quantize": "int8", "extractor": {
+        "maxseqlen": 128, "maxqlen": 8, "numpassages": 4, "passagelen": 100, "stride": 80, "index": {"collection": coll}}}
+    gpu_reranker = Reranker.create("BERTMaxP", cfg)
+    ckpt = save_params(seeded_bert_params(gpu_reranker.build_model(), seed=8, std=0.2), tmp_path / "bert.npz")
+    index = Index.create("tpu", {"collection": coll})
+    gpu = RerankingService(index, gpu_reranker, ckpt, topn=50, device=card)
+    queries = ["w1 w7 w30", "w2 w250", "w399 w5 w6 w8"]
+
+    before, before_k2 = im.int8_matmul.launches, fa.flash_attention.launches
+    gpu_hits = gpu.search(queries, k=20)
+    # tiny: 2 layers x 6 int8 products, one batch per query, plus the first request's calibration pass
+    assert im.int8_matmul.launches == before + 12 * (len(queries) + 1)
+    assert fa.flash_attention.launches == before_k2 + 2 * (len(queries) + 1)
+    assert all(len(hits) == 20 and all(np.isfinite(s) for _, s in hits) for hits in gpu_hits)
+
+    # query 0's top 8 on the CPU with the card's weights and calibrated stats: each layer from the
+    # card's input to that layer, then the head from the card's last hidden states
+    model = gpu.reranker.model
+    cpu_reranker = Reranker.create("BERTMaxP", cfg)
+    cpu_model = cpu_reranker.build_model().eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    docids = [d for d, _ in gpu_hits[0][:8]]
+    batch = gpu.rerank_batch("q0", queries[0], docids)
+    seq_len = batch["pos_bert_input"].shape[-1]
+    ids, seg, mask = (torch.from_numpy(batch[key].reshape(-1, seq_len)) for key in ("pos_bert_input", "pos_seg",
+                                                                                    "pos_mask"))
+    doc_mask = torch.from_numpy(batch["pos_mask"])
+    with torch.inference_mode():
+        keys = mask.bool()
+        hidden = model.bert.embed(ids.to(card), seg.to(card))
+        for i in range(2):
+            out = getattr(model.bert, f"layer_{i}")(hidden, keys.to(card))
+            err = (out.cpu() - getattr(cpu_model.bert, f"layer_{i}")(hidden.cpu(), keys)).abs()
+            moved = float((err > 1e-4).float().mean())
+            assert float(err.max()) <= INT8_LAYER_TOL and moved <= INT8_LAYER_MOVED_SHARE, (i, float(err.max()), moved)
+            hidden = out
+        raw = cpu_model.classifier(torch.tanh(cpu_model.bert.pooler(hidden.cpu()[:, 0])))[:, 0]
+        head = cpu_reranker._head_scores(raw.reshape(doc_mask.shape[:2]), doc_mask).numpy()
+        gpu_scores = gpu.reranker.test(batch, card).cpu().numpy()
+    np.testing.assert_allclose(gpu_scores, head, rtol=1e-4, atol=1e-4)
+    # the served request's scores of those docs: per-token quantization makes them independent of the batch
+    served = dict(gpu_hits[0])
+    np.testing.assert_allclose([served[d] for d in docids], gpu_scores, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", ["int8", "int4"])
+def test_quantized_colbert_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch, quantize):
+    from capreolus_tpu_torch.ops import int8_matmul as im
+    from capreolus_tpu_torch.serving import ColbertRetrievalService
+
+    path = _write_corpus(tmp_path / "corpus", np.random.Generator(np.random.PCG64(7)), min_len=20, max_len=300)
+    queries = ["w1 w7 w30", "w2 w250", "w399 w5 w6 w8", "w11", "w3 w4"]
+    config = {"allowrandominit": True, "dim": 8, "maxdoclen": 32, "maxqlen": 8, "batch": 4, "max_k": 20,
+              "quantize": quantize, "rescore": 40}
+    services = {}
+    for name, device in (("gpu", card), ("cpu", "cpu")):
+        monkeypatch.setitem(constants, "CACHE_BASE_PATH", tmp_path / f"cache_{name}")
+        services[name] = ColbertRetrievalService.from_config(collection="dummy", collection_path=path["path"],
+                                                             device=device, **config)
+    before, before_k3 = im.int8_matmul.launches, ms.maxsim.launches
+    gpu_hits = services["gpu"].search(queries, k=20)
+    assert im.int8_matmul.launches == before + 2 and ms.maxsim.launches == before_k3  # one chunk per query batch
+    for g, c in zip(gpu_hits, services["cpu"].search(queries, k=20)):
+        assert len(g) > 0
+        assert_same_ranking(g, c, 1e-2)

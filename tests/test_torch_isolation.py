@@ -53,7 +53,8 @@ def test_importing_every_port_module_loads_no_jax():
             "capreolus_tpu_torch.reranker.bert.encoder", "capreolus_tpu_torch.extractor.bertpassage",
             "capreolus_tpu_torch.tokenizer.wordpiece", "capreolus_tpu_torch.ops.maxsim",
             "capreolus_tpu_torch.reranker.colbert", "capreolus_tpu_torch.searcher.late_interaction",
-            "capreolus_tpu_torch.utils.caching"} <= set(out["imported"])
+            "capreolus_tpu_torch.utils.caching", "capreolus_tpu_torch.ops.int8_matmul",
+            "capreolus_tpu_torch.ops.quantization"} <= set(out["imported"])
     loaded = set(out["after"]) - set(out["before"])
     assert not sorted(m for m in loaded if is_forbidden(m))
     # absent altogether, unless the interpreter's own start-up had loaded it
