@@ -25,7 +25,7 @@ logger = get_logger(__name__)
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "capreolus_tpu_torch"
 KERNEL_SOURCES = {"knrm_pool": "knrm_pool.cu", "flash_attention": "flash_attention.cu", "maxsim": "maxsim.cu",
-                  "int8_matmul": "int8_matmul.cu"}
+                  "int8_matmul": "int8_matmul.cu", "quantize_per_token": "quantize_per_token.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,6 +43,16 @@ def nvcc_path() -> str:
     if found is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA kernels are built at first use")
     return found
+
+
+def on_card(t, what: str) -> bool:
+    """How a dispatcher routes ``t``: True for a CUDA tensor (the kernel),
+    False for a CPU tensor (the plain version); ValueError on any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {t.device}")
 
 
 def library_path(name: str) -> Path:

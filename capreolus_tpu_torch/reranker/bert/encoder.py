@@ -11,12 +11,17 @@ so that a flattened JAX param tree maps onto the ``state_dict`` name by name
 The port computes in f32 with f32 LayerNorm statistics (eps 1e-12) and, by
 default, the tanh GELU, as the JAX encoder does at its default dtype. With
 ``quantize="int8"`` (inference only) every projection and both FFN matmuls are
-``Int8Linear``: int8 x int8 -> int32 products through
-``ops.int8_matmul.int8_mm`` (X1 on CUDA tensors), dequantized to f32; attention
-itself stays f32 through K2. Not in this slice: ``MoeFFN``, ``LoRAAdapter``,
-``remat``, dropout and other dtypes; the rerankers refuse the options that
-select them. Module init draws the embeddings from N(0, 0.02) and leaves the
-linear layers at torch's default; served weights come from a checkpoint.
+``Int8Linear``: per-token int8 quantization (Q1 on CUDA tensors,
+``ops.quantization.quantize_tokens``), then an int8 x int8 product whose
+epilogue dequantizes to f32 (``ops.int8_matmul.int8_linear_mm``) or, for the
+FFN's up-projection outside calibration, applies GELU and requantizes to the
+down-projection's int8 codes (``int8_linear_gelu_mm``); on CUDA tensors both
+are epilogues of X1, so no int32 or f32 [tokens, intermediate] tensor reaches
+device memory. Attention itself stays f32 through K2. Not in this slice:
+``MoeFFN``, ``LoRAAdapter``, ``remat``, dropout and other dtypes; the
+rerankers refuse the options that select them. Module init draws the
+embeddings from N(0, 0.02) and leaves the linear layers at torch's default;
+served weights come from a checkpoint.
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from capreolus_tpu_torch.ops import int8_matmul as x1
 from capreolus_tpu_torch.ops.flash_attention import multihead_attention
-from capreolus_tpu_torch.ops.int8_matmul import int8_mm
+from capreolus_tpu_torch.ops.quantization import quantize_tokens as _quantize_per_token
 from capreolus_tpu_torch.utils.loginit import get_logger
 
 logger = get_logger(__name__)
@@ -83,17 +89,6 @@ def get_bert_config(name: str) -> BertConfig:
     return KNOWN_CONFIGS.get(name, BertConfig())
 
 
-def _quantize_per_token(x):
-    """Dynamic per-token int8 quantization (the JAX ``_quantize_per_token``):
-    returns (int8 codes, f32 scales [..., 1]) with scale
-    ``max(amax(|x|), 1e-6) / 127`` over the last axis and codes
-    ``round(x / scale)`` (half to even) clipped to [-127, 127]."""
-    xf = x.float()
-    xs = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
-    xq = torch.round(xf / xs).clamp_(-127, 127).to(torch.int8)
-    return xq, xs
-
-
 class Int8Linear(nn.Linear):
     """``nn.Linear`` computed as an int8 x int8 -> int32 product (the JAX
     ``Int8Dense``), with ``nn.Linear``'s ``weight`` [out, in] and ``bias``, so
@@ -111,8 +106,9 @@ class Int8Linear(nn.Linear):
     ``forward(x)`` quantizes x per token; ``forward(None, x_pre=q,
     x_scales=s)`` takes a quantized input, with per-token scales [..., 1], or
     none when its scales are folded into the weight. The output is ``acc *
-    xs * ws + bias`` in f32, in that order, from the int32 product of
-    ``int8_mm`` (X1 on CUDA tensors)."""
+    xs * ws + bias`` in f32, in that order (``int8_linear_mm``: X1's f32
+    epilogue on CUDA tensors). ``gelu_codes`` returns, in place of that output,
+    its GELU's int8 codes at per-channel scales (``int8_linear_gelu_mm``)."""
 
     def __init__(self, in_features, out_features):
         super().__init__(in_features, out_features)
@@ -132,17 +128,25 @@ class Int8Linear(nn.Linear):
         super()._load_from_state_dict(*args, **kwargs)
         self.weight_q = self.weight_scale = None  # quantized again at the next forward
 
-    def forward(self, x, x_pre=None, x_scales=None):
+    def _operands(self, x, x_pre, x_scales):
+        """(codes [tokens, in], scales [tokens] or None, leading shape)."""
         if x_pre is None:
             x_pre, x_scales = _quantize_per_token(x)
         if self.weight_q is None:
             self.quantize_weight()
-        lead = x_pre.shape[:-1]
-        out = int8_mm(x_pre.reshape(-1, x_pre.shape[-1]), self.weight_q).view(*lead, -1).float()
-        if x_scales is not None:
-            out.mul_(x_scales)
-        # in place: at served shapes each f32 [tokens, out] temporary is up to 5 GB
-        return out.mul_(self.weight_scale).add_(self.bias)
+        xs = None if x_scales is None else x_scales.reshape(-1)
+        return x_pre.reshape(-1, x_pre.shape[-1]), xs, x_pre.shape[:-1]
+
+    def forward(self, x, x_pre=None, x_scales=None):
+        a, xs, lead = self._operands(x, x_pre, x_scales)
+        return x1.int8_linear_mm(a, self.weight_q, self.weight_scale, self.bias, xs).view(*lead, -1)
+
+    def gelu_codes(self, x, out_scales, approximate):
+        """int8 codes of ``F.gelu(self(x), approximate)`` at per-output-channel
+        ``out_scales``: round half to even, clipped to [-127, 127]."""
+        a, xs, lead = self._operands(x, None, None)
+        codes = x1.int8_linear_gelu_mm(a, self.weight_q, self.weight_scale, self.bias, out_scales, xs, approximate)
+        return codes.view(*lead, -1)
 
 
 class BertSelfAttention(nn.Module):
@@ -182,7 +186,9 @@ class BertLayer(nn.Module):
     ``_int8_ffn``: int8 up-projection to f32, GELU, per-channel requantization
     with the ``gelu_amax`` buffer (the JAX ``quant_stats`` collection; 0 marks
     an uncalibrated channel, which takes amax = 8), and the down-projection with
-    those scales folded into its weight.
+    those scales folded into its weight. Outside calibration the up-projection
+    returns the requantized codes themselves (``Int8Linear.gelu_codes``); a
+    calibrating pass needs the f32 GELU output for its amax.
 
     The fold depends on ``gelu_amax``, so the layer requantizes ``ffn_output``
     whenever the stats change: when ``gelu_amax`` is assigned (calibration
@@ -230,14 +236,15 @@ class BertLayer(nn.Module):
         return torch.where(self.gelu_amax > 0, self.gelu_amax, 8.0) / 127.0
 
     def _int8_ffn(self, hidden, calibrate, approximate):
-        g = F.gelu(self.intermediate(hidden), approximate=approximate)
         if calibrate:
+            g = F.gelu(self.intermediate(hidden), approximate=approximate)
             # the running max over every position of the batch, pad positions included
             observed = g.reshape(-1, g.shape[-1]).abs().amax(dim=0)
             self.gelu_amax = torch.maximum(self.gelu_amax, observed)  # requantizes ffn_output
-        s = self.gelu_scales()
-        gq = torch.round(g / s).clamp_(-127, 127).to(torch.int8)
-        del g
+            gq = x1.requantize(g, self.gelu_scales())
+            del g
+        else:  # GELU and its requantization in the up-projection's epilogue
+            gq = self.intermediate.gelu_codes(hidden, self.gelu_scales(), approximate)
         if self.ffn_output.weight_q is None:  # a model whose weights never loaded
             self.requantize_ffn_output()
         return self.ffn_output(None, x_pre=gq)

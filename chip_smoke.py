@@ -26,15 +26,23 @@ printed only when every phase passed):
    tokens, and at a small ragged shape with a fully masked doc: -inf docs
    equal, max |err| <= 1e-4, with the bf16 product alone (one
    ``torch.matmul``) timed beside it, since no PyTorch call computes MaxSim;
-   X1 (``int8_matmul``) against ``int8_matmul_plain`` at the served int8 shapes
-   (monoBERT's [409,600 x 768] x [768 -> 768], [768 -> 3072] and
-   [409,600 x 3072] x [3072 -> 768], compared exactly on the first 8,192 rows;
-   ColBERT's products as the quantized engine chunks the served corpus, for one
-   query [32 x 128] x [3,600,000 -> 128] and for 64 queries [2,048 x 128] x
-   [65,520 -> 128] and its last chunk [61,920 -> 128], compared exactly in
-   full), and at small ragged shapes with -128 (one misaligned), exactly, with
-   ``torch._int_mm`` timed beside it as the library yardstick (never called on
-   the path);
+   X1 (``int8_matmul``, wgmma fed by TMA) at the served int8 shapes (monoBERT's
+   [409,600 x 768] x [768 -> 768], [768 -> 3072] and [409,600 x 3072] x
+   [3072 -> 768]; ColBERT's products as the quantized engine chunks the served
+   corpus, for one query [32 x 128] x [3,600,000 -> 128] and for 64 queries
+   [2,048 x 128] x [65,520 -> 128] and its last chunk [61,920 -> 128]): the
+   int32 epilogue at both tile widths exactly against ``int8_matmul_plain`` on
+   the first 8,192 rows (all rows of ColBERT's), at the BERT shapes the f32
+   epilogue bit-identical to ``int8_linear_plain`` and, at the up-projection,
+   the int8-gelu epilogue's codes within one step of ``int8_linear_gelu_plain``
+   at a share of at most 1e-4 (the count printed); at small ragged shapes (-128,
+   a misaligned operand, K off 16, M = 32, M and N off the tile) every epilogue
+   with the same checks, the zero-padded copies counted; each epilogue timed
+   at both tile widths beside its bound and its plain version, and
+   ``torch._int_mm`` timed as the library yardstick of the product (never
+   called on the path); Q1
+   (``quantize_per_token``) exactly against ``quantize_per_token_plain`` at
+   the served [409,600 x 768] and at ragged shapes, timed beside its bound;
 4. KNRM serving: a seeded synthetic TREC corpus (20k docs of 200-1200 words),
    the port's index and a ``RerankingService(device="cuda")`` with KNRM at its
    published width (random300 embeddings, maxqlen 4, maxdoclen 800, 11 RBF
@@ -52,8 +60,10 @@ printed only when every phase passed):
 5b. monoBERT int8 serving: the same corpus, caches and checkpoint with
    ``quantize=int8``: one warm-up request, which calibrates the GELU scales on
    its batch, then the 4 queries with 72 X1 launches (q, k, v, output,
-   intermediate, ffn_output in 12 layers) and 12 K2 launches each; one
-   profiled request; query 0's two top candidates on the GPU against the
+   intermediate, ffn_output in 12 layers: 60 in the f32 epilogue, 12 in the
+   int8-gelu one), 36 Q1 launches (three per layer), no zero-padded copy and
+   12 K2 launches each, and the run's peak device memory; one profiled
+   request; query 0's two top candidates on the GPU against the
    port's int8 path on the CPU with the same stats, layer by layer from the
    card's input to each layer (max |err| <= 5e-2: a code on a rounding
    boundary can flip by one step between devices) and the head from the card's
@@ -72,9 +82,10 @@ printed only when every phase passed):
    encoder with plain MaxSim, max |err| <= 1e-2;
 6b. ColBERT int8 / int4 serving: the same doc-embedding cache with
    ``quantize=int8``: set-up (quantization, upload), one warm-up request, the 8
-   single queries and the 64-query batch with their X1 and K2 launches; one
-   profiled request; query 0's top 10 against the CPU encoder with the port's
-   int8 scoring of those docs, max |err| <= 1e-2; then ``quantize=int4`` with
+   single queries and the 64-query batch with their X1 launches (all in the
+   int32 epilogue) and K2 launches; one profiled request; query 0's top 10
+   against the CPU encoder with the port's int8 scoring of those docs, max
+   |err| <= 1e-2; then ``quantize=int4`` with
    ``rescore`` 200: query 0's top 10 equals the ``quantize=none`` top 10 of
    phase 6 but for near-ties (two docs that trade places score within 1e-2 of
    each other in both lists);
@@ -131,6 +142,11 @@ INT8_LAYER_TOL = 5e-2  # an int8 BERT-base layer, GPU vs CPU from the same input
 # (tests/test_torch_int8.py::test_int8_layer_is_a_step_function_of_its_input); a wiring
 # fault moves outputs by their own size, about 1 after LayerNorm
 X1_PER_REQUEST = 72  # q, k, v, output, intermediate, ffn_output in each of 12 layers
+X1_MODES_PER_REQUEST = {"int32": 0, "f32": 60, "int8_gelu": 12}  # the up-projections in the GELU epilogue
+Q1_PER_REQUEST = 36  # the input of q/k/v, of the output projection and of the up-projection, per layer
+GELU_FLIP_SHARE = 1e-4  # int8-gelu codes that may differ by one step from the plain version's:
+# the kernel's tanhf and torch's can round apart where a value sits on a code boundary
+PR4_INT8_PEAK_GB = 18.2  # peak device memory of a served int8 monoBERT run before the fused epilogues
 COLBERT_RESCORE = 200  # the searcher's default int4 rescore depth
 
 # HBM bandwidth (bytes/s), f32 non-tensor-core peak, dense bf16 tensor-core
@@ -682,11 +698,13 @@ def phase_bert_serving(workdir, corpus_dir, topics, peaks):
 
 def phase_bert_int8_serving(workdir, corpus_dir, topics, f32):
     """monoBERT-MaxP with quantize=int8 over phase 5's corpus, caches and
-    checkpoint; returns the launches of X1 and K2 in the served run."""
+    checkpoint; returns the launches of X1 (by epilogue mode), Q1 and K2 in
+    the served run."""
     from capreolus_tpu_torch.core import constants
     from capreolus_tpu_torch.index import Index
     from capreolus_tpu_torch.ops.flash_attention import flash_attention
     from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
+    from capreolus_tpu_torch.ops.quantization import quantize_per_token
     from capreolus_tpu_torch.reranker import Reranker
     from capreolus_tpu_torch.serving import RerankingService, RetrievalService
 
@@ -724,16 +742,27 @@ def phase_bert_int8_serving(workdir, corpus_dir, topics, f32):
         request_ms.append((time.perf_counter() - t0) * 1e3)
         rerank_ms.append(svc.last_stage_ms["rerank"])
         features_ms.append(svc.last_stage_ms["features"])
-    launches = {"int8_matmul": int8_matmul.launches, "flash_attention": flash_attention.launches}
+    launches = {"int8_matmul": int8_matmul.launches, "flash_attention": flash_attention.launches,
+                "int8_matmul_modes": dict(int8_matmul.mode_launches), "quantize_per_token": quantize_per_token.launches,
+                "pad_copies": int8_matmul.pad_copies}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{label} per request (median of {len(queries)}): {np.median(request_ms):.2f} ms total, rerank "
           f"{np.median(rerank_ms):.2f} ms, of which the host's features {np.median(features_ms):.2f} ms (each "
           f"request: {', '.join(f'{t:.1f}' for t in request_ms)} ms); peak device memory of the served run "
-          f"{peak_gb:.1f} GB; launches in the run: int8_matmul {launches['int8_matmul']}, flash_attention "
-          f"{launches['flash_attention']}")
+          f"{peak_gb:.2f} GB ({PR4_INT8_PEAK_GB} GB before the fused epilogues); launches in the run: int8_matmul "
+          f"{launches['int8_matmul']} (by epilogue {launches['int8_matmul_modes']}), quantize_per_token "
+          f"{launches['quantize_per_token']}, flash_attention {launches['flash_attention']}; zero-padded copies "
+          f"{launches['pad_copies']}")
     check(launches["int8_matmul"] == X1_PER_REQUEST * len(queries),
           f"int8_matmul launched {launches['int8_matmul']} times for {len(queries)} queries (expected "
           f"{X1_PER_REQUEST} per query)")
+    want_modes = {mode: n * len(queries) for mode, n in X1_MODES_PER_REQUEST.items()}
+    check(launches["int8_matmul_modes"] == want_modes,
+          f"int8_matmul epilogue modes {launches['int8_matmul_modes']}, expected {want_modes}")
+    check(launches["quantize_per_token"] == Q1_PER_REQUEST * len(queries),
+          f"quantize_per_token launched {launches['quantize_per_token']} times for {len(queries)} queries "
+          f"(expected {Q1_PER_REQUEST} per query)")
+    check(launches["pad_copies"] == 0, f"{launches['pad_copies']} zero-padded operand copies on the served path")
     check(launches["flash_attention"] == model.config.num_layers * len(queries),
           f"flash_attention launched {launches['flash_attention']} times in the int8 run")
     check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results),
@@ -913,13 +942,38 @@ def phase_k3_check(peaks):
 
 
 # ---------------------------------------------------------------- X1 (int8 GEMM)
-def x1_bound_ms(m, k, n, peaks):
-    """Least time for X1 at [M, K] x [N, K]^T: each int8 input read once and the
-    int32 output written once over the HBM rate, 2*M*N*K operations over the
-    dense int8 tensor-core peak. Returns (ms, "bytes" or "operations")."""
-    t_bytes = (m * k + n * k + 4.0 * m * n) / peaks["bw"]
-    t_ops = 2.0 * m * n * k / peaks[torch.int8]
+X1_EPILOGUE_OPS = {"int32": 0, "f32": 3, "int8_gelu": 12}  # f32 operations per output: the
+# dequantization's two products and sum; for int8-gelu those, 8 of the tanh GELU and the division
+X1_OUT_BYTES = {"int32": 4, "f32": 4, "int8_gelu": 1}
+
+
+def x1_bound_ms(m, k, n, peaks, mode="int32"):
+    """Least time for X1 at [M, K] x [N, K]^T in an epilogue mode: each int8
+    input read once, the output written once (4 bytes in int32 and f32 mode, 1
+    in int8-gelu) and the epilogue's vectors read once (x_scales [M], w_scales
+    and bias [N], and out_scales [N] in int8-gelu) over the HBM rate; 2*M*N*K
+    operations over the dense int8 tensor-core peak, and the epilogue's f32
+    operations over the f32 peak. Returns (ms, "bytes" or "operations")."""
+    vectors = {"int32": 0, "f32": 4.0 * m + 8.0 * n, "int8_gelu": 4.0 * m + 12.0 * n}[mode]
+    t_bytes = (m * k + n * k + X1_OUT_BYTES[mode] * m * n + vectors) / peaks["bw"]
+    t_ops = max(2.0 * m * n * k / peaks[torch.int8], X1_EPILOGUE_OPS[mode] * m * n / peaks[torch.float32])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def x1_vectors(m, n, gen):
+    """x_scales [M], w_scales, bias and GELU out_scales [N] at the magnitudes of
+    a served BERT-base layer: int32 products of about 1e5 dequantize to a few
+    units, and the GELU codes spread over the int8 range."""
+    return {"x_scales": torch.rand(m, generator=gen, device="cuda") * 0.04 + 0.01,
+            "w_scales": torch.rand(n, generator=gen, device="cuda") * 8e-4 + 2e-4,
+            "bias": torch.randn(n, generator=gen, device="cuda") * 0.1,
+            "out_scales": (torch.rand(n, generator=gen, device="cuda") * 8 + 2) / 127}
+
+
+def gelu_flips(got, want):
+    """(largest code difference, codes that differ) between two int8 tensors."""
+    diff = (got.int() - want.int()).abs()
+    return int(diff.max()), int((diff > 0).sum())
 
 
 def x1_served_shapes():
@@ -940,11 +994,14 @@ def x1_served_shapes():
 
 
 def phase_x1_check(peaks):
-    """X1 at the served shapes on seeded int8 codes over the full range, exact
-    against the plain version on the first X1_CHECK_ROWS rows (all rows of the
-    ColBERT products), and at small ragged shapes with -128 (one operand
-    misaligned), exact everywhere."""
-    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    """X1 at the served shapes on seeded int8 codes over the full range: the
+    int32 epilogue exactly against the plain version on the first
+    X1_CHECK_ROWS rows (all rows of the ColBERT products) at both tile widths;
+    at the BERT shapes the f32 epilogue bit-identical and, at the
+    up-projection, the int8-gelu codes within one step; every epilogue at small
+    ragged shapes. Returns {label: numbers}."""
+    from capreolus_tpu_torch.ops.int8_matmul import (TILE_N, int8_linear, int8_linear_gelu, int8_linear_gelu_plain,
+                                                     int8_linear_plain, int8_matmul, int8_matmul_plain)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
@@ -956,36 +1013,145 @@ def phase_x1_check(peaks):
     for label, m, k, n in x1_served_shapes():
         a, w = codes(m, k), codes(n, k)
         a[0], w[0] = -128, -128
-        got = int8_matmul(a, w)
         rows = min(m, X1_CHECK_ROWS)
-        exact = torch.equal(got[:rows], int8_matmul_plain(a[:rows], w))
-        torch.cuda.synchronize()
-        check(exact, f"X1 {label} [{m} x {k}] x [{n} x {k}]^T: kernel differs from plain on the first {rows} rows")
-        check(int(got[0, 0]) == 128 * 128 * k, f"X1 {label}: the -128 x -128 row sums to {int(got[0, 0])}")
-        del got
+        want = int8_matmul_plain(a[:rows], w)
+        for tile_n in (128, 256):
+            got = int8_matmul(a, w, tile_n=tile_n)
+            exact = torch.equal(got[:rows], want)
+            torch.cuda.synchronize()
+            check(exact, f"X1 {label} [{m} x {k}] x [{n} x {k}]^T, tile {tile_n}: int32 differs from plain on the "
+                         f"first {rows} rows")
+            check(int(got[0, 0]) == 128 * 128 * k, f"X1 {label}: the -128 x -128 row sums to {int(got[0, 0])}")
+            del got
+        del want
         wt = w.t()  # torch._int_mm takes [K, N]: w's transposed view, the layout cuBLASLt's IMMA prefers
-        r = {"shape": f"M={m} K={k} N={n}", "max_abs_err": 0,
-             "ms": cuda_ms(lambda: int8_matmul(a, w), rounds=5, calls=4),
+        r = {"shape": f"M={m} K={k} N={n}", "max_abs_err": 0, "tile_n": TILE_N["int32"],
+             "ms_tile_128": cuda_ms(lambda: int8_matmul(a, w, tile_n=128), rounds=5, calls=4),
+             "ms_tile_256": cuda_ms(lambda: int8_matmul(a, w, tile_n=256), rounds=5, calls=4),
              "plain_ms": cuda_ms(lambda: int8_matmul_plain(a, w), rounds=3, calls=1),
              "library_ms": cuda_ms(lambda: torch._int_mm(a, wt), rounds=5, calls=4)}
+        r["ms"] = r[f"ms_tile_{TILE_N['int32']}"]
         r["bound_ms"], r["bound_by"] = x1_bound_ms(m, k, n, peaks)
+        print(f"[3 kernel] int8_matmul int32 {label} {r['shape']}: exact on {rows} rows at both tiles; {r['ms']:.4f} ms "
+              f"(tile 128 {r['ms_tile_128']:.4f}, 256 {r['ms_tile_256']:.4f}; plain {r['plain_ms']:.3f}, "
+              f"torch._int_mm {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+        if label in {served[0] for served in X1_BERT_SERVED}:
+            vec = x1_vectors(m, n, gen)
+            f32_args = (a, w, vec["w_scales"], vec["bias"], vec["x_scales"])
+            got = int8_linear(*f32_args)
+            same = torch.equal(got[:rows], int8_linear_plain(a[:rows], *f32_args[1:4], vec["x_scales"][:rows]))
+            torch.cuda.synchronize()
+            check(same, f"X1 {label}: the f32 epilogue is not bit-identical to plain on the first {rows} rows")
+            del got
+            f32 = {"max_abs_err": 0.0, "tile_n": TILE_N["f32"],
+                   "plain_ms": cuda_ms(lambda: int8_linear_plain(*f32_args), rounds=3, calls=1),
+                   "library_ms": None}  # no single PyTorch call computes the fused dequantization
+            for tile_n in (128, 256):
+                f32[f"ms_tile_{tile_n}"] = cuda_ms(lambda: int8_linear(*f32_args, tile_n=tile_n), rounds=5, calls=4)
+            f32["ms"] = f32[f"ms_tile_{TILE_N['f32']}"]
+            f32["bound_ms"], f32["bound_by"] = x1_bound_ms(m, k, n, peaks, "f32")
+            r["f32"] = f32
+            line = (f"[3 kernel] int8_matmul f32 epilogue {label}: bit-identical on {rows} rows; {f32['ms']:.4f} ms "
+                    f"(tile 128 {f32['ms_tile_128']:.4f}, 256 {f32['ms_tile_256']:.4f}; plain {f32['plain_ms']:.3f}, "
+                    f"bound {f32['bound_ms']:.4f} by {f32['bound_by']})")
+            if label == "intermediate":
+                gelu_args = (a, w, vec["w_scales"], vec["bias"], vec["out_scales"], vec["x_scales"], "tanh")
+                got = int8_linear_gelu(*gelu_args)
+                step, flips = gelu_flips(got[:rows], int8_linear_gelu_plain(a[:rows], *gelu_args[1:5],
+                                                                            vec["x_scales"][:rows], "tanh"))
+                check(step <= 1 and flips <= GELU_FLIP_SHARE * rows * n,
+                      f"X1 {label}: int8-gelu codes differ from plain by up to {step} in {flips} of {rows * n}")
+                del got
+                gelu = {"max_code_step": step, "codes_differing": flips, "codes_compared": rows * n,
+                        "tile_n": TILE_N["int8_gelu"],
+                        "plain_ms": cuda_ms(lambda: int8_linear_gelu_plain(*gelu_args), rounds=3, calls=1),
+                        "library_ms": None}  # no single PyTorch call computes GELU's requantization
+                for tile_n in (128, 256):
+                    gelu[f"ms_tile_{tile_n}"] = cuda_ms(lambda: int8_linear_gelu(*gelu_args, tile_n=tile_n),
+                                                        rounds=5, calls=4)
+                gelu["ms"] = gelu[f"ms_tile_{TILE_N['int8_gelu']}"]
+                gelu["bound_ms"], gelu["bound_by"] = x1_bound_ms(m, k, n, peaks, "int8_gelu")
+                r["int8_gelu"] = gelu
+                line += (f"; int8-gelu (tanh) epilogue: {flips} of {rows * n} codes differ by one step, "
+                         f"{gelu['ms']:.4f} ms (tile 128 {gelu['ms_tile_128']:.4f}, 256 {gelu['ms_tile_256']:.4f}; "
+                         f"plain {gelu['plain_ms']:.3f}, bound {gelu['bound_ms']:.4f} by {gelu['bound_by']})")
+            print(line)
+            del vec, f32_args
         out[label] = r
-        print(f"[3 kernel] int8_matmul {label} {r['shape']}: exact on {rows} rows; {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.3f}, torch._int_mm {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
         del a, w, wt
         torch.cuda.empty_cache()
 
-    for m, k, n in ((37, 45, 29), (130, 64, 257), (5, 300, 7)):
+    # small ragged shapes: every epilogue, both tiles, both GELU forms
+    pads = 0
+    for m, k, n, misaligned in ((37, 45, 29, False), (130, 64, 257, True), (5, 300, 7, False), (32, 128, 300, False),
+                                (129, 3072, 200, False), (1, 16, 1, False)):
         a, w = codes(m, k), codes(n, k)
         a[0, ::2], w[0] = -128, -128
-        if m == 130:  # an operand one byte off a 16-byte boundary takes the byte loads
+        if misaligned:  # an operand one byte off a 16-byte boundary takes a zero-padded copy
             shifted = torch.empty(a.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(a.shape)
             a = shifted.copy_(a)
-        got, want = int8_matmul(a, w), int8_matmul_plain(a, w)
+        vec = x1_vectors(m, n, gen)
+        before = int8_matmul.pad_copies
+        for tile_n in (128, 256):
+            check(torch.equal(int8_matmul(a, w, tile_n=tile_n), int8_matmul_plain(a, w)),
+                  f"X1 small [{m} x {k}] x [{n} x {k}]^T, tile {tile_n}: int32 differs from plain")
+            for xs in (vec["x_scales"], None):
+                args = (a, w, vec["w_scales"], vec["bias"], xs)
+                check(torch.equal(int8_linear(*args, tile_n=tile_n), int8_linear_plain(*args)),
+                      f"X1 small [{m} x {k}] x [{n} x {k}]^T, tile {tile_n}: f32 differs from plain")
+            for approximate in ("tanh", "none"):
+                args = (a, w, vec["w_scales"], vec["bias"], vec["out_scales"], vec["x_scales"], approximate)
+                step, _ = gelu_flips(int8_linear_gelu(*args, tile_n=tile_n), int8_linear_gelu_plain(*args))
+                check(step <= 1, f"X1 small [{m} x {k}] x [{n} x {k}]^T: {approximate} GELU codes {step} steps off")
+        copies = int8_matmul.pad_copies - before
+        want_copies = 2 * 2 * 5 * (k % 16 != 0) + 2 * 5 * (misaligned and k % 16 == 0)
+        check(copies == want_copies, f"X1 small [{m} x {k}]: {copies} zero-padded copies, expected {want_copies}")
+        pads += copies
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"X1 small [{m} x {k}] x [{n} x {k}]^T: kernel differs from plain")
-    print("[3 kernel] int8_matmul small ragged shapes [37 x 45] x [29 x 45]^T, [130 x 64] x [257 x 64]^T "
-          "(misaligned), [5 x 300] x [7 x 300]^T, with -128: exact")
+    print(f"[3 kernel] int8_matmul small ragged shapes [37 x 45] x [29 x 45]^T, [130 x 64] x [257 x 64]^T "
+          f"(misaligned), [5 x 300] x [7 x 300]^T, [32 x 128] x [300 x 128]^T, [129 x 3072] x [200 x 3072]^T, "
+          f"[1 x 16] x [1 x 16]^T, with -128, both tiles: int32 exact, f32 bit-identical with and without x_scales, "
+          f"tanh and erf GELU codes within one step; {pads} zero-padded copies, as expected")
+    return out
+
+
+def q1_bound_ms(m, k, peaks):
+    """Least time for Q1 at [M, K]: the f32 input read once, the int8 codes and
+    the f32 scales written once, over the HBM rate; 4 f32 operations per value
+    (abs, max, division, rounding) over the f32 peak. Returns (ms, "bytes" or
+    "operations")."""
+    t_bytes = (5.0 * m * k + 4.0 * m) / peaks["bw"]
+    t_ops = 4.0 * m * k / peaks[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_q1_check(peaks):
+    """Q1 exactly against its plain version at the served [409,600 x 768]
+    (N(0, 9) values, an all-zero token) and at ragged shapes (K off 4, K above
+    the register path's 1024, a 3-D input)."""
+    from capreolus_tpu_torch.ops.quantization import quantize_per_token, quantize_per_token_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    for shape in ((37, 45), (5, 3000), (3, 1028), (2, 16, 64), (1, 1)):
+        x = torch.randn(shape, generator=gen, device="cuda") * 3
+        (q, s), (wq, ws) = quantize_per_token(x), quantize_per_token_plain(x)
+        check(torch.equal(q, wq) and torch.equal(s, ws), f"Q1 {shape}: differs from plain")
+    m, k = X1_BERT_SERVED[0][1], X1_BERT_SERVED[0][2]
+    x = torch.randn(m, k, generator=gen, device="cuda") * 3
+    x[1] = 0.0
+    (q, s), (wq, ws) = quantize_per_token(x), quantize_per_token_plain(x)
+    torch.cuda.synchronize()
+    check(torch.equal(q, wq) and torch.equal(s, ws), f"Q1 [{m} x {k}]: differs from plain")
+    out = {"shape": f"M={m} K={k}", "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: quantize_per_token(x), rounds=5, calls=4),
+           "plain_ms": cuda_ms(lambda: quantize_per_token_plain(x), rounds=3, calls=2),
+           "library_ms": None}  # no single PyTorch call computes per-token quantization
+    out["bound_ms"], out["bound_by"] = q1_bound_ms(m, k, peaks)
+    print(f"[3 kernel] quantize_per_token {out['shape']}: codes and scales exact (and at 5 ragged shapes); "
+          f"{out['ms']:.4f} ms (plain {out['plain_ms']:.3f}, bound {out['bound_ms']:.4f} by {out['bound_by']})")
+    del x, q, s, wq, ws
+    torch.cuda.empty_cache()
     return out
 
 
@@ -994,9 +1160,12 @@ def reset_launch_counts():
     from capreolus_tpu_torch.ops.flash_attention import flash_attention
     from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
     from capreolus_tpu_torch.ops.maxsim import maxsim
+    from capreolus_tpu_torch.ops.quantization import quantize_per_token
     from capreolus_tpu_torch.ops.simmat import knrm_pool
 
     knrm_pool.launches = flash_attention.launches = maxsim.launches = int8_matmul.launches = 0
+    quantize_per_token.launches = int8_matmul.pad_copies = 0
+    int8_matmul.mode_launches = dict.fromkeys(int8_matmul.mode_launches, 0)
 
 
 def colbert_params(config, dim, seed):
@@ -1193,6 +1362,7 @@ def phase_colbert_int8_serving(workdir, corpus_dir, topics, none):
     batch_results = svc.search(none["batch"], k=10)
     batch_ms = (time.perf_counter() - t0) * 1e3
     launches = {"int8_matmul": int8_matmul.launches, "flash_attention": flash_attention.launches}
+    int32_launches = int8_matmul.mode_launches["int32"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = len(queries) * colbert_x1_launches(1, n_docs) + colbert_x1_launches(len(none["batch"]), n_docs)
     print(f"{label} per request (median of {len(queries)}): {np.median(request_ms):.2f} ms (spread "
@@ -1200,6 +1370,7 @@ def phase_colbert_int8_serving(workdir, corpus_dir, topics, none):
           f"peak device memory of the served run {peak_gb:.2f} GB; launches in the run: int8_matmul "
           f"{launches['int8_matmul']} (one per chunk of docs), flash_attention {launches['flash_attention']}")
     check(launches["int8_matmul"] == want, f"int8_matmul launched {launches['int8_matmul']} times, expected {want}")
+    check(int32_launches == want, f"only {int32_launches} of the ColBERT int8 X1 launches ran the int32 epilogue")
     check(launches["flash_attention"] == config.num_layers * (len(queries) + 1),
           f"flash_attention launched {launches['flash_attention']} times in the int8 ColBERT run")
     check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results + batch_results),
@@ -1240,8 +1411,9 @@ def phase_colbert_int8_serving(workdir, corpus_dir, topics, none):
     torch.cuda.synchronize()
     int4_ms = (time.perf_counter() - t0) * 1e3
     launches["int8_matmul_int4"] = int8_matmul.launches
-    check(launches["int8_matmul_int4"] == colbert_x1_launches(1, n_docs),
-          f"int4: int8_matmul launched {launches['int8_matmul_int4']} times for one query")
+    check(launches["int8_matmul_int4"] == colbert_x1_launches(1, n_docs) == int8_matmul.mode_launches["int32"],
+          f"int4: int8_matmul launched {launches['int8_matmul_int4']} times for one query "
+          f"({int8_matmul.mode_launches['int32']} in the int32 epilogue)")
     check(len(top4) == 10, f"int4 + rescore returned {len(top4)} hits")
     faults = ranking_faults(top4, none["top10"], COLBERT_CPU_TOL)
     check(not faults, f"int4 + rescore top 10 vs quantize=none: {faults}")
@@ -1270,6 +1442,7 @@ def main():
         k2 = phase_k2_check(peaks)
         k3 = phase_k3_check(peaks)
         x1 = phase_x1_check(peaks)
+        q1 = phase_q1_check(peaks)
         k1_launches, corpus_dir, topics = phase_serving(workdir, SERVING_DOCS, ckpt_seed=3)
         k2_launches, k2_served, f32 = phase_bert_serving(workdir, corpus_dir, topics, peaks)
         bert_int8_launches, bert_int8 = phase_bert_int8_serving(workdir, corpus_dir, topics, f32)
@@ -1347,11 +1520,13 @@ def main():
         "source": "capreolus_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "scripts/exp_pallas_int8.py:46, scripts/exp_pallas_int8b.py:32",
         "tpu": "scripts/exp_pallas_int8.py::matmul_kernel (X1), scripts/exp_pallas_int8b.py::matmul_kernel (X2)",
-        "shape": x1["intermediate"]["shape"] + ", the served FFN up-projection",
+        "shape": x1["intermediate"]["shape"] + ", the served FFN up-projection, int32 epilogue",
         # monoBERT int8's run, then ColBERT's int8 run and its int4 + rescore query
         "launches": (bert_int8_launches["int8_matmul"] + colbert_int8_launches["int8_matmul"]
                      + colbert_int8_launches["int8_matmul_int4"]),
         "launches_monobert_int8": bert_int8_launches["int8_matmul"],
+        "launches_monobert_int8_by_mode": bert_int8_launches["int8_matmul_modes"],
+        "pad_copies_monobert_int8": bert_int8_launches["pad_copies"],
         "launches_colbert_int8": colbert_int8_launches["int8_matmul"],
         "launches_colbert_int4": colbert_int8_launches["int8_matmul_int4"],
         "max_abs_err": max(r["max_abs_err"] for r in x1.values()),
@@ -1360,9 +1535,28 @@ def main():
         "bound_ms": x1["intermediate"]["bound_ms"],
         "bound_by": x1["intermediate"]["bound_by"],
         "library_ms": x1["intermediate"]["library_ms"],  # torch._int_mm (cuBLASLt), same codes
-        "served_shapes": x1,
+        # each epilogue at the BERT shapes: f32 at all three, int8-gelu at the up-projection; library_ms
+        # is null there (no PyTorch call fuses them), torch._int_mm's time of the product is in served_shapes
+        "modes": {"f32": {label: x1[label]["f32"] for label, *_ in X1_BERT_SERVED},
+                  "int8_gelu": {"intermediate": x1["intermediate"]["int8_gelu"]}},
+        "served_shapes": {label: {key: value for key, value in r.items() if key not in ("f32", "int8_gelu")}
+                          for label, r in x1.items()},
         "monobert_int8": bert_int8,
         "colbert_int8": colbert_int8,
+    }, {
+        "name": "quantize_per_token",
+        "route": "cuda",
+        "source": "capreolus_tpu_torch/csrc/quantize_per_token.cu",
+        # no TPU kernel: the JAX encoder's per-token quantization, which XLA fuses into the int8 dot
+        "replaces": "capreolus_tpu/reranker/bert/encoder.py:139 (_quantize_per_token, no pl.pallas_call)",
+        "shape": q1["shape"] + ", the served BERT-base hidden states",
+        "launches": bert_int8_launches["quantize_per_token"],
+        "max_abs_err": q1["max_abs_err"],
+        "ms": q1["ms"],
+        "plain_ms": q1["plain_ms"],
+        "bound_ms": q1["bound_ms"],
+        "bound_by": q1["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes per-token quantization
     }]
     print(f"[7 done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

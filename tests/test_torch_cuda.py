@@ -15,7 +15,11 @@ exact f32 products, the sums in another order), with invalid docs at -inf in
 both; ColBERT served on the card agrees with the CPU within 1e-2, the JAX
 suite's tolerance for bf16 MaxSim sums (embeddings that differ by f32 rounding
 can round to neighbouring bf16 values). X1 equals its plain version and int64
-products exactly. Tiny BERTMaxP with ``quantize=int8`` served on the card is
+products exactly in its int32 epilogue, at both tile widths, at ragged shapes
+and through its zero-padded copies; its f32 epilogue is bit-identical to its
+plain version; its int8-gelu codes are within one step of the plain version's
+at a share of at most 1e-4 (the kernel's tanhf or erff and torch's can round
+apart at a code boundary); Q1 equals its plain version exactly. Tiny BERTMaxP with ``quantize=int8`` served on the card is
 held against the CPU with the card's weights and calibrated stats layer by
 layer, each layer from the card's input to it: an int8 layer is a step
 function of its input, so a code on a rounding boundary can flip by one step
@@ -395,6 +399,116 @@ def test_x1_wrapper_rejects_what_the_kernel_does_not_take(card):
                        torch.zeros((1, 1 << 17), dtype=torch.int8, device=card))
 
 
+def _epilogue_vectors(m, n, seed, device):
+    """x_scales [M], w_scales, bias and GELU out_scales [N] at the magnitudes of
+    a served BERT-base layer: products of about 1e5 dequantize to a few units."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    vec = {"x_scales": rng.random(m) * 0.04 + 0.01, "w_scales": rng.random(n) * 8e-4 + 2e-4,
+           "bias": rng.standard_normal(n) * 0.1, "out_scales": (rng.random(n) * 8 + 2) / 127}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in vec.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [128, 256])
+@pytest.mark.parametrize("k", [16, 45, 300, 3072])
+@pytest.mark.parametrize("m", [1, 32, 37, 130])
+def test_x1_int32_epilogue_is_exact_at_ragged_shapes(card, m, k, tile_n):
+    from capreolus_tpu_torch.ops import int8_matmul as im
+
+    n = 257  # off both tile widths
+    a, w = _x1_args(m, n, k, seed=m + k + tile_n, device=card)
+    if m == 37:  # one operand one byte off a 16-byte boundary
+        w = torch.empty(w.numel() + 1, dtype=torch.int8, device=card)[1:].view(w.shape).copy_(w)
+    before, copies = dict(im.int8_matmul.mode_launches), im.int8_matmul.pad_copies
+    got = im.int8_matmul(a, w, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.mode_launches["int32"] == before["int32"] + 1
+    assert im.int8_matmul.pad_copies == copies + (2 if k % 16 else 1 if m == 37 else 0)
+    assert torch.equal(got.cpu().to(torch.int64), a.cpu().to(torch.int64) @ w.cpu().to(torch.int64).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [128, 256])
+@pytest.mark.parametrize("x_scales", [True, False], ids=["x_scales", "folded"])
+@pytest.mark.parametrize("shape", [(37, 29, 45), (130, 257, 64), (300, 3072, 768), (257, 768, 3072)])
+def test_x1_f32_epilogue_is_bit_identical_to_plain(card, shape, x_scales, tile_n):
+    from capreolus_tpu_torch.ops import int8_matmul as im
+
+    m, n, k = shape
+    a, w = _x1_args(m, n, k, seed=sum(shape), device=card)
+    vec = _epilogue_vectors(m, n, seed=k, device=card)
+    xs = vec["x_scales"] if x_scales else None
+    before = im.int8_matmul.mode_launches["f32"]
+    got = im.int8_linear(a, w, vec["w_scales"], vec["bias"], xs, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.mode_launches["f32"] == before + 1 and got.dtype == torch.float32
+    assert torch.equal(got, im.int8_linear_plain(a, w, vec["w_scales"], vec["bias"], xs))
+    assert torch.equal(im.int8_linear_mm(a, w, vec["w_scales"], vec["bias"], xs), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approximate", ["tanh", "none"])
+@pytest.mark.parametrize("shape", [(300, 3072, 768), (130, 257, 64)])
+def test_x1_gelu_epilogue_codes_within_one_step(card, shape, approximate):
+    from capreolus_tpu_torch.ops import int8_matmul as im
+
+    m, n, k = shape
+    a, w = _x1_args(m, n, k, seed=sum(shape) + 1, device=card)
+    vec = _epilogue_vectors(m, n, seed=k + 1, device=card)
+    args = (a, w, vec["w_scales"], vec["bias"], vec["out_scales"], vec["x_scales"], approximate)
+    before = im.int8_matmul.mode_launches["int8_gelu"]
+    got = im.int8_linear_gelu(*args)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.mode_launches["int8_gelu"] == before + 1 and got.dtype == torch.int8
+    diff = (got.int() - im.int8_linear_gelu_plain(*args).int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-4, (int(diff.max()), int((diff > 0).sum()))
+    assert bool((got.abs() <= 127).all()) and torch.equal(im.int8_linear_gelu_mm(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 768), (37, 45), (5, 3000), (3, 1028), (2, 16, 64)])
+def test_q1_kernel_matches_plain_exactly(card, shape):
+    from capreolus_tpu_torch.ops import quantization as pq
+
+    x = torch.from_numpy(np.random.Generator(np.random.PCG64(sum(shape))).standard_normal(shape).astype(np.float32) * 3)
+    x = x.to(card)
+    x.view(-1, shape[-1])[1] = 0.0  # the 1e-6 floor
+    before = pq.quantize_per_token.launches
+    q, s = pq.quantize_per_token(x)
+    torch.cuda.synchronize()
+    assert pq.quantize_per_token.launches == before + 1
+    want_q, want_s = pq.quantize_per_token_plain(x)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s) and s.shape == (*shape[:-1], 1)
+    cpu_q, cpu_s = pq.quantize_per_token_plain(x.cpu())  # a true division on both devices
+    assert torch.equal(q.cpu(), cpu_q) and torch.equal(s.cpu(), cpu_s)
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(card):
+    from capreolus_tpu_torch.ops import int8_matmul as im
+    from capreolus_tpu_torch.ops import quantization as pq
+
+    a, w = _x1_args(16, 8, 32, seed=7, device=card)
+    vec = _epilogue_vectors(16, 8, seed=7, device=card)
+    ws, bias, os_, xs = vec["w_scales"], vec["bias"], vec["out_scales"], vec["x_scales"]
+    strided = torch.rand(32, device=card)[::2]
+    for bad in ((ws.double(), bias, xs), (ws[:7], bias, xs), (ws, bias.cpu(), xs), (ws, bias, xs[:15]),
+                (ws, bias, xs[:, None]), (ws, bias, strided)):
+        with pytest.raises(ValueError):
+            im.int8_linear(a, w, *bad)
+    with pytest.raises(ValueError):
+        im.int8_linear(a.cpu(), w, ws, bias)
+    with pytest.raises(ValueError):
+        im.int8_linear_gelu(a, w, ws, bias, os_[:4], xs)
+    with pytest.raises(ValueError):
+        im.int8_linear_gelu(a, w, ws, bias, os_, xs, approximate="sigmoid")
+    with pytest.raises(ValueError):
+        im.int8_matmul(a, w, tile_n=64)
+    for bad in (torch.randn(4, 8, device=card).double(), torch.randn(8, 4, device=card).T, torch.randn(4, 8)):
+        with pytest.raises(ValueError):
+            pq.quantize_per_token(bad)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("collection", ["dummy", "corpus"])
 def test_colbert_service_on_the_card_matches_cpu(card, tmp_path, monkeypatch, collection):
@@ -426,6 +540,7 @@ def test_int8_bert_reranking_service_on_the_card_matches_cpu(card, tmp_path, mon
     from capreolus_tpu_torch.convert import save_params
     from capreolus_tpu_torch.index import Index
     from capreolus_tpu_torch.ops import int8_matmul as im
+    from capreolus_tpu_torch.ops import quantization as pq
     from capreolus_tpu_torch.reranker import Reranker
     from capreolus_tpu_torch.serving import RerankingService
 
@@ -440,10 +555,17 @@ def test_int8_bert_reranking_service_on_the_card_matches_cpu(card, tmp_path, mon
     queries = ["w1 w7 w30", "w2 w250", "w399 w5 w6 w8"]
 
     before, before_k2 = im.int8_matmul.launches, fa.flash_attention.launches
+    before_modes, before_q1, copies = dict(im.int8_matmul.mode_launches), pq.quantize_per_token.launches, \
+        im.int8_matmul.pad_copies
     gpu_hits = gpu.search(queries, k=20)
     # tiny: 2 layers x 6 int8 products, one batch per query, plus the first request's calibration pass
     assert im.int8_matmul.launches == before + 12 * (len(queries) + 1)
     assert fa.flash_attention.launches == before_k2 + 2 * (len(queries) + 1)
+    # per layer 3 per-token quantizations; the up-projection in the GELU epilogue but when calibrating
+    assert pq.quantize_per_token.launches == before_q1 + 6 * (len(queries) + 1)
+    modes = {key: im.int8_matmul.mode_launches[key] - before_modes[key] for key in before_modes}
+    assert modes == {"int32": 0, "f32": 10 * len(queries) + 12, "int8_gelu": 2 * len(queries)}
+    assert im.int8_matmul.pad_copies == copies
     assert all(len(hits) == 20 and all(np.isfinite(s) for _, s in hits) for hits in gpu_hits)
 
     # query 0's top 8 on the CPU with the card's weights and calibrated stats: each layer from the
@@ -491,9 +613,10 @@ def test_quantized_colbert_service_on_the_card_matches_cpu(card, tmp_path, monke
         monkeypatch.setitem(constants, "CACHE_BASE_PATH", tmp_path / f"cache_{name}")
         services[name] = ColbertRetrievalService.from_config(collection="dummy", collection_path=path["path"],
                                                              device=device, **config)
-    before, before_k3 = im.int8_matmul.launches, ms.maxsim.launches
+    before, before_k3, before_int32 = im.int8_matmul.launches, ms.maxsim.launches, im.int8_matmul.mode_launches["int32"]
     gpu_hits = services["gpu"].search(queries, k=20)
     assert im.int8_matmul.launches == before + 2 and ms.maxsim.launches == before_k3  # one chunk per query batch
+    assert im.int8_matmul.mode_launches["int32"] == before_int32 + 2  # the int32 epilogue
     for g, c in zip(gpu_hits, services["cpu"].search(queries, k=20)):
         assert len(g) > 0
         assert_same_ranking(g, c, 1e-2)
