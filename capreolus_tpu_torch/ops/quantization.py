@@ -76,13 +76,21 @@ def quantize_rows_int4(emb: np.ndarray, slab_rows: int = 65536):
     return out, scale
 
 
+def int8_scale(amax):
+    """``amax / 127`` as a true division on every device. Torch on CUDA
+    multiplies by the reciprocal when it divides by a Python number, and that
+    can round one ulp away from the CPU's and JAX's division; dividing by a
+    tensor of 127s does not."""
+    return amax / torch.full_like(amax, 127.0)
+
+
 def quantize_rows_torch(emb):
     """Per-row symmetric int8 quantization on ``emb``'s device: [N, ...] float
     -> (int8 same shape, f32 [N] scales), the rule of ``quantize_rows`` with
     one scale per row over all its other axes (per query, over [Lq, dim])."""
     reduce_axes = tuple(range(1, emb.dim()))
     amax = emb.float().abs().amax(dim=reduce_axes)
-    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    scale = torch.where(amax > 0, int8_scale(amax), 1.0)
     q = torch.round(emb / scale.reshape((-1,) + (1,) * (emb.dim() - 1)))
     return q.clamp(-127, 127).to(torch.int8), scale
 
@@ -100,13 +108,10 @@ def quantize_per_token_plain(x):
     """Dynamic per-token int8 quantization (the JAX ``_quantize_per_token``):
     [..., K] float -> (int8 codes [..., K], f32 scales [..., 1]) with scale
     ``max(amax(|x|), 1e-6) / 127`` over the last axis and codes ``round(x /
-    scale)`` (half to even) clipped to [-127, 127]. The scale divides by a
-    tensor of 127s: torch on CUDA multiplies by the reciprocal when it divides
-    by a Python number, and that can round one ulp away from the CPU's and
-    JAX's division."""
+    scale)`` (half to even) clipped to [-127, 127], the scale a true division
+    (``int8_scale``)."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
-    xs = amax / torch.full_like(amax, 127.0)
+    xs = int8_scale(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6))
     xq = torch.round(xf / xs).clamp_(-127, 127).to(torch.int8)
     return xq, xs
 

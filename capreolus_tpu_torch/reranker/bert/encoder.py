@@ -35,6 +35,7 @@ from torch import nn
 
 from capreolus_tpu_torch.ops import int8_matmul as x1
 from capreolus_tpu_torch.ops.flash_attention import multihead_attention
+from capreolus_tpu_torch.ops.quantization import int8_scale
 from capreolus_tpu_torch.ops.quantization import quantize_tokens as _quantize_per_token
 from capreolus_tpu_torch.utils.loginit import get_logger
 
@@ -120,7 +121,7 @@ class Int8Linear(nn.Linear):
             kf = self.weight.float()
             if fold_scales is not None:
                 kf = kf * fold_scales[None, :]
-            ws = kf.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+            ws = int8_scale(kf.abs().amax(dim=1).clamp_min(1e-8))
             self.weight_q = torch.round(kf / ws[:, None]).to(torch.int8)
             self.weight_scale = ws
 
@@ -161,14 +162,15 @@ class BertSelfAttention(nn.Module):
         self.output = linear(h, h)
 
     def heads(self, hidden):
-        """The projections split into heads: q, k, v [B, H, L, D], contiguous
-        (the layout K2 reads). With int8, one per-token quantization of
-        ``hidden`` feeds all three projections."""
+        """The projections split into heads: q, k, v [B, H, L, D] as views of
+        the projections' [B, L, H * D] outputs (no copy: K2 reads the strides).
+        With int8, one per-token quantization of ``hidden`` feeds all three
+        projections."""
         c = self.config
         b, l, _ = hidden.shape
 
         def split(x):
-            return x.view(b, l, c.num_heads, c.head_dim).transpose(1, 2).contiguous()
+            return x.view(b, l, c.num_heads, c.head_dim).transpose(1, 2)
 
         if c.quantize == "int8":
             hq, hs = _quantize_per_token(hidden)
@@ -178,6 +180,8 @@ class BertSelfAttention(nn.Module):
     def forward(self, hidden, mask):
         b, l, h = hidden.shape
         out = multihead_attention(*self.heads(hidden), mask)
+        # K2 writes its output [B, L, H, D] and returns the [B, H, L, D] view, so
+        # on the card this merge of the heads is a view too
         return self.output(out.transpose(1, 2).reshape(b, l, h))
 
 
@@ -232,8 +236,8 @@ class BertLayer(nn.Module):
         return self.output_ln(hidden + ff)
 
     def gelu_scales(self):
-        """Per-channel scales of the GELU output: amax / 127, amax = 8 where uncalibrated."""
-        return torch.where(self.gelu_amax > 0, self.gelu_amax, 8.0) / 127.0
+        """Per-channel scales of the GELU output: amax / 127 (``int8_scale``), amax = 8 where uncalibrated."""
+        return int8_scale(torch.where(self.gelu_amax > 0, self.gelu_amax, 8.0))
 
     def _int8_ffn(self, hidden, calibrate, approximate):
         if calibrate:

@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from capreolus_tpu_torch.core import ConfigError
 from capreolus_tpu_torch.utils.loginit import get_logger
 
 logger = get_logger(__name__)
@@ -39,16 +40,26 @@ def resolve_device(device=None) -> torch.device:
 
 
 class RetrievalService:
+    """The JAX service's parameters in its order, then ``device`` (keyword
+    only). ``hbm_budget_mb`` is stored as in JAX; the port's exact resident
+    path serves every budget the same way (no host streaming). ``shards > 1``
+    raises ``ConfigError`` until multi-device serving is ported."""
+
     def __init__(self, index, model: str = "bm25", params: Optional[dict] = None, batch_size: int = 64,
-                 pruning: bool = True, device=None):
+                 hbm_budget_mb: float = 12000.0, pruning: bool = True, shards: int = 0, *, device=None):
         from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
 
+        self.shards = int(shards)
+        if self.shards > 1:
+            raise ConfigError(f"shards={self.shards}: multi-device serving is not ported to PyTorch yet "
+                              f"(ROADMAP.md item 6, 'Multi-device')")
         self.device = resolve_device(device)
         index.create_index()
         self.index = index
         self.model = model
         self.params = dict(params or {"k1": 0.9, "b": 0.4})
         self.batch_size = batch_size
+        self._hbm_budget_mb = hbm_budget_mb
         self.pruning = bool(pruning)
         if self.pruning:
             # the JAX engine's block-max pruning is bit-identical to exhaustive
@@ -59,7 +70,8 @@ class RetrievalService:
 
     @classmethod
     def from_config(cls, collection: str = "dummy", collection_path: Optional[str] = None,
-                    model: str = "bm25", params: Optional[dict] = None, device=None, **index_config):
+                    model: str = "bm25", params: Optional[dict] = None, shards: int = 0, device=None,
+                    **index_config):
         import capreolus_tpu_torch
 
         capreolus_tpu_torch.load_all_modules()
@@ -69,7 +81,7 @@ class RetrievalService:
         if collection_path:
             coll_cfg["path"] = collection_path
         index = Index.create("tpu", {**index_config, "collection": coll_cfg})
-        return cls(index, model=model, params=params, device=device)
+        return cls(index, model=model, params=params, shards=shards, device=device)
 
     def _analyze(self, query: str, vocab):
         counts = Counter(self.index.analyze(query))
@@ -122,9 +134,16 @@ class RerankingService(RetrievalService):
     ``quantize=int8`` calibrates its activation scales once, on the first
     request's batch, before scoring it (the JAX ``_ensure_params``), unless
     the checkpoint carries its ``quant_stats``, which are then used as they are.
+    An ``extractor_state_path`` (the training-time extractor state) raises
+    ``ConfigError`` until the trainer is ported.
     """
 
-    def __init__(self, index, reranker, checkpoint_path, topn: int = 100, device=None, **kwargs):
+    def __init__(self, index, reranker, checkpoint_path, topn: int = 100,
+                 extractor_state_path: Optional[str] = None, *, device=None, **kwargs):
+        if extractor_state_path:
+            raise ConfigError(f"extractor_state_path={extractor_state_path!r}: restoring a training-time "
+                              f"extractor state is not ported to PyTorch yet (ROADMAP.md item 4, the trainer "
+                              f"and task/rerank.py)")
         super().__init__(index, device=device, **kwargs)
         from capreolus_tpu_torch.convert import load_params
         from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate

@@ -16,11 +16,16 @@ printed only when every phase passed):
 3. kernel check, with CUDA-event times of each kernel and its plain version:
    K1 (``knrm_pool``) against ``knrm_pool_plain`` at the serving shape and at a
    small ragged shape, max |err| <= 2e-4; K2 (``flash_attention``) against
-   ``attention_plain`` at the served shape (B=1600 passages, H=12, L=256, D=64,
-   every key unmasked; compared on the first 128 batch rows), at a small ragged
-   shape with a fully masked row, and in bf16: max |err| <= 1e-4 at f32 and
-   2e-2 in bf16, with ``scaled_dot_product_attention`` timed beside it as the
-   library yardstick (never called on the path); K3 (``maxsim``) against
+   ``attention_plain`` on the encoder's strided head views ([B, H, L, D] views
+   of [B, L, H * D] rows) at the served shape (B=1600 passages, H=12, L=256,
+   D=64, every key unmasked; compared on the first 128 batch rows), at
+   ColBERT's L=32 and 180 with ragged key counts, and at a small ragged shape
+   with a fully masked row, each in f32 and bf16: max |err| <= 1e-4 at f32 and
+   2e-2 in bf16, its output written [B, L, H, D]; timed in both dtypes beside
+   ``scaled_dot_product_attention`` on the same views (the library yardstick,
+   never called on the path), the plain version and the bound (f32 at three
+   TF32 products per product over the TF32 tensor-core rate, with the CUDA
+   cores' f32 figure beside it); K3 (``maxsim``) against
    ``maxsim_scores_plain`` at the served shape (Lq=32, Ld=180, C=20,000,
    dim=128) for 1 and 64 queries on seeded inputs with docs of 64-180 valid
    tokens, and at a small ragged shape with a fully masked doc: -inf docs
@@ -43,6 +48,8 @@ printed only when every phase passed):
    called on the path); Q1
    (``quantize_per_token``) exactly against ``quantize_per_token_plain`` at
    the served [409,600 x 768] and at ragged shapes, timed beside its bound;
+   then the weight, GELU and ColBERT query scales (and their codes) computed
+   on the card must equal the CPU's bit for bit;
 4. KNRM serving: a seeded synthetic TREC corpus (20k docs of 200-1200 words),
    the port's index and a ``RerankingService(device="cuda")`` with KNRM at its
    published width (random300 embeddings, maxqlen 4, maxdoclen 800, 11 RBF
@@ -54,7 +61,9 @@ printed only when every phase passed):
    bertpassage at its defaults (maxseqlen 256, 16 passages of 150 tokens,
    stride 100), topn 100: one warm-up request, then 4 served queries with 12
    K2 launches each (one batch of 1600 passages per layer); one profiled
-   request; K2 timed on a served request's layer-0 inputs; the GPU scores of
+   request, whose copy kernels are counted: fewer than one per layer, so no
+   head split or merge copy is left; K2 timed on a served request's layer-0
+   head views, as served in f32 and cast to bf16; the GPU scores of
    query 0's two top first-stage candidates against the same reranker on the
    CPU, max |err| <= 1e-3;
 5b. monoBERT int8 serving: the same corpus, caches and checkpoint with
@@ -63,8 +72,9 @@ printed only when every phase passed):
    intermediate, ffn_output in 12 layers: 60 in the f32 epilogue, 12 in the
    int8-gelu one), 36 Q1 launches (three per layer), no zero-padded copy and
    12 K2 launches each, and the run's peak device memory; one profiled
-   request; query 0's two top candidates on the GPU against the
-   port's int8 path on the CPU with the same stats, layer by layer from the
+   request, with the copy check of phase 5; query 0's two top candidates on
+   the GPU against the port's int8 path on the CPU with the same stats, layer
+   by layer from the
    card's input to each layer (max |err| <= 5e-2: a code on a rounding
    boundary can flip by one step between devices) and the head from the card's
    last layer (<= 1e-3); the end-to-end GPU-vs-CPU gap, the card's own gap
@@ -150,14 +160,16 @@ PR4_INT8_PEAK_GB = 18.2  # peak device memory of a served int8 monoBERT run befo
 COLBERT_RESCORE = 200  # the searcher's default int4 rescore depth
 
 # HBM bandwidth (bytes/s), f32 non-tensor-core peak, dense bf16 tensor-core
-# peak (FLOP/s) and dense int8 tensor-core peak (OP/s) by card name, from
-# NVIDIA's data sheets (dense rates, full power)
+# peak (FLOP/s), dense int8 tensor-core peak (OP/s) and dense TF32
+# tensor-core peak (FLOP/s) by card name, from NVIDIA's data sheets (dense
+# rates, full power)
 CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12, 756e12, 1513e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12, 1671e12),
-    ("H100", 3.35e12, 67e12, 989e12, 1979e12),
-    ("H200", 4.8e12, 67e12, 989e12, 1979e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12, 1513e12, 378e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12, 1671e12, 418e12),
+    ("H100", 3.35e12, 67e12, 989e12, 1979e12, 495e12),
+    ("H200", 4.8e12, 67e12, 989e12, 1979e12, 495e12),
 )
+K2_TF32_PRODUCTS = 3  # K2's f32 path computes each product as three TF32 products (split TF32)
 
 
 class SmokeFailure(RuntimeError):
@@ -171,10 +183,10 @@ def check(cond, msg):
 
 def card_peaks(name):
     """{"bw": bytes/s, torch.float32: FLOP/s, torch.bfloat16: FLOP/s, torch.int8:
-    OP/s} of the card."""
-    for key, bw, f32, bf16, int8 in CARD_PEAKS:
+    OP/s, "tf32": FLOP/s} of the card."""
+    for key, bw, f32, bf16, int8, tf32 in CARD_PEAKS:
         if key in name:
-            return {"bw": bw, torch.float32: f32, torch.bfloat16: bf16, torch.int8: int8}
+            return {"bw": bw, torch.float32: f32, torch.bfloat16: bf16, torch.int8: int8, "tf32": tf32}
     raise SmokeFailure(f"no bandwidth/peak entry for card {name!r}; add it to CARD_PEAKS")
 
 
@@ -300,7 +312,11 @@ def k1_bound_ms(args, bw, flops):
 
 def profile_request(svc, query, label, top=6):
     """Where one rerank request's time goes: device time by op (torch.profiler,
-    CUPTI) against the request's wall time; the rest is host time."""
+    CUPTI) against the request's wall time; the rest is host time. Returns
+    {"wall_ms", "busy_ms", "copy_kernels", "copy_ms", "clones"}: the device's
+    copy kernels (torch's ``direct_copy_kernel_cuda``, run by ``copy_``,
+    ``contiguous`` and ``reshape`` of a strided tensor, and casts) and the host's
+    ``aten::clone`` calls, so a caller can check which copies a request makes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -328,6 +344,13 @@ def profile_request(svc, query, label, top=6):
     print(f"{label} profiled request: host time inside torch ops {host_ms:.2f} ms (the rest of the "
           f"wall is Python; a device-to-host copy waits there for the device); top host ops: "
           + "; ".join(f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in host[:top]))
+    copies = [e for e in ops if "copy_kernel" in e.key]
+    summary = {"wall_ms": wall_ms, "busy_ms": busy_ms, "copy_kernels": sum(e.count for e in copies),
+               "copy_ms": sum(device_us(e) for e in copies) / 1e3,
+               "clones": sum(e.count for e in averages if e.key == "aten::clone")}
+    print(f"{label} profiled request: device copy kernels {summary['copy_kernels']} ({summary['copy_ms']:.3f} ms), "
+          f"host aten::clone calls {summary['clones']}")
+    return summary
 
 
 # ---------------------------------------------------------------- phases
@@ -392,22 +415,30 @@ def k2_bound_ms(q, mask, peaks):
     unmasked keys (all L of them where every key is masked: the mean of V),
     all of q, the output written once and the mask; those bytes go over the
     HBM rate. It does 4*D operations (two multiply-adds) per (query row,
-    needed key) pair, over the peak for the input dtype: the f32 rate outside
-    the tensor cores, or the dense bf16 tensor-core rate. Returns (ms, "bytes"
-    or "operations")."""
+    needed key) pair: in bf16 over the dense bf16 tensor-core rate; in f32 as
+    the kernel does them, three TF32 products for each (split TF32), over the
+    dense TF32 tensor-core rate. Returns (ms, "bytes" or "operations",
+    cuda_core_ms): the last is the f32 bound at the CUDA cores' f32 rate (the
+    bound of a CUDA-core design, for comparison), None in bf16."""
     b, h, l, d = q.shape
     e = q.element_size()
     keys = mask.sum(dim=1).double()
     keys = float(torch.where(keys > 0, keys, float(l)).sum())
     nbytes = 2.0 * b * h * l * d * e + 2.0 * h * d * e * keys + mask.numel() * mask.element_size()
     ops = 4.0 * h * l * d * keys
-    t_bytes, t_ops = nbytes / peaks["bw"], ops / peaks[q.dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = nbytes / peaks["bw"]
+    if q.dtype == torch.float32:
+        t_ops = K2_TF32_PRODUCTS * ops / peaks["tf32"]
+        cuda_core_ms = max(t_bytes, ops / peaks[torch.float32]) * 1e3
+    else:
+        t_ops, cuda_core_ms = ops / peaks[q.dtype], None
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), cuda_core_ms
 
 
 def k2_time(q, k, v, mask, peaks):
     """K2, its plain version and the library call (SDPA with the same boolean
-    mask) at these inputs: CUDA-event ms of each, and the bound."""
+    mask, on the same views) at these inputs: CUDA-event ms of each, and the
+    bound (with the CUDA-core figure beside it in f32)."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from capreolus_tpu_torch.ops.flash_attention import attention_plain, flash_attention
@@ -417,18 +448,28 @@ def k2_time(q, k, v, mask, peaks):
            "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, mask), rounds=3, calls=2),
            "library_ms": cuda_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask),
                                  rounds=5, calls=4)}
-    out["bound_ms"], out["bound_by"] = k2_bound_ms(q, mask, peaks)
+    out["bound_ms"], out["bound_by"], out["bound_ms_cuda_core"] = k2_bound_ms(q, mask, peaks)
     return out
+
+
+def k2_line(r):
+    """K2's time beside SDPA, the plain version and the bound(s)."""
+    line = (f"{r['ms']:.3f} ms (SDPA {r['library_ms']:.3f}, plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.3f} "
+            f"by {r['bound_by']}")
+    if r["bound_ms_cuda_core"] is not None:
+        line += f"; at the CUDA cores' f32 rate {r['bound_ms_cuda_core']:.3f}"
+    return line + ")"
 
 
 def k2_error(q, k, v, mask, rows=128):
     """max |K2 - plain| over the first ``rows`` batch elements (the plain
     version's [rows, H, L, L] scores stay small), after checking that K2's
-    output is finite everywhere."""
+    output is finite everywhere and written [B, L, H, D]."""
     from capreolus_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
     got = flash_attention(q, k, v, mask)
     check(bool(torch.isfinite(got).all()), f"K2 {tuple(q.shape)} {q.dtype}: non-finite output")
+    check(got.transpose(1, 2).is_contiguous(), f"K2 {tuple(q.shape)}: the output is not written [B, L, H, D]")
     want = attention_plain(q[:rows], k[:rows], v[:rows], mask[:rows])
     torch.cuda.synchronize()
     err = float((got[:rows].float() - want.float()).abs().max())
@@ -437,31 +478,54 @@ def k2_error(q, k, v, mask, rows=128):
     return err, got
 
 
+def k2_heads(shape, gen, dtype=torch.float32):
+    """q, k, v as the encoder hands them to K2: [B, H, L, D] views of
+    [B, L, H * D] projection rows."""
+    b, h, l, d = shape
+    return [torch.randn(b, l, h * d, generator=gen, device="cuda").to(dtype).view(b, l, h, d).transpose(1, 2)
+            for _ in range(3)]
+
+
 def phase_k2_check(peaks):
+    """K2 on the encoder's strided head views: at the served shape with every
+    key unmasked in f32 and bf16 (timed beside SDPA, the plain version and the
+    bound), at ColBERT's L = 32 and 180 with ragged key counts, and at a small
+    ragged shape with a fully masked element (the mean of V), in both dtypes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    q, k, v = (torch.randn(K2_SHAPE, generator=gen, device="cuda") for _ in range(3))
+    q, k, v = k2_heads(K2_SHAPE, gen)
+    check(not q.is_contiguous() and q.stride(3) == 1, "K2's phase-3 inputs are not the encoder's head views")
     mask = torch.ones(K2_SHAPE[0], K2_SHAPE[2], dtype=torch.bool, device="cuda")
-    out = {"shape": "B={} H={} L={} D={}".format(*K2_SHAPE), "max_abs_err": k2_error(q, k, v, mask)[0]}
+    out = {"shape": "B={} H={} L={} D={}".format(*K2_SHAPE), "layout": "heads: [B, L, H, D] rows, strided",
+           "max_abs_err": k2_error(q, k, v, mask)[0]}
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))  # the same strides in bf16
+    out["max_abs_err_bf16"] = k2_error(qb, kb, vb, mask)[0]
 
     # small ragged case: L off the tile size, ragged key counts, one fully masked element
     small = (3, 2, 77, 32)
-    qs, ks, vs = (torch.randn(small, generator=gen, device="cuda") for _ in range(3))
     ms = torch.arange(small[2], device="cuda")[None, :] < torch.tensor([[60], [5], [0]], device="cuda")
-    out["max_abs_err_small"], got = k2_error(qs, ks, vs, ms)
-    mean_v = vs[-1].mean(dim=1, keepdim=True).expand_as(vs[-1])
-    check(float((got[-1] - mean_v).abs().max()) <= K2_TOL[torch.float32], "K2: a fully masked row is not mean(V)")
+    for dtype, key in ((torch.float32, "max_abs_err_small"), (torch.bfloat16, "max_abs_err_small_bf16")):
+        qs, ks, vs = k2_heads(small, gen, dtype)
+        out[key], got = k2_error(qs, ks, vs, ms)
+        mean_v = vs[-1].float().mean(dim=1, keepdim=True).expand_as(vs[-1])
+        check(float((got[-1].float() - mean_v).abs().max()) <= K2_TOL[dtype],
+              f"K2 {dtype}: a fully masked row is not mean(V)")
+    # ColBERT's lengths: 32-token queries, 180-token docs, ragged key counts
+    for l in (COLBERT["maxqlen"], COLBERT["maxdoclen"]):
+        shape = (64, 12, l, 64)
+        lens = torch.randint(1, l + 1, (shape[0], 1), generator=gen, device="cuda")
+        ml = torch.arange(l, device="cuda")[None, :] < lens
+        for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            out[f"max_abs_err_l{l}{suffix}"] = k2_error(*k2_heads(shape, gen, dtype), ml)[0]
 
-    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
-    out["max_abs_err_bf16"] = k2_error(qb, kb, vb, mask)[0]
     out.update(k2_time(q, k, v, mask, peaks))
     bf16 = k2_time(qb, kb, vb, mask, peaks)
-    out.update({f"{key}_bf16": value for key, value in bf16.items() if key != "plain_ms"})
-    print(f"[3 kernel] flash_attention {out['shape']} every key unmasked: max|err| f32 {out['max_abs_err']:.3g} "
-          f"(small ragged {out['max_abs_err_small']:.3g}, bf16 {out['max_abs_err_bf16']:.3g}); "
-          f"f32 {out['ms']:.3f} ms (plain {out['plain_ms']:.3f}, SDPA {out['library_ms']:.3f}, bound "
-          f"{out['bound_ms']:.3f} by {out['bound_by']}); bf16 {out['ms_bf16']:.3f} ms (plain {bf16['plain_ms']:.3f}, "
-          f"SDPA {out['library_ms_bf16']:.3f}, bound {out['bound_ms_bf16']:.3f} by {out['bound_by_bf16']})")
+    out.update({f"{key}_bf16": value for key, value in bf16.items() if key != "bound_ms_cuda_core"})
+    print(f"[3 kernel] flash_attention {out['shape']} on head views, every key unmasked: max|err| f32 "
+          f"{out['max_abs_err']:.3g}, bf16 {out['max_abs_err_bf16']:.3g} (small ragged {out['max_abs_err_small']:.3g} "
+          f"/ {out['max_abs_err_small_bf16']:.3g}; L=32 {out['max_abs_err_l32']:.3g} / {out['max_abs_err_l32_bf16']:.3g}; "
+          f"L=180 {out['max_abs_err_l180']:.3g} / {out['max_abs_err_l180_bf16']:.3g}); f32 {k2_line(out)}; "
+          f"bf16 {k2_line(bf16)}")
     del q, k, v, qb, kb, vb
     torch.cuda.empty_cache()
     return out
@@ -553,6 +617,17 @@ def phase_serving(workdir, num_docs, ckpt_seed):
     print(f"[4 serving] {len(queries)} queries: first stage identical on GPU and CPU; reranked "
           f"top-10 agree within {ERR_TOL} (top hit of query 0: {gpu_results[0][0]})")
     return launches, corpus_dir, topics
+
+
+def check_no_head_copies(profiled, num_layers, label):
+    """A served BERT request makes no per-layer copy: K2 reads the heads as
+    views of the projections and writes [B, L, H, D], so neither the head
+    split nor the merge copies (done by copies, they cost four copy kernels
+    per layer). The request's few copies (casts of its inputs) stay below one
+    per layer."""
+    check(profiled["copy_kernels"] < num_layers,
+          f"{label}: {profiled['copy_kernels']} copy kernels in one request of {num_layers} layers: a per-layer "
+          f"head split or merge copy is back")
 
 
 def seeded_bert_params(config, seed, std=0.02):
@@ -651,9 +726,11 @@ def phase_bert_serving(workdir, corpus_dir, topics, peaks):
     check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results),
           "a served request did not return 10 finite scores")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profile_request(svc, queries[0], label)
+    profiled = profile_request(svc, queries[0], label)
+    check_no_head_copies(profiled, config.num_layers, label)
 
-    # K2 at the served path's own inputs: layer 0 of query 0's request
+    # K2 at the served path's own inputs: layer 0 of query 0's request, the
+    # encoder's head views as they are, then the same views in bf16
     hits = RetrievalService.search_async(svc, [queries[0]], k=svc.topn)()[0]
     docids = [d for d, _ in hits]
     batch = svc.rerank_batch("smoke0", queries[0], docids)
@@ -664,15 +741,19 @@ def phase_bert_serving(workdir, corpus_dir, topics, peaks):
                           for key in ("pos_bert_input", "pos_seg", "pos_mask"))
         mask = mask.bool()
         q, k, v = bert.layer_0.attention.heads(bert.embed(ids, seg))
-        served = {"shape": "B={} H={} L={} D={}".format(*q.shape), "max_abs_err": k2_error(q, k, v, mask)[0],
-                  "unmasked_key_share": float(mask.float().mean())}
+        check(not q.is_contiguous(), f"{label}: the encoder's heads are no longer views of its projections")
+        served = {"shape": "B={} H={} L={} D={}".format(*q.shape), "layout": "heads: [B, L, H, D] rows, strided",
+                  "max_abs_err": k2_error(q, k, v, mask)[0], "unmasked_key_share": float(mask.float().mean())}
         served.update(k2_time(q, k, v, mask, peaks))
-        del q, k, v
-    print(f"{label} flash_attention on a served request's layer-0 inputs ({served['shape']}, "
+        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+        bf16 = {"max_abs_err": k2_error(qb, kb, vb, mask)[0], **k2_time(qb, kb, vb, mask, peaks)}
+        served.update({f"{key}_bf16": value for key, value in bf16.items() if key != "bound_ms_cuda_core"})
+        del q, k, v, qb, kb, vb
+    served["profiled"] = profiled
+    print(f"{label} flash_attention on a served request's layer-0 head views ({served['shape']}, "
           f"{100 * served['unmasked_key_share']:.1f}% of keys unmasked): max|err| {served['max_abs_err']:.3g}, "
-          f"{served['ms']:.3f} ms (plain {served['plain_ms']:.3f}, SDPA {served['library_ms']:.3f}, bound "
-          f"{served['bound_ms']:.3f} by {served['bound_by']}); peak device memory of the served run "
-          f"{peak_gb:.1f} GB")
+          f"f32 {k2_line(served)}; in bf16 max|err| {bf16['max_abs_err']:.3g}, {k2_line(bf16)}; peak device memory "
+          f"of the served run {peak_gb:.1f} GB")
 
     # query 0's two top first-stage candidates: the card against the CPU, same weights and batch
     two = {key: value[:2] for key, value in batch.items() if isinstance(value, np.ndarray)}
@@ -767,7 +848,8 @@ def phase_bert_int8_serving(workdir, corpus_dir, topics, f32):
           f"flash_attention launched {launches['flash_attention']} times in the int8 run")
     check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results),
           "a served int8 request did not return 10 finite scores")
-    profile_request(svc, queries[0], label)
+    profiled = profile_request(svc, queries[0], label)
+    check_no_head_copies(profiled, model.config.num_layers, label)
 
     # int8 against f32 on the same request: every reranked doc's score, and the top 10
     int8_scores = dict(svc.search([queries[0]], k=svc.topn)[0])
@@ -838,7 +920,7 @@ def phase_bert_int8_serving(workdir, corpus_dir, topics, f32):
     return launches, {"request_ms": float(np.median(request_ms)), "max_abs_err_layer": max(layer_err),
                       "max_abs_err_head": err_head, "max_abs_err_end_to_end": err_e2e,
                       "end_to_end_moved_1e-7": moved_err, "int8_f32_gap": gap, "top10_overlap_f32": overlap,
-                      "peak_gb": peak_gb}
+                      "peak_gb": peak_gb, "profiled": profiled}
 
 
 # ---------------------------------------------------------------- ColBERT and K3
@@ -1155,6 +1237,47 @@ def phase_q1_check(peaks):
     return out
 
 
+def phase_scales_check():
+    """The int8 scales besides Q1's, computed on the card and on the CPU from
+    the same values: the weight scales (``Int8Linear.quantize_weight``, with
+    and without folded GELU scales) of a BERT-base projection and FFN
+    down-projection, the GELU scales (``BertLayer.gelu_scales``) and the
+    ColBERT query scales (``quantize_rows_torch``) of a 64-query batch must be
+    equal bit for bit, as must the codes: each divides by a tensor of 127s."""
+    import dataclasses
+
+    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+    from capreolus_tpu_torch.reranker.bert.encoder import BertLayer
+
+    config = dataclasses.replace(get_bert_config("bert-base-uncased"), num_layers=1, quantize="int8")
+    rng = np.random.Generator(np.random.PCG64(11))
+    cpu = BertLayer(config)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.from_numpy((rng.standard_normal(tuple(p.shape)) * 0.02).astype(np.float32)))
+    amax = torch.from_numpy(rng.random(config.intermediate_size).astype(np.float32) * 10)
+    amax[::7] = 0.0  # uncalibrated channels take amax 8
+    cpu.gelu_amax = amax  # requantizes ffn_output with the GELU scales folded in
+    gpu = BertLayer(config).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.gelu_amax = amax.cuda()
+    for layer in (cpu, gpu):
+        layer.attention.query.quantize_weight()
+    pairs = {"weight": (gpu.attention.query, cpu.attention.query), "weight_folded": (gpu.ffn_output, cpu.ffn_output)}
+    differing = {name: int((g.weight_scale.cpu() != c.weight_scale).sum()) + int((g.weight_q.cpu() != c.weight_q).sum())
+                 for name, (g, c) in pairs.items()}
+    differing["gelu"] = int((gpu.gelu_scales().cpu() != cpu.gelu_scales()).sum())
+    queries = torch.from_numpy(rng.standard_normal((64, COLBERT["maxqlen"], COLBERT["dim"])).astype(np.float32))
+    (codes, scales), (gcodes, gscales) = quantize_rows_torch(queries), quantize_rows_torch(queries.cuda())
+    differing["colbert_query"] = int((gscales.cpu() != scales).sum()) + int((gcodes.cpu() != codes).sum())
+    check(not any(differing.values()), f"int8 scales or codes differ between the card and the CPU: {differing}")
+    print(f"[3 scales] weight ({tuple(cpu.attention.query.weight.shape)}, and ffn_output with folded GELU scales), GELU "
+          f"({config.intermediate_size} channels) and ColBERT query (64 x {COLBERT['maxqlen']} x {COLBERT['dim']}) "
+          f"scales and codes: card equals CPU bit for bit")
+    return differing
+
+
 def reset_launch_counts():
     """Every kernel's launch count to 0, just before a path is driven."""
     from capreolus_tpu_torch.ops.flash_attention import flash_attention
@@ -1443,6 +1566,7 @@ def main():
         k3 = phase_k3_check(peaks)
         x1 = phase_x1_check(peaks)
         q1 = phase_q1_check(peaks)
+        q1["scales_differing_from_cpu"] = phase_scales_check()
         k1_launches, corpus_dir, topics = phase_serving(workdir, SERVING_DOCS, ckpt_seed=3)
         k2_launches, k2_served, f32 = phase_bert_serving(workdir, corpus_dir, topics, peaks)
         bert_int8_launches, bert_int8 = phase_bert_int8_serving(workdir, corpus_dir, topics, f32)
@@ -1483,18 +1607,22 @@ def main():
         "launches_monobert_int8": bert_int8_launches["flash_attention"],
         "launches_colbert": colbert_launches["flash_attention"],
         "launches_colbert_int8": colbert_int8_launches["flash_attention"],
+        "layout": k2_served["layout"],
         "max_abs_err": k2_served["max_abs_err"],
         "max_abs_err_small": k2["max_abs_err_small"],
         "max_abs_err_bf16": k2["max_abs_err_bf16"],
         "unmasked_key_share": k2_served["unmasked_key_share"],
         "ms": k2_served["ms"],
         "plain_ms": k2_served["plain_ms"],
+        # f32 products as three TF32 products each, over the TF32 tensor-core rate; the CUDA cores' figure beside it
         "bound_ms": k2_served["bound_ms"],
         "bound_by": k2_served["bound_by"],
+        "bound_ms_cuda_core": k2_served["bound_ms_cuda_core"],
         "library_ms": k2_served["library_ms"],  # scaled_dot_product_attention, same boolean mask
-        "every_key_unmasked": {key: k2[key] for key in (
-            "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "ms_bf16", "library_ms_bf16", "bound_ms_bf16", "bound_by_bf16")},
+        "served_bf16": {key[:-5]: value for key, value in k2_served.items() if key.endswith("_bf16")},
+        "copies_monobert": {key: k2_served["profiled"][key] for key in ("copy_kernels", "copy_ms", "clones")},
+        "copies_monobert_int8": {key: bert_int8["profiled"][key] for key in ("copy_kernels", "copy_ms", "clones")},
+        "every_key_unmasked": {key: value for key, value in k2.items() if key != "max_abs_err_small"},
     }, {
         "name": "maxsim",
         "route": "cuda",

@@ -8,7 +8,9 @@ K1 is held against its plain version on the card at 2e-4 (the sigma=0.001
 exact-match kernel amplifies f32 dot-product rounding); the GPU's first stage
 must equal the CPU's, and the reranked scores agree within 2e-4. K2 is held
 against its plain version at 1e-4 with f32 inputs (one softmax, f32 sums in
-another order) and 2e-2 with bf16 inputs (outputs rounded to bf16); tiny
+another order, split-TF32 products that keep f32 accuracy) and 2e-2 with bf16
+inputs (probabilities and outputs rounded to bf16), on contiguous inputs and
+on the encoder's strided head views, which give the same bits; tiny
 BERTMaxP served on the card agrees with the CPU within 1e-4. K3 is held
 against its plain version at 1e-4 (relative and absolute; equal bf16 inputs,
 exact f32 products, the sums in another order), with invalid docs at -inf in
@@ -158,12 +160,18 @@ def _write_corpus(directory, rng, num_docs=300, min_len=50, max_len=1000):
     return {"name": "dummy", "path": str(directory)}
 
 
-def _k2_args(shape, dtype, seed, device):
+def _k2_args(shape, dtype, seed, device, layout="contiguous"):
     """q, k, v [B, H, L, D] and a [B, L] bool key mask: ragged key counts, a
-    hole, and the last batch element with every key masked."""
+    hole, and the last batch element with every key masked. ``layout="heads"``
+    gives q, k, v as the encoder hands them over: [B, H, L, D] views of
+    [B, L, H * D] rows."""
     b, h, l, d = shape
     rng = np.random.Generator(np.random.PCG64(seed))
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype) for _ in range(3))
+    if layout == "heads":
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h * d)).astype(np.float32)).to(device, dtype)
+                   .view(b, l, h, d).transpose(1, 2) for _ in range(3))
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype) for _ in range(3))
     mask = np.zeros((b, l), dtype=bool)
     for i, n in enumerate(rng.integers(1, l + 1, size=b)):
         mask[i, :n] = True
@@ -172,18 +180,28 @@ def _k2_args(shape, dtype, seed, device):
     return q, k, v, torch.from_numpy(mask).to(device)
 
 
+K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+K2_CASES = [  # contiguous [B, H, L, D]
+    (torch.float32, (3, 2, 77, 32), "contiguous"), (torch.float32, (4, 12, 256, 64), "contiguous"),
+    (torch.float32, (2, 2, 300, 128), "contiguous"), (torch.float32, (2, 3, 1, 64), "contiguous"),
+    (torch.bfloat16, (3, 2, 77, 32), "contiguous"), (torch.bfloat16, (4, 12, 256, 64), "contiguous"),
+] + [  # the encoder's head views, at every L it serves or tests, every head dim, both dtypes
+    (dtype, (3, 2, l, d), "heads") for dtype in (torch.float32, torch.bfloat16)
+    for l in (1, 32, 77, 180, 256) for d in (32, 64, 128)
+] + [(torch.float32, (4, 12, 256, 64), "heads"), (torch.bfloat16, (4, 12, 256, 64), "heads")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,shape,tol", [
-    (torch.float32, (3, 2, 77, 32), 1e-4), (torch.float32, (4, 12, 256, 64), 1e-4),
-    (torch.float32, (2, 2, 300, 128), 1e-4), (torch.float32, (2, 3, 1, 64), 1e-4),
-    (torch.bfloat16, (3, 2, 77, 32), 2e-2), (torch.bfloat16, (4, 12, 256, 64), 2e-2),
-])
-def test_k2_kernel_matches_plain(card, dtype, shape, tol):
-    q, k, v, mask = _k2_args(shape, dtype, seed=sum(shape), device=card)
+@pytest.mark.parametrize("dtype,shape,layout", K2_CASES)
+def test_k2_kernel_matches_plain(card, dtype, shape, layout):
+    tol = K2_TOL[dtype]
+    q, k, v, mask = _k2_args(shape, dtype, seed=sum(shape), device=card, layout=layout)
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1 and got.dtype == dtype
+    assert fa.flash_attention.launches == before + 1 and got.dtype == dtype and got.shape == shape
+    # written [B, L, H, D]: merging the heads is a view
+    assert got.transpose(1, 2).is_contiguous()
     want = fa.attention_plain(q, k, v, mask)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
     # the fully masked batch element gets the mean of V
@@ -193,6 +211,9 @@ def test_k2_kernel_matches_plain(card, dtype, shape, tol):
     torch.testing.assert_close(fa.flash_attention(q, k, v, mask), got, rtol=0, atol=0)
     torch.testing.assert_close(fa.flash_attention(q, k, v, mask.to(torch.int64)), got, rtol=0, atol=0)
     torch.testing.assert_close(fa.multihead_attention(q, k, v, mask), got, rtol=0, atol=0)
+    if layout == "heads":  # the strides change where values are read, not the arithmetic
+        contiguous = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+        torch.testing.assert_close(contiguous, got, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -209,14 +230,62 @@ def test_k2_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         fa.flash_attention(q, k[:, :, :39].contiguous(), v, mask)
     with pytest.raises(ValueError):
-        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
-    with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, mask.cpu())
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, mask[:, :39].contiguous())
     offset = torch.empty(q.numel() + 1, device=card)[1:].view(q.shape)
     with pytest.raises(ValueError):
         fa.flash_attention(offset, k, v, mask)
+    # a strided view is taken: the same bits as its contiguous copy
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    torch.testing.assert_close(fa.flash_attention(strided, k, v, mask), fa.flash_attention(q, k, v, mask),
+                               rtol=0, atol=0)
+    # but not a last dimension of stride != 1, nor a row stride off 16 bytes
+    with pytest.raises(ValueError, match="stride"):
+        fa.flash_attention(torch.randn(2, 2, 40, 128, device=card)[..., ::2], k, v, mask)
+    odd = torch.randn(2 * 2 * 40 * 65, device=card).as_strided((2, 2, 40, 64), (2 * 40 * 65, 40 * 65, 65, 1))
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention(odd, k, v, mask)
+
+
+@pytest.mark.cuda
+def test_int8_scales_on_the_card_equal_the_cpus(card):
+    """The weight, GELU and ColBERT query scales divide by a tensor of 127s on
+    both devices, so the card's scales are the CPU's bit for bit (torch on
+    CUDA would multiply by the reciprocal of a Python 127.0)."""
+    import dataclasses
+
+    from capreolus_tpu_torch.ops import quantization as pq
+    from capreolus_tpu_torch.reranker.bert.encoder import BertConfig, BertLayer, Int8Linear
+
+    rng = np.random.Generator(np.random.PCG64(12))
+    linear = Int8Linear(768, 768)
+    with torch.no_grad():
+        linear.weight.copy_(torch.from_numpy((rng.standard_normal((768, 768)) * 0.02).astype(np.float32)))
+    fold = torch.from_numpy((rng.random(768) * 0.1 + 0.01).astype(np.float32))
+    gpu_linear = Int8Linear(768, 768).to(card)
+    gpu_linear.load_state_dict(linear.state_dict())
+    for f in (None, fold):
+        linear.quantize_weight(fold_scales=f)
+        gpu_linear.quantize_weight(fold_scales=None if f is None else f.to(card))
+        assert torch.equal(gpu_linear.weight_scale.cpu(), linear.weight_scale)
+        assert torch.equal(gpu_linear.weight_q.cpu(), linear.weight_q)
+
+    config = dataclasses.replace(BertConfig(), num_layers=1, quantize="int8")
+    amax = torch.from_numpy(rng.random(config.intermediate_size).astype(np.float32) * 10)
+    amax[::7] = 0.0
+    layer = BertLayer(config)
+    layer.gelu_amax = amax
+    gpu_layer = BertLayer(config).to(card)
+    gpu_layer.gelu_amax = amax.to(card)
+    assert torch.equal(gpu_layer.gelu_scales().cpu(), layer.gelu_scales())
+
+    queries = torch.from_numpy(rng.standard_normal((64, 32, 128)).astype(np.float32))
+    codes, scales = pq.quantize_rows_torch(queries)
+    gpu_codes, gpu_scales = pq.quantize_rows_torch(queries.to(card))
+    assert torch.equal(gpu_scales.cpu(), scales) and torch.equal(gpu_codes.cpu(), codes)
+    assert torch.equal(scales, (queries.abs().amax(dim=(1, 2)).double() / 127).float())
 
 
 def seeded_bert_params(model, seed, std):

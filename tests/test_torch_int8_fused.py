@@ -104,6 +104,45 @@ def test_q1_plain_divides_by_127():
     assert not torch.equal(want, amax * np.float32(1 / 127))  # the reciprocal differs somewhere
 
 
+def int8_scale_sites(seed):
+    """The per-channel and per-row scales the port computes besides Q1's, each
+    with the amax it divides: ``Int8Linear.quantize_weight`` (per output
+    channel, with and without folded input scales), ``BertLayer.gelu_scales``
+    (per FFN channel, 8 where uncalibrated) and ``quantize_rows_torch`` (per
+    ColBERT query). Returns {name: (scales, amax)}."""
+    from capreolus_tpu_torch.reranker.bert.encoder import BertLayer
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    linear = Int8Linear(768, 768)
+    with torch.no_grad():
+        linear.weight.copy_(torch.from_numpy((rng.standard_normal((768, 768)) * 0.02).astype(np.float32)))
+    fold = torch.from_numpy((rng.random(768) * 0.1 + 0.01).astype(np.float32))
+    layer = BertLayer(dataclasses.replace(TINY_TORCH, quantize="int8"))
+    amax = rng.random(TINY_TORCH.intermediate_size).astype(np.float32) * 10
+    amax[::7] = 0.0  # uncalibrated channels
+    layer.gelu_amax = torch.from_numpy(amax)
+    queries = torch.from_numpy(rng.standard_normal((64, 32, 128)).astype(np.float32))
+    out = {}
+    linear.quantize_weight()
+    out["weight"] = (linear.weight_scale, linear.weight.abs().amax(dim=1).clamp_min(1e-8))
+    linear.quantize_weight(fold_scales=fold)
+    out["weight_folded"] = (linear.weight_scale, (linear.weight * fold[None, :]).abs().amax(dim=1).clamp_min(1e-8))
+    out["gelu"] = (layer.gelu_scales(), torch.where(layer.gelu_amax > 0, layer.gelu_amax, 8.0))
+    out["colbert_query"] = (pq.quantize_rows_torch(queries)[1], queries.abs().amax(dim=(1, 2)))
+    return out
+
+
+@pytest.mark.parametrize("site", ["weight", "weight_folded", "gelu", "colbert_query"])
+def test_scales_divide_by_127(site):
+    """Each scale is ``amax / 127`` rounded once, the division by a tensor of
+    127s, never ``amax * (1 / 127)``: bit for bit the correctly rounded
+    quotient (the card's own scales are held against these in
+    tests/test_torch_cuda.py)."""
+    scales, amax = int8_scale_sites(seed=41)[site]
+    assert torch.equal(scales, pq.int8_scale(amax))
+    assert torch.equal(scales, (amax.double() / 127.0).float())
+
+
 # ---------------------------------------------------------------- the f32 epilogue
 @pytest.mark.parametrize("with_x_scales", [True, False], ids=["x_scales", "folded"])
 def test_f32_epilogue_plain_is_the_unfused_int8_linear(with_x_scales):

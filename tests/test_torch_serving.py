@@ -188,3 +188,64 @@ def test_bert_reranking_service_matches_jax(tmpdir_as_cache, torch_cache):
                   BERT_TOL, "BERTMaxP tiny RerankingService scores")
     stages = port_svc.last_stage_ms
     assert set(stages) == {"first_stage", "rerank", "features"} and 0 < stages["features"] <= stages["rerank"]
+
+
+def _parameters(fn):
+    import inspect
+
+    return list(inspect.signature(fn).parameters.values())
+
+
+@pytest.mark.parametrize("name", ["RetrievalService.__init__", "RetrievalService.from_config",
+                                  "RerankingService.__init__"])
+def test_service_signatures_take_the_jax_parameters_in_the_jax_order(name):
+    """The JAX parameters come first, in the JAX order, with the JAX defaults,
+    so a positional caller of the reference binds the same meanings; ``device``
+    follows, keyword-only (``from_config`` passes it on by keyword)."""
+    cls, method = name.split(".")
+    jax_params = [p for p in _parameters(getattr(getattr(capreolus_tpu.serving, cls), method))
+                  if p.kind is not p.VAR_KEYWORD]
+    port_params = _parameters(getattr(getattr(capreolus_tpu_torch.serving, cls), method))
+    assert [(p.name, p.kind, p.default) for p in port_params[:len(jax_params)]] == \
+        [(p.name, p.kind, p.default) for p in jax_params]
+    device = next(p for p in port_params if p.name == "device")
+    assert device.default is None and port_params.index(device) == len(jax_params)
+    if method == "__init__":
+        assert device.kind is device.KEYWORD_ONLY
+
+
+def test_retrieval_service_binds_positional_arguments_as_jax(torch_cache):
+    index = TorchIndex.create("tpu", {"collection": {"name": "dummy"}})
+    args = (index, "bm25", {"k1": 1.2, "b": 0.75}, 32, 500.0, False, 1)
+    svc = RetrievalService(*args, device="cpu")
+    assert (svc.model, svc.params, svc.batch_size, svc._hbm_budget_mb, svc.pruning, svc.shards) == \
+        ("bm25", {"k1": 1.2, "b": 0.75}, 32, 500.0, False, 1)
+    # the budget changes nothing on the exact resident path
+    queries = ["galaxies collide", "whales in the ocean"]
+    assert svc.search(queries, k=3) == RetrievalService(index, params={"k1": 1.2, "b": 0.75},
+                                                        device="cpu").search(queries, k=3)
+    with pytest.raises(TypeError):  # device is keyword-only: an eighth positional argument is refused
+        RetrievalService(*args, "cpu")
+
+
+@pytest.mark.parametrize("how", ["constructor", "from_config"])
+def test_sharded_serving_raises_config_error(torch_cache, how):
+    from capreolus_tpu_torch.core import ConfigError
+
+    with pytest.raises(ConfigError, match="item 6, 'Multi-device'"):
+        if how == "constructor":
+            RetrievalService(TorchIndex.create("tpu", {"collection": {"name": "dummy"}}), shards=2, device="cpu")
+        else:
+            RetrievalService.from_config(collection="dummy", shards=2, device="cpu")
+
+
+def test_reranking_service_refuses_an_extractor_state_path(torch_cache, tmp_path):
+    from capreolus_tpu_torch.core import ConfigError
+
+    index = TorchIndex.create("tpu", {"collection": {"name": "dummy"}})
+    reranker = TorchReranker.create("KNRM", _knrm_config({"name": "dummy"}))
+    with pytest.raises(ConfigError, match="item 4"):  # the fifth positional parameter, as in JAX
+        RerankingService(index, reranker, tmp_path / "knrm.npz", 10, str(tmp_path / "extractor_state"),
+                         device="cpu")
+    with pytest.raises(TypeError):
+        RerankingService(index, reranker, tmp_path / "knrm.npz", 10, None, "cpu")
