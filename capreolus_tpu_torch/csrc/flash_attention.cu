@@ -75,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kBQ = 128;       // query rows per block: two warpgroups of 64
@@ -95,10 +97,6 @@ struct Args {
   int ntiles;  // key tiles
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // per key tile, 1 where it holds an unmasked key; returns whether any key is unmasked
 __device__ __forceinline__ bool tile_flags(const unsigned char* mrow, int L, int ntiles, int* flags) {
@@ -198,65 +196,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], const TileMask& t
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
     l[h] = l[h] * alpha[h] + sum[h];
   }
-}
-
-// ---------------------------------------------------------------- TMA, mbarriers, wgmma
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// returns once the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// a wgmma shared-memory descriptor: start address, leading and stride byte offsets, swizzle mode
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t swizzle) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (swizzle << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keeps the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma that owns them
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x 64] (+)= a[64 x 16] * b[64 x 16]^T, both K-major in shared memory; scale_d == 0 overwrites d
@@ -600,7 +539,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1) attention_kernel(co
       }
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(s);
 
     online_softmax(s, tm, F32 ? 1.0f : a.scale, m, l, alpha);
@@ -650,7 +589,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1) attention_kernel(co
       }
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(o);
     if constexpr (F32) {
       __syncthreads();  // the block is done with this slot and v^T before they are written again
@@ -682,26 +621,6 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1) attention_kernel(co
 }
 
 // ---------------------------------------------------------------- host
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, reached through the runtime's entry-point query (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
 
 // an operand [B, H, L, D] with element strides s over (b, h, l), read in
 // boxes of kBoxD values x 64 rows of one (b, h); the dimensions after D go in

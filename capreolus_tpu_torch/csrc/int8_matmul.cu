@@ -60,6 +60,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kBM = 128;       // output rows per tile: two consumer warpgroups of 64
@@ -85,69 +87,9 @@ struct Params {
 
 constexpr int smem_bytes(int bn) { return kStages * (kBM + bn) * kBK + 2 * kStages * 8 + 1024; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// returns once the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box [rows x kBK bytes] at (k0, row0) of a 2-D tensor map into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int k0, int row0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle:
 // rows of 128 bytes, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma that owns them
-__device__ __forceinline__ void fence_regs(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) { return smem_desc(addr, 16, 1024, 1); }
 
 // d[64 x 128] (+)= a[64 x 32] * w[128 x 32]^T; scale_d == 0 overwrites d
 __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
@@ -352,10 +294,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int kk = 0; kk < kBK / 32; ++kk) {
           // a k32 step is 32 bytes further along the swizzled 128-byte rows
-          const uint64_t da = smem_desc(a_s + stage * kABytes + c * 64 * kBK + kk * 32);
+          const uint64_t da = desc128(a_s + stage * kABytes + c * 64 * kBK + kk * 32);
 #pragma unroll
           for (int s = 0; s < kNSub; ++s) {
-            const uint64_t db = smem_desc(w_s + stage * kWBytes + s * 128 * kBK + kk * 32);
+            const uint64_t db = desc128(w_s + stage * kWBytes + s * 128 * kBK + kk * 32);
             wgmma_m64n128k32(acc[s], da, db, (kb | kk) != 0);
           }
         }
@@ -381,26 +323,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       epilogue<BN, MODE>(p, acc, m0 + 64 * c, n0);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // a [rows, K] int8 matrix, K-contiguous, read as boxes of [box_rows x kBK bytes]

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, loaded with ``ctypes``. Libraries go
-to ``build/capreolus_tpu_torch/`` beside the package, named by a hash of the
-source, so an edited source is rebuilt and an unchanged one is reused. Nothing
-is built when a module is imported: the first launch builds what it needs, and
-``build_all`` builds every kernel at once, one ``nvcc`` process per source.
+shared library with a plain C interface, loaded with ``ctypes``; the ``wgmma``
+kernels share ``csrc/sm90.cuh``. Libraries go to ``build/capreolus_tpu_torch/``
+beside the package, named by a hash of the source and the headers, so an
+edited source is rebuilt and an unchanged one is reused. Nothing is built when
+a module is imported: the first launch builds what it needs, and ``build_all``
+builds every kernel at once, one ``nvcc`` process per source.
 """
 
 from __future__ import annotations
@@ -56,8 +57,11 @@ def on_card(t, what: str) -> bool:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     source = CSRC_DIR / KERNEL_SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{digest}.so"
 
 

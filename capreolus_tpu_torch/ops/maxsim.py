@@ -9,7 +9,9 @@ for an invalid doc: the function of the Pallas ``_maxsim_kernel`` and of the
 searcher's exact engine.
 
 - ``maxsim`` is the binding of the hand-written Hopper kernel
-  ``csrc/maxsim.cu`` and counts its launches in ``maxsim.launches``;
+  ``csrc/maxsim.cu`` (``wgmma`` on bf16, fed by TMA) and counts its launches
+  in ``maxsim.launches``; ``maxsim_plan`` decides its launch (rows per
+  block, Ld splits, grid);
 - ``maxsim_scores_plain`` is the plain torch version of the same function,
   which the kernel is held against on the card;
 - ``maxsim_scores`` is what the searcher calls: CUDA tensors go to the kernel,
@@ -30,6 +32,11 @@ import torch
 from capreolus_tpu_torch.ops import build
 
 _LIMITS = {}
+DOC_TILE = 64  # docs per block: the wgmma N
+ROW_TILE = 64  # query rows per consumer warpgroup: the wgmma M
+WARPGROUPS = 3  # consumer warpgroups of a block with more than 64 query rows: their registers fill an SM
+MAX_SPLITS = 8  # Ld ranges per doc tile: the portable thread-block cluster size
+SPLIT_WAVES = 4  # a split launch aims at this many waves of resident blocks
 PLAIN_CHUNK_ELEMENTS = 1 << 27  # similarity entries per step of the plain version (512 MB of f32)
 
 
@@ -56,6 +63,41 @@ def maxsim_scores_plain(q_emb, docs_t, bias_t, valid):
     return torch.where(valid.bool()[None, :], out, float("-inf"))
 
 
+def maxsim_plan(nq, lq, ld, c, sms=132):
+    """K3's launch for Q = ``nq`` queries of ``lq`` tokens over ``c`` docs of
+    ``ld`` tokens on a card of ``sms`` SMs, as a dict.
+
+    - ``warpgroups`` (W): consumer warpgroups per block, each 64 query rows:
+      1 where one warpgroup holds every row, else ``WARPGROUPS`` (3), so that
+      one block's tensor cores run three row tiles on each doc tile it loads;
+    - ``qw``: whole queries per warpgroup tile (Lq <= 64: ``64 // lq``), so a
+      query's sum never leaves its block; 1 for a longer query, which is cut
+      into ``chunks`` of 64 rows that the block's warpgroups take in
+      ``passes`` over the tokens;
+    - ``groups``: row groups per doc tile; ``tiles``: doc tiles of 64;
+    - ``splits``: Ld ranges per (doc tile, row group), one block each in a
+      thread-block cluster, so that few queries still fill the card (1 for a
+      chunked query);
+    - ``blocks``: the grid, tiles x groups x splits."""
+    tiles = -(-c // DOC_TILE)
+    if lq <= ROW_TILE:
+        qw, chunks = ROW_TILE // lq, 1
+        wg_tiles = -(-nq // qw)
+        w = 1 if wg_tiles == 1 else WARPGROUPS
+        groups, passes = -(-wg_tiles // w), 1
+        resident = sms * (2 if w == 1 else 1)  # blocks per SM: shared memory and registers
+        wanted = -(-SPLIT_WAVES * resident // (tiles * groups))
+        splits = 1  # a power of two: a cluster's blocks split the 64 docs evenly at the end
+        while splits * 2 <= min(MAX_SPLITS, ld) and splits < wanted:
+            splits *= 2
+    else:
+        qw, chunks = 1, -(-lq // ROW_TILE)
+        w = WARPGROUPS
+        groups, passes, splits = nq, -(-chunks // w), 1
+    return {"warpgroups": w, "qw": qw, "chunks": chunks, "passes": passes, "groups": groups,
+            "splits": splits, "tiles": tiles, "blocks": tiles * groups * splits}
+
+
 def maxsim_scores_ref(q_emb, docs, dmask):
     """The JAX module's reference: q_emb [Q, Lq, dim], docs [C, Ld, dim], dmask
     [C, Ld] -> [Q, C] = sum over Lq of max over Ld of ``q . d`` (bf16 inputs,
@@ -71,7 +113,7 @@ def _lib():
     lib = build.load("maxsim")
     if not _LIMITS:
         lib.maxsim_launch.restype = ctypes.c_int
-        lib.maxsim_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.maxsim_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
         lib.maxsim_max_dim.restype = ctypes.c_int
         lib.maxsim_max_dim.argtypes = []
         _LIMITS["dim"] = lib.maxsim_max_dim()
@@ -116,10 +158,14 @@ def maxsim(q_emb, docs_t, bias_t, valid):
     if nq == 0 or c == 0:
         return out
     q = q_emb.to(torch.bfloat16).contiguous()
+    plan = maxsim_plan(nq, lq, ld, c, sms=torch.cuda.get_device_properties(device).multi_processor_count)
+    if plan["blocks"] >= 2 ** 31:
+        raise ValueError(f"maxsim: {plan['blocks']} blocks for Q={nq} Lq={lq} C={c}: above the grid's limit")
+    plan_args = (ctypes.c_int * 6)(*(plan[k] for k in ("warpgroups", "qw", "chunks", "passes", "groups", "splits")))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.maxsim_launch(q.data_ptr(), docs_t.data_ptr(), bias_t.data_ptr(), valid.data_ptr(),
-                                out.data_ptr(), nq, lq, ld, c, dim, stream)
+                                out.data_ptr(), nq, lq, ld, c, dim, ctypes.addressof(plan_args), stream)
     if err != 0:
         raise RuntimeError(f"maxsim kernel launch failed: cudaError {err}")
     maxsim.launches += 1

@@ -7,7 +7,8 @@ kernel only on pad doc positions, which it counts as the model's path does. For 
 hand-written Hopper kernel ``csrc/knrm_pool.cu`` (or raises); for CPU tensors it
 runs ``knrm_pool_plain``, a torch transcription of the kernel's math, which is
 also what the kernel is held against on the card. ``knrm_pool.launches``
-counts the kernel launches.
+counts the kernel launches. ``knrm_plan`` decides how many blocks share a
+batch element's doc rows.
 """
 
 from __future__ import annotations
@@ -19,6 +20,22 @@ import torch
 from capreolus_tpu_torch.ops import build
 
 _LIMITS = {}
+KNRM_WARPS = 8  # warps per block of K1
+KNRM_CHUNK = 8  # doc rows per warp task of K1
+KNRM_MAX_SPLITS = 64  # blocks per batch element
+
+
+def knrm_plan(d):
+    """Blocks per batch element of K1 (its ``splits``) for D doc rows: enough
+    that each of their warps takes at most one chunk of ``KNRM_CHUNK`` rows, up
+    to 64. The batch element's warps take the chunks in turn: chunk ``ch`` goes
+    to warp ``ch % KNRM_WARPS`` of block ``ch // KNRM_WARPS % splits``.
+
+    Tuned at the served rerank depth (B = 100 candidates, 13 splits at D =
+    800); it does not look at B, and a larger batch, which fills the card with
+    fewer splits, is untuned."""
+    chunks = -(-d // KNRM_CHUNK)
+    return max(1, min(KNRM_MAX_SPLITS, -(-chunks // KNRM_WARPS)))
 
 
 def knrm_pool_plain(q_emb, d_emb, qtok, dtok, mus, sigmas):
@@ -46,11 +63,15 @@ def _lib():
     lib = build.load("knrm_pool")
     if not _LIMITS:
         lib.knrm_pool_launch.restype = ctypes.c_int
-        lib.knrm_pool_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        for fn in ("knrm_pool_max_q", "knrm_pool_max_e", "knrm_pool_max_pairs"):
+        lib.knrm_pool_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.knrm_pool_work_floats.restype = ctypes.c_longlong
+        lib.knrm_pool_work_floats.argtypes = [ctypes.c_int] * 4
+        for fn in ("knrm_pool_max_q", "knrm_pool_max_e", "knrm_pool_max_pairs", "knrm_pool_warps", "knrm_pool_chunk"):
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = []
         _LIMITS.update(q=lib.knrm_pool_max_q(), e=lib.knrm_pool_max_e(), pairs=lib.knrm_pool_max_pairs())
+        if (lib.knrm_pool_warps(), lib.knrm_pool_chunk()) != (KNRM_WARPS, KNRM_CHUNK):
+            raise RuntimeError("knrm_pool: the kernel's warps and chunk differ from knrm_plan's")
     return lib
 
 
@@ -90,10 +111,14 @@ def knrm_pool(q_emb, d_emb, qtok, dtok, mus, sigmas):
     out = torch.empty((b, k), dtype=torch.float32, device=device)
     if b == 0:
         return out
+    splits = knrm_plan(d)
+    # the blocks' sums, then their tickets, which the launch zeroes on this stream
+    work = torch.empty(lib.knrm_pool_work_floats(b, q, k, splits), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.knrm_pool_launch(q_emb.data_ptr(), d_emb.data_ptr(), qtok.data_ptr(), dtok.data_ptr(),
-                                   mus.data_ptr(), sigmas.data_ptr(), out.data_ptr(), b, q, d, e, k, stream)
+                                   mus.data_ptr(), sigmas.data_ptr(), out.data_ptr(), work.data_ptr(),
+                                   b, q, d, e, k, splits, stream)
     if err != 0:
         raise RuntimeError(f"knrm_pool kernel launch failed: cudaError {err}")
     knrm_pool.launches += 1

@@ -14,8 +14,10 @@ printed only when every phase passed):
 2. build: nvcc builds every kernel of the port from ``capreolus_tpu_torch/csrc``,
    one process per source, all started together;
 3. kernel check, with CUDA-event times of each kernel and its plain version:
-   K1 (``knrm_pool``) against ``knrm_pool_plain`` at the serving shape and at a
-   small ragged shape, max |err| <= 2e-4; K2 (``flash_attention``) against
+   K1 (``knrm_pool``) against ``knrm_pool_plain`` at the serving shape, at a
+   small ragged shape and at one with D off its split and an all-pad batch
+   element, max |err| <= 2e-4, a repeated call bit-identical, timed back to
+   back and, as a note on the wrapper's host work, from a CUDA graph; K2 (``flash_attention``) against
    ``attention_plain`` on the encoder's strided head views ([B, H, L, D] views
    of [B, L, H * D] rows) at the served shape (B=1600 passages, H=12, L=256,
    D=64, every key unmasked; compared on the first 128 batch rows), at
@@ -28,9 +30,12 @@ printed only when every phase passed):
    cores' f32 figure beside it); K3 (``maxsim``) against
    ``maxsim_scores_plain`` at the served shape (Lq=32, Ld=180, C=20,000,
    dim=128) for 1 and 64 queries on seeded inputs with docs of 64-180 valid
-   tokens, and at a small ragged shape with a fully masked doc: -inf docs
-   equal, max |err| <= 1e-4, with the bf16 product alone (one
-   ``torch.matmul``) timed beside it, since no PyTorch call computes MaxSim;
+   tokens, and at three ragged shapes (a small one; one across the row tile,
+   the doc tile, the Ld split and the cluster; queries of 200 tokens at dim
+   20) with a fully masked doc and one whose only valid token is its last:
+   -inf docs equal, max |err| <= 1e-4, a repeated call bit-identical, with the
+   launch plan printed and the bf16 product alone (one ``torch.matmul``)
+   timed beside it, since no PyTorch call computes MaxSim;
    X1 (``int8_matmul``, wgmma fed by TMA) at the served int8 shapes (monoBERT's
    [409,600 x 768] x [768 -> 768], [768 -> 3072] and [409,600 x 3072] x
    [3072 -> 768]; ColBERT's products as the quantized engine chunks the served
@@ -99,7 +104,7 @@ printed only when every phase passed):
    ``rescore`` 200: query 0's top 10 equals the ``quantize=none`` top 10 of
    phase 6 but for near-ties (two docs that trade places score within 1e-2 of
    each other in both lists);
-7. a ``kernels`` JSON line, then the result line.
+7. the seconds each phase took, a ``kernels`` JSON line, then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
 and read just after it.
@@ -265,6 +270,32 @@ def cuda_ms(fn, rounds=TIMED_ROUNDS, calls=20):
     return float(np.median(times))
 
 
+def graph_ms(fn, rounds=TIMED_ROUNDS, calls=20):
+    """Device time per call (ms) with the host out of the way: ``calls`` calls
+    captured once in a CUDA graph and replayed between CUDA events, the median
+    over ``rounds``, after two warm-up calls. For a kernel that takes less
+    time than its wrapper's host work, where back-to-back launches
+    (``cuda_ms``) would time the host."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def knrm_case(b, q, d, e, vocab, seed, device):
     """K1's inputs at one shape, built the way the model builds them: pad query
     rows, negative OOV ids in queries and docs, ragged doc lengths (pad tails)."""
@@ -385,25 +416,48 @@ def phase_build():
 
 
 def phase_k1_check(peaks):
-    from capreolus_tpu_torch.ops.simmat import knrm_pool, knrm_pool_plain
+    """K1 against its plain version at the serving shape, a small ragged shape
+    and a ragged one whose D is off the plan's split and whose batch element 2
+    is all pad; each repeated call must give the same bits."""
+    from capreolus_tpu_torch.ops.simmat import knrm_plan, knrm_pool, knrm_pool_plain
 
     out = {}
-    for label, shape, seed in (("serving", (100, 4, 800, 300), 1), ("small", (3, 5, 37, 20), 2)):
+    for label, shape, seed in (("serving", (100, 4, 800, 300), 1), ("small", (3, 5, 37, 20), 2),
+                               ("all_pad_row", (5, 4, 803, 300), 3)):
+        t0 = time.perf_counter()
         b, q, d, e = shape
         args = knrm_case(b, q, d, e, vocab=5000, seed=seed, device="cuda")
+        if label == "all_pad_row":
+            args[1][2] = 0.0  # a batch element whose doc positions are all pad, as knrm_inputs zeroes them
+            args[3][2] = 0
         got = knrm_pool(*args)
         want = knrm_pool_plain(*args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"K1 {label}: non-finite output")
         err = float((got - want).abs().max())
         check(err <= ERR_TOL, f"K1 {label}: max |kernel - plain| = {err:.3g} > {ERR_TOL}")
+        check(torch.equal(knrm_pool(*args), got), f"K1 {label}: a repeated call gave other bits")
+        out[label] = {"shape": f"B={b} Q={q} D={d} E={e} K={args[4].shape[0]}", "max_abs_err": err,
+                      "splits": knrm_plan(d)}
+        if label == "small" or label == "all_pad_row":
+            out[label]["seconds"] = time.perf_counter() - t0
+            print(f"[3 kernel] knrm_pool {label} {out[label]['shape']}, {out[label]['splits']} blocks per batch "
+                  f"element: max|err| {err:.3g}, repeat bit-identical ({out[label]['seconds']:.2f} s)")
+            continue
         ms = cuda_ms(lambda: knrm_pool(*args))
+        # K1 takes about as much device time as its wrapper takes on the host: a CUDA graph's replay
+        # shows the device time alone, as a note beside the back-to-back time that every kernel reports
+        t_graph = time.perf_counter()
+        ms_graph = graph_ms(lambda: knrm_pool(*args))
+        t_graph = time.perf_counter() - t_graph
         plain_ms = cuda_ms(lambda: knrm_pool_plain(*args))
         bound_ms, bound_by = k1_bound_ms(args, peaks["bw"], peaks[torch.float32])
-        out[label] = {"shape": f"B={b} Q={q} D={d} E={e} K={args[4].shape[0]}", "max_abs_err": err,
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"[3 kernel] knrm_pool {label} {out[label]['shape']}: max|err| {err:.3g}, "
-              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by})")
+        out[label].update(ms=ms, graph_ms=ms_graph, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          seconds=time.perf_counter() - t0)
+        print(f"[3 kernel] knrm_pool {label} {out[label]['shape']}, {out[label]['splits']} blocks per batch element: "
+              f"max|err| {err:.3g}, repeat bit-identical, {ms:.4f} ms launched back to back ({ms_graph:.4f} ms "
+              f"replayed from a CUDA graph; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}) "
+              f"({out[label]['seconds']:.2f} s, {t_graph:.2f} s of it the graph's timing)")
     return out
 
 
@@ -954,6 +1008,7 @@ def k3_measure(q, docs_t, bias_t, valid, peaks):
     want = maxsim_scores_plain(q, docs_t, bias_t, valid)
     torch.cuda.synchronize()
     label = "K3 Q={} Lq={} Ld={} C={} dim={}".format(*q.shape[:2], *docs_t.shape)
+    check(torch.equal(maxsim(q, docs_t, bias_t, valid), got), f"{label}: a repeated call gave other bits")
     check(torch.equal(torch.isneginf(got), torch.isneginf(want)), f"{label}: -inf entries differ from plain")
     finite = torch.isfinite(want)
     check(bool(torch.isfinite(got[finite]).all()), f"{label}: non-finite score of a valid doc")
@@ -962,7 +1017,7 @@ def k3_measure(q, docs_t, bias_t, valid, peaks):
     q2d = q.to(torch.bfloat16).reshape(-1, q.shape[2])
     d2d = docs_t.view(-1, docs_t.shape[2])
     big = q.shape[0] > 1
-    out = {"shape": label[3:], "max_abs_err": err,
+    out = {"shape": label[3:], "max_abs_err": err, "plan": k3_plan(q, docs_t),
            "ms": cuda_ms(lambda: maxsim(q, docs_t, bias_t, valid), rounds=5 if big else 25, calls=4 if big else 20),
            "plain_ms": cuda_ms(lambda: maxsim_scores_plain(q, docs_t, bias_t, valid), rounds=3, calls=2),
            "product_gemm_ms": cuda_ms(lambda: torch.matmul(q2d, d2d.T), rounds=5, calls=4)}
@@ -971,8 +1026,19 @@ def k3_measure(q, docs_t, bias_t, valid, peaks):
     return out
 
 
+def k3_plan(q, docs_t):
+    """K3's launch plan for these inputs on this card (ops/maxsim.py::maxsim_plan)."""
+    from capreolus_tpu_torch.ops.maxsim import maxsim_plan
+
+    return maxsim_plan(q.shape[0], q.shape[1], docs_t.shape[0], docs_t.shape[1],
+                       sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def k3_line(label, r):
-    return (f"{label} {r['shape']}: max|err| {r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
+    plan = r["plan"]
+    return (f"{label} {r['shape']}: {plan['blocks']} blocks of {plan['warpgroups']} warpgroup(s), "
+            f"{plan['splits']} Ld split(s); max|err| {r['max_abs_err']:.3g}, repeat bit-identical, "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
             f"bf16 product GEMM alone {r['product_gemm_ms']:.3f}, bound {r['bound_ms']:.4f} by {r['bound_by']}; "
             f"{100 * r['valid_token_share']:.1f}% of tokens valid)")
 
@@ -1004,22 +1070,34 @@ def phase_k3_check(peaks):
     del docs_t, bias_t, mask
     torch.cuda.empty_cache()
 
-    # small ragged case: 3 queries of 5 tokens, 11 docs of 7 tokens, dim 24, doc 4 fully masked
-    q, docs = unit(3, 5, 24), unit(7, 11, 24).to(torch.bfloat16)
-    small_mask = torch.rand(7, 11, generator=gen, device="cuda") > 0.3
-    small_mask[:, 4] = False
-    small_mask[0, [0, 1, 2, 3, 5, 6, 7, 8, 9, 10]] = True
-    bias_s = torch.where(small_mask, 0.0, MASKED_BIAS).float().contiguous()
-    valid_s = small_mask.any(dim=0).contiguous()
-    got, want = maxsim(q, docs, bias_s, valid_s), maxsim_scores_plain(q, docs, bias_s, valid_s)
-    torch.cuda.synchronize()
-    check(bool(torch.isneginf(got[:, 4]).all()) and torch.equal(torch.isneginf(got), torch.isneginf(want)),
-          "K3 small: the fully masked doc is not -inf in kernel and plain alike")
-    finite = torch.isfinite(want)
-    out["max_abs_err_small"] = float((got[finite] - want[finite]).abs().max())
-    check(out["max_abs_err_small"] <= K3_TOL, f"K3 small: max |kernel - plain| = {out['max_abs_err_small']:.3g}")
-    print(f"[3 kernel] maxsim small Q=3 Lq=5 Ld=7 C=11 dim=24, doc 4 fully masked: -inf matches, max|err| "
-          f"{out['max_abs_err_small']:.3g} (tolerance {K3_TOL})")
+    # ragged cases: the small one (3 queries of 5 tokens, 11 docs of 7 tokens, dim 24, doc 4 fully masked);
+    # one across the row tile (65 rows), the doc tile (C = 2,011), the Ld split (Ld = 181) and a cluster of
+    # 8, at dim 128; queries of 200 tokens (64-row chunks, two passes) at dim 20 (plain loads)
+    for label, (nq, lq, ld, c, dim) in (("small", (3, 5, 7, 11, 24)), ("edges", (5, 13, 181, 2011, 128)),
+                                         ("chunked", (2, 200, 9, 131, 20))):
+        t0 = time.perf_counter()
+        q, docs = unit(nq, lq, dim), unit(ld, c, dim).to(torch.bfloat16)
+        small_mask = torch.rand(ld, c, generator=gen, device="cuda") > 0.3
+        small_mask[:, 4] = False  # a fully masked doc
+        small_mask[:, 5] = False
+        small_mask[ld - 1, 5] = True  # a doc whose only valid token is its last
+        small_mask[0, [0, 1, 2, 3, 6, 7, 8, 9, 10]] = True
+        bias_s = torch.where(small_mask, 0.0, MASKED_BIAS).float().contiguous()
+        valid_s = small_mask.any(dim=0).contiguous()
+        got, want = maxsim(q, docs, bias_s, valid_s), maxsim_scores_plain(q, docs, bias_s, valid_s)
+        torch.cuda.synchronize()
+        check(bool(torch.isneginf(got[:, 4]).all()) and torch.equal(torch.isneginf(got), torch.isneginf(want)),
+              f"K3 {label}: the fully masked doc is not -inf in kernel and plain alike")
+        check(torch.equal(maxsim(q, docs, bias_s, valid_s), got), f"K3 {label}: a repeated call gave other bits")
+        finite = torch.isfinite(want)
+        err = float((got[finite] - want[finite]).abs().max())
+        check(err <= K3_TOL, f"K3 {label}: max |kernel - plain| = {err:.3g}")
+        plan = k3_plan(q, docs)
+        out["max_abs_err_small" if label == "small" else f"max_abs_err_{label}"] = err
+        print(f"[3 kernel] maxsim {label} Q={nq} Lq={lq} Ld={ld} C={c} dim={dim} ({plan['blocks']} blocks of "
+              f"{plan['warpgroups']} warpgroup(s), {plan['splits']} Ld split(s), {plan['passes']} pass(es)), doc 4 "
+              f"fully masked, doc 5 only its last token: -inf matches, repeat bit-identical, max|err| {err:.3g} "
+              f"(tolerance {K3_TOL}) ({time.perf_counter() - t0:.2f} s)")
     return out
 
 
@@ -1559,24 +1637,32 @@ def main():
     workdir = tempfile.mkdtemp(prefix="capreolus_tpu_torch_smoke_")
     os.environ["CAPREOLUS_CACHE"] = os.path.join(workdir, "cache")
     os.environ["CAPREOLUS_RESULTS"] = os.path.join(workdir, "results")
+    seconds = {}
+
+    def timed(phase, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = phase(*args, **kwargs)
+        seconds[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 1)
+        return result
+
     try:
-        phase_build()
-        k1 = phase_k1_check(peaks)
-        k2 = phase_k2_check(peaks)
-        k3 = phase_k3_check(peaks)
-        x1 = phase_x1_check(peaks)
-        q1 = phase_q1_check(peaks)
-        q1["scales_differing_from_cpu"] = phase_scales_check()
-        k1_launches, corpus_dir, topics = phase_serving(workdir, SERVING_DOCS, ckpt_seed=3)
-        k2_launches, k2_served, f32 = phase_bert_serving(workdir, corpus_dir, topics, peaks)
-        bert_int8_launches, bert_int8 = phase_bert_int8_serving(workdir, corpus_dir, topics, f32)
-        colbert_launches, k3_served, none = phase_colbert_serving(workdir, corpus_dir, topics, peaks)
-        colbert_int8_launches, colbert_int8 = phase_colbert_int8_serving(workdir, corpus_dir, topics, none)
+        timed(phase_build)
+        k1 = timed(phase_k1_check, peaks)
+        k2 = timed(phase_k2_check, peaks)
+        k3 = timed(phase_k3_check, peaks)
+        x1 = timed(phase_x1_check, peaks)
+        q1 = timed(phase_q1_check, peaks)
+        q1["scales_differing_from_cpu"] = timed(phase_scales_check)
+        k1_launches, corpus_dir, topics = timed(phase_serving, workdir, SERVING_DOCS, ckpt_seed=3)
+        k2_launches, k2_served, f32 = timed(phase_bert_serving, workdir, corpus_dir, topics, peaks)
+        bert_int8_launches, bert_int8 = timed(phase_bert_int8_serving, workdir, corpus_dir, topics, f32)
+        colbert_launches, k3_served, none = timed(phase_colbert_serving, workdir, corpus_dir, topics, peaks)
+        colbert_int8_launches, colbert_int8 = timed(phase_colbert_int8_serving, workdir, corpus_dir, topics, none)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     serving = k1["serving"]
-    k3_fields = ("shape", "max_abs_err", "ms", "plain_ms", "product_gemm_ms", "bound_ms", "bound_by",
+    k3_fields = ("shape", "plan", "max_abs_err", "ms", "plain_ms", "product_gemm_ms", "bound_ms", "bound_by",
                  "valid_token_share")
     kernels = [{
         "name": "knrm_pool",
@@ -1588,7 +1674,10 @@ def main():
         "launches": k1_launches,
         "max_abs_err": serving["max_abs_err"],
         "max_abs_err_small": k1["small"]["max_abs_err"],
+        "max_abs_err_all_pad_row": k1["all_pad_row"]["max_abs_err"],
+        "blocks_per_batch_element": serving["splits"],
         "ms": serving["ms"],
+        "graph_ms": serving["graph_ms"],  # 20 calls replayed from a CUDA graph: the device time without the host's
         "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
@@ -1633,7 +1722,10 @@ def main():
         "launches": colbert_launches["maxsim"],
         "max_abs_err": k3_served["q1"]["max_abs_err"],
         "max_abs_err_small": k3["max_abs_err_small"],
+        "max_abs_err_edges": k3["max_abs_err_edges"],
+        "max_abs_err_chunked": k3["max_abs_err_chunked"],
         "max_abs_err_cpu_top10": k3_served["max_abs_err_cpu"],
+        "plan": k3_served["q1"]["plan"],
         "ms": k3_served["q1"]["ms"],
         "plain_ms": k3_served["q1"]["plain_ms"],
         "bound_ms": k3_served["q1"]["bound_ms"],
@@ -1686,7 +1778,8 @@ def main():
         "bound_by": q1["bound_by"],
         "library_ms": None,  # no single PyTorch call computes per-token quantization
     }]
-    print(f"[7 done] every phase passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"[7 done] every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
+          f"{json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -105,6 +105,29 @@ def test_k1_kernel_matches_plain(card, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 4, 803, 300), (9, 3, 130, 20), (2, 4, 7, 33)])
+def test_k1_kernel_with_an_all_pad_element_and_d_off_the_split(card, shape):
+    """Batch element 1 is all pad; D is no multiple of the rows a block takes;
+    E = 33 takes the scalar loads. Each call's blocks take tickets of their
+    own, so calls on two streams at once give the same bits."""
+    args = _k1_args(*shape, seed=sum(shape), device=card)
+    args[1][1] = 0.0
+    args[3][1] = 0
+    got = simmat.knrm_pool(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), simmat.knrm_pool_plain(*args).cpu().numpy(), rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(simmat.knrm_pool(*args).cpu().numpy(), got.cpu().numpy())
+    side = torch.cuda.Stream(device=got.device)
+    side.wait_stream(torch.cuda.current_stream(got.device))
+    with torch.cuda.stream(side):
+        beside = [simmat.knrm_pool(*args) for _ in range(4)]
+    here = [simmat.knrm_pool(*args) for _ in range(4)]
+    torch.cuda.synchronize()
+    for out in beside + here:
+        np.testing.assert_array_equal(out.cpu().numpy(), got.cpu().numpy())
+
+
+@pytest.mark.cuda
 def test_k1_wrapper_rejects_what_the_kernel_does_not_take(card):
     args = list(_k1_args(2, 4, 16, 8, seed=1, device=card))
     with pytest.raises(TypeError):
@@ -339,7 +362,8 @@ def test_bert_reranking_service_on_the_card_matches_cpu(card, tmp_path, monkeypa
 
 def _k3_args(n_q, lq, ld, c, dim, seed, device):
     """K3's arguments: L2-normalised q [Q, Lq, dim] f32 and docs_t [Ld, C, dim]
-    bf16, ragged doc lengths with holes, docs 0 and C // 2 fully masked."""
+    bf16, ragged doc lengths with holes, docs 0 and C // 2 fully masked, and
+    doc 1 (when C > 2) valid at its last token only."""
     rng = np.random.Generator(np.random.PCG64(seed))
 
     def unit(*shape):
@@ -350,6 +374,9 @@ def _k3_args(n_q, lq, ld, c, dim, seed, device):
     mask &= rng.random((ld, c)) > 0.1
     mask[0] |= rng.random(c) > 0.5
     mask[:, [0, c // 2]] = False
+    if c > 2:
+        mask[:, 1] = False
+        mask[ld - 1, 1] = True
     bias = np.where(mask, 0.0, -1e9).astype(np.float32)
     return (unit(n_q, lq, dim).to(device), unit(ld, c, dim).to(device, torch.bfloat16),
             torch.from_numpy(bias).to(device), torch.from_numpy(mask.any(axis=0)).to(device))
@@ -363,6 +390,15 @@ def _k3_args(n_q, lq, ld, c, dim, seed, device):
     (5, 7, 13, 131, 24), (1, 3, 5, 7, 8), (5, 1, 4, 65, 8),
     (3, 5, 7, 11, 20),        # dim off 8: scalar loads
     (2, 150, 9, 70, 24),      # more query tokens than a block's rows: row chunks
+    (63, 1, 9, 70, 128),      # 63 query rows
+    (1, 64, 9, 70, 128),      # 64 rows: one full warpgroup tile
+    (5, 13, 9, 70, 128),      # 65 rows: two warpgroup tiles
+    (64, 32, 13, 130, 128),   # 2048 rows: 11 groups of three warpgroups; C off the doc tile, Ld off the split
+    (3, 33, 17, 129, 64),     # Lq = 33: one query per warpgroup
+    (2, 65, 7, 65, 24),       # Lq = 65: two 64-row chunks in one pass
+    (1, 200, 5, 33, 20),      # Lq = 200: four chunks in two passes, dim off 8
+    (2, 32, 11, 200, 20),     # dim off 8 across Ld splits
+    (1, 32, 181, 1000, 24),   # Ld off the split; dim 24 by TMA, zero-filled past dim
 ])
 def test_k3_kernel_matches_plain(card, shape):
     q, docs_t, bias_t, valid = _k3_args(*shape, seed=sum(shape), device=card)
