@@ -4,12 +4,14 @@ The JAX package ``capreolus_tpu`` is the reference; this package keeps its
 layout and module names so that each module's counterpart is easy to find, and
 imports nothing of it (nor of JAX). It serves retrieve-then-rerank search (the
 BM25 exact scoring engine, then KNRM or monoBERT-MaxP) and ColBERT
-late-interaction retrieval; each TPU kernel on those paths is hand-written CUDA
-for Hopper under ``csrc/`` (K1 ``knrm_pool.cu``, K2 ``flash_attention.cu``,
-K3 ``maxsim.cu``).
+late-interaction retrieval, and runs the rank task from its CLI
+(``python -m capreolus_tpu_torch rank.searcheval with ...``); each TPU kernel
+on those paths is hand-written CUDA for Hopper under ``csrc/`` (K1
+``knrm_pool.cu``, K2 ``flash_attention.cu``, K3 ``maxsim.cu``, X1
+``int8_matmul.cu``).
 
 Entry points run on the GPU unless the caller asks for the CPU
-(``RetrievalService(..., device="cpu")``).
+(``RetrievalService(..., device="cpu")``, ``--device=cpu`` on the CLI).
 """
 
 __version__ = "0.1.0"
@@ -19,6 +21,8 @@ from capreolus_tpu_torch.core import (
     ConfigOption,
     Dependency,
     ModuleBase,
+    config_list_to_dict,
+    config_string_to_dict,
     constants,
     module_registry,
 )
@@ -26,11 +30,13 @@ from capreolus_tpu_torch.utils.loginit import get_logger
 
 _MODULE_PACKAGES = (
     "collection",
+    "benchmark",
     "index",
+    "searcher",
     "tokenizer",
     "extractor",
     "reranker",
-    "searcher",
+    "task",
 )
 
 _loaded = False
@@ -53,6 +59,7 @@ __all__ = [
     "ConfigOption",
     "Dependency",
     "ModuleBase",
+    "config_list_to_dict",
     "constants",
     "get_logger",
     "load_all_modules",

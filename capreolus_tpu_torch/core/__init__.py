@@ -2,6 +2,8 @@ from capreolus_tpu_torch.core.config import (
     ConfigError,
     ConfigOption,
     Dependency,
+    config_list_to_dict,
+    config_string_to_dict,
     merge_config_dicts,
 )
 from capreolus_tpu_torch.core.module import (
@@ -17,6 +19,8 @@ __all__ = [
     "ConfigOption",
     "Dependency",
     "ModuleBase",
+    "config_list_to_dict",
+    "config_string_to_dict",
     "constants",
     "import_all_modules",
     "merge_config_dicts",

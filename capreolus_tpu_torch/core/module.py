@@ -1,16 +1,18 @@
-"""Module registry and dependency-injection runtime of the PyTorch port.
-
-The JAX package's ``capreolus_tpu/core/module.py``, as far as slice 1 needs it:
+"""Module registry and dependency-injection runtime of the PyTorch port (the
+JAX package's ``capreolus_tpu/core/module.py``):
 
 - a registry of module classes keyed by (module_type, module_name). It is the
   port's OWN registry: ``ModuleRegistry.register`` replaces a name that is
   already registered, so a registry shared with the JAX package would let the
   last import win in a process that loads both packages;
-- ``ModuleBase.create(name, config)`` that recursively instantiates the
-  dependency graph declared via ``Dependency``;
+- ``ModuleBase.create(name, config, provide)`` that recursively instantiates
+  the dependency graph declared via ``Dependency``, earlier dependencies
+  providing instances to later ones;
 - deterministic, config-derived cache paths (``get_module_path`` /
-  ``get_cache_path``) and ``config_keys_not_in_path`` exclusions;
-- ``requires_random_seed`` per-module seeding.
+  ``get_cache_path``) and ``config_keys_not_in_path`` exclusions, equal to the
+  JAX package's for the same config;
+- ``requires_random_seed`` per-module seeding, ``describe_class`` and
+  ``print_config``.
 """
 
 from __future__ import annotations
@@ -76,6 +78,9 @@ class ModuleRegistry:
     def get_module_types(self):
         return sorted(self._registry)
 
+    def get_module_names(self, module_type: str):
+        return sorted(self._registry.get(module_type, {}))
+
 
 module_registry = ModuleRegistry()
 
@@ -119,15 +124,18 @@ class ModuleBase:
 
     # ------------------------------------------------------------------ creation
     @classmethod
-    def create(cls, name: Optional[str] = None, config: Optional[dict] = None):
-        """Instantiate the module registered under ``name`` with ``config`` overrides."""
+    def create(cls, name: Optional[str] = None, config: Optional[dict] = None, provide: Optional[dict] = None):
+        """Instantiate the module registered under ``name`` with ``config`` overrides.
+
+        ``provide`` maps dependency keys (or module types) to already-created
+        instances that are shared instead of created anew."""
         config = dict(config or {})
         if name is None:
             name = config.get("name") or getattr(cls, "module_name", None)
         if name is None:
             raise ConfigError(f"no module name given for module_type={cls.module_type}")
         target = module_registry.lookup(cls.module_type, name) if cls.module_type else cls
-        return target._instantiate(config)
+        return target._instantiate(config, provide or {})
 
     @classmethod
     def _effective_config_spec(cls):
@@ -137,7 +145,7 @@ class ModuleBase:
         return spec
 
     @classmethod
-    def _instantiate(cls, config: dict):
+    def _instantiate(cls, config: dict, provide: dict):
         self = cls.__new__(cls)
         cfg: Dict[str, Any] = {"name": cls.module_name}
 
@@ -156,7 +164,8 @@ class ModuleBase:
             except (TypeError, ValueError) as e:
                 raise ConfigError(f"bad value {raw!r} for {cls.module_type}.{key}: {e}") from e
 
-        # instantiate dependencies depth-first
+        # instantiate dependencies depth-first; earlier deps may provide instances to later ones
+        provide = dict(provide)
         for dep in cls.dependencies:
             dep_config = dict(dep.default_config_overrides or {})
             user_cfg = config.get(dep.key, {})
@@ -164,12 +173,25 @@ class ModuleBase:
                 user_cfg = {"name": user_cfg}
             dep_config = merge_config_dicts(dep_config, user_cfg)
 
-            base_cls = _MODULE_TYPE_BASES.get(dep.module)
-            if base_cls is None:
-                raise ConfigError(f"unknown dependency module type {dep.module!r}")
-            instance = base_cls.create(dep_config.pop("name", None) or dep.name, dep_config)
+            provided = provide.get(dep.key)
+            if provided is not None and (not dep_config.get("name") or dep_config.get("name") == provided.module_name):
+                instance = provided
+            else:
+                base_cls = _MODULE_TYPE_BASES.get(dep.module)
+                if base_cls is None:
+                    raise ConfigError(f"unknown dependency module type {dep.module!r}")
+                dep_name = dep_config.pop("name", None) or dep.name
+                instance = base_cls.create(dep_name, dep_config, provide)
+
             setattr(self, dep.key, instance)
             cfg[dep.key] = instance.config
+            if dep.provide_this:
+                provide[dep.key] = instance
+                provide[dep.module] = instance
+            for child_key in dep.provide_children:
+                child = getattr(instance, child_key, None)
+                if child is not None:
+                    provide[child_key] = child
 
         self.config = cfg
         if cls.requires_random_seed:
@@ -208,6 +230,24 @@ class ModuleBase:
 
     def get_cache_path(self) -> Path:
         return Path(constants["CACHE_BASE_PATH"]) / self.get_module_path()
+
+    # ------------------------------------------------------------------ introspection
+    @classmethod
+    def describe_class(cls) -> str:
+        lines = [f"{cls.module_type}={cls.module_name}  ({cls.__module__})"]
+        doc = (cls.__doc__ or "").strip().splitlines()
+        if doc:
+            lines.append(f"  {doc[0]}")
+        for opt in cls._effective_config_spec():
+            lines.append(f"  option {opt.key} = {opt.default_value!r}  # {opt.description}")
+        for dep in cls.dependencies:
+            lines.append(f"  dependency {dep.key} -> {dep.module}={dep.name}")
+        return "\n".join(lines)
+
+    def print_config(self):
+        import json
+
+        print(json.dumps(self.config, indent=2, default=str))
 
 
 # populated by module-type base classes as they are defined (collection, index, ...)

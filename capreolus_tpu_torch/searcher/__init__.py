@@ -3,16 +3,18 @@
 
 The ``Searcher`` base gives run-file IO, ``query_from_file`` and the
 interactive ``query``. Ported so far: the exact sparse scoring engine
-(``scoring.py``, served by ``serving.RetrievalService``) and the
-late-interaction searcher ``colbert`` (``late_interaction.py``). The BM25
-family of searcher modules comes with the rank task (ROADMAP).
+(``scoring.py``) with the BM25 family (``tpu.py``), the feedback searchers
+(``feedback.py``), fusion (``fusion.py``), ``msmarcopsgbm25`` and the static-run
+base (``special.py``), and the late-interaction searcher ``colbert``
+(``late_interaction.py``). Creating a JAX searcher that is not ported yet
+raises ``ConfigError`` naming the ROADMAP.md item that queues it.
 """
 
 from __future__ import annotations
 
 import os
 
-from capreolus_tpu_torch.core import ModuleBase, import_all_modules, register_module_type
+from capreolus_tpu_torch.core import ConfigError, ModuleBase, import_all_modules, module_registry, register_module_type
 from capreolus_tpu_torch.utils.trec import load_trec_run, write_trec_run
 
 
@@ -23,11 +25,35 @@ def _hbm_budget_mb(config):
     return 12000.0 if v is None else float(v)
 
 
+_DENSE = "item 6, 'Dense and learned-sparse retrieval'"
+_DOWNLOADS = "item 3b (searchers that read downloaded runs)"
+# the JAX package's searchers that the port lacks, and the ROADMAP.md item that queues each
+UNPORTED_SEARCHERS = {
+    "dense": _DENSE,
+    "impact": _DENSE,
+    "msmarcopsg": _DOWNLOADS,
+    "static_tct_colbert": _DOWNLOADS,
+    "msptop200": _DOWNLOADS,
+    **{name: _DOWNLOADS for name in (
+        "bm25staticrob04yang19", "bm25staticrob04yang19desc", "bm25staticrob04huston14title",
+        "bm25staticrob04huston14desc", "bm25staticgov2", "bm25staticgov2desc", "bm25staticgenomics",
+        "bm25staticcds", "qdelstaticcovidabstract", "rm3staticcore18title", "rm3staticcore18desc")},
+}
+
+
 @register_module_type
 class Searcher(ModuleBase):
     """Base class for Searcher modules."""
 
     module_type = "searcher"
+
+    @classmethod
+    def create(cls, name=None, config=None, provide=None):
+        wanted = name or (config or {}).get("name")
+        if wanted in UNPORTED_SEARCHERS and wanted not in module_registry.get_module_names("searcher"):
+            raise ConfigError(f"searcher {wanted!r} is not ported to PyTorch yet "
+                              f"(ROADMAP.md {UNPORTED_SEARCHERS[wanted]})")
+        return super().create(name, config, provide)
 
     @staticmethod
     def load_trec_run(fn):

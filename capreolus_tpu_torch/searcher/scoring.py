@@ -305,7 +305,8 @@ class ScoringEngine:
             acc.index_add_(1, lin[sel].reshape(-1), s[:, sel].reshape(grid_size, -1))
         scores = acc.view(grid_size, num_queries, n_rows)[:, :, : d.num_docs]
         values, ords = torch.sort(scores, dim=-1, descending=True, stable=True)
-        return values[..., :topk], ords[..., :topk].to(torch.int32)
+        # compact copies: a view would keep the whole sorted [G, Q, N] buffer alive while in flight
+        return values[..., :topk].contiguous(), ords[..., :topk].to(torch.int32)
 
     # ------------------------------------------------------------------ public API
     def search(
@@ -326,32 +327,62 @@ class ScoringEngine:
         tiered path is not ported yet). With ``materialize=False`` the device
         tensors are returned and the caller copies them when it needs them.
         """
-        if model not in SCORING_MODELS:
-            raise ValueError(f"unknown scoring model {model!r}; known: {sorted(SCORING_MODELS)}")
         if exact_topk is False:
             raise NotImplementedError("the tiered scoring path is not ported yet; use exact_topk=None")
-        params = dict(params or {})
         grid = dict(grid or {})
-        num_queries = len(term_lists)
-        topk = min(topk, self.dindex.num_docs)
-        self._check_accumulator_bounds(num_queries)
-
         param_axes = tuple(sorted(grid))
         grid_shape = tuple(len(grid[k]) for k in param_axes)
-        dev = self.dindex.device
-        # every parameter becomes a [G, 1, 1] f32 tensor: G = product of the grid
-        # axes (row-major over sorted names, like the JAX engine's nested vmaps)
-        mesh = np.meshgrid(*[np.asarray(grid[k], dtype=np.float32) for k in param_axes], indexing="ij")
-        grid_size = int(np.prod(grid_shape)) if param_axes else 1
-        dev_params = {k: torch.full((grid_size, 1, 1), float(np.float32(v)), dtype=torch.float32, device=dev)
-                      for k, v in params.items() if k not in grid}
-        for k, values in zip(param_axes, mesh):
-            dev_params[k] = torch.from_numpy(np.ascontiguousarray(values.reshape(-1, 1, 1))).to(dev)
-
-        units = self._build_work_units(term_lists, model)
-        scores, ords = self._score_exact(model, num_queries, topk, units, dev_params)
-        out_shape = grid_shape + (num_queries, topk)
+        scores, ords = self.search_points(term_lists, model=model, params=params,
+                                          points=grid_points(grid), topk=topk, materialize=False)
+        out_shape = grid_shape + tuple(scores.shape[1:])
         scores, ords = scores.reshape(out_shape), ords.reshape(out_shape)
         if not materialize:
             return scores, ords
         return scores.cpu().numpy(), ords.cpu().numpy()
+
+    def search_points(
+        self,
+        term_lists: Sequence[Sequence[Tuple[int, float]]],
+        model: str = "bm25",
+        params: Dict[str, float] = None,
+        points: Dict[str, np.ndarray] = None,
+        topk: int = 1000,
+        materialize: bool = True,
+    ):
+        """``search`` over G written-out grid points: ``points`` maps each grid
+        parameter to a 1-D array of G values (``grid_points`` writes a grid out
+        row-major over sorted names, as the JAX engine's nested vmaps order
+        it); shapes [G, Q, topk], G = 1 without ``points``. A caller may score
+        any subset of a grid's points or queries in one call: every (grid
+        point, query) row is computed on its own."""
+        if model not in SCORING_MODELS:
+            raise ValueError(f"unknown scoring model {model!r}; known: {sorted(SCORING_MODELS)}")
+        params = dict(params or {})
+        points = dict(points or {})
+        num_queries = len(term_lists)
+        topk = min(topk, self.dindex.num_docs)
+        self._check_accumulator_bounds(num_queries)
+
+        dev = self.dindex.device
+        grid_size = len(next(iter(points.values()))) if points else 1
+        # every parameter becomes a [G, 1, 1] f32 tensor
+        dev_params = {k: torch.full((grid_size, 1, 1), float(np.float32(v)), dtype=torch.float32, device=dev)
+                      for k, v in params.items() if k not in points}
+        for k, values in points.items():
+            values = np.ascontiguousarray(np.asarray(values, dtype=np.float32).reshape(-1, 1, 1))
+            dev_params[k] = torch.from_numpy(values).to(dev)
+
+        units = self._build_work_units(term_lists, model)
+        scores, ords = self._score_exact(model, num_queries, topk, units, dev_params)
+        if not materialize:
+            return scores, ords
+        return scores.cpu().numpy(), ords.cpu().numpy()
+
+
+def grid_points(grid: Dict[str, Sequence[float]]) -> Dict[str, np.ndarray]:
+    """A parameter grid written out as G points, f32, row-major over the sorted
+    parameter names: point i is the i-th combination of
+    ``itertools.product(*[grid[k] for k in sorted(grid)])``."""
+    param_axes = tuple(sorted(grid))
+    mesh = np.meshgrid(*[np.asarray(grid[k], dtype=np.float32) for k in param_axes], indexing="ij")
+    return {k: values.reshape(-1) for k, values in zip(param_axes, mesh)}

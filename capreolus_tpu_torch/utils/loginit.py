@@ -66,3 +66,7 @@ def get_logger(name: str) -> logging.Logger:
         name = f"capreolus_tpu_torch.{name}"
     return logging.getLogger(name)
 
+
+
+def set_log_level(level: str):
+    logging.getLogger("capreolus_tpu_torch").setLevel(getattr(logging, level.upper(), logging.INFO))

@@ -1,8 +1,8 @@
-"""TREC files: the pure-Python branch of the JAX package's
-``utils/trec.py::iterate_trec_docs``, and its run-file reader and writer
-(``load_trec_run``, ``write_trec_run``). The JAX package reads plain ASCII
-files through a native C++ reader whose output its own tests pin equal to this
-parser's; the native reader is not ported yet.
+"""TREC files (the JAX package's ``utils/trec.py``): topics (TREC, NTCIR and
+TSV), qrels, run files, passage-run max pooling, and the pure-Python branch of
+``iterate_trec_docs``. The JAX package reads plain ASCII files through a
+native C++ reader whose output its own tests pin equal to this parser's; the
+native reader, and the trecweb and jsonl document formats, are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +21,120 @@ def _open_maybe_gz(path, mode="rt"):
     if path.endswith(".gz"):
         return gzip.open(path, mode, encoding="utf-8", errors="replace")
     return open(path, mode, encoding="utf-8", errors="replace")
+
+
+def load_trec_topics(path):
+    """Parse a TREC topics file into {"title": {qid: text}, "desc": ..., "narr": ...}."""
+    title, desc, narr = {}, {}, {}
+    block, qid = None, None
+
+    def flush_ws(parts):
+        return " ".join(" ".join(parts).split())
+
+    buffers = {"title": [], "desc": [], "narr": []}
+
+    def end_block():
+        nonlocal block
+        if block and qid is not None and buffers[block]:
+            target = {"title": title, "desc": desc, "narr": narr}[block]
+            target[qid] = flush_ws(buffers[block])
+        block = None
+
+    with _open_maybe_gz(path) as f:
+        for line in f:
+            stripped = line.strip()
+            low = stripped.lower()
+            if low.startswith("<top>"):
+                end_block()
+                qid = None
+                buffers = {"title": [], "desc": [], "narr": []}
+            elif low.startswith("</top>"):
+                end_block()
+                qid = None
+            elif low.startswith("<num>"):
+                end_block()
+                content = stripped[len("<num>") :].replace("Number:", "").replace("number:", "").strip()
+                if content:
+                    qid = content.split()[0]
+            elif low.startswith("<title>"):
+                end_block()
+                block = "title"
+                rest = stripped[len("<title>") :].replace("Topic:", "").strip()
+                if rest:
+                    buffers["title"].append(rest)
+            elif low.startswith("<desc>"):
+                end_block()
+                block = "desc"
+                rest = stripped[len("<desc>") :].replace("Description:", "").strip()
+                if rest:
+                    buffers["desc"].append(rest)
+            elif low.startswith("<narr>"):
+                end_block()
+                block = "narr"
+                rest = stripped[len("<narr>") :].replace("Narrative:", "").strip()
+                if rest:
+                    buffers["narr"].append(rest)
+            elif low.startswith("<"):
+                end_block()
+            else:
+                if qid is None and stripped and stripped.split()[0].isdigit() and block is None:
+                    # some topic files put the number on its own line after <num>
+                    qid = stripped.split()[0]
+                elif block:
+                    buffers[block].append(stripped)
+
+    return {"title": title, "desc": desc, "narr": narr}
+
+
+def load_ntcir_topics(path):
+    """Parse NTCIR-format XML topics into {"title": {qid: text}}."""
+    import re
+
+    text = open(path, encoding="utf-8", errors="replace").read()
+    topics = {}
+    for m in re.finditer(r"<query>(.*?)</query>", text, re.DOTALL):
+        block = m.group(1)
+        qid = re.search(r"<qid>\s*(.*?)\s*</qid>", block, re.DOTALL)
+        content = re.search(r"<content>\s*(.*?)\s*</content>", block, re.DOTALL)
+        if qid and content:
+            topics[qid.group(1).strip()] = " ".join(content.group(1).split())
+    return {"title": topics}
+
+
+def load_tsv_topics(path, query_type="title"):
+    """Parse a qid\\tquery TSV topics file (MS MARCO style)."""
+    topics = {}
+    with _open_maybe_gz(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            qid, text = line.rstrip("\n").split("\t", 1)
+            topics[qid] = text.strip()
+    return {query_type: topics}
+
+
+def load_qrels(path, qids=None):
+    """Parse a TREC qrels file into {qid: {docid: int label}}."""
+    qrels = defaultdict(dict)
+    with _open_maybe_gz(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 4:
+                continue
+            qid, _, docid, label = parts[0], parts[1], parts[2], parts[3]
+            if qids is not None and qid not in qids:
+                continue
+            qrels[qid][docid] = int(float(label))
+    return dict(qrels)
+
+
+def write_qrels(qrels, path):
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wt", encoding="utf-8") as f:
+        for qid in sorted(qrels):
+            for docid in sorted(qrels[qid]):
+                f.write(f"{qid} 0 {docid} {qrels[qid][docid]}\n")
 
 
 def load_trec_run(path):
@@ -47,6 +161,19 @@ def write_trec_run(run, path, tag="capreolus_tpu", mode="wt"):
                 f.write(f"{qid} Q0 {docid} {rank} {score} {tag}\n")
                 count += 1
     return count
+
+
+def max_pool_trec_passage_run(run, delimiter="."):
+    """Convert a passage-level run into a doc-level run by max-pooling passage scores."""
+    pooled = {}
+    for qid, docs in run.items():
+        best = {}
+        for pid, score in docs.items():
+            docid = pid.split(delimiter)[0]
+            if docid not in best or score > best[docid]:
+                best[docid] = score
+        pooled[qid] = best
+    return pooled
 
 
 def iterate_trec_docs(path, content_tags=TREC_CONTENT_TAGS):

@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch port: drives retrieve-then-rerank serving on
 one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width (f32, then
 int8), then ColBERT late-interaction serving at BERT-base width (a bf16 corpus,
-then int8 and int4 corpora), and holds every kernel against its plain PyTorch
+then int8 and int4 corpora), then the rank task's sparse searchers over the
+50k-doc golden corpus, and holds every kernel against its plain PyTorch
 version.
 
     python3 chip_smoke.py            # needs one CUDA device; builds the kernels
@@ -104,6 +105,23 @@ printed only when every phase passed):
    ``rescore`` 200: query 0's top 10 equals the ``quantize=none`` top 10 of
    phase 6 but for near-ties (two docs that trade places score within 1e-2 of
    each other in both lists);
+8. the rank task (after 6b): the JAX suite's 50k-doc golden corpus
+   (``tests/test_e2e_golden.py::_build_corpus``, as ``golden_corpus``) with its
+   qrels, registered as the port's ``e2e_golden`` collection and benchmark;
+   both indexes built (plain and with positions, timed); the port's
+   ``rank.searcheval`` on "cuda" for BM25, BM25Grid (its default 100-point
+   grid), QLDirichlet, BM25RM3, SDM and fusion (RRF of BM25 and QLDirichlet)
+   at 1000 hits: PARITY.md's five pins (MAP, nDCG@20) within 2e-3, BM25Grid's
+   (0.9, 0.4) run equal to BM25's (docids, scores within 1e-6 relative), a
+   repeated BM25 search bit-identical; the same searches on the CPU: the exact
+   searchers' docids identical and their raw scores within 1e-6 relative, RM3,
+   SDM and fusion equal but for near-ties (within 1e-5 relative), every
+   metric of DEFAULT_METRICS within 1e-4; the CLI on the card in a process of
+   its own (``python -m capreolus_tpu_torch rank.searcheval with
+   benchmark.name=dummy searcher.name=BM25``, map 1.0); BM25Grid's engine calls
+   and peak device memory; each search's seconds on the card and the CPU; one
+   profiled BM25 search of the 25 topics (device busy share, top device ops).
+   The sparse path launches none of the port's kernels, which is checked;
 7. the seconds each phase took, a ``kernels`` JSON line, then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
@@ -163,6 +181,25 @@ GELU_FLIP_SHARE = 1e-4  # int8-gelu codes that may differ by one step from the p
 # the kernel's tanhf and torch's can round apart where a value sits on a code boundary
 PR4_INT8_PEAK_GB = 18.2  # peak device memory of a served int8 monoBERT run before the fused epilogues
 COLBERT_RESCORE = 200  # the searcher's default int4 rescore depth
+GOLDEN_DOCS, GOLDEN_TOPICS, GOLDEN_SEED = 50_000, 25, 20260819  # tests/test_e2e_golden.py's corpus
+GOLDEN_PINS = {  # MAP / nDCG@20 of PARITY.md's e2e golden through rank.searcheval
+    "BM25": {"map": 0.8736, "ndcg_cut_20": 0.9287},
+    "QLDirichlet": {"map": 0.8745, "ndcg_cut_20": 0.9348},
+    "BM25RM3": {"map": 0.9753, "ndcg_cut_20": 0.9689},
+    "SDM": {"map": 0.8731, "ndcg_cut_20": 0.9326},
+    "fusion": {"map": 0.8741, "ndcg_cut_20": 0.9316},
+}
+GOLDEN_TOL = 2e-3  # the JAX suite's pin tolerance: f32 sums vs its f64 referee swap same-grade neighbours
+SPARSE_RTOL = 1e-6  # exact sparse scores, card vs CPU and BM25Grid's (0.9, 0.4) point vs BM25: f32
+# formulas whose single ops may round apart by an ulp on the two devices
+FEEDBACK_RTOL = 1e-5  # RM3, SDM and fusion, card vs CPU: stage-1 scores an ulp apart move the
+# expansion weights and window sums in their last bits, so near-ties may trade places
+METRIC_TOL = 1e-4  # every DEFAULT_METRICS value, card vs CPU
+# device bytes per accumulator element that one engine call may add over the
+# resident index (searcher/tpu.py's ACC_BUDGET_ELEMENTS comment): 40 for the f32
+# accumulator and the stable sort's buffers, and the scores gathered per slot,
+# which grow with the queries' postings (0.64 on the 50k golden)
+ACC_CALL_BYTES_PER_ELEMENT = 44
 
 # HBM bandwidth (bytes/s), f32 non-tensor-core peak, dense bf16 tensor-core
 # peak (FLOP/s), dense int8 tensor-core peak (OP/s) and dense TF32
@@ -237,6 +274,106 @@ def build_corpus(num_docs, num_topics, seed, min_len, max_len, bg_vocab=1500):
     topics = [" ".join(concept[t][:3]) + (f" {vocab[t]}" if t % 3 == 0 else "") for t in range(num_topics)]
     docs = [(f"G{i:05d}", " ".join(w)) for i, w in enumerate(doc_words)]
     return docs, topics
+
+
+def golden_corpus(num_docs=GOLDEN_DOCS, num_topics=GOLDEN_TOPICS, seed=GOLDEN_SEED, bg_vocab=1500):
+    """The JAX suite's golden corpus (``tests/test_e2e_golden.py::_build_corpus``,
+    the same draws in the same order): Zipfian background words plus per-topic
+    concept words injected at graded intensities (grade 2: 4-6 concept words,
+    grade 1: 2-3, judged non-relevant: exactly 1). At the defaults it IS that
+    corpus. Returns (docs [(docid, text)], topics {qid: text}, qrels
+    {qid: {docid: grade}})."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    vocab = []
+    seen = set()
+    while len(vocab) < bg_vocab:
+        w = _word(rng)
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+    concept = {t: [f"{_word(rng)}{t:02d}x{j}" for j in range(6)] for t in range(num_topics)}
+
+    ranks = np.arange(1, bg_vocab + 1, dtype=np.float64)
+    probs = (1.0 / ranks**1.1)
+    probs /= probs.sum()
+    vocab_arr = np.asarray(vocab)
+
+    doc_words = []
+    for _ in range(num_docs):
+        length = int(rng.integers(25, 60))
+        doc_words.append(list(vocab_arr[rng.choice(bg_vocab, size=length, p=probs)]))
+
+    qrels = {str(100 + t): {} for t in range(num_topics)}
+    pool = rng.permutation(num_docs)
+    pos = 0
+    for t in range(num_topics):
+        qid = str(100 + t)
+        for grade, count, lo, hi in ((2, 30, 4, 7), (1, 50, 2, 4), (0, 40, 1, 2)):
+            for _ in range(count):
+                d = int(pool[pos])
+                pos += 1
+                k = int(rng.integers(lo, hi))
+                words = list(rng.choice(concept[t], size=k, replace=False))
+                insert_at = rng.integers(0, len(doc_words[d]), size=k)
+                for w, i in zip(words, insert_at):
+                    doc_words[d].insert(int(i), w)
+                qrels[qid][f"G{d:05d}"] = grade
+
+    topics = {str(100 + t): " ".join(concept[t][:3]) for t in range(num_topics)}
+    # a few queries carry a common background word too (scoring noise + ties)
+    for t in (0, 7, 19):
+        if t < num_topics:
+            topics[str(100 + t)] += f" {vocab[t]}"
+    docs = [(f"G{i:05d}", " ".join(w)) for i, w in enumerate(doc_words)]
+    return docs, topics, qrels
+
+
+def write_golden(docs, topics, qrels, base):
+    """The golden corpus as the JAX suite writes it: four TREC files under
+    ``base/corpus``, ``base/qrels.txt`` and ``base/topics.tsv``. Returns
+    (corpus_dir, qrel_fn, topic_fn)."""
+    corpus_dir = os.path.join(base, "corpus")
+    write_trec(docs, corpus_dir)
+    qrel_fn, topic_fn = os.path.join(base, "qrels.txt"), os.path.join(base, "topics.tsv")
+    with open(qrel_fn, "wt", encoding="utf-8") as fh:
+        for qid in sorted(qrels):
+            for docid, rel in sorted(qrels[qid].items()):
+                fh.write(f"{qid} 0 {docid} {rel}\n")
+    with open(topic_fn, "wt", encoding="utf-8") as fh:
+        for qid in sorted(topics):
+            fh.write(f"{qid}\t{topics[qid]}\n")
+    return corpus_dir, qrel_fn, topic_fn
+
+
+def register_golden(corpus_dir, qrel_fn, topic_fn, qids, name="e2e_golden"):
+    """Register the port's collection and benchmark ``name`` (one fold whose
+    train, dev and test sets are every topic, as in the JAX suite) over files
+    written by ``write_golden``."""
+    import capreolus_tpu_torch
+
+    capreolus_tpu_torch.load_all_modules()
+    from capreolus_tpu_torch.benchmark import Benchmark
+    from capreolus_tpu_torch.collection import Collection
+    from capreolus_tpu_torch.core import Dependency
+
+    @Collection.register
+    class GoldenCollection(Collection):
+        module_name = name
+        collection_type = "trec"
+        _path = corpus_dir
+
+    @Benchmark.register
+    class GoldenBenchmark(Benchmark):
+        module_name = name
+        dependencies = [Dependency(key="collection", module="collection", name=name)]
+        query_type = "title"
+        topic_format = "tsv"
+        qrel_file = qrel_fn
+        topic_file = topic_fn
+
+        @property
+        def folds(self):
+            return {"s1": {"train_qids": list(qids), "predict": {"dev": list(qids), "test": list(qids)}}}
 
 
 def write_trec(docs, directory, files=4):
@@ -342,18 +479,25 @@ def k1_bound_ms(args, bw, flops):
 
 
 def profile_request(svc, query, label, top=6):
-    """Where one rerank request's time goes: device time by op (torch.profiler,
-    CUPTI) against the request's wall time; the rest is host time. Returns
-    {"wall_ms", "busy_ms", "copy_kernels", "copy_ms", "clones"}: the device's
-    copy kernels (torch's ``direct_copy_kernel_cuda``, run by ``copy_``,
-    ``contiguous`` and ``reshape`` of a strided tensor, and casts) and the host's
-    ``aten::clone`` calls, so a caller can check which copies a request makes."""
+    """Where one rerank request's time goes (``profile_call`` of one
+    ``svc.search([query], k=10)``)."""
+    return profile_call(lambda: svc.search([query], k=10), label, top)
+
+
+def profile_call(fn, label, top=6, what="request"):
+    """Where one call's time goes: device time by op (torch.profiler, CUPTI)
+    against the call's wall time; the rest is host time. Returns
+    {"wall_ms", "busy_ms", "top_ops", "copy_kernels", "copy_ms", "clones"}: the
+    device's copy kernels (torch's ``direct_copy_kernel_cuda``, run by
+    ``copy_``, ``contiguous`` and ``reshape`` of a strided tensor, and casts)
+    and the host's ``aten::clone`` calls, so a caller can check which copies a
+    request makes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.search([query], k=10)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -367,19 +511,19 @@ def profile_request(svc, query, label, top=6):
     ops = sorted((e for e in averages if e.device_type == DeviceType.CUDA and device_us(e) > 0),
                  key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in ops) / 1e3
-    print(f"{label} profiled request: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%); top device ops: "
-          + "; ".join(f"{e.key[:40]} {device_us(e) / 1e3:.3f} ms x{e.count}" for e in ops[:top]))
+    top_ops = [f"{e.key[:40]} {device_us(e) / 1e3:.3f} ms x{e.count}" for e in ops[:top]]
+    print(f"{label} profiled {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%); top device ops: " + "; ".join(top_ops))
     host = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)
     host_ms = sum(e.self_cpu_time_total for e in averages) / 1e3
-    print(f"{label} profiled request: host time inside torch ops {host_ms:.2f} ms (the rest of the "
+    print(f"{label} profiled {what}: host time inside torch ops {host_ms:.2f} ms (the rest of the "
           f"wall is Python; a device-to-host copy waits there for the device); top host ops: "
           + "; ".join(f"{e.key[:32]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in host[:top]))
     copies = [e for e in ops if "copy_kernel" in e.key]
-    summary = {"wall_ms": wall_ms, "busy_ms": busy_ms, "copy_kernels": sum(e.count for e in copies),
+    summary = {"wall_ms": wall_ms, "busy_ms": busy_ms, "top_ops": top_ops, "copy_kernels": sum(e.count for e in copies),
                "copy_ms": sum(device_us(e) for e in copies) / 1e3,
                "clones": sum(e.count for e in averages if e.key == "aten::clone")}
-    print(f"{label} profiled request: device copy kernels {summary['copy_kernels']} ({summary['copy_ms']:.3f} ms), "
+    print(f"{label} profiled {what}: device copy kernels {summary['copy_kernels']} ({summary['copy_ms']:.3f} ms), "
           f"host aten::clone calls {summary['clones']}")
     return summary
 
@@ -1356,6 +1500,19 @@ def phase_scales_check():
     return differing
 
 
+def launch_counts():
+    """{kernel: launches since the last reset} of every port kernel."""
+    from capreolus_tpu_torch.ops.flash_attention import flash_attention
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
+    from capreolus_tpu_torch.ops.maxsim import maxsim
+    from capreolus_tpu_torch.ops.quantization import quantize_per_token
+    from capreolus_tpu_torch.ops.simmat import knrm_pool
+
+    return {"knrm_pool": knrm_pool.launches, "flash_attention": flash_attention.launches,
+            "maxsim": maxsim.launches, "int8_matmul": int8_matmul.launches,
+            "quantize_per_token": quantize_per_token.launches}
+
+
 def reset_launch_counts():
     """Every kernel's launch count to 0, just before a path is driven."""
     from capreolus_tpu_torch.ops.flash_attention import flash_attention
@@ -1629,6 +1786,237 @@ def phase_colbert_int8_serving(workdir, corpus_dir, topics, none):
     return launches, {"request_ms": float(np.median(request_ms)), "batch_ms": batch_ms, "max_abs_err_cpu": err_cpu,
                       "top10_overlap_none": overlap, "int4_rescore_ms": int4_ms, "int4_swaps": swaps}
 
+RANK_SEARCHERS = {  # phase 8's searchers, as the rank task's config names them
+    "BM25": {"name": "BM25"},
+    "BM25Grid": {"name": "BM25Grid"},  # its default 10 x 10 grid, k1 and b from 0.1 to 1.0
+    "QLDirichlet": {"name": "QLDirichlet"},
+    "BM25RM3": {"name": "BM25RM3"},
+    "SDM": {"name": "SDM"},
+    "fusion": {"name": "fusion", "searcher1": {"name": "BM25"}, "searcher2": {"name": "QLDirichlet"}},
+}
+
+
+def rank_search(config, device, results_base):
+    """The port's rank task over the golden benchmark on ``device``:
+    (task, search seconds, cross-validated metrics, {run-file name: run})."""
+    import contextlib
+    import io
+
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.task import Task
+    from capreolus_tpu_torch.utils.trec import load_trec_run
+
+    constants["RESULTS_BASE_PATH"] = results_base
+    task = Task.create("rank", {"benchmark": {"name": "e2e_golden"}, "searcher": config})
+    task.device = device
+    t0 = time.perf_counter()
+    out = task.search()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):  # evaluate() prints its dict
+        scores = task.evaluate()["score"]
+    runs = {p.name: load_trec_run(p) for p in sorted(out.iterdir()) if p.is_file() and p.name != "done"}
+    return task, secs, scores, runs
+
+
+def engine_rows(searcher, topic_fn, device):
+    """The searcher's raw engine output over the topics on ``device``, split
+    as its search splits it: (scores [G, Q, hits] f32, ordinals) numpy."""
+    from capreolus_tpu_torch.searcher.scoring import grid_points
+    from capreolus_tpu_torch.searcher.tpu import _load_topics_tsv
+
+    searcher.device = device
+    engine = searcher.get_engine()
+    terms = [searcher.query_weights(text, engine) for _, text in _load_topics_tsv(topic_fn)]
+    fixed, grid = searcher.grid_params()
+    points = grid_points(grid)
+    g = len(next(iter(points.values()))) if points else 1
+    hits = min(int(searcher.config["hits"]), engine.dindex.num_docs)
+    scores, ords = np.zeros((g, len(terms), hits), np.float32), np.zeros((g, len(terms), hits), np.int32)
+    for q0, g0, sc, od in searcher._engine_calls(engine, terms, searcher.model, fixed, points, hits):
+        scores[g0:g0 + sc.shape[0], q0:q0 + sc.shape[1]] = sc.cpu().numpy()
+        ords[g0:g0 + od.shape[0], q0:q0 + od.shape[1]] = od.cpu().numpy()
+    return scores, ords
+
+
+def one_call_bytes(searcher, topic_fn):
+    """Device bytes that one of the searcher's engine calls at the accumulator
+    budget adds at its peak, over the resident index: (bytes, elements
+    G*Q*(N+1)). The call takes as many topics as the budget allows at the
+    searcher's whole grid (all topics where they fit)."""
+    from capreolus_tpu_torch.searcher.scoring import grid_points
+    from capreolus_tpu_torch.searcher.tpu import ACC_BUDGET_ELEMENTS, _load_topics_tsv
+
+    searcher.device = "cuda"
+    engine = searcher.get_engine()
+    fixed, grid = searcher.grid_params()
+    points = grid_points(grid)
+    g, rows = len(next(iter(points.values()))), engine.dindex.num_docs + 1
+    topics = _load_topics_tsv(topic_fn)
+    q = max(1, min(len(topics), ACC_BUDGET_ELEMENTS // (g * rows)))
+    terms = [searcher.query_weights(text, engine) for _, text in topics[:q]]
+    hits = min(int(searcher.config["hits"]), engine.dindex.num_docs)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = engine.search_points(terms, model=searcher.model, params=fixed, points=points, topk=hits,
+                               materialize=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak, g * q * rows
+
+
+def run_faults(a_runs, b_runs, rtol, atol=0.0, near_ties=True):
+    """Where two sets of run files part, as messages: the same files and
+    queries, and per query the same number of hits with the scores at each
+    rank within ``rtol`` of the first run's top score plus ``atol``; the same
+    docids at each rank, or with ``near_ties`` two docs may trade places where
+    they score within that tolerance of each other in both runs
+    (``ranking_faults``)."""
+    if sorted(a_runs) != sorted(b_runs):
+        return [f"run files {sorted(a_runs)} vs {sorted(b_runs)}"]
+    faults = []
+    for name, a_run in a_runs.items():
+        b_run = b_runs[name]
+        if list(a_run) != list(b_run):
+            faults.append(f"{name}: queries differ")
+            continue
+        for qid, a_docs in a_run.items():
+            a_hits, b_hits = list(a_docs.items()), list(b_run[qid].items())
+            tol = rtol * max([abs(v) for _, v in a_hits[:1]] + [0.0]) + atol
+            bad = [] if len(a_hits) == len(b_hits) else [f"{len(a_hits)} vs {len(b_hits)} hits"]
+            if not near_ties and [d for d, _ in a_hits] != [d for d, _ in b_hits]:
+                bad.append("docids differ")
+            bad += [f"rank {r}: {sa} vs {sb}" for r, ((_, sa), (_, sb)) in enumerate(zip(a_hits, b_hits))
+                    if abs(sa - sb) > tol]
+            bad += ranking_faults(a_hits, b_hits, tol)
+            faults += [f"{name} {qid}: {m}" for m in bad[:3]]
+    return faults
+
+
+def phase_rank_task(workdir):
+    """The rank task on the card over the JAX suite's 50k-doc golden corpus:
+    index builds, the six searchers against PARITY.md's pins and against the
+    CPU, BM25Grid's split and memory, a repeated BM25 search, the CLI, and one
+    profiled BM25 search."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.evaluation import DEFAULT_METRICS
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.searcher.tpu import ACC_BUDGET_ELEMENTS
+
+    label = "[8 rank task]"
+    t0 = time.perf_counter()
+    docs, topics, qrels = golden_corpus()
+    corpus_dir, qrel_fn, topic_fn = write_golden(docs, topics, qrels, os.path.join(workdir, "golden"))
+    register_golden(corpus_dir, qrel_fn, topic_fn, sorted(topics))
+    print(f"{label} golden corpus: {len(docs)} docs, {len(topics)} topics, "
+          f"{sum(len(q) for q in qrels.values())} judgements; made in {time.perf_counter() - t0:.1f} s")
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_rank")
+    builds = {}
+    for positions in (False, True):
+        index = Index.create("tpu", {"storepositions": positions, "collection": {"name": "e2e_golden"}})
+        t0 = time.perf_counter()
+        index.create_index()
+        builds["positions" if positions else "plain"] = round(time.perf_counter() - t0, 2)
+    print(f"{label} index build seconds: plain {builds['plain']}, with positions {builds['positions']}")
+
+    reset_launch_counts()
+    results, secs, metrics, runs, card_searchers = {}, {}, {}, {}, {}
+    for device in ("cuda", "cpu"):
+        for name, config in RANK_SEARCHERS.items():
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            task, secs[name, device], metrics[name, device], runs[name, device] = rank_search(
+                config, device, os.path.join(workdir, f"results_{device}"))
+            if name == "BM25Grid":
+                results[f"grid_engine_calls_{device}"] = task.searcher.engine_calls
+                if device == "cuda":
+                    results["grid_peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+            if device == "cuda":
+                card_searchers[name] = task.searcher
+    launched = {k: v for k, v in launch_counts().items() if v}
+    check(not launched, f"{label} the sparse path launched a port kernel: {launched}")
+
+    for name in RANK_SEARCHERS:
+        for device in ("cuda", "cpu"):
+            score = metrics[name, device]
+            for metric, want in GOLDEN_PINS.get(name, {}).items():
+                check(abs(score[metric] - want) <= GOLDEN_TOL,
+                      f"{label} {name} on {device}: {metric} {score[metric]:.4f}, pinned {want} +- {GOLDEN_TOL}")
+        gaps = {m: abs(metrics[name, "cuda"][m] - metrics[name, "cpu"][m]) for m in DEFAULT_METRICS}
+        check(max(gaps.values()) <= METRIC_TOL, f"{label} {name}: metrics card vs CPU differ: {gaps}")
+        print(f"{label} {name}: search {secs[name, 'cuda']:.2f} s on the card, {secs[name, 'cpu']:.2f} s on the CPU; "
+              f"map {metrics[name, 'cuda']['map']:.4f} ndcg_cut_20 {metrics[name, 'cuda']['ndcg_cut_20']:.4f}; "
+              f"{len(runs[name, 'cuda'])} run file(s); max metric gap card vs CPU {max(gaps.values()):.2e}")
+
+    # BM25Grid's (k1=0.9, b=0.4) run against BM25's
+    grid_run = runs["BM25Grid", "cuda"]["searcher_BM25Grid_b-0.4_k1-0.9"]
+    bm25_run = runs["BM25", "cuda"]["searcher_BM25_b-0.4_k1-0.9"]
+    faults = run_faults({"run": grid_run}, {"run": bm25_run}, SPARSE_RTOL, atol=1e-6, near_ties=False)
+    check(not faults, f"{label} BM25Grid (0.9, 0.4) vs BM25: {faults[:5]}")
+    # card against CPU: the exact searchers' run files docid for docid, their raw scores
+    # within SPARSE_RTOL; the feedback searchers and fusion equal but for near-ties
+    for name in ("BM25", "BM25Grid", "QLDirichlet"):
+        faults = run_faults(runs[name, "cuda"], runs[name, "cpu"], SPARSE_RTOL, atol=1e-6, near_ties=False)
+        check(not faults, f"{label} {name} card vs CPU: {faults[:5]}")
+    for name in ("BM25", "BM25Grid", "QLDirichlet"):
+        searcher = card_searchers[name]
+        (gs, go), (cs, co) = engine_rows(searcher, topic_fn, "cuda"), engine_rows(searcher, topic_fn, "cpu")
+        scored = gs > 0
+        check(np.array_equal(go[scored], co[scored]), f"{label} {name}: ordinals differ card vs CPU")
+        rel = float(np.max(np.abs(gs - cs) / np.maximum(np.abs(cs), 1e-30), initial=0.0))
+        check(rel <= SPARSE_RTOL, f"{label} {name}: scores card vs CPU differ by {rel:.2e} relative")
+        results[f"{name}_score_rel_err"] = rel
+    for name in ("BM25RM3", "SDM", "fusion"):
+        faults = run_faults(runs[name, "cuda"], runs[name, "cpu"], FEEDBACK_RTOL, atol=1e-6)
+        check(not faults, f"{label} {name} card vs CPU beyond near-ties: {faults[:5]}")
+    # a repeated BM25 search gives the same bits
+    bm25_searcher = card_searchers["BM25"]
+    first, again = engine_rows(bm25_searcher, topic_fn, "cuda"), engine_rows(bm25_searcher, topic_fn, "cuda")
+    check(np.array_equal(first[0].view(np.uint32), again[0].view(np.uint32)) and np.array_equal(first[1], again[1]),
+          f"{label} a repeated BM25 search on the card changed bits")
+    call_bytes, call_elements = one_call_bytes(card_searchers["BM25Grid"], topic_fn)
+    results["call_bytes_per_element"] = round(call_bytes / call_elements, 2)
+    check(results["call_bytes_per_element"] <= ACC_CALL_BYTES_PER_ELEMENT,
+          f"{label} one BM25Grid engine call held {results['call_bytes_per_element']} bytes per accumulator element, "
+          f"more than the {ACC_CALL_BYTES_PER_ELEMENT} that searcher/tpu.py states")
+    print(f"{label} BM25Grid: {results['grid_engine_calls_cuda']} engine calls for 1 query batch of "
+          f"{len(topics)} (budget {ACC_BUDGET_ELEMENTS} accumulator elements), peak device memory {results['grid_peak_gb']} GB; "
+          f"one call of {call_elements} elements adds {call_bytes / 1e9:.3f} GB at its peak, "
+          f"{results['call_bytes_per_element']} bytes per element; "
+          f"card vs CPU max relative score error BM25 {results['BM25_score_rel_err']:.2e}, BM25Grid "
+          f"{results['BM25Grid_score_rel_err']:.2e}, QLDirichlet {results['QLDirichlet_score_rel_err']:.2e}; "
+          f"a repeated BM25 search bit-identical")
+
+    # the CLI, in a process of its own, on the card
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root, "CAPREOLUS_CACHE": os.path.join(workdir, "cache_cli"),
+           "CAPREOLUS_RESULTS": os.path.join(workdir, "results_cli")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "capreolus_tpu_torch", "rank.searcheval", "with",
+                           "benchmark.name=dummy", "searcher.name=BM25"],
+                          capture_output=True, text=True, timeout=600, env=env, cwd=root)
+    check(proc.returncode == 0, f"{label} the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    import ast
+
+    cli = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    check(cli.get("map") == 1.0, f"{label} the CLI printed {cli}")
+    print(f"{label} CLI rank.searcheval on dummy (card): exit 0, map {cli['map']}, {time.perf_counter() - t0:.1f} s")
+
+    # one profiled BM25 search of the 25 topics on the card, into a fresh directory
+    bm25_searcher.device = "cuda"
+    prof_dir = os.path.join(workdir, "profiled_search")
+    profiled = profile_call(lambda: bm25_searcher.query_from_file(topic_fn, prof_dir), f"{label} BM25",
+                            top=8, what=f"search of {len(topics)} topics")
+    results.update(builds=builds, seconds={f"{n}_{d}": round(v, 3) for (n, d), v in secs.items()},
+                   map={n: metrics[n, "cuda"]["map"] for n in RANK_SEARCHERS},
+                   ndcg_cut_20={n: metrics[n, "cuda"]["ndcg_cut_20"] for n in RANK_SEARCHERS},
+                   profiled_bm25={k: profiled[k] for k in ("wall_ms", "busy_ms", "top_ops")})
+    print(f"{label} summary {json.dumps(results)}")
+    return results
+
 
 def main():
     t_start = time.perf_counter()
@@ -1658,6 +2046,7 @@ def main():
         bert_int8_launches, bert_int8 = timed(phase_bert_int8_serving, workdir, corpus_dir, topics, f32)
         colbert_launches, k3_served, none = timed(phase_colbert_serving, workdir, corpus_dir, topics, peaks)
         colbert_int8_launches, colbert_int8 = timed(phase_colbert_int8_serving, workdir, corpus_dir, topics, none)
+        timed(phase_rank_task, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -725,3 +725,53 @@ def test_quantized_colbert_service_on_the_card_matches_cpu(card, tmp_path, monke
     for g, c in zip(gpu_hits, services["cpu"].search(queries, k=20)):
         assert len(g) > 0
         assert_same_ranking(g, c, 1e-2)
+
+
+# ---------------------------------------------------------------- the rank task's sparse searchers
+RANK_RTOL = 1e-6  # exact sparse scores, card vs CPU: f32 formulas whose ops may round apart by an ulp
+RUN_FILE_ATOL = 1e-6  # a run file prints scores with 6 decimals
+
+
+@pytest.fixture(scope="module")
+def golden5k(tmp_path_factory):
+    """A 5,000-doc corpus of the JAX suite's golden recipe, registered as the
+    port's ``golden5k`` collection and benchmark."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the rank task's card run")
+    from chip_smoke import golden_corpus, register_golden, write_golden
+
+    docs, topics, qrels = golden_corpus(num_docs=5000)
+    paths = write_golden(docs, topics, qrels, str(tmp_path_factory.mktemp("golden5k")))
+    register_golden(*paths, sorted(topics), name="golden5k")
+    return "golden5k"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("searcher", ["BM25", "BM25Grid"])
+@pytest.mark.parametrize("benchmark", ["dummy", "golden5k"])
+def test_rank_search_on_the_card_matches_cpu(card, request, tmp_path, monkeypatch, benchmark, searcher):
+    """rank.search on the card and on the CPU: the same run files, the same
+    docids per query, scores within 1e-6 relative (plus the run files'
+    6-decimal rounding)."""
+    from capreolus_tpu_torch.task import Task
+    from capreolus_tpu_torch.utils.trec import load_trec_run
+
+    if benchmark != "dummy":
+        request.getfixturevalue(benchmark)
+    monkeypatch.setitem(constants, "CACHE_BASE_PATH", tmp_path / "cache")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        monkeypatch.setitem(constants, "RESULTS_BASE_PATH", tmp_path / f"results_{device}")
+        task = Task.create("rank", {"benchmark": {"name": benchmark}, "searcher": {"name": searcher}})
+        task.device = device
+        out = task.search()
+        runs[device] = {p.name: load_trec_run(p) for p in out.iterdir() if p.name != "done"}
+        assert task.searcher.engine_calls >= 1
+    assert sorted(runs["cuda"]) == sorted(runs["cpu"]) and len(runs["cuda"]) == (1 if searcher == "BM25" else 100)
+    for name, card_run in runs["cuda"].items():
+        cpu_run = runs["cpu"][name]
+        assert list(card_run) == list(cpu_run)
+        for qid, docs in card_run.items():
+            assert list(docs) == list(cpu_run[qid]), (name, qid)
+            np.testing.assert_allclose(list(docs.values()), list(cpu_run[qid].values()),
+                                       rtol=RANK_RTOL, atol=RUN_FILE_ATOL)

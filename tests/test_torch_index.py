@@ -115,7 +115,7 @@ def test_index_mmap_gives_same_arrays(tmpdir_as_cache, torch_cache):
         np.testing.assert_array_equal(np.asarray(getattr(mapped.data, name)), getattr(loaded.data, name))
 
 
-@pytest.mark.parametrize("override", [{"docreorder": "bp"}, {"docreorder": "terms"}, {"storepositions": True}])
+@pytest.mark.parametrize("override", [{"docreorder": "bp"}, {"docreorder": "terms"}, {"stemmer": "krovetz"}])
 def test_index_unported_options_raise(torch_cache, override):
     with pytest.raises(ConfigError):
         TorchIndex.create("tpu", {**override, "collection": {"name": "dummy"}})

@@ -94,4 +94,4 @@ def test_registries_are_separate():
     assert capreolus_tpu.module_registry is not capreolus_tpu_torch.module_registry
     assert capreolus_tpu_torch.constants["BASE_PACKAGE"] == "capreolus_tpu_torch"
     assert json.dumps(capreolus_tpu_torch.module_registry.get_module_types()) == json.dumps(
-        ["collection", "extractor", "index", "reranker", "searcher", "tokenizer"])
+        ["benchmark", "collection", "extractor", "index", "reranker", "searcher", "task", "tokenizer"])
