@@ -4,8 +4,9 @@ The JAX package ``capreolus_tpu`` is the reference; this package keeps its
 layout and module names so that each module's counterpart is easy to find, and
 imports nothing of it (nor of JAX). It serves retrieve-then-rerank search (the
 BM25 exact scoring engine, then KNRM or monoBERT-MaxP) and ColBERT
-late-interaction retrieval, and runs the rank task from its CLI
-(``python -m capreolus_tpu_torch rank.searcheval with ...``); each TPU kernel
+late-interaction retrieval, and runs the rank and rerank tasks from its CLI
+(``python -m capreolus_tpu_torch rank.searcheval with ...``,
+``rerank.traineval``, which trains KNRM or monoBERT-MaxP); each TPU kernel
 on those paths is hand-written CUDA for Hopper under ``csrc/`` (K1
 ``knrm_pool.cu``, K2 ``flash_attention.cu``, K3 ``maxsim.cu``, X1
 ``int8_matmul.cu``).
@@ -36,6 +37,8 @@ _MODULE_PACKAGES = (
     "tokenizer",
     "extractor",
     "reranker",
+    "sampler",
+    "trainer",
     "task",
 )
 

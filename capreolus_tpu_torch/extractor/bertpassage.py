@@ -3,9 +3,11 @@ JAX package's ``extractor/bertpassage.py``).
 
 Sliding-window passages (``passagelen`` / ``stride``), ``numpassages`` per
 doc, ``[CLS] query [SEP] passage [SEP]`` inputs with mask and segment ids.
-Training samples one random valid passage per doc, while inference keeps all
-passages (shape [numpassages, maxseqlen]). Sentence passages (``sentences=True``,
-punkt) and the pooled, Birch and LCE variants come with their rerankers.
+Training samples one random valid passage per doc (a draw of the extractor's
+own seeded ``rng``, as in JAX), while inference keeps all passages (shape
+[numpassages, maxseqlen]); a list of negatives (``sampler.name=LCE``) stacks
+them on a leading axis. Sentence passages (``sentences=True``, punkt) and the
+pooled and Birch variants come with their rerankers.
 """
 
 from __future__ import annotations
@@ -160,7 +162,24 @@ class BertPassage(Extractor):
             "neg_seg": np.zeros_like(pos_seg),
             "label": np.array(label if label is not None else [1, 0], dtype=np.float32),
         }
-        if negid:
-            data["negdocid"] = negid
-            data["neg_bert_input"], data["neg_mask"], data["neg_seg"] = self._encode_doc(query_toks, negid, training)
+        if not negid:
+            return data
+        if isinstance(negid, (list, tuple, np.ndarray)):
+            # LCE-style multiple negatives -> an extra leading axis
+            negs = [self._encode_doc(query_toks, n, training) for n in negid]
+            data["negdocid"] = list(negid)
+            data["neg_bert_input"] = np.stack([n[0] for n in negs])
+            data["neg_mask"] = np.stack([n[1] for n in negs])
+            data["neg_seg"] = np.stack([n[2] for n in negs])
+            return data
+        data["negdocid"] = negid
+        data["neg_bert_input"], data["neg_mask"], data["neg_seg"] = self._encode_doc(query_toks, negid, training)
         return data
+
+
+@Extractor.register
+class LCEBertPassage(BertPassage):
+    """Multiple negatives per sample for LCE training (``sampler.name=LCE``):
+    bertpassage itself, under the reference's module name."""
+
+    module_name = "LCEbertpassage"

@@ -12,12 +12,19 @@ the encoder hands it head views of its projections, and writes its output
 [B, L, H, D], so the encoder merges the heads with a view. ``attention_plain``
 is the plain torch version of the same function, which the kernel is held
 against on the card.
-``multihead_attention`` is what the encoder calls: CUDA tensors go to the
-kernel, CPU tensors to the plain version, and any other device raises.
+``multihead_attention`` is what the encoder calls. A training forward
+(``train=True`` with grad enabled) takes ``attention_plain`` with its
+``dropout_rate``, differentiable, with dropout on the probabilities, as the JAX
+package sends every forward with dropout to ``_xla_attention``: the kernel has
+no backward and is never trained through. Every other forward goes to the
+kernel for CUDA tensors and to the plain version for CPU tensors; any other
+device raises. The kernel refuses a tensor that requires grad: its output has
+no ``grad_fn``, so taking it would leave every weight below the attention
+with a zero gradient.
 
 The JAX package takes the Pallas kernel only as an opt-in on the TPU
 (``CAPREOLUS_FLASH_ATTENTION=1``) and otherwise ``_xla_attention``; in the
-port, attention on CUDA tensors is always K2. At f32, the dtype served, the
+port, attention outside training on CUDA tensors is always K2. At f32, the dtype served, the
 three agree to rounding. In bf16, ``_xla_attention`` keeps bf16 scores with a
 -30000 fill; K2 keeps f32 scores and sums and rounds the probabilities to
 bf16 for their product with v (the MXU's precision at its default), and
@@ -33,6 +40,7 @@ import math
 import torch
 
 from capreolus_tpu_torch.ops import build
+from capreolus_tpu_torch.ops.dropout import dropout
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -40,7 +48,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BOUND = []
 
 
-def attention_plain(q, k, v, mask):
+def attention_plain(q, k, v, mask, dropout_rate=0.0, generator=None):
     """Plain torch version of K2: q, k, v [B, H, L, D] (any strides, the
     encoder's head views included), key mask [B, L] (bool or int, nonzero =
     attend) -> [B, H, L, D] in the input dtype.
@@ -48,12 +56,15 @@ def attention_plain(q, k, v, mask):
     The math runs in f32 whatever the input dtype. A query row whose keys are
     all masked gets the mean of V, as both JAX paths give at f32. On CUDA the
     matmuls must run in true f32 (``torch.backends.cuda.matmul.allow_tf32``
-    False, torch's default)."""
+    False, torch's default). A ``dropout_rate`` above 0 drops probabilities
+    (``ops.dropout`` with ``generator``), as ``_xla_attention`` does with its
+    ``dropout_rng``: the training forward's attention, differentiable. At 0 it
+    is the function K2 is held against."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf = q.float() * scale, k.float(), v.float()
     scores = torch.matmul(qf, kf.transpose(-1, -2))  # [B, H, L, L]
     scores = scores.masked_fill(~mask.bool()[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)
     return torch.matmul(probs, vf).to(q.dtype)
 
 
@@ -75,8 +86,13 @@ def flash_attention(q, k, v, mask):
     of 16 bytes. Returns [B, H, L, D] in q's dtype, the ``transpose(1, 2)`` view
     of a [B, L, H, D] buffer, so merging the heads after it is a view. Raises on
     anything else, CPU tensors included (``multihead_attention`` routes those
-    to ``attention_plain``)."""
+    to ``attention_plain``), and tensors that require grad: the kernel has no
+    backward."""
     device = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.requires_grad:
+            raise ValueError(f"flash_attention: {name} requires grad, and the kernel has no backward; "
+                             f"a training forward takes multihead_attention(..., train=True)")
     if device.type != "cuda":
         raise ValueError(f"flash_attention: q is on {device}; the kernel takes CUDA tensors only")
     for name, t in (("k", k), ("v", v), ("mask", mask)):
@@ -125,9 +141,13 @@ def flash_attention(q, k, v, mask):
 flash_attention.launches = 0
 
 
-def multihead_attention(q, k, v, mask):
-    """Multi-head attention [B, H, L, D] with a [B, L] key mask: K2 for CUDA
-    tensors, ``attention_plain`` for CPU tensors."""
+def multihead_attention(q, k, v, mask, train=False, dropout_rate=0.0, generator=None):
+    """Multi-head attention [B, H, L, D] with a [B, L] key mask: in a training
+    forward (``train`` with grad enabled) ``attention_plain`` with
+    ``dropout_rate`` and ``generator``; otherwise K2 for CUDA tensors and
+    ``attention_plain`` for CPU tensors."""
+    if train and torch.is_grad_enabled():
+        return attention_plain(q, k, v, mask, dropout_rate, generator)
     if q.device.type == "cuda":
         return flash_attention(q, k, v, mask)
     if q.device.type == "cpu":

@@ -7,7 +7,9 @@ kernel only on pad doc positions, which it counts as the model's path does. For 
 hand-written Hopper kernel ``csrc/knrm_pool.cu`` (or raises); for CPU tensors it
 runs ``knrm_pool_plain``, a torch transcription of the kernel's math, which is
 also what the kernel is held against on the card. ``knrm_pool.launches``
-counts the kernel launches. ``knrm_plan`` decides how many blocks share a
+counts the kernel launches. The kernel has no backward, so it refuses inputs
+that require grad (the JAX model takes its Pallas kernel only on
+``stop_gradient`` inputs, with kernels and embeddings frozen). ``knrm_plan`` decides how many blocks share a
 batch element's doc rows.
 """
 
@@ -96,6 +98,11 @@ def knrm_pool(q_emb, d_emb, qtok, dtok, mus, sigmas):
         return knrm_pool_plain(q_emb, d_emb, qtok, dtok, mus, sigmas)
     if device.type != "cuda":
         raise ValueError(f"knrm_pool: unsupported device {device}")
+    grads = [name for name, t in (("q_emb", q_emb), ("d_emb", d_emb), ("mus", mus), ("sigmas", sigmas))
+             if t.requires_grad]
+    if grads:
+        raise ValueError(f"knrm_pool: {', '.join(grads)} require grad, and the kernel has no backward; "
+                         f"a KNRM with trainable kernels or embeddings takes knrm_pool_plain's path")
     b, q, e = q_emb.shape
     d, k = d_emb.shape[1], mus.shape[0]
     _check("q_emb", q_emb, torch.float32, (b, q, e), device)

@@ -17,11 +17,21 @@ epilogue dequantizes to f32 (``ops.int8_matmul.int8_linear_mm``) or, for the
 FFN's up-projection outside calibration, applies GELU and requantizes to the
 down-projection's int8 codes (``int8_linear_gelu_mm``); on CUDA tensors both
 are epilogues of X1, so no int32 or f32 [tokens, intermediate] tensor reaches
-device memory. Attention itself stays f32 through K2. Not in this slice:
-``MoeFFN``, ``LoRAAdapter``, ``remat``, dropout and other dtypes; the
-rerankers refuse the options that select them. Module init draws the
-embeddings from N(0, 0.02) and leaves the linear layers at torch's default;
-served weights come from a checkpoint.
+device memory. Attention itself stays f32 through K2.
+
+Training: ``forward(..., dropout_seed=s)`` is a training forward. Hidden
+dropout (after the embeddings' LayerNorm, the attention output and the FFN)
+and attention-probability dropout apply at the config's rates, and attention
+takes the differentiable plain path (``multihead_attention(train=True)``).
+Each dropout site draws its mask from a ``torch.Generator`` of its own,
+seeded from ``s``, the layer and the site (``dropout_generator``), so a
+forward with the same seed draws the same masks, and a layer that ``remat``
+(``torch.utils.checkpoint``) recomputes in the backward pass draws them
+again. The masks cannot equal the JAX encoder's, which draws from its
+``dropout`` rng. ``convert.init_flax_`` draws the weights as flax
+initialises them, the embedding tables through ``BertEncoder.flax_init_``.
+Not in this slice: ``MoeFFN``, ``LoRAAdapter`` and other dtypes; the
+rerankers refuse the options that select them.
 """
 
 from __future__ import annotations
@@ -31,9 +41,11 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from capreolus_tpu_torch.ops import int8_matmul as x1
+from capreolus_tpu_torch.ops import dropout as ops_dropout
 from capreolus_tpu_torch.ops.flash_attention import multihead_attention
 from capreolus_tpu_torch.ops.quantization import int8_scale
 from capreolus_tpu_torch.ops.quantization import quantize_tokens as _quantize_per_token
@@ -54,6 +66,10 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     gelu_approximate: bool = True  # tanh GELU; False for erf
     quantize: str = "none"  # "int8": int8 projections and FFN matmuls at inference
+    remat: bool = False  # recompute each layer's activations in the backward pass
+    # training-time dropout rates, active only in a training forward
+    hidden_dropout_prob: float = 0.1
+    attention_dropout_prob: float = 0.1
 
     @property
     def head_dim(self):
@@ -88,6 +104,33 @@ PRETRAINED_ALIASES = {
 def get_bert_config(name: str) -> BertConfig:
     name = PRETRAINED_ALIASES.get(name, name)
     return KNOWN_CONFIGS.get(name, BertConfig())
+
+
+_SEED_MASK = (1 << 63) - 1
+
+
+def dropout_generator(seed: int, *path: int, device=None) -> torch.Generator:
+    """A generator on ``device`` seeded from ``seed`` and ``path`` (a layer, a
+    site, a micro-batch ...): the same arguments give the same draws."""
+    gen = torch.Generator(device=device if device is not None else "cpu")
+    gen.manual_seed(dropout_generator_seed(seed, *path))
+    return gen
+
+
+def dropout_generator_seed(seed: int, *path: int) -> int:
+    """The seed ``dropout_generator(seed, *path)`` would take."""
+    for p in path:
+        seed = (seed * 1000003 + int(p) + 1) & _SEED_MASK
+    return seed
+
+
+def dropout(x, rate: float, seed, *path: int):
+    """``ops.dropout.dropout`` of ``x`` at ``rate`` with the generator of
+    ``seed`` and ``path``; the identity when ``seed`` is None (not a training
+    forward) or ``rate`` is 0."""
+    if seed is None or rate <= 0.0:
+        return x
+    return ops_dropout.dropout(x, rate, dropout_generator(seed, *path, device=x.device))
 
 
 class Int8Linear(nn.Linear):
@@ -177,9 +220,13 @@ class BertSelfAttention(nn.Module):
             return tuple(split(p(None, x_pre=hq, x_scales=hs)) for p in (self.query, self.key, self.value))
         return split(self.query(hidden)), split(self.key(hidden)), split(self.value(hidden))
 
-    def forward(self, hidden, mask):
+    def forward(self, hidden, mask, dropout_seed=None):
         b, l, h = hidden.shape
-        out = multihead_attention(*self.heads(hidden), mask)
+        generator = None
+        if dropout_seed is not None and self.config.attention_dropout_prob > 0.0:
+            generator = dropout_generator(dropout_seed, 0, device=hidden.device)
+        out = multihead_attention(*self.heads(hidden), mask, train=dropout_seed is not None,
+                                  dropout_rate=self.config.attention_dropout_prob, generator=generator)
         # K2 writes its output [B, L, H, D] and returns the [B, H, L, D] view, so
         # on the card this merge of the heads is a view too
         return self.output(out.transpose(1, 2).reshape(b, l, h))
@@ -226,14 +273,19 @@ class BertLayer(nn.Module):
         """Quantize ``ffn_output``'s weight with the GELU scales folded in."""
         self.ffn_output.quantize_weight(fold_scales=self.gelu_scales())
 
-    def forward(self, hidden, mask, calibrate=False):
-        hidden = self.attention_ln(hidden + self.attention(hidden, mask))
+    def forward(self, hidden, mask, calibrate=False, dropout_seed=None):
+        """``dropout_seed`` (this layer's) makes it a training forward: sites 1
+        and 2 drop the attention output and the FFN output, the attention its
+        probabilities (site 0)."""
+        rate = self.config.hidden_dropout_prob
+        attn = dropout(self.attention(hidden, mask, dropout_seed), rate, dropout_seed, 1)
+        hidden = self.attention_ln(hidden + attn)
         approximate = "tanh" if self.config.gelu_approximate else "none"
         if self.config.quantize == "int8":
             ff = self._int8_ffn(hidden, calibrate, approximate)
         else:
             ff = self.ffn_output(F.gelu(self.intermediate(hidden), approximate=approximate))
-        return self.output_ln(hidden + ff)
+        return self.output_ln(hidden + dropout(ff, rate, dropout_seed, 2))
 
     def gelu_scales(self):
         """Per-channel scales of the GELU output: amax / 127 (``int8_scale``), amax = 8 where uncalibrated."""
@@ -256,7 +308,9 @@ class BertLayer(nn.Module):
 
 class BertEncoder(nn.Module):
     """Returns (sequence_output, pooled_output). ``calibrate=True`` (int8 only)
-    updates each layer's ``gelu_amax`` from this batch as it passes."""
+    updates each layer's ``gelu_amax`` from this batch as it passes;
+    ``dropout_seed`` makes it a training forward (the module docstring), with
+    each layer recomputed in the backward pass when ``config.remat``."""
 
     def __init__(self, config: BertConfig):
         super().__init__()
@@ -270,6 +324,13 @@ class BertEncoder(nn.Module):
             self.add_module(f"layer_{i}", BertLayer(config))
         self.pooler = nn.Linear(h, h)
 
+    def flax_init_(self, generator: torch.Generator):
+        """The embedding tables N(0, 0.02), as the JAX encoder initialises
+        them (``convert.init_flax_`` draws the rest)."""
+        with torch.no_grad():
+            for table in (self.word_embeddings, self.position_embeddings, self.token_type_embeddings):
+                table.normal_(0.0, 0.02, generator=generator)
+
     def embed(self, input_ids, token_type_ids):
         """Embedding sum + LayerNorm [B, L, H]. Ids are taken mod the vocab
         sizes, as in the JAX encoder (identity for real checkpoints; keeps the
@@ -280,11 +341,17 @@ class BertEncoder(nn.Module):
                   + self.token_type_embeddings[token_type_ids % c.type_vocab_size])
         return self.embeddings_ln(hidden)
 
-    def forward(self, input_ids, attention_mask, token_type_ids, calibrate=False):
-        hidden = self.embed(input_ids, token_type_ids)
+    def forward(self, input_ids, attention_mask, token_type_ids, calibrate=False, dropout_seed=None):
+        c = self.config
+        hidden = dropout(self.embed(input_ids, token_type_ids), c.hidden_dropout_prob, dropout_seed, 0)
         mask = attention_mask.bool()
-        for i in range(self.config.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, mask, calibrate)
+        for i in range(c.num_layers):
+            layer = getattr(self, f"layer_{i}")
+            seed = None if dropout_seed is None else dropout_generator_seed(dropout_seed, i + 1)
+            if c.remat and torch.is_grad_enabled():
+                hidden = torch.utils.checkpoint.checkpoint(layer, hidden, mask, calibrate, seed, use_reentrant=False)
+            else:
+                hidden = layer(hidden, mask, calibrate, seed)
         return hidden, torch.tanh(self.pooler(hidden[:, 0]))
 
 

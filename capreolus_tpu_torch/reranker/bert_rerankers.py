@@ -2,13 +2,17 @@
 monoBERT-MaxP (``BERTMaxP``, Dai & Callan 2019) and the aliases of the
 reference's configs (``ptBERTMaxP``, ``TFBERTMaxP``, ``TFVanillaBERT``).
 
-Inference only: each passage of the ``bertpassage`` features goes through the
-encoder and a linear relevance head, and a document's score aggregates its
-passages' scores (max, first, sum or avg). With ``quantize=int8`` the encoder
-runs its projections and FFN matmuls in int8 (``reranker/bert/encoder.py``,
-X1 on the card), after ``prepare_inference`` has calibrated the GELU scales.
-PARADE, CEDR-KNRM and Birch, and the trainer-facing parts (``score``,
-``score_lce``, pipeline views), come with later slices.
+Each passage of the ``bertpassage`` features goes through the encoder and a
+linear relevance head, and a document's score aggregates its passages' scores
+(max, first, sum or avg). ``score`` (pairs) and ``score_lce`` (a positive and
+its negatives) are the training forwards: with a dropout seed the encoder
+applies ``hidden_dropout_prob`` at both of its dropout sites and takes the
+differentiable attention, and ``remat`` recomputes each layer in the backward
+pass. Prediction (``test``) takes K2 on the card. With ``quantize=int8`` the
+encoder runs its projections and FFN matmuls in int8 at prediction
+(``reranker/bert/encoder.py``, X1 on the card), after ``prepare_inference``
+has calibrated the GELU scales; training stays f32, as in JAX. PARADE,
+CEDR-KNRM, Birch, LoRA, MoE and the pipeline views come with later slices.
 """
 
 from __future__ import annotations
@@ -34,9 +38,8 @@ _LORA_ALPHA_OPT = ConfigOption("loraalpha", 16.0, "LoRA scaling alpha (delta = a
 
 # options whose non-default values select code this slice does not port
 _UNPORTED = (
-    ("moeexperts", lambda v: v > 0, "the mixture-of-experts FFN; ROADMAP.md, 'the other BERT rerankers'"),
-    ("lora", lambda v: v > 0, "LoRA adapters; ROADMAP.md, 'the trainer'"),
-    ("remat", bool, "rematerialization in the backward pass; ROADMAP.md, 'the trainer'"),
+    ("moeexperts", lambda v: v > 0, "the mixture-of-experts FFN; ROADMAP.md item 6, 'the other BERT rerankers'"),
+    ("lora", lambda v: v > 0, "LoRA adapters; ROADMAP.md item 4, what the trainer slice leaves"),
 )
 
 
@@ -73,16 +76,20 @@ class _BertScorer(nn.Module):
         self.bert = BertEncoder(config)
         self.classifier = nn.Linear(config.hidden_size, 1)
 
-    def forward(self, inp, mask, seg, calibrate=False):
+    def forward(self, inp, mask, seg, calibrate=False, dropout_seed=None):
         flat_inp, flat_mask, flat_seg, b, p = _flatten_passages(inp, mask, seg)
-        _, pooled = self.bert(flat_inp, flat_mask, flat_seg, calibrate=calibrate)
+        _, pooled = self.bert(flat_inp, flat_mask, flat_seg, calibrate=calibrate, dropout_seed=dropout_seed)
         return self.classifier(pooled.float())[:, 0].reshape(b, p)
 
 
 class BertRerankerBase(Reranker):
     """Common scoring plumbing for cross-encoders over bertpassage features."""
 
-    dependencies = [Dependency(key="extractor", module="extractor", name="bertpassage")]
+    dependencies = [
+        Dependency(key="extractor", module="extractor", name="bertpassage"),
+        Dependency(key="trainer", module="trainer", name="jax"),
+    ]
+    accepts_rngs = True  # the trainer hands training forwards a dropout seed
 
     def build(self):
         if self.config.get("quantize") not in (None, "none", "int8"):  # "none" casts to None
@@ -100,8 +107,13 @@ class BertRerankerBase(Reranker):
     def encoder_config(self) -> BertConfig:
         cfg, _ = load_pretrained_encoder(self.config["pretrained"],
                                          allow_random_init=bool(self.config.get("allowrandominit", False)))
-        return dataclasses.replace(cfg, gelu_approximate=self.config.get("gelu", "tanh") == "tanh",
-                                   quantize="int8" if self.quantized else "none")
+        cfg = dataclasses.replace(cfg, gelu_approximate=self.config.get("gelu", "tanh") == "tanh",
+                                  quantize="int8" if self.quantized else "none",
+                                  remat=bool(self.config.get("remat", False)))
+        hdp = self.config.get("hidden_dropout_prob")
+        if hdp is not None:  # one knob sets both dropout sites, as in JAX
+            cfg = dataclasses.replace(cfg, hidden_dropout_prob=float(hdp), attention_dropout_prob=float(hdp))
+        return cfg
 
     @property
     def quantized(self) -> bool:
@@ -136,6 +148,8 @@ class BertRerankerBase(Reranker):
         if not self.quantized:
             return
         model = self.build_model()
+        if hasattr(self, "_train_model"):  # the trained weights, requantized as they load
+            model.to(device).load_state_dict(self._train_model.state_dict(), strict=False)
 
         def put(key):
             return torch.from_numpy(np.asarray(batch[key])).to(device)
@@ -159,14 +173,49 @@ class BertRerankerBase(Reranker):
         """The model's [B, P] passage scores as [B] document scores."""
         return aggregate_passage_scores(raw_scores, self._passage_mask(mask), self.config.get("aggregation", "max"))
 
-    def _score_doc(self, inp, mask, seg):
-        return self._head_scores(self.model(inp, mask, seg), mask)
+    def build_train_model(self):
+        """The model the trainer trains: ``build_model()``'s, or with
+        ``quantize=int8`` an f32 model of the same weights (int8 is
+        inference-only, as in JAX); ``prepare_inference`` copies its weights
+        into the int8 model before it calibrates."""
+        if not self.quantized:
+            return self.build_model()
+        if not hasattr(self, "_train_model"):
+            self._train_model = _BertScorer(dataclasses.replace(self.encoder_config(), quantize="none"))
+        return self._train_model
+
+    def _score_doc(self, inp, mask, seg, dropout_seed=None):
+        """[B] document scores; a ``dropout_seed`` makes it a training forward."""
+        model = self.model if dropout_seed is None else self.build_train_model()
+        return self._head_scores(model(inp, mask, seg, dropout_seed=dropout_seed), mask)
+
+    @staticmethod
+    def fold_seed(dropout_seed, i):
+        """Distinct dropout streams for the pos / neg (or LCE group) forwards."""
+        if dropout_seed is None:
+            return None
+        from capreolus_tpu_torch.reranker.bert.encoder import dropout_generator_seed
+
+        return dropout_generator_seed(dropout_seed, 1000 + i)
+
+    def _inputs(self, batch, side, device):
+        """(input ids, mask, segment ids) of the batch's ``side`` ("pos" or "neg") on ``device``."""
+        return tuple(self.put(batch, f"{side}_{key}", device) for key in ("bert_input", "mask", "seg"))
+
+    def score(self, batch, device, dropout_seed=None):
+        return [self._score_doc(*self._inputs(batch, side, device), dropout_seed=self.fold_seed(dropout_seed, i))
+                for i, side in enumerate(("pos", "neg"))]
+
+    def score_lce(self, batch, device, dropout_seed=None):
+        """[B, 1+nneg] group scores: the positive followed by each negative."""
+        pos = self._score_doc(*self._inputs(batch, "pos", device), dropout_seed=self.fold_seed(dropout_seed, 0))
+        negs, masks, segs = self._inputs(batch, "neg", device)
+        neg_scores = [self._score_doc(negs[:, i], masks[:, i], segs[:, i], dropout_seed=self.fold_seed(dropout_seed, i + 1))
+                      for i in range(negs.shape[1])]
+        return torch.stack([pos] + neg_scores, dim=1)
 
     def test(self, batch, device):
-        def put(key):
-            return torch.from_numpy(np.asarray(batch[key])).to(device)
-
-        return self._score_doc(put("pos_bert_input"), put("pos_mask"), put("pos_seg"))
+        return self._score_doc(*self._inputs(batch, "pos", device))
 
 
 @Reranker.register
@@ -183,7 +232,7 @@ class BERTMaxP(BertRerankerBase):
         ConfigOption("gelu", "tanh", "GELU variant: tanh (fast approximation) or erf (exact HF parity)"),
         ConfigOption("allowrandominit", False, "allow random weights when the pretrained checkpoint cannot be loaded"),
         ConfigOption("aggregation", "max", "passage aggregation: max, first, sum, or avg"),
-        ConfigOption("remat", False, "rematerialize encoder layers in the backward pass (not ported yet)"),
+        ConfigOption("remat", False, "rematerialize encoder layers in the backward pass"),
         ConfigOption("moeexperts", 0, "mixture-of-experts FFN: number of expert FFNs per layer "
                      "(0 = dense FFN; MoE is not ported yet)"),
         ConfigOption("moetopk", 2, "experts routed per token (top-k of the softmax gate)"),

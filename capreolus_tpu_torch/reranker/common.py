@@ -1,5 +1,6 @@
 """Shared model layers (the similarity-matrix and kernel-pooling functions of
-the JAX package's ``reranker/common.py``), as plain functions on tensors.
+the JAX package's ``reranker/common.py``), as plain functions on tensors, and
+the training losses (``LOSS_FUNCTIONS``, all six of its keys).
 
 These are the model's differentiable path. The fused inference kernel
 (``ops/simmat.py``) normalises differently (``norm + 1e-9``); each is held
@@ -74,3 +75,53 @@ def knrm_pool(simmat, mus, sigmas):
     result = kernels.sum(dim=3)  # [B, K, Q]
     mask = (simmat.sum(dim=2) != 0.0)[:, None, :]  # [B, 1, Q]
     return torch.where(mask, torch.log(result + 1e-6), 0.0).sum(dim=2)  # [B, K]
+
+
+# ------------------------------------------------------------------ losses
+def pair_hinge_loss(pos_neg_scores, *args):
+    """Margin-1 pairwise hinge."""
+    pos, neg = pos_neg_scores
+    return torch.mean(torch.relu(1.0 - (pos - neg)))
+
+
+def pair_softmax_loss(pos_neg_scores, *args):
+    """1 - P(pos) under a 2-way softmax."""
+    scores = torch.stack(list(pos_neg_scores), dim=1)
+    return torch.mean(1.0 - torch.softmax(scores, dim=1)[:, 0])
+
+
+def crossentropy_loss(scores_2way, labels_2way):
+    """Categorical CE over [B, 2] scores against one-hot labels."""
+    logprobs = torch.log_softmax(scores_2way, dim=-1)
+    return -torch.mean(torch.sum(labels_2way * logprobs, dim=-1))
+
+
+def lce_loss(group_scores, labels=None):
+    """Localized contrastive estimation: CE with the positive at index 0 ([B, 1+nneg])."""
+    return -torch.mean(torch.log_softmax(group_scores, dim=-1)[:, 0])
+
+
+def infonce_loss(logits, labels):
+    """In-batch-negative contrastive loss: categorical CE of each row of the
+    [B, C] similarity matrix against its positive's column ``labels[i]``."""
+    logprobs = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(logprobs, 1, labels[:, None].long()))
+
+
+def margin_mse_loss(pos, neg, teacher_margin):
+    """Margin-MSE distillation: the student's pos - neg margin against the teacher's."""
+    return torch.mean(((pos - neg) - teacher_margin) ** 2)
+
+
+LOSS_FUNCTIONS = {
+    "pairwise_hinge_loss": pair_hinge_loss,
+    "pair_hinge_loss": pair_hinge_loss,
+    "pair_softmax_loss": pair_softmax_loss,
+    "crossentropy": crossentropy_loss,
+    "lce": lce_loss,
+    # margin_mse takes the batch's per-triple teacher margin (sampler.name=distill)
+    "margin_mse": margin_mse_loss,
+    # infonce needs embeddings from a reranker with encode() (the biencoder,
+    # not ported: the trainer refuses loss=infonce)
+    "infonce": infonce_loss,
+}

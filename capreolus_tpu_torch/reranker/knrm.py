@@ -2,6 +2,8 @@
 Xiong et al., End-to-End Neural Ad-hoc Ranking with Kernel Pooling, SIGIR'17):
 RBF kernel bank over the query x doc similarity matrix, log-sum pooling, linear
 combination, with the gradkernels / singlefc / scoretanh / finetune options.
+The JAX reranker's ``add_summary`` also plots the combine weights with
+matplotlib; the port writes the parameter statistics only.
 """
 
 from __future__ import annotations
@@ -37,12 +39,13 @@ class KNRMModel(nn.Module):
 
     def forward(self, querytoks, doctoks, query_idf=None):
         if querytoks.is_cuda and not self.gradkernels and not self.finetune:
-            # K1: fused simmat + kernel pooling, no [B, K, Q, D] in memory. The
-            # kernel has no backward; with kernels and embeddings frozen no
-            # gradient flows through it (the JAX model takes its Pallas
-            # kernel under the same condition on the TPU)
-            with torch.no_grad():
-                pooled = knrm_simmat_pool(self.embedding, querytoks, doctoks, self.mus, self.sigmas)
+            # K1: fused simmat + kernel pooling, no [B, K, Q, D] in memory, in
+            # training forwards and predictions alike. The kernel has no
+            # backward: with kernels and embeddings frozen (no requires_grad)
+            # no gradient flows through it, and only the combine layers train
+            # (the JAX model takes its Pallas kernel under the same condition,
+            # on stop_gradient inputs)
+            pooled = knrm_simmat_pool(self.embedding, querytoks, doctoks, self.mus, self.sigmas)
         else:
             simmat = similarity_matrix(self.embedding, querytoks, doctoks)  # [B, Q, D]
             pooled = knrm_pool(simmat, self.mus, self.sigmas)  # [B, K]
@@ -88,6 +91,7 @@ class KNRM(Reranker):
             return False
         return True
 
+    score = Reranker.score_default
     test = Reranker.test_default
 
     def state_dict_from_params(self, flat):

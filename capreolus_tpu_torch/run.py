@@ -28,6 +28,7 @@ HELP = """usage:
 
 COMMAND is <task>.<command>, e.g.:
   rank.searcheval with benchmark.name=dummy searcher.name=BM25
+  rerank.traineval with benchmark.name=dummy reranker.name=KNRM reranker.trainer.niters=2
   modules.list_modules
 
 CONFIG strings are dotted key=value pairs; `file=PATH` loads key=value lines from PATH.

@@ -129,21 +129,20 @@ class RerankingService(RetrievalService):
     (KNRM over embedtext features, or a BERT cross-encoder such as BERTMaxP
     over bertpassage features, one batch of ``topn`` docs per query).
 
-    ``checkpoint_path`` names the port's params file: the flat ``params/...``
-    npz written by ``convert.save_params``. A BERT reranker with
-    ``quantize=int8`` calibrates its activation scales once, on the first
-    request's batch, before scoring it (the JAX ``_ensure_params``), unless
-    the checkpoint carries its ``quant_stats``, which are then used as they are.
-    An ``extractor_state_path`` (the training-time extractor state) raises
-    ``ConfigError`` until the trainer is ported.
+    ``checkpoint_path`` names the weights: a ``dev.best`` written by either
+    trainer (its stem or its ``.params`` file, flax's msgpack bytes) or the
+    flat ``params/...`` npz written by ``convert.save_params``. A BERT
+    reranker with ``quantize=int8`` calibrates its activation scales once, on
+    the first request's batch, before scoring it (the JAX ``_ensure_params``),
+    unless the checkpoint carries its ``quant_stats``, which are then used as
+    they are. ``extractor_state_path`` names the training-time extractor state
+    (``extractor_state.pkl`` beside ``dev.best``), which the extractor restores
+    in place of a preprocess over the whole corpus: a model with
+    vocabulary-sized trained tables needs the training vocabulary.
     """
 
     def __init__(self, index, reranker, checkpoint_path, topn: int = 100,
                  extractor_state_path: Optional[str] = None, *, device=None, **kwargs):
-        if extractor_state_path:
-            raise ConfigError(f"extractor_state_path={extractor_state_path!r}: restoring a training-time "
-                              f"extractor state is not ported to PyTorch yet (ROADMAP.md item 4, the trainer "
-                              f"and task/rerank.py)")
         super().__init__(index, device=device, **kwargs)
         from capreolus_tpu_torch.convert import load_params
         from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
@@ -153,7 +152,9 @@ class RerankingService(RetrievalService):
         self._collate = collate
         self._keys = ARRAY_KEYS
         t0 = time.perf_counter()
-        if not getattr(reranker.extractor, "_preprocessed", False):
+        if extractor_state_path:
+            reranker.extractor.load_state(extractor_state_path)
+        elif not getattr(reranker.extractor, "_preprocessed", False):
             # a fresh serving process: build the extractor state (vocab,
             # embeddings, doc tokens) over the whole corpus before the model,
             # whose embedding table is sized from it. Host time, reported apart

@@ -3,8 +3,8 @@
 one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width (f32, then
 int8), then ColBERT late-interaction serving at BERT-base width (a bf16 corpus,
 then int8 and int4 corpora), then the rank task's sparse searchers over the
-50k-doc golden corpus, and holds every kernel against its plain PyTorch
-version.
+50k-doc golden corpus, then trains KNRM and monoBERT-MaxP through the rerank
+task, and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA device; builds the kernels
 
@@ -122,7 +122,35 @@ printed only when every phase passed):
    and peak device memory; each search's seconds on the card and the CPU; one
    profiled BM25 search of the 25 topics (device busy share, top device ops).
    The sparse path launches none of the port's kernels, which is checked;
-7. the seconds each phase took, a ``kernels`` JSON line, then the result line.
+9. training (after 8): 9a, the rerank golden of the JAX suite
+   (``tests/test_e2e_rerank_golden.py``, as ``rerank_golden_corpus``) through
+   the port's ``rerank.traineval`` on "cuda": tiny-BERT MaxP and KNRM (over
+   trainer seeds 42-49) each more than 0.2 test MAP above the first stage, and
+   within 0.1 of their pins (1.0; KNRM's mean over the seeds, 0.7977), no K2
+   launch inside a training step; step 1 on the card against the CPU from one
+   init and one batch (loss and gradients within 1e-4 relative) for KNRM with
+   trainable kernels and embeddings, a frozen KNRM (K1 once per forward in the
+   step) and tiny BERT with dropout off (no K2 in the step); K1 against its
+   plain version on the frozen KNRM's step-1 batch, and K2 against its plain
+   version at every layer of tiny BERT's first prediction batch. 9b, full width
+   over phase 4's corpus and indexes, its 25 topics graded by the recipe in one
+   fold of 15 / 5 / 5, threshold 100: KNRM at its published width with frozen
+   kernels and embeddings (K1 in every step) and monoBERT-MaxP at BERT-base
+   width and depth (seeded N(0, 0.02) weights, bertpassage defaults, batch 32,
+   itersize 256, 2 iterations, dropout 0.1), each with its seconds per
+   iteration, samples per second, validation seconds, peak device memory and
+   one profiled training step (device busy share, top ops); the launches of K1
+   and K2 in training steps (K2: 0; K1: one per forward) and in predictions;
+   K1 against its plain version on KNRM's training batch (B 32, both sides)
+   and first prediction batch, K2 at every layer of monoBERT-MaxP's first
+   prediction batch; then ``dev.best`` and ``extractor_state.pkl`` served by
+   ``RerankingService`` on "cuda", query 0's scores within 1e-5 of the
+   trainer's own test prediction;
+7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
+   ``launches_training`` and ``launches_training_predict``, phase 9's
+   launches in training steps and in the trainer's predictions, and K1 and
+   K2 with ``max_abs_err_training``, their largest error on phase 9's own
+   batches), then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
 and read just after it.
@@ -244,7 +272,9 @@ def _word(rng):
 def build_corpus(num_docs, num_topics, seed, min_len, max_len, bg_vocab=1500):
     """The recipe of the JAX suite's 50k-doc golden corpus (Zipfian background
     words plus per-topic concept words injected at graded intensities), with
-    longer documents so that maxdoclen=800 binds. Returns (docs, topics)."""
+    longer documents so that maxdoclen=800 binds. Returns (docs, topics, qrels):
+    qrels grade the injected documents as ``golden_corpus`` does (2, 1, 0 for
+    4-6, 2-3 and 1 concept words), under qids "100", "101", ... in topic order."""
     rng = np.random.Generator(np.random.PCG64(seed))
     vocab, seen = [], set()
     while len(vocab) < bg_vocab:
@@ -262,8 +292,9 @@ def build_corpus(num_docs, num_topics, seed, min_len, max_len, bg_vocab=1500):
     doc_words = [list(vocab_arr[draws[bounds[i]:bounds[i + 1]]]) for i in range(num_docs)]
     pool = rng.permutation(num_docs)
     pos = 0
+    qrels = {str(100 + t): {} for t in range(num_topics)}
     for t in range(num_topics):
-        for count, lo, hi in ((30, 4, 7), (50, 2, 4), (40, 1, 2)):
+        for grade, count, lo, hi in ((2, 30, 4, 7), (1, 50, 2, 4), (0, 40, 1, 2)):
             for _ in range(count):
                 d = int(pool[pos])
                 pos += 1
@@ -271,9 +302,10 @@ def build_corpus(num_docs, num_topics, seed, min_len, max_len, bg_vocab=1500):
                 words = list(rng.choice(concept[t], size=k, replace=False))
                 for w, i in zip(words, rng.integers(0, len(doc_words[d]), size=k)):
                     doc_words[d].insert(int(i), w)
+                qrels[str(100 + t)][f"G{d:05d}"] = grade
     topics = [" ".join(concept[t][:3]) + (f" {vocab[t]}" if t % 3 == 0 else "") for t in range(num_topics)]
     docs = [(f"G{i:05d}", " ".join(w)) for i, w in enumerate(doc_words)]
-    return docs, topics
+    return docs, topics, qrels
 
 
 def golden_corpus(num_docs=GOLDEN_DOCS, num_topics=GOLDEN_TOPICS, seed=GOLDEN_SEED, bg_vocab=1500):
@@ -334,6 +366,13 @@ def write_golden(docs, topics, qrels, base):
     (corpus_dir, qrel_fn, topic_fn)."""
     corpus_dir = os.path.join(base, "corpus")
     write_trec(docs, corpus_dir)
+    return (corpus_dir,) + write_qrels_topics(topics, qrels, base)
+
+
+def write_qrels_topics(topics, qrels, base):
+    """``base/qrels.txt`` and ``base/topics.tsv`` as the JAX suite writes them.
+    Returns (qrel_fn, topic_fn)."""
+    os.makedirs(base, exist_ok=True)
     qrel_fn, topic_fn = os.path.join(base, "qrels.txt"), os.path.join(base, "topics.tsv")
     with open(qrel_fn, "wt", encoding="utf-8") as fh:
         for qid in sorted(qrels):
@@ -342,13 +381,16 @@ def write_golden(docs, topics, qrels, base):
     with open(topic_fn, "wt", encoding="utf-8") as fh:
         for qid in sorted(topics):
             fh.write(f"{qid}\t{topics[qid]}\n")
-    return corpus_dir, qrel_fn, topic_fn
+    return qrel_fn, topic_fn
 
 
-def register_golden(corpus_dir, qrel_fn, topic_fn, qids, name="e2e_golden"):
-    """Register the port's collection and benchmark ``name`` (one fold whose
-    train, dev and test sets are every topic, as in the JAX suite) over files
-    written by ``write_golden``."""
+def register_golden(corpus_dir, qrel_fn, topic_fn, qids, name="e2e_golden", split=None, collection=None):
+    """Register the port's collection and benchmark ``name`` over files written
+    by ``write_golden``: one fold whose train, dev and test sets are every
+    topic, as in the JAX suite, or ``split`` (train, dev, test) topics of
+    ``qids`` in order. ``collection`` (a collection config, e.g. ``{"name":
+    "dummy", "path": ...}``) puts the benchmark over that collection instead
+    of a new one, so its indexes are the ones already built for it."""
     import capreolus_tpu_torch
 
     capreolus_tpu_torch.load_all_modules()
@@ -356,16 +398,21 @@ def register_golden(corpus_dir, qrel_fn, topic_fn, qids, name="e2e_golden"):
     from capreolus_tpu_torch.collection import Collection
     from capreolus_tpu_torch.core import Dependency
 
-    @Collection.register
-    class GoldenCollection(Collection):
-        module_name = name
-        collection_type = "trec"
-        _path = corpus_dir
+    if collection is None:
+        @Collection.register
+        class GoldenCollection(Collection):
+            module_name = name
+            collection_type = "trec"
+            _path = corpus_dir
+
+        collection = {"name": name}
+    coll_dep = Dependency(key="collection", module="collection", name=collection["name"],
+                          default_config_overrides={k: v for k, v in collection.items() if k != "name"})
 
     @Benchmark.register
     class GoldenBenchmark(Benchmark):
         module_name = name
-        dependencies = [Dependency(key="collection", module="collection", name=name)]
+        dependencies = [coll_dep]
         query_type = "title"
         topic_format = "tsv"
         qrel_file = qrel_fn
@@ -373,7 +420,120 @@ def register_golden(corpus_dir, qrel_fn, topic_fn, qids, name="e2e_golden"):
 
         @property
         def folds(self):
-            return {"s1": {"train_qids": list(qids), "predict": {"dev": list(qids), "test": list(qids)}}}
+            if split is None:
+                return {"s1": {"train_qids": list(qids), "predict": {"dev": list(qids), "test": list(qids)}}}
+            train, dev = split[0], split[0] + split[1]
+            return {"s1": {"train_qids": list(qids[:train]),
+                           "predict": {"dev": list(qids[train:dev]), "test": list(qids[dev:dev + split[2]])}}}
+
+
+RERANK_GOLDEN = {  # tests/test_e2e_rerank_golden.py's corpus and pins
+    "topics": 20, "split": (12, 4, 4), "cands": 40, "rel": 10, "bg_docs": 1000, "bg_vocab": 400,
+    "base_len": 30, "seed": 20260820,
+    "pins": {"first_stage": 0.3329, "KNRM": 0.7977, "BERTMaxP": 1.0},
+}
+RERANK_PIN_TOL = 0.1  # the JAX suite's tolerance for the rerank pins (init seeds and the candidate shuffle)
+RERANK_GAIN = 0.2  # how far above the first stage each trained reranker's test MAP must sit
+RERANK_GOLDEN_CONFIGS = {  # the rerankers of tests/test_e2e_rerank_golden.py, as the rerank task takes them
+    "KNRM": {"name": "KNRM", "finetune": True,
+             "extractor": {"embeddings": "random8", "maxqlen": 4, "maxdoclen": 64},
+             "trainer": {"niters": 4, "itersize": 256, "batch": 16, "lr": 0.05, "bertlr": 0.05,
+                         "validatefreq": 1}},
+    "BERTMaxP": {"name": "BERTMaxP", "pretrained": "tiny", "allowrandominit": True,
+                 "extractor": {"maxseqlen": 96, "maxqlen": 8, "numpassages": 1, "passagelen": 80, "stride": 40},
+                 "trainer": {"niters": 4, "itersize": 256, "batch": 16, "lr": 1e-3, "bertlr": 1e-3,
+                             "validatefreq": 1}},
+}
+
+
+def rerank_golden_corpus(seed=RERANK_GOLDEN["seed"]):
+    """The JAX suite's rerank golden (``tests/test_e2e_rerank_golden.py::
+    build_rerank_corpus``, the same draws in the same order): per topic 40
+    candidates with identical concept-term tf and length, so BM25 ties and
+    orders them by docid; the 10 relevant carry global marker words, the rest
+    junk words, and every query a token ("findrel") no document holds. Returns
+    (docs, topics, qrels) as ``golden_corpus`` does."""
+    g = RERANK_GOLDEN
+    rng = np.random.Generator(np.random.PCG64(seed))
+    vocab, seen = [], set()
+    while len(vocab) < g["bg_vocab"]:
+        w = _word(rng)
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+    ranks = np.arange(1, g["bg_vocab"] + 1, dtype=np.float64)
+    probs = 1.0 / ranks**1.1
+    probs /= probs.sum()
+    vocab_arr = np.asarray(vocab)
+
+    def bg_words(n):
+        return list(vocab_arr[rng.choice(g["bg_vocab"], size=n, p=probs)])
+
+    concept = {t: [f"{_word(rng)}c{t:02d}a", f"{_word(rng)}c{t:02d}b"] for t in range(g["topics"])}
+    markers, junk = ["relmarka", "relmarkb", "relmarkc"], [f"junkw{i}" for i in range(12)]
+    docs, qrels, topics = [], {}, {}
+
+    def add_doc(words):
+        docid = f"R{len(docs):05d}"
+        docs.append((docid, " ".join(words)))
+        return docid
+
+    for _ in range(g["bg_docs"]):
+        add_doc(bg_words(int(rng.integers(25, 45))))
+    for t in range(g["topics"]):
+        qid = str(200 + t)
+        qrels[qid] = {}
+        topics[qid] = " ".join(concept[t] + ["findrel"])
+        flags = np.zeros(g["cands"], dtype=bool)
+        flags[:g["rel"]] = True
+        rng.shuffle(flags)
+        for rel in flags:
+            words = bg_words(g["base_len"])
+            inject = [concept[t][0]] * 2 + [concept[t][1]] * 2
+            inject += list(rng.choice(markers, size=6)) if rel else list(rng.choice(junk, size=6))
+            for w in inject:
+                words.insert(int(rng.integers(0, len(words) + 1)), w)
+            qrels[qid][add_doc(words)] = 1 if rel else 0
+    return docs, topics, qrels
+
+
+def setup_rerank_golden(base, name="rerank_golden"):
+    """Write the rerank golden under ``base`` and register it as the port's
+    collection and benchmark ``name`` (the JAX suite's 12 / 4 / 4 fold).
+    Returns (topics, qrels)."""
+    docs, topics, qrels = rerank_golden_corpus()
+    qids = sorted(topics)
+    register_golden(*write_golden(docs, topics, qrels, base), qids, name=name, split=RERANK_GOLDEN["split"])
+    return topics, qrels
+
+
+def rerank_task(reranker_cfg, device, name="rerank_golden", collection=None, threshold=RERANK_GOLDEN["cands"]):
+    """The port's rerank task over benchmark ``name`` (BM25 first stage,
+    ``threshold`` = ``testthreshold``) on ``device``."""
+    from capreolus_tpu_torch.task import Task
+
+    task = Task.create("rerank", {
+        "benchmark": {"name": name},
+        "rank": {"searcher": {"name": "BM25", "index": {"collection": collection or {"name": name}}}},
+        "reranker": json.loads(json.dumps(reranker_cfg)), "threshold": threshold, "testthreshold": threshold})
+    task.device = device
+    return task
+
+
+def rerank_golden_run(reranker_cfg, device, name="rerank_golden"):
+    """The port's rerank task on the golden, as the JAX suite drives it
+    (``threshold`` = ``testthreshold`` = 40). Returns (task, the first stage's
+    best run, the predictions {"dev", "test"})."""
+    task = rerank_task(reranker_cfg, device, name)
+    first_stage = task._best_search_run()
+    return task, first_stage, task.rerank_run(first_stage, task.get_results_path())
+
+
+def golden_map(run, qrels, qids):
+    """MAP of ``run`` over ``qids``."""
+    from capreolus_tpu_torch.evaluation import eval_runs
+
+    return eval_runs({q: dict(run[q]) for q in qids}, {q: qrels[q] for q in qids}, ["map"])["map"]
 
 
 def write_trec(docs, directory, files=4):
@@ -739,8 +899,8 @@ def phase_serving(workdir, num_docs, ckpt_seed):
 
     capreolus_tpu_torch.load_all_modules()
     t0 = time.perf_counter()
-    docs, topics = build_corpus(num_docs, num_topics=25, seed=20260819,
-                                min_len=200, max_len=1200)
+    docs, topics, qrels = build_corpus(num_docs, num_topics=25, seed=20260819,
+                                       min_len=200, max_len=1200)
     corpus_dir = os.path.join(workdir, "corpus")
     write_trec(docs, corpus_dir)
     t_corpus = time.perf_counter() - t0
@@ -814,7 +974,7 @@ def phase_serving(workdir, num_docs, ckpt_seed):
         check(not faults, f"query {qi}: GPU vs CPU reranked top 10: {faults}")
     print(f"[4 serving] {len(queries)} queries: first stage identical on GPU and CPU; reranked "
           f"top-10 agree within {ERR_TOL} (top hit of query 0: {gpu_results[0][0]})")
-    return launches, corpus_dir, topics
+    return launches, corpus_dir, topics, qrels
 
 
 def check_no_head_copies(profiled, num_layers, label):
@@ -2018,6 +2178,388 @@ def phase_rank_task(workdir):
     return results
 
 
+# ---------------------------------------------------------------- phase 9: training
+TRAIN_SPLIT = (15, 5, 5)  # train / dev / test topics of the 20k serving corpus's 25
+TRAIN_THRESHOLD = 100  # threshold = testthreshold of the full-width training runs
+STEP_RTOL = 1e-4  # step 1's loss, and each gradient tensor against its largest entry, card vs CPU from
+# one init and one batch: f32 sums in other orders (K1's pooled features sit within 2e-4 of the
+# plain path's on log sums of up to ~10, so a frozen KNRM's combine gradients move by ~2e-5)
+GRAD_NOISE_FLOOR = 1e-3  # share of the model's largest gradient entry below which a tensor's own
+# largest entry is not its scale (a gradient that is 0 but for rounding)
+SERVED_DEV_BEST_TOL = 1e-5  # a dev.best served on the card against the trainer's own test prediction of
+# the same docs in one batch of the same size (the same kernels on the same inputs)
+TRAINER_FULL = {"batch": 32, "itersize": 256, "niters": 2, "validatefreq": 1, "evalbatch": TRAIN_THRESHOLD}
+KNRM_TRAIN = {"name": "KNRM", "gradkernels": False, "finetune": False,  # frozen: K1 in every step
+              "extractor": {"embeddings": "random300", "maxqlen": 4, "maxdoclen": 800}, "trainer": TRAINER_FULL}
+BERT_TRAIN = {"name": "BERTMaxP", "pretrained": "bert-base-uncased", "allowrandominit": True,
+              "hidden_dropout_prob": 0.1, "trainer": TRAINER_FULL}  # bertpassage at its defaults
+KNRM_SEEDS = range(42, 50)  # the golden KNRM's trainer seeds, whose mean test MAP is held to the pin
+BERT_LAYERS = 12
+
+
+def count_stages(trainer, reranker):
+    """Wrap the trainer's ``train_step``, ``predict`` and ``train`` and the
+    reranker's ``test`` (instance attributes over the methods) so that every
+    kernel's launches inside training steps and inside predictions add up
+    apart, with the seconds of ``train`` and of its predictions (synchronized),
+    the number of prediction forwards and the first prediction batch."""
+    totals = {"train": dict.fromkeys(launch_counts(), 0), "predict": dict.fromkeys(launch_counts(), 0),
+              "seconds": {"train": 0.0, "predict": 0.0, "validation": 0.0, "checkpoint": 0.0}, "forwards": 0,
+              "steps": 0}
+    step, predict, train, test = trainer.train_step, trainer.predict, trainer.train, reranker.test
+    save = trainer.save_checkpoint
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = save(*args, **kwargs)
+        totals["seconds"]["checkpoint"] += time.perf_counter() - t0
+        return out
+
+    def counted(stage, fn):
+        def wrapper(*args, **kwargs):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if stage == "predict":
+                torch.cuda.synchronize()
+                totals["seconds"]["predict"] += time.perf_counter() - t0
+            else:
+                totals["steps"] += 1
+                totals["seconds"].setdefault("first_step", t0)
+            for key, n in launch_counts().items():
+                totals[stage][key] += n - before[key]
+            return out
+        return wrapper
+
+    def timed_train(*args, **kwargs):
+        t0, p0 = time.perf_counter(), totals["seconds"]["predict"]
+        out = train(*args, **kwargs)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        totals["seconds"]["train"] += end - t0
+        # from the first step on: the model's init and the first batch's samples are set-up
+        totals["seconds"]["setup"] = totals["seconds"].pop("first_step") - t0
+        totals["seconds"]["validation"] += totals["seconds"]["predict"] - p0
+        return out
+
+    def counted_test(batch, *args, **kwargs):
+        totals["forwards"] += 1
+        totals.setdefault("first_predict_batch", batch)  # its kernels are held against their plain versions
+        return test(batch, *args, **kwargs)
+
+    trainer.train_step, trainer.predict, trainer.train = counted("train", step), counted("predict", predict), timed_train
+    trainer.save_checkpoint = timed_save
+    reranker.test = counted_test
+    return totals
+
+
+def add_launches(into, stages):
+    for stage in ("train", "predict"):
+        for key, n in stages[stage].items():
+            into[stage][key] = into[stage].get(key, 0) + n
+
+
+def training_batch(task, batch):
+    """One [1, batch, ...] training batch of ``task``'s sampler, after the
+    first stage and the extractor's preprocess (the start of ``rerank_run``)."""
+    from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
+
+    first_stage = task._best_search_run()
+    task.reranker.extractor.preprocess(qids=list(first_stage), docids={d for r in first_stage.values() for d in r},
+                                       topics=task.benchmark.topics[task.benchmark.query_type])
+    train_qids = set(task.benchmark.folds[task.config["fold"]]["train_qids"])
+    task.sampler.prepare({q: r for q, r in first_stage.items() if q in train_qids}, task.benchmark.qrels,
+                         task.reranker.extractor, relevance_level=task.benchmark.relevance_level)
+    it = iter(task.sampler)
+    collated = collate([next(it) for _ in range(batch)], ARRAY_KEYS)
+    return {k: v[None] for k, v in collated.items()}
+
+
+def hold_k1(model, batch, sides, label, held):
+    """K1 against ``knrm_pool_plain`` on a frozen KNRM's own batch (one
+    micro-batch, [B, ...]): the query against each doc side in ``sides``, as
+    the model hands them to K1. These launches come after the path's counts
+    are read."""
+    from capreolus_tpu_torch.ops.simmat import knrm_inputs, knrm_pool_plain, knrm_simmat_pool
+
+    err, shapes = 0.0, []
+    with torch.no_grad():
+        query = torch.from_numpy(np.asarray(batch["query"])).cuda()
+        for side in sides:
+            docs = torch.from_numpy(np.asarray(batch[side])).cuda()
+            got = knrm_simmat_pool(model.embedding, query, docs, model.mus, model.sigmas)
+            want = knrm_pool_plain(*knrm_inputs(model.embedding, query, docs, model.mus, model.sigmas))
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"K1 on {label}: non-finite output")
+            err = max(err, float((got - want).abs().max()))
+            shapes.append(f"{side} B={docs.shape[0]} Q={query.shape[1]} D={docs.shape[1]} E={model.embedding.shape[1]}")
+    print(f"[9 K1] {label}: {', '.join(shapes)}: max |kernel - plain| {err:.3g} (tolerance {ERR_TOL})")
+    check(err <= ERR_TOL, f"K1 on {label}: max |kernel - plain| = {err:.3g} > {ERR_TOL}")
+    held["knrm_pool"] = max(held.get("knrm_pool", 0.0), err)
+    return err
+
+
+def hold_k2(reranker, batch, label, held):
+    """K2 against ``attention_plain`` at every layer of one prediction forward
+    of the trained BERT reranker on ``batch``: each layer's q, k, v and mask as
+    it hands them to K2, taken by a pre-hook on its attention (``k2_error``).
+    These launches come after the path's counts are read."""
+    from capreolus_tpu_torch.reranker.bert.encoder import BertSelfAttention
+
+    errs, shapes = [], set()
+
+    def hold(module, args):
+        hidden, mask = args[0], args[1]
+        q, k, v = module.heads(hidden)
+        errs.append(k2_error(q, k, v, mask)[0])
+        shapes.add(tuple(q.shape))
+
+    hooks = [m.register_forward_pre_hook(hold) for m in reranker.model.modules() if isinstance(m, BertSelfAttention)]
+    try:
+        with torch.no_grad():
+            reranker.test(batch, torch.device("cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(errs) == len(hooks) > 0, f"K2 on {label}: {len(errs)} layers held of {len(hooks)}")
+    print(f"[9 K2] {label}: {len(errs)} layers at {sorted(shapes)}: max |kernel - plain| {max(errs):.3g} over "
+          f"the first 128 sequences (tolerance {K2_TOL[torch.float32]})")
+    held["flash_attention"] = max(held.get("flash_attention", 0.0), max(errs))
+    return max(errs)
+
+
+def step_parity(task, batch, label, exclude=None):
+    """Step 1 from one init (``init_params`` on the CPU) and one batch: the
+    loss and every gradient on the card against the CPU's, with the card's
+    kernel launches in that step. ``exclude`` ({parameter: [indices]}) leaves
+    ill-conditioned gradient entries out."""
+    reranker, trainer = task.reranker, task.reranker.trainer
+    model = reranker.init_params(trainer.config["seed"])
+    trainer.make_optimizer(reranker, model)  # freezes what the trainer freezes
+    micro = {k: v[0] for k, v in batch.items()}
+
+    def grads(device):
+        model.to(device)
+        model.zero_grad(set_to_none=True)
+        before = launch_counts()
+        loss = trainer.compute_loss(reranker, micro, torch.device(device), dropout_seed=trainer.step_seed(0, 0))
+        loss.backward()
+        launched = {k: n - before[k] for k, n in launch_counts().items()}
+        return float(loss.detach()), {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                             if p.grad is not None}, launched
+
+    cpu_loss, cpu_grads, _ = grads("cpu")
+    card_loss, card_grads, launched = grads("cuda")
+    check(set(card_grads) == set(cpu_grads), f"{label}: the card computes gradients for other parameters")
+    loss_err = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-12)
+    # a tensor's errors against its largest entry, or against GRAD_NOISE_FLOOR of the model's largest
+    # entry where that is larger: the attention key bias's gradient is 0 but for rounding
+    # (softmax is invariant to it), so its own largest entry is noise
+    floor = GRAD_NOISE_FLOOR * max(float(g.abs().max()) for g in cpu_grads.values())
+    grad_err, worst = 0.0, None
+    for name, g in cpu_grads.items():
+        diff = (card_grads[name] - g).abs()
+        for index in (exclude or {}).get(name, []):
+            diff[index] = 0.0
+        err = float(diff.max()) / max(float(g.abs().max()), floor, 1e-30)
+        if err >= grad_err:
+            grad_err, worst = err, name
+    print(f"[9a parity] {label}: step-1 loss {card_loss:.6f} on the card, {cpu_loss:.6f} on the CPU (rel err "
+          f"{loss_err:.3g}); largest gradient error {grad_err:.3g} of its tensor's largest entry ({worst}) over "
+          f"{len(cpu_grads)} tensors (tolerance {STEP_RTOL}); card launches in the step: "
+          f"{ {k: n for k, n in launched.items() if n} }")
+    check(loss_err <= STEP_RTOL and grad_err <= STEP_RTOL, f"{label}: step 1 on the card differs from the CPU's")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "launches": launched}
+
+
+def phase_train_golden(workdir, launches, held):
+    """9a: the rerank pins through the port's rerank.traineval on the card,
+    step 1 on the card against the CPU, and K1 and K2 against their plain
+    versions on the batches of the path."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.reranker.common import KNRM_SIGMAS
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_rerank_golden")
+    constants["RESULTS_BASE_PATH"] = os.path.join(workdir, "results_rerank_golden")
+    t0 = time.perf_counter()
+    topics, qrels = setup_rerank_golden(os.path.join(workdir, "rerank_golden"))
+    qids = sorted(topics)
+    split = RERANK_GOLDEN["split"]
+    dev_q, test_q = qids[split[0]:split[0] + split[1]], qids[split[0] + split[1]:]
+    out = {}
+    reset_launch_counts()
+    for name in ("BERTMaxP", "KNRM"):
+        seeds = KNRM_SEEDS if name == "KNRM" else [None]
+        maps = []
+        for seed in seeds:
+            cfg = json.loads(json.dumps(RERANK_GOLDEN_CONFIGS[name]))
+            if seed is not None:
+                cfg["trainer"]["seed"] = seed
+            task = rerank_task(cfg, "cuda")
+            stages = count_stages(task.reranker.trainer, task.reranker)
+            first = task._best_search_run()
+            preds = task.rerank_run(first, task.get_results_path())
+            add_launches(launches, stages)
+            fs_map, test_map = golden_map(first, qrels, test_q), golden_map(preds["test"], qrels, test_q)
+            check(all(np.isfinite(v) for r in preds["test"].values() for v in r.values()),
+                  f"{name}: a test score is not finite")
+            check(test_map > fs_map + RERANK_GAIN, f"{name} (seed {seed}): test MAP {test_map:.4f} is not "
+                                                 f"{RERANK_GAIN} above the first stage's {fs_map:.4f}")
+            maps.append(test_map)
+        pin = RERANK_GOLDEN["pins"][name]
+        mean = float(np.mean(maps))
+        out[name] = {"first_stage_map": fs_map, "test_map": maps[0], "pin": pin}
+        if name == "KNRM":
+            out[name].update(seeds={s: round(m, 4) for s, m in zip(seeds, maps)}, mean_test_map=mean)
+        print(f"[9a golden] {name} on the card: first stage {fs_map:.4f} -> test MAP "
+              + (f"{maps[0]:.4f} at seed {seeds[0]}; over seeds {list(seeds)}: "
+                 f"{[round(m, 4) for m in maps]}, mean {mean:.4f}" if name == "KNRM" else f"{mean:.4f}")
+              + f" (pin {pin} within {RERANK_PIN_TOL}); dev MAP {golden_map(preds['dev'], qrels, dev_q):.4f}")
+        check(abs(mean - pin) <= RERANK_PIN_TOL, f"{name}: test MAP {mean:.4f} is not within {RERANK_PIN_TOL} of {pin}")
+        check(stages["train"]["flash_attention"] == 0, f"{name}: K2 launched inside a training step")
+        if name == "BERTMaxP":
+            out[name]["k2_max_abs_err"] = hold_k2(task.reranker, stages["first_predict_batch"],
+                                                  "tiny BERT-MaxP's first prediction batch", held)
+    exact = [KNRM_SIGMAS.index(0.001)]
+    knrm = rerank_task(RERANK_GOLDEN_CONFIGS["KNRM"], "cuda")
+    out["parity_knrm"] = step_parity(knrm, training_batch(knrm, 16), "KNRM (finetune, gradkernels)",
+                                     exclude={"mus": exact, "sigmas": exact})
+    frozen = rerank_task(dict(RERANK_GOLDEN_CONFIGS["KNRM"], finetune=False, gradkernels=False), "cuda")
+    frozen_batch = training_batch(frozen, 16)
+    out["parity_knrm_frozen"] = step_parity(frozen, frozen_batch, "KNRM (frozen: K1 in the step)")
+    out["parity_knrm_frozen"]["k1_max_abs_err"] = hold_k1(frozen.reranker.model, {k: v[0] for k, v in frozen_batch.items()},
+                                                          ("posdoc", "negdoc"), "the frozen KNRM's step-1 batch", held)
+    check(out["parity_knrm_frozen"]["launches"]["knrm_pool"] == 2,
+          "a frozen KNRM's training step did not launch K1 once per forward (pos, neg)")
+    bert = rerank_task(dict(RERANK_GOLDEN_CONFIGS["BERTMaxP"], hidden_dropout_prob=0.0), "cuda")
+    out["parity_bert"] = step_parity(bert, training_batch(bert, 16), "tiny BERT-MaxP (dropout off)")
+    check(out["parity_bert"]["launches"]["flash_attention"] == 0, "K2 launched inside a BERT training step")
+    print(f"[9a golden] done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def seeded_init(reranker, std=0.02):
+    """Make ``reranker.init_params`` draw ``seeded_bert_params`` (N(0, std)
+    matrices and embeddings) at its model's geometry, seeded by the trainer seed."""
+    port_init = reranker.init_params
+
+    def init(seed):
+        model = port_init(seed)
+        model.load_state_dict(reranker.state_dict_from_params(seeded_bert_params(model.config, seed, std)))
+        return model
+
+    reranker.init_params = init
+
+
+def phase_training(workdir, corpus_dir, topics, qrels, launches, held):
+    """9b: KNRM (frozen kernels and embeddings, K1 in every step) and
+    monoBERT-MaxP at BERT-base width and depth trained by the port's rerank
+    task on the card over phase 4's corpus, then the dev.best served."""
+    import capreolus_tpu_torch
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.serving import RerankingService
+
+    capreolus_tpu_torch.load_all_modules()
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")  # phase 4's indexes
+    constants["RESULTS_BASE_PATH"] = os.path.join(workdir, "results_training")
+    coll = {"name": "dummy", "path": corpus_dir}
+    qids = [str(100 + t) for t in range(len(topics))]
+    topic_of = dict(zip(qids, topics))
+    register_golden(corpus_dir, *write_qrels_topics(topic_of, qrels, os.path.join(workdir, "training")), qids,
+                    name="serving20k", split=TRAIN_SPLIT, collection=coll)
+    test_q = qids[sum(TRAIN_SPLIT[:2]):]
+    out = {}
+    for label, cfg in (("knrm", KNRM_TRAIN), ("monobert", BERT_TRAIN)):
+        t0 = time.perf_counter()
+        task = rerank_task(cfg, "cuda", name="serving20k", collection=coll, threshold=TRAIN_THRESHOLD)
+        reranker, trainer = task.reranker, task.reranker.trainer
+        if label == "monobert":
+            seeded_init(reranker)
+        stages = count_stages(trainer, reranker)
+        first = task._best_search_run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        preds = task.rerank_run(first, task.get_results_path())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        add_launches(launches, stages)
+        c = trainer.config
+        steps = c["niters"] * trainer.steps_per_iter
+        check(stages["steps"] == steps, f"{label}: {stages['steps']} training steps, expected {steps}")
+        sec = stages["seconds"]
+        per_iter = (sec["train"] - sec["setup"] - sec["validation"] - sec["checkpoint"]) / c["niters"]
+        per_validation = sec["validation"] / (c["niters"] // c["validatefreq"])
+        k1, k2 = stages["train"]["knrm_pool"], stages["train"]["flash_attention"]
+        k1_pred, k2_pred = stages["predict"]["knrm_pool"], stages["predict"]["flash_attention"]
+        check(k2 == 0, f"{label}: K2 launched {k2} times inside training steps")
+        if label == "knrm":
+            check(k1 == 2 * steps, f"knrm: K1 launched {k1} times in {steps} training steps (one per forward: 2 per step)")
+            check(k1_pred == stages["forwards"], f"knrm: K1 launched {k1_pred} times in {stages['forwards']} predictions")
+        else:
+            check(k1 == 0 and k2_pred == BERT_LAYERS * stages["forwards"],
+                  f"monobert: K2 launched {k2_pred} times in {stages['forwards']} prediction forwards "
+                  f"(expected {BERT_LAYERS} each)")
+        scores = [v for r in preds["test"].values() for v in r.values()]
+        want = sum(min(TRAIN_THRESHOLD, len(first.get(q, {}))) for q in test_q)
+        check(len(scores) == want and all(np.isfinite(scores)),
+              f"{label}: {len(scores)} test scores for {want} candidates, or one not finite")
+        test_map = golden_map(preds["test"], qrels, test_q)
+        results = task.get_results_path()
+        for name in ("dev.best.params", "dev.best.done", "info/loss.txt", "pred/test/best", "extractor_state.pkl"):
+            check((results / name).exists(), f"{label}: the trainer wrote no {name}")
+        print(f"[9b {label}] {steps} steps of {c['batch']} samples: {per_iter:.2f} s per iteration of "
+              f"{c['itersize']} samples ({c['itersize'] / per_iter:.1f} samples/s; train() wall from its first "
+              f"step, less its validations and dev.best writes, {sec['checkpoint']:.2f} s in all; set-up before "
+              f"the first step {sec['setup']:.2f} s), validation {per_validation:.2f} s "
+              f"({stages['forwards']} prediction forwards of {c['evalbatch']} docs in all, {sec['predict']:.2f} s), "
+              f"peak device memory {peak_gb:.2f} GB; launches in training steps: K1 {k1}, K2 {k2}; in "
+              f"predictions: K1 {k1_pred}, K2 {k2_pred}; test MAP {test_map:.4f} (random init, 2 iterations)")
+
+        # one more training step, profiled (the run's test predictions are already written)
+        batch = training_batch(task, c["batch"])
+        before = launch_counts()
+        profiled = profile_call(lambda: trainer.train_step(reranker, trainer._model, trainer._optimizer, batch,
+                                                           steps, trainer.step_seed(c["niters"], 0)),
+                                f"[9b {label}]", what="training step")
+        check(launch_counts()["flash_attention"] == before["flash_attention"], f"{label}: K2 in the profiled step")
+        # the path's kernels against their plain versions on its own batches
+        if label == "knrm":
+            k_err = max(hold_k1(trainer._model, {k: v[0] for k, v in batch.items()}, ("posdoc", "negdoc"),
+                                "the full-width KNRM's training batch", held),
+                        hold_k1(trainer._model, stages["first_predict_batch"], ("posdoc",),
+                                "the full-width KNRM's first prediction batch", held))
+        else:
+            k_err = hold_k2(reranker, stages["first_predict_batch"], "monoBERT-MaxP's first prediction batch", held)
+
+        # dev.best served: the trainer's own test prediction of the first test query's docs
+        q0 = test_q[0]
+        docids = list(preds["test"][q0])
+        serve_cfg = {k: v for k, v in cfg.items() if k not in ("name", "trainer")}
+        serve_cfg["extractor"] = dict(serve_cfg.get("extractor", {}), index={"collection": coll})
+        svc = RerankingService(Index.create("tpu", {"collection": coll}), Reranker.create(cfg["name"], serve_cfg),
+                               results / "dev.best", TRAIN_THRESHOLD, str(results / "extractor_state.pkl"),
+                               device="cuda")
+        with torch.inference_mode():
+            served = svc.reranker.test(svc.rerank_batch(q0, topic_of[q0], docids), svc.device).cpu().numpy()
+        err = float(np.max(np.abs(served - np.array([preds["test"][q0][d] for d in docids]))))
+        print(f"[9b {label}] dev.best served by RerankingService(checkpoint_path, extractor_state_path) on the "
+              f"card: query {q0}'s {len(docids)} docs within {err:.3g} of the trainer's test prediction "
+              f"(tolerance {SERVED_DEV_BEST_TOL}); phase {time.perf_counter() - t0:.1f} s")
+        check(err <= SERVED_DEV_BEST_TOL, f"{label}: the served dev.best differs from the trainer's prediction")
+        out[label] = {"seconds_per_iter": per_iter, "samples_per_s": c["itersize"] / per_iter,
+                      "checkpoint_s": sec["checkpoint"], "train_s": sec["train"], "setup_s": sec["setup"],
+                      "validation_s": per_validation, "peak_gb": peak_gb, "test_map": test_map,
+                      "busy_share": profiled["busy_ms"] / profiled["wall_ms"], "step_wall_ms": profiled["wall_ms"],
+                      "top_ops": profiled["top_ops"][:4], "launches_training": {"knrm_pool": k1, "flash_attention": k2},
+                      "launches_training_predict": {"knrm_pool": k1_pred, "flash_attention": k2_pred},
+                      "served_max_abs_err": err, "kernel_max_abs_err": k_err}
+        del task, reranker, trainer, svc
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -2041,12 +2583,16 @@ def main():
         x1 = timed(phase_x1_check, peaks)
         q1 = timed(phase_q1_check, peaks)
         q1["scales_differing_from_cpu"] = timed(phase_scales_check)
-        k1_launches, corpus_dir, topics = timed(phase_serving, workdir, SERVING_DOCS, ckpt_seed=3)
+        k1_launches, corpus_dir, topics, qrels = timed(phase_serving, workdir, SERVING_DOCS, ckpt_seed=3)
         k2_launches, k2_served, f32 = timed(phase_bert_serving, workdir, corpus_dir, topics, peaks)
         bert_int8_launches, bert_int8 = timed(phase_bert_int8_serving, workdir, corpus_dir, topics, f32)
         colbert_launches, k3_served, none = timed(phase_colbert_serving, workdir, corpus_dir, topics, peaks)
         colbert_int8_launches, colbert_int8 = timed(phase_colbert_int8_serving, workdir, corpus_dir, topics, none)
         timed(phase_rank_task, workdir)
+        training_launches, training_held = {"train": {}, "predict": {}}, {}
+        golden = timed(phase_train_golden, workdir, training_launches, training_held)
+        training = timed(phase_training, workdir, corpus_dir, topics, qrels, training_launches, training_held)
+        print("[9 training] summary " + json.dumps({"golden": golden, "full_width": training}, default=str))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2167,6 +2713,11 @@ def main():
         "bound_by": q1["bound_by"],
         "library_ms": None,  # no single PyTorch call computes per-token quantization
     }]
+    for entry in kernels:  # phase 9: launches inside training steps, and inside the trainer's predictions
+        entry["launches_training"] = training_launches["train"].get(entry["name"], 0)
+        entry["launches_training_predict"] = training_launches["predict"].get(entry["name"], 0)
+        if entry["name"] in training_held:  # against the plain version on phase 9's own batches
+            entry["max_abs_err_training"] = training_held[entry["name"]]
     print(f"[7 done] every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
           f"{json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))

@@ -361,7 +361,7 @@ def test_load_pretrained_encoder_is_offline():
 
 @pytest.mark.parametrize("module,options", [
     ("reranker", {"quantize": "int8", "lora": 4}), ("reranker", {"moeexperts": 2}), ("reranker", {"lora": 4}),
-    ("reranker", {"remat": True}), ("extractor", {"sentences": True}),
+    ("extractor", {"sentences": True}),
 ])
 def test_unported_options_raise(module, options):
     extractor = dict(EXTRACTOR_TINY, tokenizer=OFFLINE_TOKENIZER, index={"collection": {"name": "dummy"}})

@@ -775,3 +775,109 @@ def test_rank_search_on_the_card_matches_cpu(card, request, tmp_path, monkeypatc
             assert list(docs) == list(cpu_run[qid]), (name, qid)
             np.testing.assert_allclose(list(docs.values()), list(cpu_run[qid].values()),
                                        rtol=RANK_RTOL, atol=RUN_FILE_ATOL)
+
+
+# ---------------------------------------------------------------- training
+@pytest.mark.cuda
+def test_k1_and_k2_refuse_tensors_that_require_grad(card):
+    """Neither kernel has a backward: a tensor that requires grad raises, and
+    nothing is launched (no silent detach, no silent fallback)."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 2, 8, 32, generator=gen).to(card)
+    mask = torch.ones(1, 8, dtype=torch.bool, device=card)
+    before = fa.flash_attention.launches
+    for which in range(3):
+        args = [q.clone(), q.clone(), q.clone()]
+        args[which].requires_grad_(True)
+        with pytest.raises(ValueError, match="requires grad"):
+            fa.flash_attention(*args, mask)
+    assert fa.flash_attention.launches == before
+    emb = torch.randn(6, 8, generator=gen).to(card).requires_grad_(True)
+    toks = torch.tensor([[1, 2, 0]], device=card)
+    mus = torch.tensor(KNRM_MUS, device=card)
+    sigmas = torch.tensor(KNRM_SIGMAS, device=card)
+    before = simmat.knrm_pool.launches
+    with pytest.raises(ValueError, match="require grad"):
+        simmat.knrm_simmat_pool(emb, toks, toks, mus, sigmas)
+    with pytest.raises(ValueError, match="require grad"):
+        simmat.knrm_simmat_pool(emb.detach(), toks, toks, mus.requires_grad_(True), sigmas)
+    assert simmat.knrm_pool.launches == before
+
+
+@pytest.fixture(scope="module")
+def rerank_golden(tmp_path_factory):
+    """The JAX suite's rerank golden (chip_smoke's copy) as the port's
+    ``rerank_golden`` benchmark, with the port's caches under a tmpdir."""
+    from chip_smoke import setup_rerank_golden
+
+    base = tmp_path_factory.mktemp("rerank_golden")
+    saved = constants["CACHE_BASE_PATH"], constants["RESULTS_BASE_PATH"]
+    constants["CACHE_BASE_PATH"], constants["RESULTS_BASE_PATH"] = base / "cache", base / "results"
+    try:
+        yield setup_rerank_golden(str(base))
+    finally:
+        constants["CACHE_BASE_PATH"], constants["RESULTS_BASE_PATH"] = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["knrm", "knrm-frozen", "tiny-bert"])
+def test_training_step_on_the_card_equals_the_cpus(card, rerank_golden, which):
+    """Step 1 from one init and one batch: the loss and every gradient on the
+    card within 1e-4 (relative to each tensor's largest entry, or to 1e-3 of
+    the model's largest where that is larger: the attention key bias's
+    gradient is 0 but for rounding) of the CPU's (``chip_smoke.step_parity``). A frozen KNRM's step launches K1 once per
+    forward; a BERT step launches no K2. With trainable kernels the
+    exact-match kernel's (sigma 0.001) mu and sigma are left out: their
+    gradient is the rounding of a token's cosine with itself."""
+    from chip_smoke import RERANK_GOLDEN_CONFIGS, rerank_task, step_parity, training_batch
+
+    cfg = dict(RERANK_GOLDEN_CONFIGS["BERTMaxP" if which == "tiny-bert" else "KNRM"])
+    exclude = None
+    if which == "knrm-frozen":
+        cfg.update(finetune=False, gradkernels=False)
+    elif which == "knrm":
+        exact = [KNRM_SIGMAS.index(0.001)]
+        exclude = {"mus": exact, "sigmas": exact}
+    else:
+        cfg["hidden_dropout_prob"] = 0.0
+    task = rerank_task(cfg, "cuda")
+    result = step_parity(task, training_batch(task, 8), which, exclude=exclude)
+    assert result["launches"]["knrm_pool"] == (2 if which == "knrm-frozen" else 0)
+    assert result["launches"]["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_bert_base_training_step_launches_no_k2_and_a_prediction_one_per_layer(card):
+    """BERT-base (12 layers) on the card: a training step takes the
+    differentiable attention (no K2 launch) and moves every encoder weight
+    (the head's bias alone stays: the pairwise loss cancels it); a prediction
+    batch launches K2 once per layer."""
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.trainer.torch_trainer import TorchTrainer
+
+    reranker = Reranker.create("BERTMaxP", {"pretrained": "bert-base-uncased", "allowrandominit": True,
+                                            "trainer": {"batch": 2, "lr": 1e-3, "bertlr": 1e-3},
+                                            "extractor": {"index": {"collection": {"name": "dummy"}}}})
+    model = reranker.init_params(0).to(card)
+    trainer = reranker.trainer
+    assert isinstance(trainer, TorchTrainer)
+    optimizer = trainer.make_optimizer(reranker, model)
+    gen = np.random.default_rng(0)
+    ids = gen.integers(1000, 30000, size=(1, 2, 64))
+    mask = np.ones_like(ids)
+    mask[..., 40:] = 0
+    batch = {"pos_bert_input": ids, "pos_mask": mask, "pos_seg": np.zeros_like(ids),
+             "neg_bert_input": ids[:, ::-1].copy(), "neg_mask": mask, "neg_seg": np.zeros_like(ids),
+             "label": np.tile(np.array([1.0, 0.0], np.float32), (1, 2, 1))}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    launches = fa.flash_attention.launches
+    loss = trainer.train_step(reranker, model, optimizer, batch, 0, trainer.step_seed(0, 0))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert fa.flash_attention.launches == launches
+    unmoved = [n for n, p in model.named_parameters() if torch.equal(p.detach(), before[n])]
+    assert unmoved == ["classifier.bias"], f"weights a training step left unchanged: {unmoved[:5]}"
+    model.eval()
+    with torch.no_grad():
+        scores = reranker.test({k: v[0] for k, v in batch.items()}, card)
+    assert fa.flash_attention.launches == launches + 12 and torch.isfinite(scores).all()

@@ -54,7 +54,9 @@ def test_importing_every_port_module_loads_no_jax():
             "capreolus_tpu_torch.tokenizer.wordpiece", "capreolus_tpu_torch.ops.maxsim",
             "capreolus_tpu_torch.reranker.colbert", "capreolus_tpu_torch.searcher.late_interaction",
             "capreolus_tpu_torch.utils.caching", "capreolus_tpu_torch.ops.int8_matmul",
-            "capreolus_tpu_torch.ops.quantization"} <= set(out["imported"])
+            "capreolus_tpu_torch.ops.quantization", "capreolus_tpu_torch.trainer.torch_trainer",
+            "capreolus_tpu_torch.sampler", "capreolus_tpu_torch.task.rerank",
+            "capreolus_tpu_torch.utils.flax_msgpack", "capreolus_tpu_torch.utils.tensorboard"} <= set(out["imported"])
     loaded = set(out["after"]) - set(out["before"])
     assert not sorted(m for m in loaded if is_forbidden(m))
     # absent altogether, unless the interpreter's own start-up had loaded it
@@ -94,4 +96,5 @@ def test_registries_are_separate():
     assert capreolus_tpu.module_registry is not capreolus_tpu_torch.module_registry
     assert capreolus_tpu_torch.constants["BASE_PACKAGE"] == "capreolus_tpu_torch"
     assert json.dumps(capreolus_tpu_torch.module_registry.get_module_types()) == json.dumps(
-        ["benchmark", "collection", "extractor", "index", "reranker", "searcher", "task", "tokenizer"])
+        ["benchmark", "collection", "extractor", "index", "reranker", "sampler", "searcher", "task", "tokenizer",
+         "trainer"])

@@ -240,11 +240,12 @@ def test_sharded_serving_raises_config_error(torch_cache, how):
 
 
 def test_reranking_service_refuses_an_extractor_state_path(torch_cache, tmp_path):
-    from capreolus_tpu_torch.core import ConfigError
-
+    """The fifth positional parameter, as in JAX, is the extractor state the
+    service restores (``tests/test_torch_rerank.py`` serves a trained one): a
+    path that holds none is refused before any weights load."""
     index = TorchIndex.create("tpu", {"collection": {"name": "dummy"}})
     reranker = TorchReranker.create("KNRM", _knrm_config({"name": "dummy"}))
-    with pytest.raises(ConfigError, match="item 4"):  # the fifth positional parameter, as in JAX
+    with pytest.raises(FileNotFoundError, match="extractor_state"):
         RerankingService(index, reranker, tmp_path / "knrm.npz", 10, str(tmp_path / "extractor_state"),
                          device="cpu")
     with pytest.raises(TypeError):
