@@ -7,20 +7,25 @@
 The build produces the same vocab, docid order, doclens, norm doclens, term
 offsets, postings order and forward index (per-doc term ids and tfs, the
 feedback searchers' input) as the JAX build, and with ``storepositions`` the
-same per-doc token-id sequences (SDM's input). Not ported yet: docid
-reordering (``docreorder``, which raises ``ConfigError``), block-max prune
-tables and incremental segments.
+same per-doc token-id sequences (SDM's input), the same internal ordinals
+under ``docreorder`` (``terms``: cluster by rarest term; ``bp``: recursive
+graph bisection, ``index/reorder.py``) and the same block-max prune tables
+(``build_prune_tables``, read by the scoring engine's exact pruning). Not
+ported yet: incremental segments.
 
 Artifacts written to the cache path:
   index/vocab.txt          one term per line (line number = term id)
   index/docids.txt         external docid per internal doc ordinal
-  index/postings.npz       CSR offsets, doc lengths, forward-index offsets
+  index/postings.npz       CSR offsets, doc lengths, forward-index offsets and
+                           the prune tables (``pt_*``)
   index/postings_*.npy     doc_ids, tfs, fwd_term_ids and fwd_tfs, memory-mapped
                            at load when index.mmap
   index/docs.bin           concatenated utf-8 contents
   index/doc_spans.npy      int64 [N, 2] byte spans into docs.bin per internal ordinal
   index/docterms.bin       (storepositions) concatenated int32 token ids
   index/docterm_spans.npy  (storepositions) int64 [N, 2] spans into docterms.bin
+  index/tiles/             (index.mmap) the scoring engine's tile payloads on disk
+                           and its settled pruning verdicts (searcher/scoring.py)
 """
 
 from __future__ import annotations
@@ -40,12 +45,42 @@ from capreolus_tpu_torch.utils.loginit import get_logger
 
 logger = get_logger(__name__)
 
-LAYOUT_VERSION = 2  # v2: the forward index (fwd_*) joined the artifacts
+# v2: the forward index (fwd_*) joined the artifacts; v3: the block-max prune
+# tables (pt_*) joined them
+LAYOUT_VERSION = 3
+
+
+def reorder_doc_ids(term_ids, doc_ords, num_docs, num_terms):
+    """Cluster-by-rare-term doc-id permutation (a light version of the docid
+    reordering modern engines pair with block-max pruning, cf. Dhulipala et al.
+    2016 BP reordering): docs sharing their rarest term become neighbors, so
+    per-(term, doc-range) spans concentrate and range bounds sharpen. External
+    docids are unaffected — only internal ordinals move (Lucene's internal ids
+    are likewise an indexing-order artifact). Returns old->new [N] int64."""
+    df = np.bincount(term_ids, minlength=num_terms).astype(np.int64)
+    # per-doc signature: the (df, term) pair of its rarest term, packed into one
+    # int64 key so a single np.minimum.at computes the min per doc
+    key = df[term_ids] * num_terms + term_ids
+    sig = np.full(num_docs, np.iinfo(np.int64).max, dtype=np.int64)
+    np.minimum.at(sig, doc_ords, key)
+    new_of_old = np.empty(num_docs, dtype=np.int64)
+    new_of_old[np.lexsort((np.arange(num_docs), sig))] = np.arange(num_docs)
+    return new_of_old
+
+
+# terms with df below this get no per-range tables. Default 1 = tables for
+# EVERY term: a term absent from the tables must be charged to every range's
+# bound, which measured out to defeat pruning entirely (a single table-less
+# query term inflates all U(R) above theta). Entries are host-side metadata
+# (like Lucene's skip files), bounded by the number of distinct (term, range)
+# pairs — ~33% of postings count on bench.py's 200k-doc corpus.
+HEAVY_DF = 1
 
 
 def pick_range_size(num_docs: int) -> int:
-    """Doc-range granularity of the canonical postings order: a power of two
-    >= 64 chosen so the corpus has at most ~4096 ranges."""
+    """Doc-range granularity for block-max pruning: a power of two >= 64 chosen
+    so the corpus has at most ~4096 ranges (keeps per-query [Q, R] bound
+    matrices and per-term tables small while staying fine enough to prune)."""
     size = 64
     while num_docs // size > 4096:
         size *= 2
@@ -61,12 +96,95 @@ def canonical_postings_order(term_ids, doc_ords, tfs, num_docs):
     return order, range_size
 
 
+def build_prune_tables(term_offsets, doc_ids, tfs, norm_doclens, num_docs,
+                       range_size=None, heavy_df=HEAVY_DF):
+    """Block-max side tables for exact dynamic pruning (the analog of Lucene's
+    per-block skip data + impact metadata, which WAND/MaxScore consume); the
+    JAX package's tables, array for array. Postings MUST be in canonical
+    (term, range, impact desc) order.
+
+    Returns a dict of arrays:
+      range_size            scalar
+      rt_offsets [V+1]      CSR over table entries per term (empty for light terms)
+      rt_range   [E]        range id of each (term, nonempty-range) span
+      rt_start   [E]        posting offset where the span begins
+      rt_end     [E]        posting offset where the span ends
+      rt_max_tf  [E]        max term frequency within the span (= first posting's,
+                            thanks to the impact sort within ranges)
+      rt_min_dl  [E]        min quantized doc length within the span
+      gmax_tf    [V]        per-term global max tf (light-term bound)
+      gmin_dl    [V]        per-term global min quantized dl
+    """
+    if range_size is None:
+        range_size = pick_range_size(num_docs)
+    num_terms = len(term_offsets) - 1
+    nnz = len(doc_ids)
+    dl_of_posting = norm_doclens.astype(np.float32)[doc_ids]
+    tfs_f = tfs.astype(np.float32)
+
+    # per-term global bounds (all terms)
+    gmax_tf = np.zeros(num_terms, np.float32)
+    gmin_dl = np.full(num_terms, np.float32(np.inf))
+    starts = term_offsets[:-1]
+    nonempty = term_offsets[1:] > starts
+    if nnz:
+        gmax_tf[nonempty] = np.maximum.reduceat(tfs_f, starts[nonempty])
+        gmin_dl[nonempty] = np.minimum.reduceat(dl_of_posting, starts[nonempty])
+
+    # heavy terms: one entry per (term, nonempty range)
+    df = np.diff(term_offsets)
+    term_of_posting = np.repeat(np.arange(num_terms, dtype=np.int64), df)
+    heavy_posting = df[term_of_posting] >= heavy_df
+    ranges = (doc_ids.astype(np.int64) // range_size)
+    key = np.where(heavy_posting, term_of_posting * (num_docs // range_size + 2) + ranges, -1)
+    # spans are contiguous runs of equal key (postings already range-major)
+    if nnz:
+        is_start = np.concatenate([[True], key[1:] != key[:-1]]) & (key >= 0)
+    else:
+        is_start = np.zeros(0, bool)
+    entry_start = np.flatnonzero(is_start)
+    E = len(entry_start)
+    rt_start = entry_start.astype(np.int64)
+    # span end: next span start within the same term, else the term's end
+    entry_term = term_of_posting[entry_start] if E else np.zeros(0, np.int64)
+    rt_end = np.empty(E, np.int64)
+    if E:
+        rt_end[:-1] = rt_start[1:]
+        rt_end[-1] = term_offsets[entry_term[-1] + 1]
+        # fix ends at term boundaries
+        term_change = np.flatnonzero(entry_term[1:] != entry_term[:-1])
+        rt_end[term_change] = term_offsets[entry_term[term_change] + 1]
+    rt_range = ranges[entry_start].astype(np.int32) if E else np.zeros(0, np.int32)
+    rt_max_tf = tfs_f[entry_start] if E else np.zeros(0, np.float32)  # impact sort: first = max
+    # reduceat segments run start->next start; at term boundaries they may spill
+    # into the next (light) term's postings, which can only SHRINK the min ->
+    # a larger (still valid) upper bound. Exactness is unaffected.
+    rt_min_dl = (np.minimum.reduceat(dl_of_posting, rt_start) if E else np.zeros(0, np.float32))
+    rt_offsets = np.zeros(num_terms + 1, np.int64)
+    if E:
+        np.cumsum(np.bincount(entry_term, minlength=num_terms), out=rt_offsets[1:])
+    return {
+        "range_size": np.int64(range_size),
+        "rt_offsets": rt_offsets,
+        "rt_range": rt_range,
+        "rt_start": rt_start,
+        "rt_end": rt_end,
+        "rt_max_tf": rt_max_tf,
+        "rt_min_dl": rt_min_dl.astype(np.float32),
+        "gmax_tf": gmax_tf,
+        "gmin_dl": gmin_dl,
+    }
+
+
+
+
 class IndexData:
     """In-memory (host) view of the index artifacts; numpy arrays, ready to be
     placed on the device by the scoring engine."""
 
     def __init__(self, term_offsets, doc_ids, tfs, doclens, norm_doclens, docid_strings, vocab,
-                 fwd_offsets=None, fwd_term_ids=None, fwd_tfs=None):
+                 fwd_offsets=None, fwd_term_ids=None, fwd_tfs=None, prune_tables=None,
+                 tile_dir=None):
         self.term_offsets = term_offsets  # int64 [V+1]
         self.doc_ids = doc_ids  # int32 [nnz], canonical (range, impact desc) within each term
         self.tfs = tfs  # int32 [nnz]
@@ -77,6 +195,15 @@ class IndexData:
         self.fwd_offsets = fwd_offsets  # int64 [N+1]
         self.fwd_term_ids = fwd_term_ids  # int32 [nnz] sorted by (doc, term)
         self.fwd_tfs = fwd_tfs  # int32 [nnz]
+        # block-max side tables for exact dynamic pruning (build_prune_tables);
+        # None disables pruning (e.g. synthetic fixtures built in another order)
+        self.prune_tables = prune_tables
+        # when set (disk-resident index), the scoring engine keeps its tile
+        # payloads on disk here too instead of padded host-RAM copies
+        self.tile_dir = tile_dir
+        # where the scoring engine persists settled pruning verdicts when there
+        # is no tile_dir (e.g. cached synthetic corpora)
+        self.verdict_path = None
 
     @property
     def num_docs(self):
@@ -107,6 +234,10 @@ class IndexData:
         np.add.at(cf, np.repeat(np.arange(self.num_terms), np.diff(self.term_offsets)), self.tfs)
         return cf
 
+    def postings(self, term_id):
+        s, e = self.term_offsets[term_id], self.term_offsets[term_id + 1]
+        return self.doc_ids[s:e], self.tfs[s:e]
+
 
 @Index.register
 class TpuIndex(Index):
@@ -119,8 +250,12 @@ class TpuIndex(Index):
         ConfigOption("stemmer", "porter", "stemmer: porter or none"),
         ConfigOption("storepositions", False, "store the positional forward index "
                      "(per-doc token-id sequences; required by SDM)"),
-        ConfigOption("docreorder", "none", "internal doc-ordinal reordering (not ported; must be none)"),
-        ConfigOption("mmap", True, "memory-map the postings arrays; False loads them into RAM"),
+        ConfigOption("docreorder", "none", "internal doc-ordinal reordering for posting locality: "
+                     "none, 'terms' (cheap cluster-by-rarest-term), or 'bp' (recursive graph "
+                     "bisection, Dhulipala et al. 2016, index/reorder.py). External docids and "
+                     "scores are unchanged; score-tie ORDER follows internal ids, like Lucene's"),
+        ConfigOption("mmap", True, "memory-map the postings arrays (and keep the scoring engine's tile "
+                     "payloads on disk beside them); False loads them into RAM"),
     ]
     config_keys_not_in_path = ["mmap"]  # identical artifacts either way
 
@@ -129,9 +264,8 @@ class TpuIndex(Index):
             self._analyzer()
         except ValueError as e:
             raise ConfigError(f"index.stemmer: {e}") from None
-        if (self.config["docreorder"] or "none") != "none":  # config casts "none" -> None
-            raise ConfigError(f"index.docreorder={self.config['docreorder']!r} is not ported yet; "
-                              f"only docreorder=none is")
+        if (self.config["docreorder"] or "none") not in ("none", "terms", "bp"):  # config casts "none" -> None
+            raise ConfigError(f"index.docreorder must be none, terms, or bp, got {self.config['docreorder']!r}")
 
     def _analyzer(self):
         return get_analyzer(stemmer=self.config["stemmer"], keep_stopwords=self.config["indexstops"])
@@ -187,13 +321,37 @@ class TpuIndex(Index):
         tfs = np.concatenate(tf_chunks) if tf_chunks else np.zeros(0, dtype=np.int64)
         del term_chunks, doc_chunks, tf_chunks
 
+        # per-ordinal spans into docs.bin / docterms.bin (in write order for now)
         off = np.asarray(doc_byte_offsets, dtype=np.int64)
-        np.save(index_path / "doc_spans.npy", np.stack([off[:-1], off[1:]], axis=1))
+        doc_spans = np.stack([off[:-1], off[1:]], axis=1)
+        docterm_spans = None
         if store_positions:
             toff = np.asarray(docterm_offsets, dtype=np.int64)
-            np.save(index_path / "docterm_spans.npy", np.stack([toff[:-1], toff[1:]], axis=1))
+            docterm_spans = np.stack([toff[:-1], toff[1:]], axis=1)
 
-        order, _ = canonical_postings_order(term_ids, doc_ords, tfs, num_docs)
+        reorder_mode = self.config["docreorder"] or "none"  # config casts "none" -> None
+        if reorder_mode != "none" and len(term_ids):
+            # reorder internal ordinals for posting locality; the spans, lengths
+            # and external docids are permuted with them
+            if reorder_mode == "bp":
+                from capreolus_tpu_torch.index.reorder import bp_reorder
+
+                logger.info("docreorder=bp: recursive graph bisection over %d postings", len(term_ids))
+                new_of_old = bp_reorder(term_ids, doc_ords, num_docs)
+            else:
+                new_of_old = reorder_doc_ids(term_ids, doc_ords, num_docs, len(vocab))
+            doc_ords = new_of_old[doc_ords]
+            inv = np.argsort(new_of_old)  # new ordinal -> old ordinal
+            docid_strings = [docid_strings[i] for i in inv]
+            doclens = [doclens[i] for i in inv]
+            doc_spans = doc_spans[inv]
+            if docterm_spans is not None:
+                docterm_spans = docterm_spans[inv]
+        np.save(index_path / "doc_spans.npy", doc_spans)
+        if docterm_spans is not None:
+            np.save(index_path / "docterm_spans.npy", docterm_spans)
+
+        order, range_size = canonical_postings_order(term_ids, doc_ords, tfs, num_docs)
         term_ids, doc_ords, tfs = term_ids[order], doc_ords[order], tfs[order]
 
         num_terms = len(vocab)
@@ -202,6 +360,8 @@ class TpuIndex(Index):
 
         doclens = np.asarray(doclens, dtype=np.int32)
         norm_doclens = quantize_lengths(doclens).astype(np.int32)
+        prune_tables = build_prune_tables(term_offsets, doc_ords.astype(np.int32), tfs.astype(np.int32),
+                                          norm_doclens, num_docs, range_size=range_size)
 
         # forward index: the same triples sorted by (doc, term)
         fwd_order = np.lexsort((term_ids, doc_ords))
@@ -217,7 +377,7 @@ class TpuIndex(Index):
         np.save(index_path / "postings_fwd_tfs.npy", tfs[fwd_order].astype(np.int32))
         np.savez(index_path / "postings.npz", layout_version=np.int64(LAYOUT_VERSION),
                  term_offsets=term_offsets, doclens=doclens, norm_doclens=norm_doclens,
-                 fwd_offsets=fwd_offsets)
+                 fwd_offsets=fwd_offsets, **{f"pt_{k}": v for k, v in prune_tables.items()})
         logger.info("index built: %d docs, %d terms, %d postings, avgdl %.2f",
                     num_docs, num_terms, len(tfs), doclens.mean())
 
@@ -238,6 +398,7 @@ class TpuIndex(Index):
         with np.load(index_path / "postings.npz") as npz:
             term_offsets, doclens, norm_doclens = npz["term_offsets"], npz["doclens"], npz["norm_doclens"]
             fwd_offsets = npz["fwd_offsets"]
+            prune_tables = {k[3:]: npz[k] for k in npz.files if k.startswith("pt_")} or None
         vocab_list = (index_path / "vocab.txt").read_text(encoding="utf-8").splitlines()
         docid_strings = (index_path / "docids.txt").read_text(encoding="utf-8").splitlines()
         self._data = IndexData(
@@ -251,6 +412,8 @@ class TpuIndex(Index):
             fwd_offsets=fwd_offsets,
             fwd_term_ids=np.load(index_path / "postings_fwd_term_ids.npy", mmap_mode=mmap_mode),
             fwd_tfs=np.load(index_path / "postings_fwd_tfs.npy", mmap_mode=mmap_mode),
+            prune_tables=prune_tables,
+            tile_dir=(index_path / "tiles") if mmap_mode else None,
         )
         self._docid_to_ord = {d: i for i, d in enumerate(docid_strings)}
         self._doc_spans = np.load(index_path / "doc_spans.npy")

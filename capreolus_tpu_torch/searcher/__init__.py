@@ -2,8 +2,9 @@
 ``searcher/__init__.py``).
 
 The ``Searcher`` base gives run-file IO, ``query_from_file`` and the
-interactive ``query``. Ported so far: the exact sparse scoring engine
-(``scoring.py``) with the BM25 family (``tpu.py``), the feedback searchers
+interactive ``query``. Ported so far: the sparse scoring engine
+(``scoring.py``: exact and tiered paths, block-max pruning, host streaming)
+with the BM25 family (``tpu.py``), the feedback searchers
 (``feedback.py``), fusion (``fusion.py``), ``msmarcopsgbm25`` and the static-run
 base (``special.py``), and the late-interaction searcher ``colbert``
 (``late_interaction.py``). Creating a JAX searcher that is not ported yet

@@ -1,29 +1,31 @@
 """First-stage sparse searchers (the JAX package's ``searcher/tpu.py``): BM25
 (a k1 x b grid), BM25Grid, QLDirichlet, QLJM, INL2, SPL, F2Exp, F2Log and
-BM25RM3, each a scoring model of the exact engine (``scoring.py``).
+BM25RM3, each a scoring model of the engine (``scoring.py``).
 
 The search loop (``TpuSearcherMixin``) analyzes the topics, scores them in
-batches of ``QUERY_BATCH`` with at most ``DISPATCH_WINDOW`` engine calls in
-flight, and writes one TREC run file per parameter combination, named and
-formatted as the JAX searchers name and format theirs (``_param_tag``,
-``_write_run``), under the done-file protocol.
+batches of ``QUERY_BATCH`` with at most ``DISPATCH_WINDOW`` batches in flight,
+and writes one TREC run file per parameter combination, named and formatted
+as the JAX searchers name and format theirs (``_param_tag``, ``_write_run``),
+under the done-file protocol. It dispatches as the JAX loop does:
+
+- a single-point BM25 without a cap runs exact block-max pruning
+  (``pruning=True``, the default) through the engine's pipelined
+  ``search_pruned_stream``: bit-identical to exhaustive scoring;
+- otherwise each batch goes through ``search`` with the ``maxpostings`` cap,
+  which takes the tiered path above ``EXACT_MAX_DOCS`` docs, under a cap and
+  in streaming mode, and the exact path below;
+- ``hbmbudget`` (MB) reaches the engine's ``DeviceIndex``: corpora whose tiles
+  exceed it run in host-streaming mode.
 
 The searchers run on ``self.device``, an attribute (not a config option, so
 the device never enters the module path) that the rank task or the caller
-sets; ``None`` means "cuda", which raises without a card.
+sets; ``None`` means "cuda", which raises without a card. ``shards > 1``
+raises ``ConfigError`` (ROADMAP.md item 6, "Multi-device").
 
-Where the JAX loop departs from the exact engine, the port:
-
-- serves ``pruning=True`` (the default) by the exhaustive exact path: the JAX
-  engine's block-max pruning is bit-identical to it, so rankings are the same;
-- raises ``ConfigError`` for ``maxpostings > 0`` (the capped tiered spans,
-  ROADMAP.md item 5) and ``shards > 1`` (ROADMAP.md item 6, "Multi-device");
-- accepts ``hbmbudget`` and keeps it out of the path, as the JAX package does,
-  but serves every budget from the resident index (no host streaming);
-- splits an engine call whose dense accumulator would exceed
-  ``ACC_BUDGET_ELEMENTS`` over its queries first, then over its grid points
-  (``plan_engine_calls``). Every (grid point, query) row is scored on its own,
-  so the run files are byte-identical with and without the split.
+On the exact path the port splits an engine call whose dense accumulator
+would exceed ``ACC_BUDGET_ELEMENTS`` over its queries first, then over its
+grid points (``plan_engine_calls``). Every (grid point, query) row is scored
+on its own, so the run files are byte-identical with and without the split.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from pathlib import Path
 import numpy as np
 
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
-from capreolus_tpu_torch.searcher import Searcher
+from capreolus_tpu_torch.searcher import Searcher, _hbm_budget_mb
 from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine, grid_points
 from capreolus_tpu_torch.utils.caching import done_file
 from capreolus_tpu_torch.utils.loginit import get_logger
@@ -104,6 +106,16 @@ def plan_engine_calls(num_queries, grid_size, num_docs, budget):
             for q0 in range(0, max(1, num_queries), q_step) for g0 in range(0, grid_size, g_step)]
 
 
+def fetch(result):
+    """Numpy (scores, ords) [g, q, topk] of an engine result: a pending tiered
+    result ([*grid, q, topk]), or the exact path's device tensors."""
+    if hasattr(result, "get"):
+        scores, ords = result.get()
+    else:
+        scores, ords = result[0].cpu().numpy(), result[1].cpu().numpy()
+    return scores.reshape(-1, *scores.shape[-2:]), ords.reshape(-1, *ords.shape[-2:])
+
+
 def _ranked(scores, ords, docids):
     """{docid: score} of one query's row, in rank order, up to its first score
     <= 0 (no more matching docs: scores are non-negative)."""
@@ -131,7 +143,9 @@ class TpuSearcherMixin:
         self.index.create_index()
         device = self._device()
         if getattr(self, "_engine", None) is None or self._engine.dindex.device != device:
-            self._engine = ScoringEngine(DeviceIndex(self.index.data, device=device))
+            budget_mb = _hbm_budget_mb(self.config)
+            self._engine = ScoringEngine(DeviceIndex(self.index.data, device=device,
+                                                     hbm_budget=budget_mb * 1e6 if budget_mb > 0 else None))
         return self._engine
 
     def grid_params(self):
@@ -154,10 +168,18 @@ class TpuSearcherMixin:
     def query_from_file(self, topicsfn, output_path):
         return self._query_from_file(Path(topicsfn), Path(output_path))
 
-    def _engine_calls(self, engine, term_lists, model, fixed, points, topk):
-        """Dispatch one batch's engine calls under the accumulator budget;
-        yields (q0, g0, scores, ords) device tensors of shape [g, q, topk].
-        Each call is counted in ``self.engine_calls``."""
+    def _engine_calls(self, engine, term_lists, model, fixed, grid, topk, max_postings=0):
+        """Dispatch one batch's engine calls; yields (q0, g0, result) where
+        ``fetch(result)`` gives numpy [g, q, topk] scores and ordinals. On the
+        exact path the calls stay under the accumulator budget; the tiered
+        path scores the batch and its grid in one call. Each call is counted
+        in ``self.engine_calls``."""
+        if not engine.exact_path(max_postings_per_term=max_postings):
+            self.engine_calls += 1
+            yield 0, 0, engine.search(term_lists, model=model, params=fixed, grid=grid, topk=topk,
+                                      max_postings_per_term=max_postings, materialize=False)
+            return
+        points = grid_points(grid) if grid else {}
         grid_size = len(next(iter(points.values()))) if points else 1
         plan = plan_engine_calls(len(term_lists), grid_size, engine.dindex.num_docs, ACC_BUDGET_ELEMENTS)
         for q0, q1, g0, g1 in plan:
@@ -165,14 +187,12 @@ class TpuSearcherMixin:
             scores, ords = engine.search_points(term_lists[q0:q1], model=model, params=fixed, points=part,
                                                 topk=topk, materialize=False)
             self.engine_calls += 1
-            yield q0, g0, scores, ords
+            yield q0, g0, (scores, ords)
 
     def _search_batch(self, engine, term_lists, model, params, topk):
         """One batch at one parameter point: (scores, ords) numpy [Q, topk]."""
-        parts = list(self._engine_calls(engine, term_lists, model, params, {}, topk))
-        scores = np.concatenate([s[0].cpu().numpy() for _, _, s, _ in parts])
-        ords = np.concatenate([o[0].cpu().numpy() for _, _, _, o in parts])
-        return scores, ords
+        parts = [fetch(r) for _, _, r in self._engine_calls(engine, term_lists, model, params, {}, topk)]
+        return np.concatenate([s[0] for s, _ in parts]), np.concatenate([o[0] for _, o in parts])
 
     def _search_all(self, topicsfn, output_path):
         engine = self.get_engine()
@@ -182,24 +202,32 @@ class TpuSearcherMixin:
         param_axes = tuple(sorted(grid))
         combos = list(itertools.product(*[grid[k] for k in param_axes])) or [()]
         docids = engine.dindex.host.docid_strings
-        points = grid_points(grid) if param_axes else {}
 
         runs = {self._param_tag(fixed, dict(zip(param_axes, combo))): {} for combo in combos}
         tags = list(runs)
-        if len(combos) == 1 and self.model == "bm25" and bool(self.config.get("pruning", True)):
-            # the JAX engine's block-max pruning is bit-identical to exhaustive scoring
-            logger.info("pruning=True is served by the exhaustive exact path (block-max pruning is not "
-                        "ported; rankings are identical)")
+
+        # exact block-max dynamic pruning (default-on): bit-identical results;
+        # engages for single-parameter-point BM25 with no approximate cap
+        max_postings = int(self.config.get("maxpostings", 0))
+        use_prune = (len(combos) == 1 and max_postings == 0 and bool(self.config.get("pruning", True))
+                     and engine.supports_pruning(self.model))
 
         batches = [topics[s : s + QUERY_BATCH] for s in range(0, len(topics), QUERY_BATCH)]
         batch_terms = [[self.query_weights(text, engine) for _, text in b] for b in batches]
         # pipelined dispatch with a bounded in-flight window: the host builds the
-        # run dicts of one call while the device computes the next ones
-        pending = _windowed(
-            (bi, piece) for bi, terms in enumerate(batch_terms)
-            for piece in self._engine_calls(engine, terms, self.model, fixed, points, hits))
-        for bi, (q0, g0, scores, ords) in pending:
-            scores, ords = scores.cpu().numpy(), ords.cpu().numpy()  # [g, q, hits]
+        # run dicts of one batch while the device computes the next ones
+        if use_prune:
+            prune_params = {**fixed, **dict(zip(param_axes, combos[0]))}
+            self.engine_calls += len(batches)
+            pending = ((bi, 0, 0, res) for bi, res in enumerate(engine.search_pruned_stream(
+                batch_terms, model=self.model, params=prune_params, topk=hits, materialize=False,
+                window=DISPATCH_WINDOW)))
+        else:
+            pending = _windowed(
+                (bi, q0, g0, res) for bi, terms in enumerate(batch_terms)
+                for q0, g0, res in self._engine_calls(engine, terms, self.model, fixed, grid, hits, max_postings))
+        for bi, q0, g0, res in pending:
+            scores, ords = fetch(res)  # [g, q, hits]
             for gi in range(scores.shape[0]):
                 run = runs[tags[g0 + gi]]
                 for qi in range(scores.shape[1]):
@@ -273,7 +301,7 @@ class BM25(TpuSearcherBase):
     """BM25 with k1/b grid search.
 
     ``shards`` > 1 (postings partitioned across devices) raises ``ConfigError``
-    until multi-device search is ported, as does ``maxpostings`` > 0."""
+    until multi-device search is ported."""
 
     module_name = "BM25"
     model = "bm25"
@@ -299,10 +327,6 @@ class BM25(TpuSearcherBase):
         if int(self.config.get("shards", 1)) > 1:
             raise ConfigError(f"searcher.shards={self.config['shards']}: multi-device search is not ported "
                               f"to PyTorch yet (ROADMAP.md item 6, 'Multi-device')")
-        if int(self.config.get("maxpostings", 0)) > 0:
-            raise ConfigError(f"searcher.maxpostings={self.config['maxpostings']}: impact-ordered early "
-                              f"termination (the tiered path's capped spans) is not ported to PyTorch yet "
-                              f"(ROADMAP.md item 5)")
 
     def grid_params(self):
         return {}, {"k1": list(self.config["k1"]), "b": list(self.config["b"])}

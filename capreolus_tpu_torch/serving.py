@@ -11,8 +11,11 @@ CUDA request without a card raises. The rerank stage serves KNRM (through K1)
 and BERTMaxP (through K2 in every encoder layer, and X1 in every projection
 and FFN matmul with ``quantize=int8``); ``ColbertRetrievalService`` serves
 ColBERT late-interaction retrieval (K2 in the query encoder, K3 for MaxSim, or
-X1 over an int8 / int4 corpus). Not ported yet: ``shards``, ``refresh``, ``snippets``, the dense /
-impact / hybrid services and the HTTP front end.
+X1 over an int8 / int4 corpus). ``RetrievalService`` serves BM25 through
+exact block-max pruning by default (``pruning=True``, bit-identical to
+exhaustive scoring) and streams postings above ``hbm_budget_mb``. Not ported
+yet: ``shards``, ``refresh``, ``snippets``, the dense / impact / hybrid
+services and the HTTP front end.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ def resolve_device(device=None) -> torch.device:
 
 class RetrievalService:
     """The JAX service's parameters in its order, then ``device`` (keyword
-    only). ``hbm_budget_mb`` is stored as in JAX; the port's exact resident
-    path serves every budget the same way (no host streaming). ``shards > 1``
+    only). ``pruning`` serves a model that supports it through the engine's
+    adaptive ``search_pruned``; ``hbm_budget_mb`` (0 = always resident) is the
+    device budget above which the postings stream from the host. ``shards > 1``
     raises ``ConfigError`` until multi-device serving is ported."""
 
     def __init__(self, index, model: str = "bm25", params: Optional[dict] = None, batch_size: int = 64,
@@ -60,13 +64,10 @@ class RetrievalService:
         self.params = dict(params or {"k1": 0.9, "b": 0.4})
         self.batch_size = batch_size
         self._hbm_budget_mb = hbm_budget_mb
+        # exact block-max pruning; the engine's A/B probe turns it off where it does not pay
         self.pruning = bool(pruning)
-        if self.pruning:
-            # the JAX engine's block-max pruning is bit-identical to exhaustive
-            # scoring, so the exhaustive exact path gives the same answers
-            logger.info("pruning=True is served by the exhaustive exact path (block-max pruning "
-                        "is not ported; rankings are identical)")
-        self.engine = ScoringEngine(DeviceIndex(index.data, device=self.device))
+        self.engine = ScoringEngine(DeviceIndex(index.data, device=self.device,
+                                                hbm_budget=hbm_budget_mb * 1e6 if hbm_budget_mb > 0 else None))
 
     @classmethod
     def from_config(cls, collection: str = "dummy", collection_path: Optional[str] = None,
@@ -89,8 +90,11 @@ class RetrievalService:
 
     def search_async(self, queries: Sequence[str], k: int = 10):
         """Dispatch-now / collect-later variant of ``search`` (identical results):
-        the device work is queued when this returns, and the returned zero-arg
-        callable copies the results to the host and builds the hit lists."""
+        the device work is queued when this returns (on the tiered path its
+        result copy too), and the returned zero-arg callable fetches the
+        results and builds the hit lists."""
+        from capreolus_tpu_torch.searcher.tpu import fetch
+
         engine = self.engine
         host = engine.dindex.host
         docids = host.docid_strings
@@ -98,13 +102,18 @@ class RetrievalService:
         for start in range(0, len(queries), self.batch_size):
             batch = queries[start : start + self.batch_size]
             term_lists = [self._analyze(q, host.vocab) for q in batch]
-            res = engine.search(term_lists, model=self.model, params=self.params, topk=k, materialize=False)
+            if self.pruning and engine.supports_pruning(self.model):
+                res = engine.search_pruned(term_lists, model=self.model, params=self.params, topk=k,
+                                           materialize=False)
+            else:
+                res = engine.search(term_lists, model=self.model, params=self.params, topk=k, materialize=False)
             pending.append((len(batch), res))
 
         def collect() -> List[List[Tuple[str, float]]]:
             results: List[List[Tuple[str, float]]] = []
-            for n, (scores, ords) in pending:
-                scores, ords = scores.cpu().numpy(), ords.cpu().numpy()
+            for n, res in pending:
+                scores, ords = fetch(res)
+                scores, ords = scores[0], ords[0]
                 for qi in range(n):
                     hits = []
                     for s, o in zip(scores[qi], ords[qi]):

@@ -4,7 +4,8 @@ one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width (f32, then
 int8), then ColBERT late-interaction serving at BERT-base width (a bf16 corpus,
 then int8 and int4 corpora), then the rank task's sparse searchers over the
 50k-doc golden corpus, then trains KNRM and monoBERT-MaxP through the rerank
-task, and holds every kernel against its plain PyTorch version.
+task, then times the sparse engine at bench.py's 200k-doc shape, and holds
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA device; builds the kernels
 
@@ -146,6 +147,24 @@ printed only when every phase passed):
    prediction batch; then ``dev.best`` and ``extractor_state.pkl`` served by
    ``RerankingService`` on "cuda", query 0's scores within 1e-5 of the
    trainer's own test prediction;
+10. the sparse engine at scale (after 9): ``index/synth.py``'s uniform and
+   clustered 200k-doc corpora (bench.py's headline shape, cached under the
+   gitignored ``build/sparse``), bench.py's traffic (2048 queries of 4 terms
+   of 50 < df < 20k, batches of 256, k = 1000, BM25 k1 = 0.9 b = 0.4); per
+   corpus the modes exact, tiered (``search_stream``, bench.py's bf16 scores
+   and packed ordinals; and in f32), pruned adaptive and forced
+   (``search_pruned_stream``), ``maxpostings`` 100, streaming with a quarter
+   of the tiles' bytes as budget (exhaustive and pruned), and tiered and
+   forced-pruned at k = 10, each with queries/s (best and median of 3
+   pipelined passes), ms per batch, peak device memory, one profiled batch
+   (busy share, top device ops), the prune and stream statistics; checks:
+   tiered against exact (the same docs, scores within 1e-5), the packed
+   ordinals and bf16 scores against f32 tiered, pruned and streamed
+   bit-identical to resident tiered, card against CPU on 64 queries (tiered
+   and capped: ordinals identical but for near-ties, scores within 1e-6 of
+   the row's top score), no port kernel launched; then exact against tiered
+   on 25k-200k-doc prefixes of the uniform corpus, pipelined and one batch
+   alone, where tiered becomes faster against the engine's 65,536-doc rule;
 7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
    ``launches_training`` and ``launches_training_predict``, phase 9's
    launches in training steps and in the trainer's predictions, and K1 and
@@ -1983,20 +2002,19 @@ def rank_search(config, device, results_base):
 def engine_rows(searcher, topic_fn, device):
     """The searcher's raw engine output over the topics on ``device``, split
     as its search splits it: (scores [G, Q, hits] f32, ordinals) numpy."""
-    from capreolus_tpu_torch.searcher.scoring import grid_points
-    from capreolus_tpu_torch.searcher.tpu import _load_topics_tsv
+    from capreolus_tpu_torch.searcher.tpu import _load_topics_tsv, fetch
 
     searcher.device = device
     engine = searcher.get_engine()
     terms = [searcher.query_weights(text, engine) for _, text in _load_topics_tsv(topic_fn)]
     fixed, grid = searcher.grid_params()
-    points = grid_points(grid)
-    g = len(next(iter(points.values()))) if points else 1
+    g = int(np.prod([len(v) for v in grid.values()]))
     hits = min(int(searcher.config["hits"]), engine.dindex.num_docs)
     scores, ords = np.zeros((g, len(terms), hits), np.float32), np.zeros((g, len(terms), hits), np.int32)
-    for q0, g0, sc, od in searcher._engine_calls(engine, terms, searcher.model, fixed, points, hits):
-        scores[g0:g0 + sc.shape[0], q0:q0 + sc.shape[1]] = sc.cpu().numpy()
-        ords[g0:g0 + od.shape[0], q0:q0 + od.shape[1]] = od.cpu().numpy()
+    for q0, g0, res in searcher._engine_calls(engine, terms, searcher.model, fixed, grid, hits):
+        sc, od = fetch(res)
+        scores[g0:g0 + sc.shape[0], q0:q0 + sc.shape[1]] = sc
+        ords[g0:g0 + od.shape[0], q0:q0 + od.shape[1]] = od
     return scores, ords
 
 
@@ -2560,6 +2578,288 @@ def phase_training(workdir, corpus_dir, topics, qrels, launches, held):
     return out
 
 
+# ---------------------------------------------------------------- phase 10: the sparse engine at scale
+SPARSE = {  # bench.py's headline shape: corpus, query recipe, batches and depth
+    "num_docs": 200_000, "num_terms": 50_000, "avg_unique": 120, "queries": 2048, "terms": 4, "batch": 256,
+    "topk": 1000, "uniform_seed": 0, "clustered_seed": 2, "query_seed": 1,
+}
+SPARSE_PARAMS = {"k1": 0.9, "b": 0.4}  # Anserini's BM25 defaults, as bench.py
+SPARSE_CAP = 100  # the maxpostings mode's cap
+TIERED_RTOL = 1e-5  # tiered vs exact scores: a tree sum against a sequential sum (tests/test_compact_topk.py)
+SPARSE_CPU_QUERIES = 64  # queries of each corpus scored on the card and on the CPU
+SPARSE_PASSES = 3  # timed pipelined passes per mode (qps: best and median)
+CROSSOVER_DOCS = (25_000, 50_000, 100_000, 200_000)  # prefixes of the uniform corpus
+CROSSOVER_REPS = 5
+
+
+def sparse_queries(data, seed, n, terms, num_docs):
+    """bench.py's ``_make_queries``: ``terms`` distinct terms of 50 < df < N/10."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    df = data.df_array
+    cand = np.where((df > 50) & (df < num_docs // 10))[0]
+    return [[(int(t), 1.0) for t in rng.choice(cand, size=terms, replace=False)] for _ in range(n)]
+
+
+def doc_prefix(data, num_docs):
+    """The corpus restricted to its first ``num_docs`` ordinals: postings stay in
+    canonical order (the range size is 64 below 262,144 docs), doc lengths are
+    those docs' own; no prune tables."""
+    from capreolus_tpu_torch.index.tpu import IndexData, pick_range_size
+
+    if pick_range_size(num_docs) != int(data.prune_tables["range_size"]):
+        raise SmokeFailure(f"a {num_docs}-doc prefix changes the range size; it is not in canonical order")
+    keep = np.asarray(data.doc_ids) < num_docs
+    term_of = np.repeat(np.arange(data.num_terms), np.diff(data.term_offsets))[keep]
+    offsets = np.zeros(data.num_terms + 1, np.int64)
+    np.cumsum(np.bincount(term_of, minlength=data.num_terms), out=offsets[1:])
+    return IndexData(term_offsets=offsets, doc_ids=np.asarray(data.doc_ids)[keep], tfs=np.asarray(data.tfs)[keep],
+                     doclens=data.doclens[:num_docs], norm_doclens=data.norm_doclens[:num_docs],
+                     docid_strings=None, vocab=None)
+
+
+def ranking_rows_faults(a, b, rtol, limit=5):
+    """Where two engine results (scores, ords) [Q, k] part beyond near-ties, as
+    messages: per row the same number of matching docs (score > 0), each doc
+    in both rows within ``rtol`` of the row's top score of itself, and the
+    same doc at each rank but where two docs tie within that (``ranking_faults``)."""
+    faults = []
+    for q in range(a[0].shape[0]):
+        va, vb = a[0][q] > 0, b[0][q] > 0
+        if va.sum() != vb.sum():
+            faults.append(f"query {q}: {va.sum()} vs {vb.sum()} matching docs")
+            continue
+        hits_a = list(zip(a[1][q][va].tolist(), a[0][q][va].tolist()))
+        hits_b = list(zip(b[1][q][vb].tolist(), b[0][q][vb].tolist()))
+        tol = rtol * max([abs(s) for _, s in hits_a[:1]] + [0.0])
+        bad = [f"rank {r}: {sa} vs {sb}" for r, ((_, sa), (_, sb)) in enumerate(zip(hits_a, hits_b))
+               if abs(sa - sb) > tol] + ranking_faults(hits_a, hits_b, tol)
+        faults += [f"query {q}: {m}" for m in bad[:2]]
+        if len(faults) >= limit:
+            break
+    return faults
+
+
+def concat_results(results):
+    return np.concatenate([s for s, _ in results]), np.concatenate([o for _, o in results])
+
+
+def sparse_mode_run(run, passes=SPARSE_PASSES):
+    """One mode's pipelined passes over the batches (``run()`` returns the lazy
+    per-batch results): a warm-up pass whose fetched results are returned, then
+    ``passes`` timed ones, each timed from the first dispatch to the last fetch."""
+    from capreolus_tpu_torch.searcher.tpu import fetch
+
+    results = [tuple(x[0] for x in fetch(r)) for r in run()]  # ([Q, k] scores, ords) per batch
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        for r in run():
+            fetch(r)
+        walls.append(time.perf_counter() - t0)
+    return results, walls
+
+
+def sparse_corpus_phase(label, data, batches, shape, cpu_terms):
+    """Every mode over one corpus on the card: numbers, results and checks."""
+    from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
+    from capreolus_tpu_torch.searcher.tpu import DISPATCH_WINDOW, _windowed, fetch
+
+    topk = shape["topk"]
+    kw = dict(model="bm25", params=SPARSE_PARAMS, topk=topk, materialize=False, score_dtype="bfloat16",
+              pack_ords=True)  # bench.py's transfer settings
+    kw10 = {**kw, "topk": 10}
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = ScoringEngine(DeviceIndex(data, "cuda"))
+    torch.cuda.synchronize()
+    index_bytes = torch.cuda.memory_allocated() - before
+    stream_engine = ScoringEngine(DeviceIndex(data, "cuda", hbm_budget=engine.dindex.tile_bytes / 4))
+    check(stream_engine.dindex.streaming, f"{label} a budget of a quarter of the tiles did not stream")
+    modes = {
+        "exact": lambda: _windowed(engine.search(b, model="bm25", params=SPARSE_PARAMS, topk=topk, exact_topk=True,
+                                                 materialize=False) for b in batches),
+        "tiered": lambda: engine.search_stream(batches, window=DISPATCH_WINDOW, **kw),
+        # without bench.py's transfer settings: f32 scores, int32 ordinals
+        "tiered_f32": lambda: engine.search_stream(batches, window=DISPATCH_WINDOW, model="bm25",
+                                                   params=SPARSE_PARAMS, topk=topk, materialize=False),
+        "pruned_adaptive": lambda: engine.search_pruned_stream(batches, window=DISPATCH_WINDOW, **kw),
+        "pruned_forced": lambda: engine.search_pruned_stream(batches, window=DISPATCH_WINDOW, adaptive=False, **kw),
+        f"maxpostings_{SPARSE_CAP}": lambda: _windowed(
+            engine.search(b, max_postings_per_term=SPARSE_CAP, **kw) for b in batches),
+        "streaming": lambda: stream_engine.search_stream(batches, window=DISPATCH_WINDOW, **kw),
+        "streaming_pruned": lambda: stream_engine.search_pruned_stream(batches, window=DISPATCH_WINDOW,
+                                                                       adaptive=False, **kw),
+        # k = 10, the depth where block-max thresholds are high enough to drop tiles
+        "tiered_k10": lambda: engine.search_stream(batches, window=DISPATCH_WINDOW, **kw10),
+        "pruned_forced_k10": lambda: engine.search_pruned_stream(batches, window=DISPATCH_WINDOW, adaptive=False,
+                                                                 **kw10),
+    }
+    one_batch = {
+        "exact": lambda: fetch(engine.search(batches[0], model="bm25", params=SPARSE_PARAMS, topk=topk,
+                                             exact_topk=True, materialize=False)),
+        "tiered": lambda: [fetch(r) for r in engine.search_stream(batches[:1], **kw)],
+        "pruned_forced": lambda: [fetch(r) for r in engine.search_pruned_stream(batches[:1], adaptive=False, **kw)],
+        f"maxpostings_{SPARSE_CAP}": lambda: fetch(engine.search(batches[0], max_postings_per_term=SPARSE_CAP, **kw)),
+        "streaming": lambda: [fetch(r) for r in stream_engine.search_stream(batches[:1], **kw)],
+    }
+    out, results = {"index_gb": round(index_bytes / 1e9, 3), "tile_bytes": engine.dindex.tile_bytes}, {}
+    for mode, run in modes.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        results[mode], walls = sparse_mode_run(run)
+        torch.cuda.synchronize()
+        per_batch = [w * 1e3 / len(batches) for w in walls]
+        r = {"qps_best": round(shape["queries"] / min(walls), 1),
+             "qps_median": round(shape["queries"] / float(np.median(walls)), 1),
+             "ms_per_batch_median": round(float(np.median(per_batch)), 3),
+             "ms_per_batch_min_max": [round(min(per_batch), 3), round(max(per_batch), 3)],
+             "peak_gb_over_index": round((torch.cuda.max_memory_allocated() - base) / 1e9, 3)}
+        e = stream_engine if mode.startswith("streaming") else engine
+        if "pruned" in mode:
+            r["prune_stats"] = dict(e.last_prune_stats or {})
+            r["kept_tile_share"] = round(r["prune_stats"].get("kept_tiles", 0)
+                                         / max(1, r["prune_stats"].get("total_tiles", 0)), 4)
+        if mode == "pruned_adaptive":
+            key = (topk, SPARSE_PARAMS["k1"], SPARSE_PARAMS["b"])
+            r["tiles_verdict"] = e._prune_tiles_ok.get(key)
+            r["stream_verdict"] = e._prune_stream_effective.get(key)
+        if mode.startswith("streaming"):
+            r["stream_stats"] = dict(e.last_stream_stats or {})
+        if mode in one_batch:
+            prof = profile_call(one_batch[mode], f"{label} {mode}", top=6, what=f"batch of {shape['batch']} queries")
+            r["profiled_batch"] = {"wall_ms": round(prof["wall_ms"], 3), "busy_ms": round(prof["busy_ms"], 3),
+                                   "busy_share": round(prof["busy_ms"] / prof["wall_ms"], 4),
+                                   "top_ops": prof["top_ops"]}
+        out[mode] = r
+        print(f"{label} {mode}: {r['qps_best']} queries/s best of {SPARSE_PASSES} (median {r['qps_median']}), "
+              f"{r['ms_per_batch_median']} ms per batch of {shape['batch']} (min-max {r['ms_per_batch_min_max']}), "
+              f"peak {r['peak_gb_over_index']} GB over the index"
+              + (f", kept {r['kept_tile_share']:.1%} of tiles {r['prune_stats']}" if "pruned" in mode else "")
+              + (f", uploaded {r['stream_stats']}" if mode.startswith("streaming") else ""))
+
+    # checks: tiered f32 against exact; the bench settings' packed ordinals and
+    # bf16 scores against it; pruned and streamed bit-identical to tiered
+    tiered_f32 = concat_results(results["tiered_f32"])
+    exact = concat_results(results["exact"])
+    faults = ranking_rows_faults(tiered_f32, exact, TIERED_RTOL)
+    check(not faults, f"{label} tiered vs exact on the card: {faults}")
+    tiered = concat_results(results["tiered"])
+    check(np.array_equal(tiered[1], tiered_f32[1]), f"{label} packed ordinals do not round-trip")
+    widened = torch.from_numpy(tiered_f32[0]).to(torch.bfloat16).float().numpy()
+    check(np.array_equal(tiered[0], widened), f"{label} bf16 scores are not the f32 scores rounded")
+    for mode, ref in (("pruned_adaptive", "tiered"), ("pruned_forced", "tiered"), ("streaming", "tiered"),
+                      ("streaming_pruned", "tiered"), ("pruned_forced_k10", "tiered_k10")):
+        got, want = concat_results(results[mode]), concat_results(results[ref])
+        check(np.array_equal(got[0].view(np.uint32), want[0].view(np.uint32)) and np.array_equal(got[1], want[1]),
+              f"{label} {mode} is not bit-identical to the resident exhaustive tiered path ({ref})")
+    capped = concat_results(results[f"maxpostings_{SPARSE_CAP}"])
+    # partial sums: a row's best capped score is at most its best exhaustive one (both rounded to bf16)
+    check(bool((capped[0].max(axis=1) <= tiered[0].max(axis=1)).all()), f"{label} capped scores exceed the exhaustive ones")
+    out["tiered_vs_exact_max_rel"] = float(np.max(
+        np.abs(tiered_f32[0] - exact[0])[tiered_f32[0] > 0] / np.abs(exact[0][tiered_f32[0] > 0]), initial=0.0))
+
+    # the card against the CPU on the first queries: ordinals identical but
+    # for near-ties, scores within SPARSE_RTOL of the row's top score
+    cpu = ScoringEngine(DeviceIndex(data, "cpu"))
+    for name, fn in (("tiered", lambda e: e.search(cpu_terms, params=SPARSE_PARAMS, topk=topk, exact_topk=False)),
+                     (f"maxpostings_{SPARSE_CAP}", lambda e: e.search(cpu_terms, params=SPARSE_PARAMS, topk=topk,
+                                                                     max_postings_per_term=SPARSE_CAP))):
+        card_rows, cpu_rows = fn(engine), fn(cpu)
+        faults = ranking_rows_faults(card_rows, cpu_rows, SPARSE_RTOL)
+        check(not faults, f"{label} {name} card vs CPU on {len(cpu_terms)} queries: {faults}")
+        out[f"card_vs_cpu_{name}"] = {
+            "ords_identical_share": round(float((card_rows[1] == cpu_rows[1]).mean()), 6),
+            "max_rel": float(np.max(np.abs(card_rows[0] - cpu_rows[0])[cpu_rows[0] > 0]
+                                    / cpu_rows[0][cpu_rows[0] > 0], initial=0.0))}
+    print(f"{label} checks: tiered vs exact equal doc sets, max rel {out['tiered_vs_exact_max_rel']:.2e} "
+          f"(tolerance {TIERED_RTOL}); packed ordinals and bf16 scores round-trip; pruned (adaptive, forced; "
+          f"forced at k=10) and streamed (exhaustive, pruned) bit-identical to tiered; card vs CPU on {len(cpu_terms)} queries "
+          f"{out['card_vs_cpu_tiered']} (tiered), {out[f'card_vs_cpu_maxpostings_{SPARSE_CAP}']} (capped)")
+    del engine, stream_engine, cpu, results
+    torch.cuda.empty_cache()
+    return out
+
+
+def sparse_crossover(label, data, shape):
+    """Exact against tiered on doc-prefixes of the uniform corpus, each over
+    the full traffic in f32: ms per batch in a pipelined pass (the best of
+    SPARSE_PASSES; how the rank task dispatches) and of one batch alone
+    (dispatch to fetch, the median of CROSSOVER_REPS; how a service does):
+    where the card's crossover lies against the engine's EXACT_MAX_DOCS rule."""
+    from capreolus_tpu_torch.searcher.scoring import EXACT_MAX_DOCS, DeviceIndex, ScoringEngine
+    from capreolus_tpu_torch.searcher.tpu import DISPATCH_WINDOW, _windowed, fetch
+
+    rows = {}
+    for n in CROSSOVER_DOCS:
+        sub = doc_prefix(data, n) if n < data.num_docs else data
+        engine = ScoringEngine(DeviceIndex(sub, "cuda"))
+        queries = sparse_queries(sub, SPARSE["query_seed"], shape["queries"], shape["terms"], n)
+        batches = [queries[i:i + shape["batch"]] for i in range(0, len(queries), shape["batch"])]
+        kw = dict(params=SPARSE_PARAMS, topk=shape["topk"], materialize=False)
+
+        runs = {"exact": lambda: _windowed(engine.search(b, exact_topk=True, **kw) for b in batches),
+                "tiered": lambda: engine.search_stream(batches, window=DISPATCH_WINDOW, **kw)}
+        row = {}
+        for mode, run in runs.items():
+            _, walls = sparse_mode_run(run)
+            row[f"{mode}_pipelined"] = round(min(walls) * 1e3 / len(batches), 3)
+            reps = []
+            for _ in range(CROSSOVER_REPS):
+                t0 = time.perf_counter()
+                fetch(engine.search(batches[0], exact_topk=mode == "exact", **kw))
+                reps.append((time.perf_counter() - t0) * 1e3)
+            row[f"{mode}_one_batch"] = round(float(np.median(reps)), 3)
+        rows[n] = row
+        del engine
+        torch.cuda.empty_cache()
+    crossover = {}  # the smallest size from which tiered is faster at every larger size
+    for how in ("pipelined", "one_batch"):
+        crossover[how] = None
+        for n in sorted(CROSSOVER_DOCS, reverse=True):
+            if rows[n][f"tiered_{how}"] >= rows[n][f"exact_{how}"]:
+                break
+            crossover[how] = n
+    print(f"{label} exact vs tiered ms per batch of {shape['batch']} by corpus size: {rows}; tiered faster from "
+          f"{crossover} docs on (the engine switches above {EXACT_MAX_DOCS})")
+    return {"ms_by_docs": rows, "tiered_faster_from_docs": crossover, "engine_rule_max_exact_docs": EXACT_MAX_DOCS}
+
+
+def phase_sparse_engine(workdir, shape=SPARSE, cache_dir=None):
+    """The sparse engine at bench.py's 200k-doc shape on the card: a uniform
+    corpus (no doc-id locality) and a clustered one, bench.py's traffic, every
+    mode timed and profiled and held against the others and the CPU, the
+    exact/tiered crossover, and no port kernel launched."""
+    from capreolus_tpu_torch.index.synth import synth_clustered_index, synth_uniform_index
+
+    label = "[10 sparse engine]"
+    cache_dir = cache_dir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sparse")
+    os.makedirs(cache_dir, exist_ok=True)
+    n, v, u = shape["num_docs"], shape["num_terms"], shape["avg_unique"]
+    reset_launch_counts()
+    summary = {"shape": shape}
+    for name, build, seed in (("uniform", synth_uniform_index, shape["uniform_seed"]),
+                              ("clustered", synth_clustered_index, shape["clustered_seed"])):
+        t0 = time.perf_counter()
+        data = build(n, v, u, seed=seed, cache_fn=os.path.join(cache_dir, f"{name}_{n}_{v}_{seed}.npz"))
+        built = time.perf_counter() - t0
+        queries = sparse_queries(data, shape["query_seed"], shape["queries"], shape["terms"], n)
+        batches = [queries[i:i + shape["batch"]] for i in range(0, len(queries), shape["batch"])]
+        print(f"{label} {name} corpus: {data.num_docs} docs, {len(data.doc_ids)} postings, built in {built:.1f} s; "
+              f"{len(queries)} queries of {shape['terms']} terms in {len(batches)} batches, k={shape['topk']}")
+        summary[name] = sparse_corpus_phase(f"{label} {name}", data, batches, shape,
+                                            queries[:SPARSE_CPU_QUERIES])
+        summary[name]["build_s"] = round(built, 1)
+        if name == "uniform":
+            summary["crossover"] = sparse_crossover(label, data, shape)
+    launched = {k: c for k, c in launch_counts().items() if c}
+    check(not launched, f"{label} the sparse path launched a port kernel: {launched}")
+    print(f"{label} summary {json.dumps(summary, default=str)}")
+    return summary
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -2593,6 +2893,7 @@ def main():
         golden = timed(phase_train_golden, workdir, training_launches, training_held)
         training = timed(phase_training, workdir, corpus_dir, topics, qrels, training_launches, training_held)
         print("[9 training] summary " + json.dumps({"golden": golden, "full_width": training}, default=str))
+        timed(phase_sparse_engine, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -32,7 +32,11 @@ on the CPU, its outputs move by up to 5.3e-2, 1.1% of them by more than 1e-4
 every output by about 1. The head from the card's last hidden states agrees
 within 1e-4, as do the served scores. ColBERT over int8 / int4 corpora agrees
 within 1e-2. Rankings agree docid by docid but for near-ties: two docs that
-trade places score within the tolerance of each other in both lists.
+trade places score within the tolerance of each other in both lists. The
+sparse engine's tiered path on the card gives the CPU's ordinals and scores
+within 1e-6 of the row's top score (f32 formulas an ulp apart), and the exact
+path's within 1e-5 (a tree sum against a sequential sum); pruned, streamed
+and bit-packed results on the card equal the card's exhaustive tiered bits.
 """
 
 import numpy as np
@@ -881,3 +885,89 @@ def test_bert_base_training_step_launches_no_k2_and_a_prediction_one_per_layer(c
     with torch.no_grad():
         scores = reranker.test({k: v[0] for k, v in batch.items()}, card)
     assert fa.flash_attention.launches == launches + 12 and torch.isfinite(scores).all()
+
+
+# ---------------------------------------------------------------- the sparse engine
+@pytest.fixture(scope="module")
+def sparse_corpus():
+    """A corpus whose terms each live in a band of doc ordinals (6k docs, 120k
+    draws; block-max pruning drops tiles at k=10) and 96 queries of 4 terms
+    of df > 50, in batches of 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the sparse engine's card run")
+    from capreolus_tpu_torch.index.synth import assemble_index
+
+    num_docs, num_terms = 6000, 800
+    rng = np.random.Generator(np.random.PCG64(7))
+    z = rng.zipf(1.35, size=240_000)
+    terms = (z[z <= num_terms][:120_000] - 1).astype(np.int64)
+    centers = rng.integers(0, num_docs, size=num_terms)
+    docs = (centers[terms] + rng.integers(-num_docs // 20, num_docs // 20, size=len(terms))) % num_docs
+    data = assemble_index(terms, docs, rng, num_docs, num_terms)
+    qrng = np.random.Generator(np.random.PCG64(1))
+    cand = np.where(data.df_array > 50)[0]
+    queries = [[(int(t), 1.0) for t in qrng.choice(cand, size=4, replace=False)] for _ in range(96)]
+    return data, [queries[i:i + 32] for i in range(0, 96, 32)]
+
+
+def _sparse_engine(data, device, **kw):
+    from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
+
+    return ScoringEngine(DeviceIndex(data, device, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topk", [10, 1000])
+def test_tiered_on_the_card_matches_cpu(card, sparse_corpus, topk):
+    """Tiered BM25 on the card and on the CPU: the same ordinals (the same
+    stable sorts on the same scores; an ulp of the f32 formula may split a tie
+    only between docs that score within RANK_RTOL), scores within RANK_RTOL,
+    and the exact path's ranking within 1e-5 (a tree sum against a sequential
+    sum)."""
+    data, batches = sparse_corpus
+    queries = [q for b in batches for q in b]
+    params = {"k1": 0.9, "b": 0.4}
+    gpu = _sparse_engine(data, card).search(queries, params=params, topk=topk, exact_topk=False)
+    cpu = _sparse_engine(data, "cpu").search(queries, params=params, topk=topk, exact_topk=False)
+    exact = _sparse_engine(data, card).search(queries, params=params, topk=topk, exact_topk=True)
+    for q in range(len(queries)):
+        valid = cpu[0][q] > 0
+        assert (gpu[0][q] > 0).sum() == valid.sum() == (exact[0][q] > 0).sum()
+        hits = lambda r: list(zip(r[1][q][valid].tolist(), r[0][q][valid].tolist()))  # noqa: E731
+        assert_same_ranking(hits(gpu), hits(cpu), RANK_RTOL * float(cpu[0][q].max()), f"query {q}")
+        assert_same_ranking(hits(gpu), hits(exact), 1e-5 * float(cpu[0][q].max()), f"query {q} vs exact")
+
+
+@pytest.mark.cuda
+def test_pruned_streamed_and_packed_on_the_card_are_bit_identical(card, sparse_corpus):
+    """On the card, the pruned stream (forced and adaptive) and a streaming
+    index four times over its budget give the resident exhaustive tiered bits,
+    with bench.py's bf16 scores and packed ordinals, whose words equal the
+    CPU's."""
+    data, batches = sparse_corpus
+    kw = dict(params={"k1": 0.9, "b": 0.4}, topk=10, materialize=False, score_dtype="bfloat16", pack_ords=True,
+              exact_topk=False)  # 6k docs would take the exact path by default
+    engine = _sparse_engine(data, card)
+    streaming = _sparse_engine(data, card, hbm_budget=engine.dindex.tile_bytes / 4)
+    assert streaming.dindex.streaming and streaming.dindex.doc_tiles is None
+    stream_kw = {k: v for k, v in kw.items() if k != "exact_topk"}
+    ref = [r.get() for r in engine.search_stream(batches, **stream_kw)]
+    runs = {"forced": engine.search_pruned_stream(batches, adaptive=False, **stream_kw),
+            "adaptive": engine.search_pruned_stream(batches, **stream_kw),
+            "streamed": streaming.search_stream(batches, **stream_kw),
+            "streamed_pruned": streaming.search_pruned_stream(batches, adaptive=False, **stream_kw)}
+    for name, run in runs.items():
+        for (s, o), (rs, ro) in zip((r.get() for r in run), ref):
+            np.testing.assert_array_equal(o, ro, err_msg=name)
+            np.testing.assert_array_equal(s, rs, err_msg=name)
+    st = engine.last_prune_stats
+    assert st["kept_tiles"] < st["total_tiles"], st
+    assert 0 < streaming.last_stream_stats["tiles_uploaded"] < streaming.last_stream_stats["total_tiles"]
+    gpu = engine.search(batches[0], **kw)
+    cpu = _sparse_engine(data, "cpu").search(batches[0], **kw)
+    assert gpu.ords.is_cuda and gpu.ords.dtype == torch.int32 and gpu._event is not None
+    assert gpu._host[1].is_pinned() and gpu._host[0].dtype == torch.bfloat16
+    gw, cw = gpu.get(), cpu.get()
+    np.testing.assert_array_equal(gpu._host[1].numpy(), cpu.ords.numpy())  # the packed words, bit for bit
+    np.testing.assert_array_equal(gw[1], cw[1])
+    np.testing.assert_allclose(gw[0], cw[0], rtol=1e-2)  # bf16: an ulp of f32 can round across a bf16 step

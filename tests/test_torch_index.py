@@ -1,8 +1,9 @@
 """The PyTorch port's index build against the JAX package's, on the CPU.
 
 The port's ``TpuIndex`` must produce EQUAL artifacts: vocab, docid order,
-doclens, SmallFloat norm doclens, term offsets, and the canonical postings
-(doc ids, tfs), for both stemmers and with stopwords indexed or removed.
+doclens, SmallFloat norm doclens, term offsets, the canonical postings
+(doc ids, tfs) and the block-max prune tables, for both stemmers, with
+stopwords indexed or removed, and under both docid reorderings.
 """
 
 import numpy as np
@@ -77,6 +78,10 @@ def _assert_same_index(jax_index, torch_index):
     assert td.docid_strings == jd.docid_strings
     for name in ("term_offsets", "doc_ids", "tfs", "doclens", "norm_doclens"):
         np.testing.assert_array_equal(np.asarray(getattr(td, name)), np.asarray(getattr(jd, name)), err_msg=name)
+    assert sorted(td.prune_tables) == sorted(jd.prune_tables)
+    for name, value in jd.prune_tables.items():
+        np.testing.assert_array_equal(td.prune_tables[name], value, err_msg=f"prune table {name}")
+        assert td.prune_tables[name].dtype == value.dtype, name
 
 
 @pytest.mark.parametrize("corpus", ["dummy", "synthetic"])
@@ -116,6 +121,21 @@ def test_index_mmap_gives_same_arrays(tmpdir_as_cache, torch_cache):
 
 
 @pytest.mark.parametrize("override", [{"docreorder": "bp"}, {"docreorder": "terms"}, {"stemmer": "krovetz"}])
-def test_index_unported_options_raise(torch_cache, override):
-    with pytest.raises(ConfigError):
-        TorchIndex.create("tpu", {**override, "collection": {"name": "dummy"}})
+def test_index_unported_options_raise(tmpdir_as_cache, torch_cache, override):
+    """``stemmer=krovetz`` is still refused. The two docid reorderings are
+    ported: their internal ordinals, docid order, postings, prune tables and
+    stored documents equal the JAX index's, and ``docreorder=none`` holds the
+    same documents under other ordinals."""
+    if "stemmer" in override:
+        with pytest.raises(ConfigError):
+            TorchIndex.create("tpu", {**override, "collection": {"name": "dummy"}})
+        return
+    coll = _collection_cfg("synthetic", tmpdir_as_cache)
+    jax_index = JaxIndex.create("tpu", {**override, "collection": coll})
+    torch_index = TorchIndex.create("tpu", {**override, "collection": coll})
+    _assert_same_index(jax_index, torch_index)
+    plain = TorchIndex.create("tpu", {"collection": coll})
+    assert torch_index.data.docid_strings != plain.data.docid_strings
+    assert sorted(torch_index.data.docid_strings) == sorted(plain.data.docid_strings)
+    for docid in plain.data.docid_strings[:50]:
+        assert torch_index.get_doc(docid) == plain.get_doc(docid) == jax_index.get_doc(docid)

@@ -265,6 +265,59 @@ def test_searcher_run_files_match_jax(small, case):
     assert runs and all(len(run) == 25 and all(run.values()) for run in runs)
 
 
+@pytest.mark.parametrize("config", [
+    {"name": "BM25", "hits": 1000},
+    {"name": "BM25", "hits": 100, "maxpostings": 30},
+    {"name": "BM25", "hits": 100, "index": {"docreorder": "terms"}},
+    {"name": "BM25", "hits": 100, "index": {"docreorder": "bp"}, "hbmbudget": 0.05},
+])
+def test_bm25_default_path_matches_jax(small, monkeypatch, config):
+    """BM25 dispatches as the JAX searcher does: a single point without a cap
+    through the pruned stream (under docreorder and streaming too), a capped
+    one through the windowed tiered search; the run files equal JAX's docid
+    for docid."""
+    from capreolus_tpu_torch.searcher.scoring import ScoringEngine
+
+    streams = []
+    original = ScoringEngine.search_pruned_stream
+    monkeypatch.setattr(ScoringEngine, "search_pruned_stream",
+                        lambda self, *a, **kw: streams.append(1) or original(self, *a, **kw))
+    config = _with_collection(config, small["collection"])
+    jax_searcher, port_searcher = JaxSearcher.create("BM25", config), TorchSearcher.create("BM25", config)
+    port_searcher.device = "cpu"
+    case = "_".join(f"{k}{v}" for k, v in sorted(config.items()) if k not in ("name", "index"))
+    case += str(config["index"].get("docreorder", ""))
+    out = small["base"] / "bm25_default" / case
+    port_dir = port_searcher.query_from_file(small["topics"], out / "port")
+    jax_dir = jax_searcher.query_from_file(small["topics"], out / "jax")
+    assert streams == ([] if "maxpostings" in config else [1])
+    assert port_searcher.get_engine().dindex.streaming == ("hbmbudget" in config)
+    assert_same_run_files(port_dir, jax_dir)
+
+
+def test_retrieval_service_prunes_as_jax(small):
+    """RetrievalService serves BM25 through search_pruned by default, with the
+    JAX service's hits (docids in order, scores within 1e-6 relative)."""
+    from capreolus_tpu.serving import RetrievalService as JaxRetrievalService
+    from capreolus_tpu_torch.serving import RetrievalService
+    from capreolus_tpu_torch.searcher.tpu import _load_topics_tsv
+
+    queries = [text for _, text in _load_topics_tsv(small["topics"])]
+    coll = small["collection"]
+    port = RetrievalService.from_config(collection=coll["name"], collection_path=coll["path"], device="cpu")
+    jax = JaxRetrievalService.from_config(collection=coll["name"], collection_path=coll["path"])
+    off = RetrievalService(port.index, pruning=False, device="cpu")
+    jax_off = JaxRetrievalService(jax.index, pruning=False)
+    for ours, ref in ((port.search(queries, k=100), jax.search(queries, k=100)),
+                      (off.search(queries, k=100), jax_off.search(queries, k=100))):  # the exact path
+        assert len(ours) == len(ref) == 25 and all(ours)
+        for a, b in zip(ours, ref):
+            assert [d for d, _ in a] == [d for d, _ in b]
+            np.testing.assert_allclose([s for _, s in a], [s for _, s in b], rtol=SCORE_RTOL)
+    assert port.engine._prune_tiles_ok.get((100, 0.9, 0.4)) is not None  # the pruning probe ran
+    assert off.engine._prune_tiles_ok == {}
+
+
 def test_msmarcopsgbm25_is_bm25_at_its_settings(small):
     """The JAX ``msmarcopsgbm25`` fails with KeyError 'shards' (its config has no
     ``shards`` and its search reads one); the port's searches, as the JAX BM25
@@ -333,7 +386,8 @@ def test_an_index_of_the_older_layout_is_rebuilt(torch_cache):
     (index.get_index_path() / "postings_fwd_tfs.npy").unlink()
     data = TorchIndex.create("tpu", {"collection": {"name": "dummy"}}).data
     with np.load(npz_fn) as npz:
-        assert int(npz["layout_version"]) == port_index_tpu.LAYOUT_VERSION == 2
+        assert int(npz["layout_version"]) == port_index_tpu.LAYOUT_VERSION == 3
+        assert "pt_rt_offsets" in npz.files  # v3: the prune tables
     assert data.fwd_offsets[-1] == len(data.fwd_tfs) == len(data.doc_ids) > 0
 
 
@@ -458,9 +512,21 @@ def test_second_search_writes_nothing(torch_cache, monkeypatch):
     ({"name": "BM25", "shards": 2}, "item 6, 'Multi-device'"),
     ({"name": "fusion"}, "item 6, 'Dense and learned-sparse retrieval'"),  # searcher2 defaults to dense
 ])
-def test_unported_options_raise(torch_cache, searcher, match):
-    with pytest.raises(ConfigError, match=match):
-        TorchTask.create("rank", {"benchmark": {"name": "dummy"}, "searcher": searcher})
+def test_unported_options_raise(tmpdir_as_cache, torch_cache, searcher, match):
+    """``shards > 1`` and the dense fusion leg still raise, naming the ROADMAP
+    item that queues them. ``maxpostings`` (item 5) is ported: the capped
+    tiered search writes the JAX package's run file, docid for docid."""
+    config = {"benchmark": {"name": "dummy"}, "searcher": searcher}
+    if "maxpostings" not in searcher:
+        with pytest.raises(ConfigError, match=match):
+            TorchTask.create("rank", config)
+        return
+    port_task, jax_task = TorchTask.create("rank", config), JaxTask.create("rank", config)
+    port_task.device = "cpu"
+    port_out, jax_out = port_task.search(), jax_task.search()
+    assert port_task.searcher.get_engine().exact_path(max_postings_per_term=2) is False
+    assert_same_run_files(port_out, jax_out)
+    assert all(load_trec_run(port_out / n) for n in _files(port_out) if n != "done")
 
 
 def test_rank_task_without_a_device_asks_for_the_card(torch_cache):

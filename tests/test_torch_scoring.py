@@ -162,8 +162,14 @@ def test_edge_cases(engines):
     # topk beyond the corpus is clipped to N
     scores, _ = engine.search(engines["term_lists"][:1], model="bm25", params=MODEL_PARAMS["bm25"], topk=10**6)
     assert scores.shape == (1, engine.dindex.num_docs)
-    with pytest.raises(NotImplementedError):
-        engine.search(engines["term_lists"], model="bm25", params=MODEL_PARAMS["bm25"], exact_topk=False)
+    # exact_topk=False takes the tiered path: the exact path's ranking over the matching docs
+    ts, to = engine.search(engines["term_lists"], model="bm25", params=MODEL_PARAMS["bm25"], topk=100,
+                           exact_topk=False)
+    es, eo = engine.search(engines["term_lists"], model="bm25", params=MODEL_PARAMS["bm25"], topk=100)
+    valid = ts > 0
+    assert (valid == (es > 0)).all() and valid.any()
+    np.testing.assert_array_equal(to[valid], eo[valid])
+    np.testing.assert_allclose(ts[valid], es[valid], rtol=1e-5)
     with pytest.raises(ValueError):
         engine.search(engines["term_lists"], model="bm99")
     with pytest.raises(ValueError):  # flat accumulator index must stay within int32
