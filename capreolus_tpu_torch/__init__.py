@@ -9,7 +9,11 @@ late-interaction retrieval, and runs the rank and rerank tasks from its CLI
 ``rerank.traineval``, which trains KNRM or monoBERT-MaxP); each TPU kernel
 on those paths is hand-written CUDA for Hopper under ``csrc/`` (K1
 ``knrm_pool.cu``, K2 ``flash_attention.cu``, K3 ``maxsim.cu``, X1
-``int8_matmul.cu``).
+``int8_matmul.cu``). The index build, query analysis and block-max pruning
+run their host work in C++ under ``native/`` (built by g++ at first use).
+The published benchmarks (``robust04``, ``antique``, ``core17/18``, ...)
+resolve their topics, qrels and folds from config files and the shipped
+``data/``, and never download offline (``CAPREOLUS_OFFLINE=1``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``RetrievalService(..., device="cpu")``, ``--device=cpu`` on the CLI).

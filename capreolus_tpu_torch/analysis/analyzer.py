@@ -1,13 +1,13 @@
-"""Lucene-style English analysis chain (the pure-Python path of the JAX
-package's ``analysis/analyzer.py``):
+"""Lucene-style English analysis chain (the JAX package's ``analysis/analyzer.py``):
 
     StandardTokenizer (UAX#29 word-break approximation)
     -> EnglishPossessiveFilter -> LowerCaseFilter
     -> StopFilter (Lucene English stopword set) -> PorterStemFilter
 
-The JAX package routes ASCII text through a native C++ analyzer whose output
-its tests pin equal to this Python chain; the native analyzer and the krovetz
-stemmer are not ported in this slice.
+ASCII text goes through the native C++ analyzer (``native/analyzer.cpp``)
+when it loads, unless the stemmer is krovetz; unicode text, krovetz and a
+host without the native library take the Python chain below, whose output
+the native analyzer's equals.
 """
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ import functools
 import re
 from typing import List
 
+from capreolus_tpu_torch.analysis.kstem import kstem
 from capreolus_tpu_torch.analysis.porter import porter_stem
+from capreolus_tpu_torch.native import native_analyze
 
 # Lucene's EnglishAnalyzer.ENGLISH_STOP_WORDS_SET (33 words)
 LUCENE_ENGLISH_STOPWORDS = frozenset(
@@ -39,6 +41,7 @@ _MAX_TOKEN_LENGTH = 255  # StandardTokenizer default
 # stemming is a pure function of the word; a corpus repeats a small vocabulary
 # millions of times, so a bounded memo keeps the Python stemmer off the hot path
 _cached_porter_stem = functools.lru_cache(maxsize=1 << 18)(porter_stem)
+_cached_kstem = functools.lru_cache(maxsize=1 << 18)(kstem)
 
 
 def standard_tokenize(text: str) -> List[str]:
@@ -57,19 +60,22 @@ class EnglishAnalyzer:
     """English analyzer with Anserini's options.
 
     Args:
-        stemmer: "porter" or "none"
+        stemmer: "porter", "krovetz" (dictionary-less inflectional approximation), or "none"
         keep_stopwords: if True, skip stopword removal (Anserini's ``keepStopwords``)
     """
 
     def __init__(self, stemmer: str = "porter", keep_stopwords: bool = False):
-        if stemmer not in ("porter", "none"):
-            raise ValueError(f"unsupported stemmer {stemmer!r}; expected 'porter' or 'none' "
-                             f"(krovetz is not ported yet)")
+        if stemmer not in ("porter", "krovetz", "none"):
+            raise ValueError(f"unsupported stemmer {stemmer!r}; expected 'porter', 'krovetz', or 'none'")
         self.stemmer = stemmer
         self.keep_stopwords = keep_stopwords
 
     def analyze(self, text: str) -> List[str]:
-        stem = _cached_porter_stem if self.stemmer == "porter" else None
+        if text.isascii() and self.stemmer != "krovetz":
+            result = native_analyze(text, self.stemmer == "porter", self.keep_stopwords)
+            if result is not None:
+                return result
+        stem = {"porter": _cached_porter_stem, "krovetz": _cached_kstem}.get(self.stemmer)
         tokens = []
         for raw in standard_tokenize(text):
             tok = strip_possessive(raw).lower()

@@ -5,8 +5,10 @@ package's ``benchmark/__init__.py``).
 ``relevance_level``, ``use_train_as_dev``, ``non_nn_dev`` (train+dev pools for
 non-neural tuning), ``get_topics_file()`` TSV export via atomic cached_file,
 and a ``validate`` step that checks the folds file's shape and warns on qid
-misalignment. Ported so far: the ``dummy`` benchmark; the downloadable and
-standard benchmarks wait until their data is in the repository.
+misalignment. The benchmarks: ``dummy``, the published ones whose topics,
+qrels and folds resolve from config files, the port's ``data/`` or a
+download (``downloadable.py``, ``standard.py``, ``robust04.py``), and those
+built from their collection's raw files (``nf.py``, ``msmarco.py``).
 """
 
 from __future__ import annotations

@@ -44,6 +44,7 @@ def _default_constants():
     constants.setdefault("BASE_PACKAGE", "capreolus_tpu_torch")
     constants.setdefault("CACHE_BASE_PATH", cache)
     constants.setdefault("RESULTS_BASE_PATH", results)
+    constants.setdefault("MAX_THREADS", int(os.environ.get("CAPREOLUS_THREADS", os.cpu_count() or 1)))
 
 
 _default_constants()

@@ -1,7 +1,9 @@
 """Experiment evaluation (the JAX package's ``evaluation/__init__.py``): metric
 computation, cross-validated best-run selection, and run interpolation, over
-the pure-Python trec_eval of ``evaluation/metrics.py``. The on-device metrics
-(``device_metrics.py``) are not ported yet.
+the pure-Python trec_eval of ``evaluation/metrics.py``; ``msmarco.py`` (the
+official MS MARCO evaluation) and ``significance.py`` (paired t and
+randomization tests) beside it. The on-device metrics (``device_metrics.py``)
+are not ported yet.
 """
 
 from __future__ import annotations

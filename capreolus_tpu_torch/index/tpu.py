@@ -34,11 +34,13 @@ import contextlib
 import math
 import shutil
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+from itertools import islice
 
 import numpy as np
 
 from capreolus_tpu_torch.analysis import get_analyzer
-from capreolus_tpu_torch.core import ConfigError, ConfigOption
+from capreolus_tpu_torch.core import ConfigError, ConfigOption, constants
 from capreolus_tpu_torch.index import Index
 from capreolus_tpu_torch.index.smallfloat import quantize_lengths
 from capreolus_tpu_torch.utils.loginit import get_logger
@@ -48,6 +50,7 @@ logger = get_logger(__name__)
 # v2: the forward index (fwd_*) joined the artifacts; v3: the block-max prune
 # tables (pt_*) joined them
 LAYOUT_VERSION = 3
+ANALYZE_CHUNK_DOCS = 1024  # documents handed to the analyzer threads at once
 
 
 def reorder_doc_ids(term_ids, doc_ords, num_docs, num_terms):
@@ -247,7 +250,7 @@ class TpuIndex(Index):
     module_name = "tpu"
     config_spec = [
         ConfigOption("indexstops", False, "index stopwords (True) or remove them (False)"),
-        ConfigOption("stemmer", "porter", "stemmer: porter or none"),
+        ConfigOption("stemmer", "porter", "stemmer: porter, krovetz, or none"),
         ConfigOption("storepositions", False, "store the positional forward index "
                      "(per-doc token-id sequences; required by SDM)"),
         ConfigOption("docreorder", "none", "internal doc-ordinal reordering for posting locality: "
@@ -285,32 +288,38 @@ class TpuIndex(Index):
         store_positions = self.config["storepositions"]
         docterm_offsets = [0]
         doc_ord = 0
+        doc_iter = self.collection.get_doc_iterator()
+        # the analyzer runs on a thread pool over chunks of documents: the native
+        # analyzer releases the GIL inside its ctypes call, so the threads overlap;
+        # pool.map keeps document order, so term ids are the serial build's
         with open(index_path / "docs.bin", "wb") as docs_bin, \
-                open(index_path / "docterms.bin", "wb") if store_positions else contextlib.nullcontext() as docterms_bin:
-            for docid, contents in self.collection.get_doc_iterator():
-                tokens = analyzer.analyze(contents)
-                counts = Counter(tokens)
-                docid_strings.append(docid)
-                doclens.append(len(tokens))
-                data = contents.encode("utf-8")
-                docs_bin.write(data)
-                doc_byte_offsets.append(doc_byte_offsets[-1] + len(data))
-                if store_positions:
-                    # term ids in token order: the same first-occurrence ids as the counts below
-                    seq = np.fromiter((vocab.setdefault(t, len(vocab)) for t in tokens),
-                                      dtype=np.int32, count=len(tokens))
-                    docterms_bin.write(seq.tobytes())
-                    docterm_offsets.append(docterm_offsets[-1] + len(seq))
-                if counts:
-                    tids = np.fromiter(
-                        (vocab.setdefault(t, len(vocab)) for t in counts), dtype=np.int64, count=len(counts)
-                    )
-                    term_chunks.append(tids)
-                    doc_chunks.append(np.full(len(counts), doc_ord, dtype=np.int64))
-                    tf_chunks.append(np.fromiter(counts.values(), dtype=np.int64, count=len(counts)))
-                doc_ord += 1
-                if doc_ord % 100000 == 0:
-                    logger.info("tokenized %d docs (%d terms so far)", doc_ord, len(vocab))
+                open(index_path / "docterms.bin", "wb") if store_positions else contextlib.nullcontext() as docterms_bin, \
+                ThreadPoolExecutor(max_workers=max(1, constants["MAX_THREADS"])) as pool:
+            while chunk := list(islice(doc_iter, ANALYZE_CHUNK_DOCS)):
+                token_lists = pool.map(analyzer.analyze, (contents for _, contents in chunk))
+                for (docid, contents), tokens in zip(chunk, token_lists):
+                    counts = Counter(tokens)
+                    docid_strings.append(docid)
+                    doclens.append(len(tokens))
+                    data = contents.encode("utf-8")
+                    docs_bin.write(data)
+                    doc_byte_offsets.append(doc_byte_offsets[-1] + len(data))
+                    if store_positions:
+                        # term ids in token order: the same first-occurrence ids as the counts below
+                        seq = np.fromiter((vocab.setdefault(t, len(vocab)) for t in tokens),
+                                          dtype=np.int32, count=len(tokens))
+                        docterms_bin.write(seq.tobytes())
+                        docterm_offsets.append(docterm_offsets[-1] + len(seq))
+                    if counts:
+                        tids = np.fromiter(
+                            (vocab.setdefault(t, len(vocab)) for t in counts), dtype=np.int64, count=len(counts)
+                        )
+                        term_chunks.append(tids)
+                        doc_chunks.append(np.full(len(counts), doc_ord, dtype=np.int64))
+                        tf_chunks.append(np.fromiter(counts.values(), dtype=np.int64, count=len(counts)))
+                    doc_ord += 1
+                    if doc_ord % 100000 == 0:
+                        logger.info("tokenized %d docs (%d terms so far)", doc_ord, len(vocab))
 
         num_docs = len(docid_strings)
         if num_docs == 0:

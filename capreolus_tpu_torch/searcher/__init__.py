@@ -5,8 +5,8 @@ The ``Searcher`` base gives run-file IO, ``query_from_file`` and the
 interactive ``query``. Ported so far: the sparse scoring engine
 (``scoring.py``: exact and tiered paths, block-max pruning, host streaming)
 with the BM25 family (``tpu.py``), the feedback searchers
-(``feedback.py``), fusion (``fusion.py``), ``msmarcopsgbm25`` and the static-run
-base (``special.py``), and the late-interaction searcher ``colbert``
+(``feedback.py``), fusion (``fusion.py``), the static-run and MS MARCO
+searchers (``special.py``), and the late-interaction searcher ``colbert``
 (``late_interaction.py``). Creating a JAX searcher that is not ported yet
 raises ``ConfigError`` naming the ROADMAP.md item that queues it.
 """
@@ -27,19 +27,8 @@ def _hbm_budget_mb(config):
 
 
 _DENSE = "item 6, 'Dense and learned-sparse retrieval'"
-_DOWNLOADS = "item 3b (searchers that read downloaded runs)"
 # the JAX package's searchers that the port lacks, and the ROADMAP.md item that queues each
-UNPORTED_SEARCHERS = {
-    "dense": _DENSE,
-    "impact": _DENSE,
-    "msmarcopsg": _DOWNLOADS,
-    "static_tct_colbert": _DOWNLOADS,
-    "msptop200": _DOWNLOADS,
-    **{name: _DOWNLOADS for name in (
-        "bm25staticrob04yang19", "bm25staticrob04yang19desc", "bm25staticrob04huston14title",
-        "bm25staticrob04huston14desc", "bm25staticgov2", "bm25staticgov2desc", "bm25staticgenomics",
-        "bm25staticcds", "qdelstaticcovidabstract", "rm3staticcore18title", "rm3staticcore18desc")},
-}
+UNPORTED_SEARCHERS = {"dense": _DENSE, "impact": _DENSE}
 
 
 @register_module_type

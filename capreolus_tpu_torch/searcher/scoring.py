@@ -50,12 +50,16 @@ Parity with the JAX engine:
   the host: the values equal JAX's bf16 results, the numpy dtype is float32
   (the card's machine has no ``ml_dtypes``).
 
-Block-max pruning builds its spans with the numpy path (``compute_theta`` and
-``_spans_pruned``); the JAX package's native C++ span builder is not ported.
+Block-max pruning builds its spans with the native C++ span builder
+(``native/pruner.cpp``, through ``ctypes``; its spans equal the JAX
+package's native spans) and falls back to the numpy path (``compute_theta``
+and ``_spans_pruned``) when the library does not load. The two paths sample
+other threshold candidates, so their spans differ; both keep results exact.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -67,6 +71,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from capreolus_tpu_torch.native import get_pruner_lib
 from capreolus_tpu_torch.utils.loginit import get_logger
 
 logger = get_logger(__name__)
@@ -604,6 +609,7 @@ class ScoringEngine:
         self.last_stream_probe = None  # (t_pruned, t_exhaustive) of the last stream A/B
         self.last_prune_stats = None
         self.last_stream_stats = None
+        self._native_prune_arrays = None  # the native span builder's index arrays, taken on its first call
 
     def _check_accumulator_bounds(self, num_queries: int):
         # the flat accumulator index qidx * (num_docs+1) + doc is kept within
@@ -1204,9 +1210,67 @@ class ScoringEngine:
 
     def _build_prune_spans(self, term_lists, model, params, topk):
         """Spans for an exact pruned pass, or None when tile savings are too
-        small: the numpy thresholds (compute_theta) and spans (_spans_pruned)."""
-        theta = self.compute_theta(term_lists, params=params, topk=topk)
-        return self._spans_pruned(term_lists, model, params, theta)
+        small. Uses the native C++ span builder (native/pruner.cpp: threshold,
+        bounds and span extraction in one pass) when it loads; the numpy path
+        (compute_theta + _spans_pruned) is the fallback. The two sample other
+        threshold candidates, so their spans differ; both keep results exact."""
+        lib = get_pruner_lib()
+        if lib is None:
+            theta = self.compute_theta(term_lists, params=params, topk=topk)
+            return self._spans_pruned(term_lists, model, params, theta)
+
+        d = self.dindex
+        pt = d.prune
+        tids, qix, starts, ends, w1, w2 = self._flat_terms(term_lists, model)
+        q_offsets = np.searchsorted(qix, np.arange(len(term_lists) + 1)).astype(np.int64)
+        arrs = self._native_prune_arrays
+        if arrs is None:
+            def as_native(a, dt):
+                # the index build already stores these at the native dtypes:
+                # a copy here would cost O(postings) once, inside the first batch
+                a = np.asarray(a)
+                return a if a.dtype == dt and a.flags["C_CONTIGUOUS"] else np.ascontiguousarray(a, dtype=dt)
+
+            arrs = self._native_prune_arrays = (
+                as_native(pt["rt_offsets"], np.int64), as_native(pt["rt_range"], np.int32),
+                as_native(pt["rt_start"], np.int64), as_native(pt["rt_end"], np.int64),
+                as_native(pt["rt_max_tf"], np.float32), as_native(pt["rt_min_dl"], np.float32),
+                as_native(pt["gmax_tf"], np.float32), as_native(pt["gmin_dl"], np.float32),
+                as_native(d.host.doc_ids, np.int32), as_native(d.host_tfs, np.int32),
+                as_native(d.host.norm_doclens, np.int32))
+        rt_off = arrs[0]
+        # at most one span per range entry of each term, plus one per table-less term
+        cap = int((rt_off[tids + 1] - rt_off[tids]).sum()) + len(tids) + 1
+        out_qix = np.empty(cap, np.int32)
+        out_s = np.empty(cap, np.int64)
+        out_e = np.empty(cap, np.int64)
+        out_w1 = np.empty(cap, np.float32)
+        out_stats = np.zeros(4, np.int64)
+
+        def p(a, ct):
+            return a.ctypes.data_as(ctypes.POINTER(ct))
+
+        i64, i32, f32 = ctypes.c_int64, ctypes.c_int32, ctypes.c_float
+        tids_c = np.ascontiguousarray(tids, np.int64)
+        w1_c = np.ascontiguousarray(w1, np.float32)
+        starts_c = np.ascontiguousarray(starts, np.int64)
+        ends_c = np.ascontiguousarray(ends, np.int64)
+        num_ranges = (d.num_docs + int(pt["range_size"]) - 1) // int(pt["range_size"])
+        n = lib.ctpu_prune_spans(
+            p(q_offsets, i64), len(term_lists),
+            p(tids_c, i64), p(w1_c, f32), p(starts_c, i64), p(ends_c, i64),
+            p(arrs[0], i64), p(arrs[1], i32), p(arrs[2], i64), p(arrs[3], i64),
+            p(arrs[4], f32), p(arrs[5], f32), p(arrs[6], f32), p(arrs[7], f32),
+            p(arrs[8], i32), p(arrs[9], i32), p(arrs[10], i32),
+            float(params["k1"]), float(params["b"]), d.avgdl,
+            num_ranges, min(int(topk), d.num_docs), TILE, self.PRUNE_MIN_TILE_SAVINGS,
+            p(out_qix, i32), p(out_s, i64), p(out_e, i64), p(out_w1, f32), p(out_stats, i64))
+        self.last_prune_stats = {"total_lanes": int(out_stats[0]), "kept_lanes": int(out_stats[1]),
+                                 "total_tiles": int(out_stats[2]), "kept_tiles": int(out_stats[3])}
+        if n < 0:
+            return None
+        return (out_qix[:n].copy(), out_s[:n].copy(), out_e[:n].copy(), out_w1[:n].copy(),
+                np.zeros(n, np.float32))
 
     def _prepare_tiered(self, term_lists, model, max_postings=0, spans=None):
         """Host-side batch construction: tier/unit packing plus (in streaming

@@ -4,8 +4,9 @@ one NVIDIA GPU, with KNRM and with monoBERT-MaxP at BERT-base width (f32, then
 int8), then ColBERT late-interaction serving at BERT-base width (a bf16 corpus,
 then int8 and int4 corpora), then the rank task's sparse searchers over the
 50k-doc golden corpus, then trains KNRM and monoBERT-MaxP through the rerank
-task, then times the sparse engine at bench.py's 200k-doc shape, and holds
-every kernel against its plain PyTorch version.
+task, then times the sparse engine at bench.py's 200k-doc shape, then runs a
+Robust04-shaped experiment through ``rank.searcheval``, and holds every
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # needs one CUDA device; builds the kernels
 
@@ -15,6 +16,10 @@ printed only when every phase passed):
 1. device: the card, its power limit (nvidia-smi), TF32 off for matmul/cuDNN;
 2. build: nvcc builds every kernel of the port from ``capreolus_tpu_torch/csrc``,
    one process per source, all started together;
+2b. native: ``native_status()`` must show the port's three C++ host helpers
+   (``native/analyzer.cpp``, ``trec_reader.cpp``, ``pruner.cpp``) built by
+   g++ and loaded (g++'s version and each library's build seconds printed);
+   no phase may fall back to the numpy and Python paths;
 3. kernel check, with CUDA-event times of each kernel and its plain version:
    K1 (``knrm_pool``) against ``knrm_pool_plain`` at the serving shape, at a
    small ragged shape and at one with D off its split and an all-pad batch
@@ -154,10 +159,13 @@ printed only when every phase passed):
    corpus the modes exact, tiered (``search_stream``, bench.py's bf16 scores
    and packed ordinals; and in f32), pruned adaptive and forced
    (``search_pruned_stream``), ``maxpostings`` 100, streaming with a quarter
-   of the tiles' bytes as budget (exhaustive and pruned), and tiered and
-   forced-pruned at k = 10, each with queries/s (best and median of 3
-   pipelined passes), ms per batch, peak device memory, one profiled batch
-   (busy share, top device ops), the prune and stream statistics; checks:
+   of the tiles' bytes as budget (exhaustive and pruned), and tiered,
+   forced-pruned and adaptive-pruned at k = 10, each with queries/s (best and
+   median of 3 pipelined passes), ms per batch, peak device memory, one
+   profiled batch (busy share, top device ops), the prune and stream
+   statistics and the adaptive verdicts, the numpy span builder's earlier rows beside; the
+   span build alone per batch, native against numpy, at k = 10 and 1000
+   (total lanes and tiles equal, kept tiles within 5% of the total); checks:
    tiered against exact (the same docs, scores within 1e-5), the packed
    ordinals and bf16 scores against f32 tiered, pruned and streamed
    bit-identical to resident tiered, card against CPU on 64 queries (tiered
@@ -165,6 +173,20 @@ printed only when every phase passed):
    the row's top score), no port kernel launched; then exact against tiered
    on 25k-200k-doc prefixes of the uniform corpus, pipelined and one batch
    alone, where tiered becomes faster against the engine's 65,536-doc rule;
+11. a Robust04-shaped experiment (after 10): 75k seeded docs of 200-1200
+   words in Robust04's TREC layout (1000 a file, cached under the gitignored
+   ``build/robust04_shaped``; Robust04 itself has 528,155 docs), Robust04's
+   250 shipped topics planted in 5-30 docs each with graded qrels written to
+   ``benchmark.qrelfile``; index builds timed: native porter over every doc,
+   and on a 5k-doc prefix the native build, the Python path
+   (``CAPREOLUS_NATIVE=0``, its arrays identical to the native build's) and
+   krovetz; ``rank.searcheval`` with ``benchmark.name=robust04.yang19`` (its
+   shipped five folds) for BM25 (the tiered, pruned stream with native spans)
+   and BM25RM3 (fbTerms 10, fbDocs 10) on "cuda" and the CPU: BM25's run
+   files docid for docid with scores within 1e-6, RM3's equal but for
+   near-ties, every metric within 1e-4, ``significance.compare_runs`` of BM25
+   against RM3 (MAP) within 1e-4 on both, search seconds, and the busy share
+   of one profiled BM25 search; no port kernel launched;
 7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
    ``launches_training`` and ``launches_training_predict``, phase 9's
    launches in training steps and in the trainer's predictions, and K1 and
@@ -177,6 +199,7 @@ and read just after it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -1975,10 +1998,10 @@ RANK_SEARCHERS = {  # phase 8's searchers, as the rank task's config names them
 }
 
 
-def rank_search(config, device, results_base):
-    """The port's rank task over the golden benchmark on ``device``:
-    (task, search seconds, cross-validated metrics, {run-file name: run})."""
-    import contextlib
+def rank_search(config, device, results_base, benchmark=None):
+    """The port's rank task over ``benchmark`` (a benchmark config; the golden
+    one by default) on ``device``: (task, search seconds, cross-validated
+    metrics, {run-file name: run})."""
     import io
 
     from capreolus_tpu_torch.core import constants
@@ -1986,7 +2009,7 @@ def rank_search(config, device, results_base):
     from capreolus_tpu_torch.utils.trec import load_trec_run
 
     constants["RESULTS_BASE_PATH"] = results_base
-    task = Task.create("rank", {"benchmark": {"name": "e2e_golden"}, "searcher": config})
+    task = Task.create("rank", {"benchmark": benchmark or {"name": "e2e_golden"}, "searcher": config})
     task.device = device
     t0 = time.perf_counter()
     out = task.search()
@@ -2588,6 +2611,13 @@ SPARSE_CAP = 100  # the maxpostings mode's cap
 TIERED_RTOL = 1e-5  # tiered vs exact scores: a tree sum against a sequential sum (tests/test_compact_topk.py)
 SPARSE_CPU_QUERIES = 64  # queries of each corpus scored on the card and on the CPU
 SPARSE_PASSES = 3  # timed pipelined passes per mode (qps: best and median)
+SPAN_STATS_TOL = 0.05  # native vs numpy spans: kept tiles within this share of the total (tests/test_block_max.py)
+# ms per batch measured by this phase with the numpy span builder, before the native one
+# (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's rows
+NUMPY_SPANS_MS = {"uniform": {"pruned_adaptive": 7.327, "pruned_forced": 9.156, "tiered_k10": 5.303,
+                             "pruned_forced_k10": 6.613},
+                 "clustered": {"pruned_adaptive": 9.424, "pruned_forced": 10.767, "tiered_k10": 8.25,
+                               "pruned_forced_k10": 303.03}}
 CROSSOVER_DOCS = (25_000, 50_000, 100_000, 200_000)  # prefixes of the uniform corpus
 CROSSOVER_REPS = 5
 
@@ -2660,7 +2690,44 @@ def sparse_mode_run(run, passes=SPARSE_PASSES):
     return results, walls
 
 
-def sparse_corpus_phase(label, data, batches, shape, cpu_terms):
+@contextlib.contextmanager
+def native_switch(value):
+    """CAPREOLUS_NATIVE set to ``value`` ("1" or "0") inside the block, restored after."""
+    saved = os.environ.get("CAPREOLUS_NATIVE")
+    os.environ["CAPREOLUS_NATIVE"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["CAPREOLUS_NATIVE"]
+        else:
+            os.environ["CAPREOLUS_NATIVE"] = saved
+
+
+def span_build_times(engine, batches, topk):
+    """The span build alone for each batch, native against numpy (host ms per
+    batch, the median; the numpy path with the library switched off), and each
+    batch's statistics: total lanes and tiles equal, kept tiles within
+    SPAN_STATS_TOL of the total. Returns the row and the faults."""
+    ms, stats = {"native": [], "numpy": []}, {"native": [], "numpy": []}
+    for how, env in (("native", "1"), ("numpy", "0")):
+        with native_switch(env):
+            for b in batches:
+                t0 = time.perf_counter()
+                engine._build_prune_spans(b, "bm25", SPARSE_PARAMS, topk)
+                ms[how].append((time.perf_counter() - t0) * 1e3)
+                stats[how].append(dict(engine.last_prune_stats))
+    faults = [f"batch {i}: native {a} vs numpy {b}" for i, (a, b) in enumerate(zip(stats["native"], stats["numpy"]))
+              if a["total_lanes"] != b["total_lanes"] or a["total_tiles"] != b["total_tiles"]
+              or abs(a["kept_tiles"] - b["kept_tiles"]) > SPAN_STATS_TOL * b["total_tiles"]]
+    row = {f"{how}_ms_per_batch_median": round(float(np.median(v)), 3) for how, v in ms.items()}
+    for how in ms:
+        row[f"{how}_kept_tile_share"] = round(sum(x["kept_tiles"] for x in stats[how])
+                                              / max(1, sum(x["total_tiles"] for x in stats[how])), 4)
+    return row, faults
+
+
+def sparse_corpus_phase(label, data, batches, shape, cpu_terms, corpus=None):
     """Every mode over one corpus on the card: numbers, results and checks."""
     from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
     from capreolus_tpu_torch.searcher.tpu import DISPATCH_WINDOW, _windowed, fetch
@@ -2695,6 +2762,7 @@ def sparse_corpus_phase(label, data, batches, shape, cpu_terms):
         "tiered_k10": lambda: engine.search_stream(batches, window=DISPATCH_WINDOW, **kw10),
         "pruned_forced_k10": lambda: engine.search_pruned_stream(batches, window=DISPATCH_WINDOW, adaptive=False,
                                                                  **kw10),
+        "pruned_adaptive_k10": lambda: engine.search_pruned_stream(batches, window=DISPATCH_WINDOW, **kw10),
     }
     one_batch = {
         "exact": lambda: fetch(engine.search(batches[0], model="bm25", params=SPARSE_PARAMS, topk=topk,
@@ -2722,8 +2790,8 @@ def sparse_corpus_phase(label, data, batches, shape, cpu_terms):
             r["prune_stats"] = dict(e.last_prune_stats or {})
             r["kept_tile_share"] = round(r["prune_stats"].get("kept_tiles", 0)
                                          / max(1, r["prune_stats"].get("total_tiles", 0)), 4)
-        if mode == "pruned_adaptive":
-            key = (topk, SPARSE_PARAMS["k1"], SPARSE_PARAMS["b"])
+        if mode.startswith("pruned_adaptive"):
+            key = (10 if mode.endswith("_k10") else topk, SPARSE_PARAMS["k1"], SPARSE_PARAMS["b"])
             r["tiles_verdict"] = e._prune_tiles_ok.get(key)
             r["stream_verdict"] = e._prune_stream_effective.get(key)
         if mode.startswith("streaming"):
@@ -2738,7 +2806,22 @@ def sparse_corpus_phase(label, data, batches, shape, cpu_terms):
               f"{r['ms_per_batch_median']} ms per batch of {shape['batch']} (min-max {r['ms_per_batch_min_max']}), "
               f"peak {r['peak_gb_over_index']} GB over the index"
               + (f", kept {r['kept_tile_share']:.1%} of tiles {r['prune_stats']}" if "pruned" in mode else "")
-              + (f", uploaded {r['stream_stats']}" if mode.startswith("streaming") else ""))
+              + (f", verdict tiles {r['tiles_verdict']} stream {r['stream_verdict']}"
+                 if mode.startswith("pruned_adaptive") else "")
+              + (f", uploaded {r['stream_stats']}" if mode.startswith("streaming") else "")
+              + (f"; with numpy spans earlier {NUMPY_SPANS_MS[corpus][mode]} ms per batch"
+                 if mode in NUMPY_SPANS_MS.get(corpus, {}) else ""))
+
+    # the span build alone per batch, native against numpy, at k = 10 and k = topk
+    out["span_build"] = {}
+    for k in (10, topk):
+        row, faults = span_build_times(engine, batches, k)
+        check(not faults, f"{label} native and numpy span statistics part at k={k}: {faults[:3]}")
+        out["span_build"][f"k{k}"] = row
+        print(f"{label} span build alone at k={k}, host ms per batch of {shape['batch']} (median of "
+              f"{len(batches)}): native {row['native_ms_per_batch_median']}, numpy {row['numpy_ms_per_batch_median']}; "
+              f"kept tiles native {row['native_kept_tile_share']:.1%}, numpy {row['numpy_kept_tile_share']:.1%} "
+              f"(totals equal, kept within {SPAN_STATS_TOL:.0%} of tiles in every batch)")
 
     # checks: tiered f32 against exact; the bench settings' packed ordinals and
     # bf16 scores against it; pruned and streamed bit-identical to tiered
@@ -2751,7 +2834,8 @@ def sparse_corpus_phase(label, data, batches, shape, cpu_terms):
     widened = torch.from_numpy(tiered_f32[0]).to(torch.bfloat16).float().numpy()
     check(np.array_equal(tiered[0], widened), f"{label} bf16 scores are not the f32 scores rounded")
     for mode, ref in (("pruned_adaptive", "tiered"), ("pruned_forced", "tiered"), ("streaming", "tiered"),
-                      ("streaming_pruned", "tiered"), ("pruned_forced_k10", "tiered_k10")):
+                      ("streaming_pruned", "tiered"), ("pruned_forced_k10", "tiered_k10"),
+                      ("pruned_adaptive_k10", "tiered_k10")):
         got, want = concat_results(results[mode]), concat_results(results[ref])
         check(np.array_equal(got[0].view(np.uint32), want[0].view(np.uint32)) and np.array_equal(got[1], want[1]),
               f"{label} {mode} is not bit-identical to the resident exhaustive tiered path ({ref})")
@@ -2776,7 +2860,7 @@ def sparse_corpus_phase(label, data, batches, shape, cpu_terms):
                                     / cpu_rows[0][cpu_rows[0] > 0], initial=0.0))}
     print(f"{label} checks: tiered vs exact equal doc sets, max rel {out['tiered_vs_exact_max_rel']:.2e} "
           f"(tolerance {TIERED_RTOL}); packed ordinals and bf16 scores round-trip; pruned (adaptive, forced; "
-          f"forced at k=10) and streamed (exhaustive, pruned) bit-identical to tiered; card vs CPU on {len(cpu_terms)} queries "
+          f"both at k=10, native spans) and streamed (exhaustive, pruned) bit-identical to tiered; card vs CPU on {len(cpu_terms)} queries "
           f"{out['card_vs_cpu_tiered']} (tiered), {out[f'card_vs_cpu_maxpostings_{SPARSE_CAP}']} (capped)")
     del engine, stream_engine, cpu, results
     torch.cuda.empty_cache()
@@ -2850,12 +2934,242 @@ def phase_sparse_engine(workdir, shape=SPARSE, cache_dir=None):
         print(f"{label} {name} corpus: {data.num_docs} docs, {len(data.doc_ids)} postings, built in {built:.1f} s; "
               f"{len(queries)} queries of {shape['terms']} terms in {len(batches)} batches, k={shape['topk']}")
         summary[name] = sparse_corpus_phase(f"{label} {name}", data, batches, shape,
-                                            queries[:SPARSE_CPU_QUERIES])
+                                            queries[:SPARSE_CPU_QUERIES], corpus=name)
         summary[name]["build_s"] = round(built, 1)
         if name == "uniform":
             summary["crossover"] = sparse_crossover(label, data, shape)
     launched = {k: c for k, c in launch_counts().items() if c}
     check(not launched, f"{label} the sparse path launched a port kernel: {launched}")
+    print(f"{label} summary {json.dumps(summary, default=str)}")
+    return summary
+
+
+# ---------------------------------------------------------------- native helpers
+def phase_native():
+    """The port's native C++ host helpers: every library must load on the card's
+    machine (no silent fallback to the numpy and Python paths)."""
+    from capreolus_tpu_torch.native import native_status
+
+    label = "[2b native]"
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    t0 = time.perf_counter()
+    status = native_status()
+    secs = time.perf_counter() - t0
+    missing = {name: st["reason"] for name, st in status.items() if not st["loaded"]}
+    check(not missing, f"{label} native libraries did not load: {missing}")
+    print(f"{label} {(gxx.stdout or gxx.stderr).splitlines()[0].strip()}; "
+          + ", ".join(f"{name} loaded (built in {st['build_s']:.2f} s)" if st["build_s"] is not None
+                      else f"{name} loaded (already built)" for name, st in status.items())
+          + f"; {secs:.2f} s in all")
+    return {name: st["build_s"] for name, st in status.items()}
+
+
+# ---------------------------------------------------------------- phase 11: a Robust04-shaped experiment
+ROBUST04_SHAPED = {  # Robust04's topics and folds over a seeded corpus in its TREC layout
+    # cut from Robust04's 528,155 docs to 75,000 (above the engine's 65,536-doc exact rule, so BM25 runs
+    # the tiered, pruned stream) to keep the phase near 120 s: one native build of 100,000 took 64 s
+    "num_docs": 75_000, "docs_per_file": 1000, "min_len": 200, "max_len": 1200, "bg_vocab": 20_000,
+    "rel_min": 5, "rel_max": 30, "seed": 4, "python_prefix": 5_000,
+}
+ROBUST04_PUBLISHED_DOCS = 528_155  # TREC disks 4 and 5 minus the Congressional Record
+# BM25 at the rank task's defaults; BM25RM3 at Anserini's RM3 defaults (one grid point)
+ROBUST04_SEARCHERS = {"BM25": {"name": "BM25"}, "BM25RM3": {"name": "BM25RM3", "fbTerms": 10, "fbDocs": 10}}
+SIGNIFICANCE_ITERS = 20_000  # randomization-test permutations of BM25 against RM3
+
+
+def robust04_topics():
+    """Robust04's 250 title queries as the port ships them, {qid: title}."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.utils.trec import load_trec_topics
+
+    return load_trec_topics(constants["PACKAGE_PATH"] / "data" / "topics.robust04.301-450.601-700.txt")["title"]
+
+
+def robust04_shaped_corpus(directory, num_docs, seed, docs_per_file=1000, min_len=200, max_len=1200,
+                           bg_vocab=20_000, rel_min=5, rel_max=30):
+    """Seeded TREC files in Robust04's layout (``<DOC><DOCNO>..</DOCNO><TEXT>..</TEXT></DOC>``,
+    ``docs_per_file`` documents a file) by phase 4's recipe: Zipfian background
+    words of ``bg_vocab`` synthetic words, among them every topic title word at
+    a random rank from 100 to 3000 (so query terms occur in non-relevant docs
+    too), docs of
+    ``min_len``-``max_len`` words, and each of Robust04's 250 topics planted in
+    ``rel_min``-``rel_max`` docs
+    (the first third grade 2: every title word twice; the rest grade 1: every
+    title word once) and half as many distractors (one title word, judged 0).
+    Writes ``directory/docs/*.trec`` and ``directory/qrels.txt``; a directory
+    whose qrels file exists is reused. Returns (docs dir, qrels file)."""
+    docs_dir, qrel_fn = os.path.join(directory, "docs"), os.path.join(directory, "qrels.txt")
+    if os.path.exists(qrel_fn):
+        return docs_dir, qrel_fn
+    import re
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    vocab, seen = [], set()
+    while len(vocab) < bg_vocab:
+        w = _word(rng)
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+    titles = {qid: re.findall(r"[a-z0-9]+", title.lower()) for qid, title in sorted(robust04_topics().items())}
+    title_words = sorted({w for words in titles.values() for w in words})
+    for w, rank in zip(title_words, rng.choice(np.arange(100, 3000), size=len(title_words), replace=False)):
+        vocab[int(rank)] = w
+    vocab_arr = np.asarray(vocab)
+    probs = 1.0 / np.arange(1, bg_vocab + 1, dtype=np.float64) ** 1.1
+    probs /= probs.sum()
+    lengths = rng.integers(min_len, max_len + 1, size=num_docs)
+    bounds = np.concatenate([[0], np.cumsum(lengths)])
+    draws = rng.choice(bg_vocab, size=int(bounds[-1]), p=probs).astype(np.int32)
+    planted, qrels = {}, {}
+    for qid, words in titles.items():
+        n = int(rng.integers(rel_min, rel_max + 1))
+        chosen = rng.choice(num_docs, size=n + n // 2, replace=False)
+        qrels[qid] = {}
+        for j, d in enumerate(chosen.tolist()):
+            grade = 2 if j < n // 3 else (1 if j < n else 0)
+            planted.setdefault(d, []).extend(words * 2 if grade == 2 else
+                                             words if grade == 1 else [words[int(rng.integers(len(words)))]])
+            qrels[qid][f"RB{d:06d}"] = grade
+    os.makedirs(docs_dir, exist_ok=True)
+    for f0 in range(0, num_docs, docs_per_file):
+        parts = []
+        for d in range(f0, min(num_docs, f0 + docs_per_file)):
+            words = vocab_arr[draws[bounds[d]:bounds[d + 1]]].tolist()
+            for w in planted.get(d, ()):
+                words.insert(int(rng.integers(0, len(words) + 1)), w)
+            parts.append(f"<DOC>\n<DOCNO> RB{d:06d} </DOCNO>\n<TEXT>\n{' '.join(words)}\n</TEXT>\n</DOC>\n")
+        with open(os.path.join(docs_dir, f"rb{f0 // docs_per_file:04d}.trec"), "wt", encoding="ascii") as fh:
+            fh.write("".join(parts))
+    tmp = qrel_fn + ".tmp"
+    with open(tmp, "wt", encoding="utf-8") as fh:
+        for qid in sorted(qrels):
+            for docid, rel in sorted(qrels[qid].items()):
+                fh.write(f"{qid} 0 {docid} {rel}\n")
+    os.replace(tmp, qrel_fn)  # last: the qrels file marks a finished corpus
+    return docs_dir, qrel_fn
+
+
+def index_arrays_equal(a, b):
+    """Whether two built indexes hold the same vocab, docids, postings, lengths and prune tables."""
+    da, db = a.data, b.data
+    same = da.vocab == db.vocab and da.docid_strings == db.docid_strings
+    for name in ("term_offsets", "doc_ids", "tfs", "doclens", "norm_doclens"):
+        same = same and np.array_equal(np.asarray(getattr(da, name)), np.asarray(getattr(db, name)))
+    return same and sorted(da.prune_tables) == sorted(db.prune_tables) and all(
+        np.array_equal(da.prune_tables[k], db.prune_tables[k]) for k in da.prune_tables)
+
+
+def phase_robust04(workdir, shape=ROBUST04_SHAPED, cache_dir=None):
+    """A Robust04-shaped experiment through ``rank.searcheval``: the corpus read
+    by the native TREC reader, index builds (native porter on every doc; the
+    Python path and krovetz on a prefix), BM25 and BM25RM3 on
+    ``robust04.yang19``'s five folds on the card and the CPU, their run files,
+    metrics and significance test against each other."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.evaluation import DEFAULT_METRICS
+    from capreolus_tpu_torch.evaluation.significance import compare_runs
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.native import get_pruner_lib, native_status
+    from capreolus_tpu_torch.searcher.scoring import EXACT_MAX_DOCS
+    from capreolus_tpu_torch.utils.trec import load_qrels
+
+    import capreolus_tpu_torch
+
+    capreolus_tpu_torch.load_all_modules()
+    label = "[11 robust04-shaped]"
+    check(all(st["loaded"] for st in native_status().values()), f"{label} a native library is missing")
+    cache_dir = cache_dir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "robust04_shaped")
+    n, seed, per_file = shape["num_docs"], shape["seed"], shape["docs_per_file"]
+    t0 = time.perf_counter()
+    docs_dir, qrel_fn = robust04_shaped_corpus(
+        os.path.join(cache_dir, f"corpus_{n}_{seed}"), n, seed, per_file, shape["min_len"], shape["max_len"],
+        shape["bg_vocab"], shape["rel_min"], shape["rel_max"])
+    made = time.perf_counter() - t0
+    qrels = load_qrels(qrel_fn)
+    files = sorted(os.listdir(docs_dir))
+    print(f"{label} corpus: {n} docs (Robust04 has {ROBUST04_PUBLISHED_DOCS}) in {len(files)} TREC files of "
+          f"{per_file}, {shape['min_len']}-{shape['max_len']} words, {sum(len(q) for q in qrels.values())} judgements "
+          f"over {len(qrels)} topics; ready in {made:.1f} s")
+
+    # index builds: native porter on all docs; on a prefix of the files the native build, the
+    # Python path and krovetz (each prefix build over a directory of its own, so under an index path of its own)
+    prefixes = {}
+    for how in ("native", "python"):
+        prefixes[how] = os.path.join(workdir, f"robust04_prefix_{how}")
+        os.makedirs(prefixes[how], exist_ok=True)
+        for fn in files[:max(1, shape["python_prefix"] // per_file)]:
+            os.symlink(os.path.join(docs_dir, fn), os.path.join(prefixes[how], fn))
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_robust04")
+    builds, indexes = {}, {}
+    for name, coll_path, cfg, env in (("native_porter_all", docs_dir, {}, "1"),
+                                      ("native_porter_prefix", prefixes["native"], {}, "1"),
+                                      ("python_porter_prefix", prefixes["python"], {}, "0"),
+                                      ("krovetz_prefix", prefixes["native"], {"stemmer": "krovetz"}, "1")):
+        index = Index.create("tpu", {**cfg, "collection": {"name": "robust04", "path": coll_path}})
+        with native_switch(env):
+            t0 = time.perf_counter()
+            index.create_index()
+            builds[name] = round(time.perf_counter() - t0, 2)
+        indexes[name] = index
+    check(index_arrays_equal(indexes["native_porter_prefix"], indexes["python_porter_prefix"]),
+          f"{label} the Python path's index differs from the native build of the same prefix")
+    prefix_docs = len(indexes["python_porter_prefix"].data.docid_strings)
+    data = indexes["native_porter_all"].data
+    print(f"{label} index builds (s): native porter on {data.num_docs} docs {builds['native_porter_all']} "
+          f"({len(data.doc_ids)} postings, {data.num_terms} terms); on a {prefix_docs}-doc prefix native "
+          f"{builds['native_porter_prefix']}, Python (CAPREOLUS_NATIVE=0) {builds['python_porter_prefix']} "
+          f"(arrays identical to native), krovetz {builds['krovetz_prefix']}; {constants['MAX_THREADS']} threads")
+
+    # the rank task on the card and the CPU, over the full index built above
+    benchmark = {"name": "robust04.yang19", "qrelfile": qrel_fn, "collection": {"path": docs_dir}}
+    reset_launch_counts()
+    secs, metrics, runs, tasks = {}, {}, {}, {}
+    for device in ("cuda", "cpu"):
+        for name, config in ROBUST04_SEARCHERS.items():
+            tasks[name, device], secs[name, device], metrics[name, device], runs[name, device] = rank_search(
+                config, device, os.path.join(workdir, f"results_robust04_{device}"), benchmark)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    check(not launched, f"{label} the sparse path launched a port kernel: {launched}")
+    engine = tasks["BM25", "cuda"].searcher.get_engine()
+    check(get_pruner_lib() is not None and engine.exact_path() == (n <= EXACT_MAX_DOCS),
+          f"{label} BM25 took the {'exact' if engine.exact_path() else 'tiered'} path over {n} docs "
+          f"(the rule: exact up to {EXACT_MAX_DOCS}), or without the native span builder")
+    key = (1000, 0.9, 0.4)
+    verdict = {"tiles": engine._prune_tiles_ok.get(key), "stream": engine._prune_stream_effective.get(key),
+               "last_prune_stats": engine.last_prune_stats}
+    faults = run_faults(runs["BM25", "cuda"], runs["BM25", "cpu"], SPARSE_RTOL, atol=1e-6, near_ties=False)
+    check(not faults, f"{label} BM25 card vs CPU: {faults[:5]}")
+    faults = run_faults(runs["BM25RM3", "cuda"], runs["BM25RM3", "cpu"], FEEDBACK_RTOL, atol=1e-6)
+    check(not faults, f"{label} BM25RM3 card vs CPU beyond near-ties: {faults[:5]}")
+    gaps = {}
+    for name in ROBUST04_SEARCHERS:
+        gaps[name] = max(abs(metrics[name, "cuda"][m] - metrics[name, "cpu"][m]) for m in DEFAULT_METRICS)
+        check(gaps[name] <= METRIC_TOL, f"{label} {name}: metrics card vs CPU differ by {gaps[name]:.2e}")
+        print(f"{label} {name}: search {secs[name, 'cuda']:.2f} s on the card, {secs[name, 'cpu']:.2f} s on the CPU; "
+              f"cross-validated map {metrics[name, 'cuda']['map']:.4f} ndcg_cut_20 "
+              f"{metrics[name, 'cuda']['ndcg_cut_20']:.4f} P_20 {metrics[name, 'cuda']['P_20']:.4f}; max metric gap "
+              f"card vs CPU {gaps[name]:.2e} (tolerance {METRIC_TOL})")
+    print(f"{label} BM25 pruning verdict at k=1000: {verdict}")
+
+    significance = {}
+    for device in ("cuda", "cpu"):
+        (bm25,), (rm3,) = runs["BM25", device].values(), runs["BM25RM3", device].values()
+        significance[device] = compare_runs(bm25, rm3, qrels, metrics=["map"], iters=SIGNIFICANCE_ITERS)["map"]
+    sig_gap = max(abs(significance["cuda"][k] - significance["cpu"][k]) for k in significance["cuda"])
+    check(sig_gap <= METRIC_TOL, f"{label} significance card vs CPU: {significance}")
+    print(f"{label} compare_runs(BM25, BM25RM3, map) on the card {json.dumps(significance['cuda'])}; "
+          f"on the CPU {'identical' if significance['cuda'] == significance['cpu'] else significance['cpu']}")
+
+    searcher = tasks["BM25", "cuda"].searcher
+    topic_fn = tasks["BM25", "cuda"].benchmark.get_topics_file()
+    profiled = profile_call(lambda: searcher.query_from_file(topic_fn, os.path.join(workdir, "robust04_profiled")),
+                            f"{label} BM25", top=6, what=f"search of {len(robust04_topics())} topics")
+    summary = {"shape": shape, "corpus_s": round(made, 1), "builds_s": builds, "prefix_docs": prefix_docs,
+               "postings": int(len(data.doc_ids)), "terms": int(data.num_terms),
+               "search_s": {f"{k}_{d}": round(v, 3) for (k, d), v in secs.items()},
+               "map": {k: metrics[k, "cuda"]["map"] for k in ROBUST04_SEARCHERS},
+               "metric_gap_card_cpu": gaps, "significance": significance["cuda"], "bm25_pruning": verdict,
+               "profiled_bm25": {k: profiled[k] for k in ("wall_ms", "busy_ms", "top_ops")}}
     print(f"{label} summary {json.dumps(summary, default=str)}")
     return summary
 
@@ -2867,6 +3181,7 @@ def main():
     workdir = tempfile.mkdtemp(prefix="capreolus_tpu_torch_smoke_")
     os.environ["CAPREOLUS_CACHE"] = os.path.join(workdir, "cache")
     os.environ["CAPREOLUS_RESULTS"] = os.path.join(workdir, "results")
+    os.environ["CAPREOLUS_OFFLINE"] = "1"  # every file a module reads is local: a download must fail, not be tried
     seconds = {}
 
     def timed(phase, *args, **kwargs):
@@ -2877,6 +3192,7 @@ def main():
 
     try:
         timed(phase_build)
+        timed(phase_native)
         k1 = timed(phase_k1_check, peaks)
         k2 = timed(phase_k2_check, peaks)
         k3 = timed(phase_k3_check, peaks)
@@ -2894,6 +3210,7 @@ def main():
         training = timed(phase_training, workdir, corpus_dir, topics, qrels, training_launches, training_held)
         print("[9 training] summary " + json.dumps({"golden": golden, "full_width": training}, default=str))
         timed(phase_sparse_engine, workdir)
+        timed(phase_robust04, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

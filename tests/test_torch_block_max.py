@@ -2,9 +2,11 @@
 CPU (the counterpart of ``tests/test_block_max.py``).
 
 Exactness contract: pruned results are BIT-IDENTICAL to exhaustive tiered
-scoring (ordinals, scores and Lucene's ascending-ordinal tie-break). The host
-side equals JAX's exactly: prune tables, thresholds (``compute_theta``), the
-numpy span builder's spans and statistics, and the docid reorderings. The
+scoring (ordinals, scores and Lucene's ascending-ordinal tie-break), with the
+native span builder and with the numpy one. The host side equals JAX's
+exactly: prune tables, thresholds (``compute_theta``), each span builder's
+spans and statistics against its JAX counterpart, and the docid reorderings;
+the native and numpy builders agree in their statistics within 5% of tiles. The
 verdict store is driven under controlled clocks: its probes, persistence, tie
 retirement and healing, a verdict settled on one device not read for
 another, and flushes from two engines (and many threads) keeping every entry.
@@ -33,6 +35,7 @@ from capreolus_tpu_torch.index import reorder as port_reorder  # noqa: E402
 from capreolus_tpu_torch.index import tpu as port_index_tpu  # noqa: E402
 from capreolus_tpu_torch.searcher import scoring  # noqa: E402
 from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine  # noqa: E402
+from test_torch_native import jax_native  # noqa: E402,F401 (a fixture)
 from test_torch_tiered import corpus  # noqa: E402
 
 PARAMS = {"k1": 0.9, "b": 0.4}
@@ -102,7 +105,7 @@ def test_theta_equals_jax_and_is_a_lower_bound(random_corpus, topk):
 
 
 @pytest.mark.parametrize("topk", [10, 100])
-def test_spans_equal_jax_numpy_spans(clustered, topk):
+def test_spans_equal_jax_numpy_spans(clustered, topk, monkeypatch):
     jdata, pdata, queries = clustered
     engine, ref_engine = engine_of(pdata), JaxEngine(JaxDeviceIndex(jdata))
     ours = engine._spans_pruned(queries, "bm25", PARAMS, engine.compute_theta(queries, PARAMS, topk))
@@ -113,8 +116,10 @@ def test_spans_equal_jax_numpy_spans(clustered, topk):
         for a, b in zip(ours, ref):
             np.testing.assert_array_equal(a, b)
             assert a.dtype == b.dtype
-    # the engine's span builder is the numpy path
+    # without the native library, the engine's span builder is the numpy path
+    monkeypatch.setenv("CAPREOLUS_NATIVE", "0")
     built = engine._build_prune_spans(queries, "bm25", PARAMS, topk)
+    assert (built is None) == (ours is None)
     for a, b in zip(built or (), ours or ()):
         np.testing.assert_array_equal(a, b)
 
@@ -202,6 +207,59 @@ def test_table_less_terms_stay_exact():
     for a, b in zip(spans, ref):
         np.testing.assert_array_equal(a, b)
     assert_bits_equal(engine.search(queries, params=PARAMS, topk=10, prune_spans=spans), exhaustive(engine, queries))
+
+
+def span_case(kind):
+    """(JAX data, port data, queries): the clustered corpus, or its draw with
+    ``heavy_df`` 60 (test_table_less_terms_stay_exact's), where some query terms
+    have no block-max tables."""
+    jdata, pdata, rng = corpus(seed=7, **CLUSTERED, **({"heavy_df": 60} if kind == "table_less" else {}))
+    queries = batches_of(jdata, rng, 1, per_batch=16)[0]
+    if kind == "table_less":
+        assert any(pdata.prune_tables["rt_offsets"][t + 1] == pdata.prune_tables["rt_offsets"][t]
+                   for q in queries for t, _ in q)
+    return jdata, pdata, queries
+
+
+@pytest.mark.parametrize("topk", [10, 100])
+@pytest.mark.parametrize("kind", ["clustered", "table_less"])
+def test_native_spans_equal_jax_native_spans(jax_native, monkeypatch, kind, topk):
+    """The native span builder (native/pruner.cpp) gives the JAX package's
+    native spans array for array, with its statistics, and the pruned pass over
+    them is bit-identical to exhaustive scoring."""
+    monkeypatch.delenv("CAPREOLUS_NATIVE", raising=False)
+    jdata, pdata, queries = span_case(kind)
+    engine, ref_engine = engine_of(pdata), JaxEngine(JaxDeviceIndex(jdata))
+    ours = engine._build_prune_spans(queries, "bm25", PARAMS, topk)
+    ref = ref_engine._build_prune_spans(queries, "bm25", PARAMS, topk)
+    assert engine.last_prune_stats == ref_engine.last_prune_stats
+    assert (ours is None) == (ref is None) and (ours is not None or topk > 10)
+    for a, b in zip(ours or (), ref or ()):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    if ours is not None:
+        assert_bits_equal(engine.search(queries, params=PARAMS, topk=topk, prune_spans=ours),
+                          exhaustive(engine, queries, topk))
+
+
+@pytest.mark.parametrize("kind", ["clustered", "table_less"])
+def test_native_and_numpy_span_stats_agree(monkeypatch, kind):
+    """The two builders sample other threshold candidates, so their spans
+    differ: total lanes and tiles are equal, kept tiles within 5% of the total
+    (the rule of tests/test_block_max.py), and both pruned passes are exact."""
+    jdata, pdata, queries = span_case(kind)
+    engine = engine_of(pdata)
+    ref = exhaustive(engine, queries)
+    stats = {}
+    for native in ("1", "0"):
+        monkeypatch.setenv("CAPREOLUS_NATIVE", native)
+        spans = engine._build_prune_spans(queries, "bm25", PARAMS, 10)
+        stats[native] = dict(engine.last_prune_stats)
+        assert spans is not None, (native, stats[native])
+        assert_bits_equal(engine.search(queries, params=PARAMS, topk=10, prune_spans=spans), ref)
+    nat, num = stats["1"], stats["0"]
+    assert nat["total_lanes"] == num["total_lanes"] and nat["total_tiles"] == num["total_tiles"]
+    assert abs(nat["kept_tiles"] - num["kept_tiles"]) <= 0.05 * num["total_tiles"], stats
 
 
 # ---------------------------------------------------------------- pipelined streams

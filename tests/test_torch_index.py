@@ -2,8 +2,9 @@
 
 The port's ``TpuIndex`` must produce EQUAL artifacts: vocab, docid order,
 doclens, SmallFloat norm doclens, term offsets, the canonical postings
-(doc ids, tfs) and the block-max prune tables, for both stemmers, with
-stopwords indexed or removed, and under both docid reorderings.
+(doc ids, tfs) and the block-max prune tables, for every stemmer, with
+stopwords indexed or removed, under both docid reorderings, and with the
+analyzer on one thread or many.
 """
 
 import numpy as np
@@ -111,6 +112,28 @@ def test_index_accessors_equal(tmpdir_as_cache, torch_cache):
             assert torch_index.get_idf(term) == jax_index.get_idf(term)
 
 
+@pytest.mark.parametrize("native", ["1", "0"])
+def test_threaded_build_equals_serial(tmpdir_as_cache, torch_cache, monkeypatch, native):
+    """The build analyzes chunks of documents on MAX_THREADS threads; with the
+    native analyzer and with the Python chain, and with chunks that split the
+    files, every array equals a one-thread build's and the JAX index's."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.index import tpu as port_index_tpu
+
+    monkeypatch.setenv("CAPREOLUS_NATIVE", native)
+    monkeypatch.setattr(port_index_tpu, "ANALYZE_CHUNK_DOCS", 37)
+    coll = _collection_cfg("synthetic", tmpdir_as_cache)
+    built = {}
+    for threads in (1, 8):
+        monkeypatch.setitem(constants, "MAX_THREADS", threads)
+        monkeypatch.setitem(constants, "CACHE_BASE_PATH", torch_cache / f"threads{threads}")
+        built[threads] = TorchIndex.create("tpu", {"collection": coll})
+        built[threads].create_index()
+    _assert_same_index(built[1], built[8])
+    _assert_same_index(JaxIndex.create("tpu", {"collection": coll}), built[8])
+    assert built[8].get_doc("T01999") == built[1].get_doc("T01999")
+
+
 def test_index_mmap_gives_same_arrays(tmpdir_as_cache, torch_cache):
     coll = _collection_cfg("synthetic", tmpdir_as_cache)
     mapped = TorchIndex.create("tpu", {"mmap": True, "collection": coll})
@@ -122,15 +145,21 @@ def test_index_mmap_gives_same_arrays(tmpdir_as_cache, torch_cache):
 
 @pytest.mark.parametrize("override", [{"docreorder": "bp"}, {"docreorder": "terms"}, {"stemmer": "krovetz"}])
 def test_index_unported_options_raise(tmpdir_as_cache, torch_cache, override):
-    """``stemmer=krovetz`` is still refused. The two docid reorderings are
-    ported: their internal ordinals, docid order, postings, prune tables and
-    stored documents equal the JAX index's, and ``docreorder=none`` holds the
-    same documents under other ordinals."""
-    if "stemmer" in override:
-        with pytest.raises(ConfigError):
-            TorchIndex.create("tpu", {**override, "collection": {"name": "dummy"}})
-        return
+    """Every option once refused is ported. ``stemmer=krovetz`` gives the JAX
+    index's arrays (an unknown stemmer still raises). The two docid
+    reorderings: their internal ordinals, docid order, postings, prune tables
+    and stored documents equal the JAX index's, and ``docreorder=none`` holds
+    the same documents under other ordinals."""
     coll = _collection_cfg("synthetic", tmpdir_as_cache)
+    if "stemmer" in override:
+        jax_index = JaxIndex.create("tpu", {**override, "collection": coll})
+        torch_index = TorchIndex.create("tpu", {**override, "collection": coll})
+        _assert_same_index(jax_index, torch_index)
+        assert torch_index.analyze("running cities hopped") == ["run", "city", "hop"]
+        assert torch_index.data.vocab != TorchIndex.create("tpu", {"collection": coll}).data.vocab
+        with pytest.raises(ConfigError):
+            TorchIndex.create("tpu", {"stemmer": "lovins", "collection": coll})
+        return
     jax_index = JaxIndex.create("tpu", {**override, "collection": coll})
     torch_index = TorchIndex.create("tpu", {**override, "collection": coll})
     _assert_same_index(jax_index, torch_index)

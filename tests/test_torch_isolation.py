@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
-JAX package (nor HuggingFace ``transformers``: it downloads nothing), and its
-module registry is its own.
+JAX package (nor HuggingFace ``transformers``: it downloads nothing), its
+module registry is its own, and so are its native libraries and data files.
 
 ``capreolus_tpu_torch`` starts with ``capreolus_tpu``, so a forbidden module is
 ``capreolus_tpu`` itself or a name under ``capreolus_tpu.``, never a prefix match.
@@ -56,7 +56,14 @@ def test_importing_every_port_module_loads_no_jax():
             "capreolus_tpu_torch.utils.caching", "capreolus_tpu_torch.ops.int8_matmul",
             "capreolus_tpu_torch.ops.quantization", "capreolus_tpu_torch.trainer.torch_trainer",
             "capreolus_tpu_torch.sampler", "capreolus_tpu_torch.task.rerank",
-            "capreolus_tpu_torch.utils.flax_msgpack", "capreolus_tpu_torch.utils.tensorboard"} <= set(out["imported"])
+            "capreolus_tpu_torch.utils.flax_msgpack", "capreolus_tpu_torch.utils.tensorboard",
+            "capreolus_tpu_torch.native", "capreolus_tpu_torch.analysis.kstem", "capreolus_tpu_torch.analysis.chunker",
+            "capreolus_tpu_torch.benchmark.downloadable", "capreolus_tpu_torch.benchmark.standard",
+            "capreolus_tpu_torch.benchmark.robust04", "capreolus_tpu_torch.benchmark.nf",
+            "capreolus_tpu_torch.benchmark.msmarco", "capreolus_tpu_torch.collection.standard",
+            "capreolus_tpu_torch.evaluation.msmarco", "capreolus_tpu_torch.evaluation.significance",
+            "capreolus_tpu_torch.searcher.special", "capreolus_tpu_torch.utils.common",
+            "capreolus_tpu_torch.utils.udel", "capreolus_tpu_torch.task.tutorial"} <= set(out["imported"])
     loaded = set(out["after"]) - set(out["before"])
     assert not sorted(m for m in loaded if is_forbidden(m))
     # absent altogether, unless the interpreter's own start-up had loaded it
@@ -79,6 +86,23 @@ def test_port_sources_import_no_jax():
     offenders = {str(f.relative_to(ROOT)): bad for f in files
                  if (bad := sorted(n for n in _imported_names(f) if is_forbidden(n)))}
     assert offenders == {}
+
+
+def test_native_libraries_and_data_are_the_ports_own():
+    """The port builds its C++ sources from its own ``native/`` into its own
+    build directory, and reads every data file from its own ``data/``."""
+    import capreolus_tpu_torch.native as native
+    from capreolus_tpu_torch.benchmark.downloadable import shipped_data
+
+    port_root = ROOT / "capreolus_tpu_torch"
+    assert native.NATIVE_DIR == port_root / "native"
+    assert native.BUILD_DIR == ROOT / "build" / "capreolus_tpu_torch" / "native"
+    for name in native.LIBRARIES:
+        assert (port_root / "native" / f"{name}.cpp").exists()
+        assert native.library_path(name).parent == native.BUILD_DIR
+    for fn in ("topics.robust04.301-450.601-700.txt", "rob04_yang19_folds.json", "udel_stopwords.txt",
+               "cds_bm25.run", "qrels.antique.txt"):
+        assert shipped_data(fn) == port_root / "data" / fn
 
 
 def test_registries_are_separate():

@@ -121,6 +121,32 @@ def test_tiered_matches_jax_and_the_exact_path(engines, model):
     assert (ours[1][ours[0] <= 0] == engines["port"].dindex.num_docs).all()
 
 
+@pytest.mark.parametrize("model", sorted(MODEL_PARAMS))
+def test_explain_matches_jax(engines, model):
+    """``ScoringEngine.explain`` against the JAX engine's, for each model: the
+    same terms, weights, tfs and doc lengths; each contribution and the total
+    within RTOL of JAX's (the formula in f32 on either side), and the total
+    equal to the engine's own score for the document within RTOL."""
+    port, jax_engine, params = engines["port"], engines["jax"], MODEL_PARAMS[model]
+    checked = 0
+    for terms in engines["queries"][:-1:3]:
+        scores, ords = port.search([terms], model=model, params=params, topk=5, exact_topk=True)
+        other = int(np.setdiff1d(np.arange(port.dindex.num_docs), ords[0])[0])  # a doc outside the top 5
+        for doc, score in list(zip(ords[0].tolist(), scores[0].tolist())) + [(other, 0.0)]:
+            ours = port.explain(terms, doc, model=model, params=params)
+            ref = jax_engine.explain(terms, doc, model=model, params=params)
+            assert ours["model"] == ref["model"] == model
+            assert [{k: v for k, v in t.items() if k != "contribution"} for t in ours["terms"]] == \
+                [{k: v for k, v in t.items() if k != "contribution"} for t in ref["terms"]]
+            np.testing.assert_allclose([t["contribution"] for t in ours["terms"]],
+                                       [t["contribution"] for t in ref["terms"]], rtol=RTOL, atol=1e-6)
+            assert ours["total"] == pytest.approx(ref["total"], rel=RTOL, abs=1e-6)
+            if score > 0:
+                assert ours["total"] == pytest.approx(score, rel=RTOL, abs=1e-6)
+            checked += 1
+    assert checked >= 20
+
+
 def test_tiered_grid_matches_jax(engines):
     q = engines["queries"]
     grid = {"k1": [0.9, 1.2], "b": [0.4, 0.75]}
