@@ -5,7 +5,8 @@ numpy arrays, is the port's exchange format: ``save_params`` writes it as an
 ``.npz`` and ``load_params`` reads it back, or a ``.params`` file in flax's
 own msgpack bytes (a ``dev.best`` of either trainer). ``knrm_state_dict``
 maps it onto ``KNRMModel``'s ``state_dict`` and ``bert_state_dict`` onto
-``_BertScorer``'s (int8 stats included) or ``ColBERTModel``'s.
+any BERT reranker's model (``_BertScorer``, PARADE, CEDR-KNRM, Birch, MoE
+layers and int8 stats included) or ``ColBERTModel``'s.
 ``flax_flat_params`` is the inverse for any port model whose modules carry the
 flax modules' names: every parameter, in the JAX tree's order, as the JAX
 parameter of the same path (an ``nn.Linear`` ``weight`` [out, in] as a Dense
@@ -174,17 +175,23 @@ def knrm_state_dict(flat: dict, embedding: np.ndarray = None) -> dict:
 def bert_state_dict(flat: dict) -> dict:
     """The state_dict of a BERT-based model from its flat JAX variables: a
     ``_BertScorer``'s (``params/bert/layer_0/attention/query/kernel``, ...,
-    ``params/classifier/bias``) or a ``ColBERTModel``'s (``params/bert/...``,
-    ``params/linear/kernel``). The port's modules carry the flax modules'
-    names, so each path maps by name: a Dense ``kernel`` [in, out] becomes an
-    ``nn.Linear`` ``weight`` [out, in], a LayerNorm ``scale`` its ``weight``.
-    The int8 model's ``quant_stats`` collection maps onto its buffers the same
-    way: ``quant_stats/bert/layer_i/gelu_amax`` -> ``bert.layer_i.gelu_amax``."""
+    ``params/classifier/bias``), a ``ColBERTModel``'s (``params/bert/...``,
+    ``params/linear/kernel``), PARADE's (``params/agg_layer_0/...``,
+    ``params/passage_position_embeddings``, ``params/agg_cls``), CEDR-KNRM's
+    (``params/mus``, ``params/sigmas``, ``params/combine_hidden/kernel``, ...)
+    or Birch's (``params/relevance/kernel``, ``params/topk_weights``, ...),
+    MoE layers included (``params/bert/layer_i/moe/gate/kernel``,
+    ``.../moe/experts_wi``). The port's modules carry the flax modules' names,
+    so each path maps by name: a Dense ``kernel`` [in, out] becomes an
+    ``nn.Linear`` ``weight`` [out, in], a LayerNorm ``scale`` its ``weight``,
+    and any other leaf keeps its name and layout. The int8 model's
+    ``quant_stats`` collection maps onto its buffers the same way:
+    ``quant_stats/bert/layer_i/gelu_amax`` -> ``bert.layer_i.gelu_amax``."""
     state = {}
     for key, value in flat.items():
         root, *path, leaf = key.split("/")
-        if root not in ("params", "quant_stats") or not path:
-            raise KeyError(f"not a flattened _BertScorer variable: {key!r}")
+        if root not in ("params", "quant_stats") or (root == "quant_stats" and not path):
+            raise KeyError(f"not a flattened BERT-model variable: {key!r}")
         value = np.asarray(value, dtype=np.float32)
         if root == "params" and leaf == "kernel":
             leaf, value = "weight", value.T

@@ -1,20 +1,26 @@
 """BertPassage extractor: passage decomposition for BERT cross-encoders (the
 JAX package's ``extractor/bertpassage.py``).
 
-Sliding-window passages (``passagelen`` / ``stride``), ``numpassages`` per
-doc, ``[CLS] query [SEP] passage [SEP]`` inputs with mask and segment ids.
-Training samples one random valid passage per doc (a draw of the extractor's
-own seeded ``rng``, as in JAX), while inference keeps all passages (shape
-[numpassages, maxseqlen]); a list of negatives (``sampler.name=LCE``) stacks
-them on a leading axis. Sentence passages (``sentences=True``, punkt) and the
-pooled and Birch variants come with their rerankers.
+Sliding-window passages (``passagelen`` / ``stride``) or sentence passages
+(``sentences=True``: punkt sentences, each cut into whole chunks of
+``passagelen`` tokens), ``numpassages`` per doc, ``[CLS] query [SEP] passage
+[SEP]`` inputs with mask and segment ids. Training samples one random valid
+passage per doc (a draw of the extractor's own seeded ``rng``, as in JAX),
+while inference keeps all passages (shape [numpassages, maxseqlen]); a list of
+negatives (``sampler.name=LCE``) stacks them on a leading axis.
+``pooledbertpassage`` (PARADE, CEDR-KNRM) and ``birchbertpassage`` (Birch,
+with a bert-large tokenizer by default) keep every passage in training too.
+
+The JAX extractor creates a punkt tokenizer for every document it splits into
+sentences; this one creates it once, at its first sentence split. The
+tokenizer holds no state between calls, so the passages are the same.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
+from capreolus_tpu_torch.core import ConfigOption, Dependency
 from capreolus_tpu_torch.extractor import Extractor
 from capreolus_tpu_torch.utils.common import padlist
 from capreolus_tpu_torch.utils.exceptions import MissingDocError
@@ -44,16 +50,18 @@ class BertPassage(Extractor):
     ]
     config_keys_not_in_path = ["usecache"]
 
+    #: at training time, emit a single randomly-chosen passage (bertpassage) or
+    #: all passages together (the pooled and Birch extractors)
+    single_training_passage = True
+
     def build(self):
-        if self.config["sentences"]:
-            raise ConfigError("bertpassage: sentences=True (punkt sentence passages) is not ported yet; "
-                              "see ROADMAP.md, 'punkt and sentence passages'")
         tok = self.tokenizer
         self.pad_tok = tok.pad_token
         self.cls_tok = tok.cls_token
         self.sep_tok = tok.sep_token
         self.qid2toks = {}
         self._doc_passage_cache = {}
+        self._punkt = None
 
     # ------------------------------------------------------------------ state
     def get_state(self):
@@ -82,7 +90,10 @@ class BertPassage(Extractor):
         doc = self.index.get_doc(docid)
         if doc is None:
             raise MissingDocError("?", docid)
-        passages = self._get_sliding_window_passages(doc)
+        if self.config["sentences"]:
+            passages = self._get_sent_passages(doc)
+        else:
+            passages = self._get_sliding_window_passages(doc)
         if len(self._doc_passage_cache) < PASSAGE_CACHE_DOCS:
             self._doc_passage_cache[docid] = passages
         return passages
@@ -100,6 +111,30 @@ class BertPassage(Extractor):
         else:
             passages.extend([[self.pad_tok] for _ in range(numpassages - len(passages))])
         return passages
+
+    def _get_sent_passages(self, doc):
+        if self._punkt is None:
+            from capreolus_tpu_torch.tokenizer import PunktTokenizer
+
+            self._punkt = PunktTokenizer.create("punkt")
+        numpassages = self.config["numpassages"]
+        passages = []
+        for sentence in self._punkt.tokenize(doc):
+            if len(passages) >= numpassages:
+                break
+            passages.extend(self._chunk_sent(sentence, self.config["passagelen"]))
+        passages = passages[:numpassages]
+        passages.extend([[self.pad_tok] for _ in range(numpassages - len(passages))])
+        return passages
+
+    def _chunk_sent(self, sent, max_len):
+        """A sentence's tokens as one passage, or, when longer than
+        ``max_len``, its whole ``max_len``-token chunks: the tail that does
+        not fill a chunk is dropped, as in the reference."""
+        words = self.tokenizer.tokenize(sent)
+        if len(words) <= max_len:
+            return [words]
+        return [words[i * max_len : (i + 1) * max_len] for i in range(len(words) // max_len)]
 
     # ------------------------------------------------------------------ encoding
     def _prepare_bert_input(self, query_toks, psg_toks):
@@ -138,7 +173,7 @@ class BertPassage(Extractor):
     def _encode_doc(self, query_toks, docid, training):
         passages = self._get_passages(docid)
         inputs, masks, segs, n_valid = self._encode_inputs(query_toks, passages)
-        if training:
+        if training and self.single_training_passage:
             inputs, masks, segs = self._filter_inputs(inputs, masks, segs, n_valid)
         return (np.array(inputs, dtype=np.int64), np.array(masks, dtype=np.int64),
                 np.array(segs, dtype=np.int64))
@@ -175,6 +210,30 @@ class BertPassage(Extractor):
         data["negdocid"] = negid
         data["neg_bert_input"], data["neg_mask"], data["neg_seg"] = self._encode_doc(query_toks, negid, training)
         return data
+
+
+@Extractor.register
+class PooledBertPassage(BertPassage):
+    """bertpassage whose training features keep every passage, [numpassages,
+    maxseqlen] (PARADE and CEDR-KNRM aggregate over all of a doc's passages)."""
+
+    module_name = "pooledbertpassage"
+    single_training_passage = False
+
+
+@Extractor.register
+class BirchBertPassage(BertPassage):
+    """Every passage in training too, with a bert-large tokenizer by default
+    (Birch's checkpoints are bert-large)."""
+
+    module_name = "birchbertpassage"
+    single_training_passage = False
+    dependencies = [
+        Dependency(key="index", module="index", name="tpu",
+                   default_config_overrides={"indexstops": True, "stemmer": "none"}),
+        Dependency(key="tokenizer", module="tokenizer", name="berttokenizer",
+                   default_config_overrides={"pretrained": "bert-large-uncased"}),
+    ]
 
 
 @Extractor.register

@@ -51,9 +51,10 @@ class Reranker(ModuleBase):
 
         return init_flax_(self.build_train_model(), torch.Generator().manual_seed(int(seed)))
 
-    def state_dict_from_params(self, flat: dict) -> dict:
+    def state_dict_from_params(self, flat: dict, model=None) -> dict:
         """Map a flat ``params/...`` dict of the JAX parameter tree to the
-        model's ``state_dict``."""
+        ``state_dict`` of ``model`` (``build_model()``'s by default), whose own
+        values fill the frozen leaves the checkpoint leaves empty."""
         raise NotImplementedError
 
     def trainable(self, path: tuple, value) -> bool:

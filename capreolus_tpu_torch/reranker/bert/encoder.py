@@ -30,8 +30,14 @@ forward with the same seed draws the same masks, and a layer that ``remat``
 again. The masks cannot equal the JAX encoder's, which draws from its
 ``dropout`` rng. ``convert.init_flax_`` draws the weights as flax
 initialises them, the embedding tables through ``BertEncoder.flax_init_``.
-Not in this slice: ``MoeFFN``, ``LoRAAdapter`` and other dtypes; the
-rerankers refuse the options that select them.
+
+``moe_experts > 0`` replaces each layer's FFN with ``MoeFFN`` (top-k of a
+softmax gate, dense dispatch). ``output_hidden_states=True`` also returns the
+embedding output and every layer's output (CEDR-KNRM's simmats).
+``read_pretrained`` reads a checkpoint directory without
+``transformers`` (``reranker/bert/checkpoint.py``). Not in the port yet:
+``LoRAAdapter`` and other dtypes; the rerankers refuse the options that
+select them.
 """
 
 from __future__ import annotations
@@ -67,6 +73,10 @@ class BertConfig:
     gelu_approximate: bool = True  # tanh GELU; False for erf
     quantize: str = "none"  # "int8": int8 projections and FFN matmuls at inference
     remat: bool = False  # recompute each layer's activations in the backward pass
+    # mixture-of-experts FFN: 0 = dense FFN; > 0 replaces each layer's FFN with
+    # moe_experts expert FFNs and top-moe_topk routing (MoeFFN)
+    moe_experts: int = 0
+    moe_topk: int = 2
     # training-time dropout rates, active only in a training forward
     hidden_dropout_prob: float = 0.1
     attention_dropout_prob: float = 0.1
@@ -193,6 +203,64 @@ class Int8Linear(nn.Linear):
         return codes.view(*lead, -1)
 
 
+class MoeFFN(nn.Module):
+    """The JAX ``MoeFFN``: a mixture of ``moe_experts`` expert FFNs with
+    top-``moe_topk`` softmax routing and dense dispatch. The gate (``gate``,
+    a Dense to E logits) runs in f32; the ``k`` largest probabilities keep
+    their value, the rest are zeroed, and the kept ones are divided by their
+    sum (at least 1e-9). Every expert computes ``gelu(x @ wi[e] + bi[e]) @
+    wo[e] + bo[e]`` for every token, and the output is the gate-weighted sum
+    over the experts. The expert weights keep the JAX layout and names,
+    stacked on a leading [E] axis: ``experts_wi`` [E, H, I], ``experts_bi`` [E,
+    I], ``experts_wo`` [E, I, H], ``experts_bo`` [E, H].
+
+    The JAX module computes the products as two einsums over all experts at
+    once, [B, L, E, I] wide; here each expert's product is its own matmul and
+    the weighted outputs are summed expert by expert, so the widest
+    intermediate is one expert's [B, L, I], a dense FFN's."""
+
+    def __init__(self, config: BertConfig):
+        super().__init__()
+        self.config = config
+        e, h, i = config.moe_experts, config.hidden_size, config.intermediate_size
+        self.experts_wi = nn.Parameter(torch.zeros(e, h, i))
+        self.experts_bi = nn.Parameter(torch.zeros(e, i))
+        self.experts_wo = nn.Parameter(torch.zeros(e, i, h))
+        self.experts_bo = nn.Parameter(torch.zeros(e, h))
+        self.gate = nn.Linear(h, e)
+
+    def flax_init_(self, generator: torch.Generator):
+        """flax's ``lecun_normal(batch_axis=0)`` for the stacked expert
+        matrices (the fan-in of one expert: H for ``wi``, I for ``wo``), zero
+        biases; ``gate`` is a Dense, drawn by ``convert.init_flax_``."""
+        from capreolus_tpu_torch.convert import lecun_normal_
+
+        with torch.no_grad():
+            for w in (self.experts_wi, self.experts_wo):
+                for e in range(w.shape[0]):
+                    lecun_normal_(w[e], w.shape[1], generator)
+            self.experts_bi.zero_()
+            self.experts_bo.zero_()
+
+    def gates(self, x):
+        """[B, L, E] routing weights: top-k of the f32 softmax, renormalised."""
+        probs = torch.softmax(self.gate(x.float()), dim=-1)
+        k = min(self.config.moe_topk, self.config.moe_experts)
+        top = torch.zeros_like(probs).scatter_(-1, probs.topk(k, dim=-1).indices, 1.0)
+        gates = probs * top
+        return gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+
+    def forward(self, x):
+        approximate = "tanh" if self.config.gelu_approximate else "none"
+        gates = self.gates(x)
+        out = None
+        for e in range(self.config.moe_experts):
+            h = F.gelu(torch.matmul(x, self.experts_wi[e]) + self.experts_bi[e], approximate=approximate)
+            y = gates[..., e:e + 1] * (torch.matmul(h, self.experts_wo[e]) + self.experts_bo[e])
+            out = y if out is None else out + y
+        return out
+
+
 class BertSelfAttention(nn.Module):
     def __init__(self, config: BertConfig):
         super().__init__()
@@ -252,8 +320,11 @@ class BertLayer(nn.Module):
         linear = Int8Linear if config.quantize == "int8" else nn.Linear
         self.attention = BertSelfAttention(config)
         self.attention_ln = nn.LayerNorm(h, eps=eps)
-        self.intermediate = linear(h, config.intermediate_size)
-        self.ffn_output = linear(config.intermediate_size, h)
+        if config.moe_experts and config.quantize != "int8":
+            self.moe = MoeFFN(config)
+        else:
+            self.intermediate = linear(h, config.intermediate_size)
+            self.ffn_output = linear(config.intermediate_size, h)
         self.output_ln = nn.LayerNorm(h, eps=eps)
         if config.quantize == "int8":
             self.register_buffer("gelu_amax", torch.zeros(config.intermediate_size))
@@ -283,6 +354,8 @@ class BertLayer(nn.Module):
         approximate = "tanh" if self.config.gelu_approximate else "none"
         if self.config.quantize == "int8":
             ff = self._int8_ffn(hidden, calibrate, approximate)
+        elif self.config.moe_experts:
+            ff = self.moe(hidden)
         else:
             ff = self.ffn_output(F.gelu(self.intermediate(hidden), approximate=approximate))
         return self.output_ln(hidden + dropout(ff, rate, dropout_seed, 2))
@@ -307,7 +380,9 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    """Returns (sequence_output, pooled_output). ``calibrate=True`` (int8 only)
+    """Returns (sequence_output, pooled_output), and with
+    ``output_hidden_states=True`` also the list of the embedding output and
+    each layer's output (1 + num_layers tensors). ``calibrate=True`` (int8 only)
     updates each layer's ``gelu_amax`` from this batch as it passes;
     ``dropout_seed`` makes it a training forward (the module docstring), with
     each layer recomputed in the backward pass when ``config.remat``."""
@@ -341,10 +416,12 @@ class BertEncoder(nn.Module):
                   + self.token_type_embeddings[token_type_ids % c.type_vocab_size])
         return self.embeddings_ln(hidden)
 
-    def forward(self, input_ids, attention_mask, token_type_ids, calibrate=False, dropout_seed=None):
+    def forward(self, input_ids, attention_mask, token_type_ids, calibrate=False, dropout_seed=None,
+                output_hidden_states=False):
         c = self.config
         hidden = dropout(self.embed(input_ids, token_type_ids), c.hidden_dropout_prob, dropout_seed, 0)
         mask = attention_mask.bool()
+        all_hidden = [hidden]
         for i in range(c.num_layers):
             layer = getattr(self, f"layer_{i}")
             seed = None if dropout_seed is None else dropout_generator_seed(dropout_seed, i + 1)
@@ -352,7 +429,12 @@ class BertEncoder(nn.Module):
                 hidden = torch.utils.checkpoint.checkpoint(layer, hidden, mask, calibrate, seed, use_reentrant=False)
             else:
                 hidden = layer(hidden, mask, calibrate, seed)
-        return hidden, torch.tanh(self.pooler(hidden[:, 0]))
+            if output_hidden_states:
+                all_hidden.append(hidden)
+        pooled = torch.tanh(self.pooler(hidden[:, 0]))
+        if output_hidden_states:
+            return hidden, pooled, all_hidden
+        return hidden, pooled
 
 
 # ------------------------------------------------------------------ HF weight loading
@@ -398,28 +480,86 @@ def convert_hf_weights(state_dict, config: BertConfig) -> dict:
     except KeyError:
         out["pooler.weight"] = np.eye(config.hidden_size, dtype=np.float32)
         out["pooler.bias"] = np.zeros(config.hidden_size, dtype=np.float32)
-    return {k: torch.as_tensor(np.asarray(v, dtype=np.float32)) for k, v in out.items()}
+    return {k: _f32_tensor(v) for k, v in out.items()}
 
 
-def load_pretrained_encoder(name: str, allow_random_init: bool = False):
-    """Returns (BertConfig, None): the port reads no pretrained checkpoint and
-    never downloads one, so every model starts from random init and takes its
-    weights from a serving checkpoint. ``tiny`` is the deliberate random-init
-    config; any other name raises unless ``allow_random_init=True``, with the
-    JAX function's message (a run that claims a pretrained name must not
-    silently use random weights)."""
+def _f32_tensor(value):
+    """An f32 CPU tensor of a numpy array or a tensor of any float dtype (bf16 included)."""
+    if torch.is_tensor(value):
+        return value.detach().to("cpu", torch.float32)
+    return torch.as_tensor(np.asarray(value, dtype=np.float32))
+
+
+def read_pretrained(name: str, allow_random_init: bool = False):
+    """Returns (BertConfig, state_dict or None, NSP head or None) from one read
+    of ``name``'s checkpoint (or its alias in ``PRETRAINED_ALIASES``): a local
+    checkpoint directory or the Hugging Face hub cache's snapshot of that
+    name, never downloaded (``checkpoint.find_checkpoint``). The config comes
+    from its ``config.json``, as the JAX function builds it, the weights
+    become a ``BertEncoder`` state_dict through ``convert_hf_weights``, and a
+    ``cls.seq_relationship`` the checkpoint holds becomes the 1-output
+    relevance head (``nsp_logits_to_relevance_head``). ``tiny`` is the
+    deliberate random-init config. When nothing can be read, any other name
+    raises unless ``allow_random_init=True``, with the JAX function's message
+    (a run that claims a pretrained name must not silently use random
+    weights)."""
+    from capreolus_tpu_torch.reranker.bert import checkpoint
+
     name = PRETRAINED_ALIASES.get(name, name)
     config = get_bert_config(name)
     if name == "tiny":
-        return config, None
-    reason = "the PyTorch port reads no pretrained checkpoint files yet and never downloads"
-    if not allow_random_init:
-        raise RuntimeError(
-            f"could not load pretrained weights for {name!r} ({reason}); refusing to "
-            f"continue with random initialization. Fix the model name / provide a "
-            f"cached checkpoint, use pretrained=tiny for offline smoke tests, or "
-            f"opt in explicitly with reranker.allowrandominit=True"
-        )
-    logger.warning("could not load pretrained %s (%s); using random initialization "
-                   "(allowrandominit=True)", name, reason)
-    return config, None
+        return config, None, None
+    try:
+        directory = checkpoint.find_checkpoint(name)
+        config = checkpoint.bert_config(directory)
+        raw = checkpoint.read_state_dict(directory)
+        return config, convert_hf_weights(raw, config), _nsp_head(raw)
+    except Exception as e:  # nothing local, or a checkpoint that does not read
+        if not allow_random_init:
+            raise RuntimeError(
+                f"could not load pretrained weights for {name!r} ({e}); refusing to "
+                f"continue with random initialization. Fix the model name / provide a "
+                f"cached checkpoint, use pretrained=tiny for offline smoke tests, or "
+                f"opt in explicitly with reranker.allowrandominit=True"
+            ) from e
+        logger.warning("could not load pretrained %s (%s); using random initialization "
+                       "(allowrandominit=True)", name, e)
+        return config, None, None
+
+
+def load_pretrained_encoder(name: str, allow_random_init: bool = False):
+    """Returns (BertConfig, state_dict or None): ``read_pretrained`` without
+    the NSP head."""
+    config, state, _ = read_pretrained(name, allow_random_init)
+    return config, state
+
+
+def _nsp_head(state):
+    if "cls.seq_relationship.weight" not in state:
+        return None
+    return nsp_logits_to_relevance_head(_f32_tensor(state["cls.seq_relationship.weight"]),
+                                        _f32_tensor(state["cls.seq_relationship.bias"]))
+
+
+def load_pretrained_nsp_head(name: str):
+    """The next-sentence-prediction head of a Birch checkpoint as a 1-output
+    relevance head (``nsp_logits_to_relevance_head``), or None when ``name``
+    has no readable checkpoint or no ``cls.seq_relationship``."""
+    from capreolus_tpu_torch.reranker.bert import checkpoint
+
+    name = PRETRAINED_ALIASES.get(name, name)
+    try:
+        return _nsp_head(checkpoint.read_state_dict(checkpoint.find_checkpoint(name)))
+    except Exception:
+        return None
+
+
+def nsp_logits_to_relevance_head(w, b):
+    """A 2-logit NSP head (weight [2, H], bias [2]) as the 1-output relevance
+    head {"kernel": [H, 1], "bias": [1]} in the flax Dense layout: row 1, the
+    raw logit the reference ranks passages by (it applies no softmax, and a
+    single logit is linear in the pooled vector). Never ``logit[0] -
+    logit[1]``, which scores in the inverted direction."""
+    w = np.asarray(w, dtype=np.float32)
+    b = np.asarray(b, dtype=np.float32)
+    return {"kernel": np.array(w[1][:, None]), "bias": np.array([b[1]], dtype=np.float32)}

@@ -94,7 +94,7 @@ class KNRM(Reranker):
     score = Reranker.score_default
     test = Reranker.test_default
 
-    def state_dict_from_params(self, flat):
+    def state_dict_from_params(self, flat, model=None):
         from capreolus_tpu_torch.convert import knrm_state_dict
 
         return knrm_state_dict(flat, embedding=self.extractor.embeddings)

@@ -1,8 +1,8 @@
 """Task modules: experiment orchestration (the JAX package's ``task/__init__.py``).
 
 A Task is a module with ``commands`` runnable from the CLI, help commands, and
-results paths derived from the full pipeline config. Ported so far: ``modules``,
-``rank`` and ``rerank``; ``rererank`` waits for the other rerankers (ROADMAP.md item 6).
+results paths derived from the full pipeline config: ``modules``, ``rank``,
+``rerank``, ``rererank`` and ``tutorial``.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ The task trains and predicts on ``self.device``, an attribute (not a config
 option, so it never enters the results path) that the CLI's ``--device`` or
 the caller sets; ``None`` means "cuda", which raises without a card. It hands
 the device to the rank task's searchers and to the reranker's trainer.
-``bircheval`` raises ``ConfigError``: Birch is not ported (ROADMAP.md item 6).
+``bircheval`` evaluates this fold's test run (Birch's) with the default metrics.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import os
 from collections import defaultdict
 from pathlib import Path
 
-from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
+from capreolus_tpu_torch.core import ConfigOption, Dependency
 from capreolus_tpu_torch.evaluation import DEFAULT_METRICS, eval_runs, interpolated_eval
 from capreolus_tpu_torch.sampler import PredSampler
 from capreolus_tpu_torch.searcher import Searcher
@@ -225,9 +225,17 @@ class RerankTask(Task):
         }
 
     def bircheval(self):
-        """Evaluate Birch's test runs across folds: Birch is not ported."""
-        raise ConfigError("rerank.bircheval evaluates Birch runs, and Birch is not ported to PyTorch yet "
-                          "(ROADMAP.md item 6, 'the other BERT rerankers')")
+        """This fold's test predictions (a trained Birch's) against every qrel
+        of the benchmark, with DEFAULT_METRICS, as the JAX task evaluates them."""
+        fold = self.config["fold"]
+        _, reranker_runs = self.find_crossvalidated_results()
+        if fold not in reranker_runs:
+            raise ValueError("could not find birch predictions; run the train command first")
+        metrics = eval_runs(reranker_runs[fold]["test"], self.benchmark.qrels, DEFAULT_METRICS,
+                            self.benchmark.relevance_level)
+        logger.info("rerank: fold=%s test metrics: %s", fold,
+                    " ".join(f"{m}={v:0.3f}" for m, v in sorted(metrics.items())))
+        return metrics
 
     def find_crossvalidated_results(self):
         """Collect searcher + reranker runs for every fold by substituting the fold

@@ -1,7 +1,7 @@
 """Tokenizer modules, as in the JAX package's ``tokenizer/__init__.py``:
 ``lucene`` (the Lucene English analyzer) and its ``anserini`` alias, and
-``berttokenizer`` (WordPiece from a vocab file, or the offline hash stand-in).
-The punkt sentence tokenizer comes with sentence passages (ROADMAP)."""
+``berttokenizer`` (WordPiece from a vocab file, or the offline hash stand-in),
+and ``punkt``, the sentence tokenizer of bertpassage's sentence passages."""
 
 from __future__ import annotations
 
@@ -161,6 +161,40 @@ class BertTokenizer(Tokenizer):
         if isinstance(sentences, str):
             return self.bert_tokenizer.tokenize(sentences)
         return [self.bert_tokenizer.tokenize(s) for s in sentences]
+
+
+@Tokenizer.register
+class PunktTokenizer(Tokenizer):
+    """Sentence segmentation: NLTK's punkt model when both ``nltk`` and its
+    punkt data load, else ``analysis.segmentation.split_sentences``, as the
+    JAX module chooses. ``nltk`` is imported here, in ``build``, and nowhere
+    else: a machine without it runs the splitter."""
+
+    module_name = "punkt"
+
+    def build(self):
+        self._punkt = None
+        try:
+            import nltk
+
+            self._punkt = nltk.data.load("tokenizers/punkt/english.pickle")
+        except Exception:
+            logger.debug("nltk punkt data unavailable; using the built-in "
+                         "abbreviation-aware sentence splitter")
+
+    def tokenize(self, sentences):
+        if not sentences:
+            return []
+        if isinstance(sentences, str):
+            return self._split(sentences)
+        return [self._split(s) for s in sentences]
+
+    def _split(self, text):
+        if self._punkt is not None:
+            return self._punkt.tokenize(text)
+        from capreolus_tpu_torch.analysis.segmentation import split_sentences
+
+        return split_sentences(text)
 
 
 import_all_modules(__file__, __package__)

@@ -596,8 +596,8 @@ class TorchTrainer(Trainer):
         """Restore ``<path>.params`` (either trainer's) into ``model`` through
         ``reranker.state_dict_from_params``, which refills the frozen leaves a
         checkpoint leaves empty with their values (``_merge_frozen``: a frozen
-        KNRM's extractor table and kernel bank); and this trainer's
-        ``<path>.optstate`` into ``optimizer`` when given."""
+        KNRM's extractor table and kernel bank, Birch's frozen encoder); and
+        this trainer's ``<path>.optstate`` into ``optimizer`` when given."""
         from capreolus_tpu_torch.convert import _flax_leaves, _present, load_params
 
         flat = load_params(_ext(path, ".params"))
@@ -608,7 +608,7 @@ class TorchTrainer(Trainer):
             raise KeyError(f"checkpoint {path} lacks trainable parameters {missing[:3]}...")
         own = model.state_dict()  # an f32 training model of an int8 reranker has no int8 stats
         try:
-            model.load_state_dict({k: v for k, v in reranker.state_dict_from_params(flat).items() if k in own})
+            model.load_state_dict({k: v for k, v in reranker.state_dict_from_params(flat, model).items() if k in own})
         except RuntimeError as e:
             raise RuntimeError(f"checkpoint {path} does not fit the model (a vocabulary-sized table needs the "
                                f"training-time extractor state): {e}") from e

@@ -5,10 +5,11 @@ int8), then ColBERT late-interaction serving at BERT-base width (a bf16 corpus,
 then int8 and int4 corpora), then the rank task's sparse searchers over the
 50k-doc golden corpus, then trains KNRM and monoBERT-MaxP through the rerank
 task, then times the sparse engine at bench.py's 200k-doc shape, then runs a
-Robust04-shaped experiment through ``rank.searcheval``, and holds every
-kernel against its plain PyTorch version.
+Robust04-shaped experiment through ``rank.searcheval``, then serves PARADE,
+CEDR-KNRM, Birch and MoE-BERT and trains them through their tasks, and holds
+every kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py            # needs one CUDA device; builds the kernels
+    python3 chip_smoke.py   # needs one CUDA device; builds the kernels
 
 Phases (each prints a line; any fault exits non-zero, and the last line is
 printed only when every phase passed):
@@ -187,11 +188,42 @@ printed only when every phase passed):
    near-ties, every metric within 1e-4, ``significance.compare_runs`` of BM25
    against RM3 (MAP) within 1e-4 on both, search seconds, and the busy share
    of one profiled BM25 search; no port kernel launched;
+12. the other BERT rerankers (after 11), served by ``RerankingService`` over
+   phase 4's corpus with phase 5's indexes (BM25, topn 100, k 10; seeded N(0,
+   0.02) weights, TF32 off), each with request ms (median and spread), host
+   features ms, peak device memory, one profiled request (busy share, top
+   device ops) and its launches counted from 0: 12a PARADE at BERT-base width
+   (``aggregation=transformer``; pooledbertpassage as
+   ``config_parade.txt``: 16 passages of 150, stride 75), 4 queries in f32
+   (K2 14 times a request: 12 encoder and 2 aggregation layers), 8 docs card
+   vs CPU within 1e-3, K2 held against its plain version at every attention
+   of a served forward (L 256 and the aggregation layers' L 17), then 4 in
+   int8 (84 X1 and 42 Q1 a request, the aggregation layers calibrated and,
+   from the card's input, within 5e-2 of the CPU's, the head within 1e-3; the
+   int8-vs-f32 gap and top-10 overlap reported); 12b CEDR-KNRM at
+   electra-base width as ``config_cedrknrm_pt.txt`` (13 simmat layers, cls
+   avg, combine_hidden 1024, 4 passages of 225), 4 queries, 8 docs within
+   1e-3; 12c Birch at bert-large width over a seeded
+   ``BertForNextSentencePrediction`` checkpoint it writes with ``torch.save``
+   under the gitignored ``build/`` (the encoder and NSP head on the card equal
+   to the tensors written; frozen; birchbertpassage with ``sentences=True``,
+   through the splitter), 2 queries, 24 K2 launches a request, 4 docs within
+   2e-3; 12d BERTMaxP with 4 experts of top-2 in every layer (a dense
+   checkpoint refused), 1 query, 8 docs on the CPU layer by layer from the
+   card's input (tokens routed alike within 1e-3; routing flips counted, at
+   most 1e-3 of the tokens) and the head from the card's last layer within
+   1e-3; 12e
+   at tiny width on phase 9a's rerank golden: ``rerank.traineval`` for
+   PARADE, CEDR-KNRM and Birch (step 1 card vs CPU within 1e-4, no K2 in a
+   step), ``rerank.bircheval`` equal to ``eval_runs`` of its run file, and
+   ``rererank.traineval`` with KNRM then tiny BERT-MaxP over the top 3, each
+   test MAP reported;
 7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
    ``launches_training`` and ``launches_training_predict``, phase 9's
    launches in training steps and in the trainer's predictions, and K1 and
    K2 with ``max_abs_err_training``, their largest error on phase 9's own
-   batches), then the result line.
+   batches; K2, X1 and Q1 with phase 12's launches, K2 with its errors there),
+   then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
 and read just after it.
@@ -2340,36 +2372,41 @@ def hold_k1(model, batch, sides, label, held):
     return err
 
 
-def hold_k2(reranker, batch, label, held):
-    """K2 against ``attention_plain`` at every layer of one prediction forward
-    of the trained BERT reranker on ``batch``: each layer's q, k, v and mask as
-    it hands them to K2, taken by a pre-hook on its attention (``k2_error``).
-    These launches come after the path's counts are read."""
+def hold_k2(reranker, batch, label, held=None, prefix="[9 K2]"):
+    """K2 against ``attention_plain`` at every attention of one prediction
+    forward of a BERT reranker on ``batch``: each attention's q, k, v and mask
+    as it hands them to K2, taken by a pre-hook (``k2_error``). Returns the
+    largest error at each sequence length, {"L256": ..., "L17": ...}; the
+    largest of all goes into ``held``. These launches come after the path's
+    counts are read."""
     from capreolus_tpu_torch.reranker.bert.encoder import BertSelfAttention
 
-    errs, shapes = [], set()
+    errs, shapes, calls = {}, set(), []
 
     def hold(module, args):
         hidden, mask = args[0], args[1]
         q, k, v = module.heads(hidden)
-        errs.append(k2_error(q, k, v, mask)[0])
-        shapes.add(tuple(q.shape))
+        key = f"L{q.shape[2]}"
+        errs[key] = max(errs.get(key, 0.0), k2_error(q, k, v, mask)[0])
+        shapes.add("B={} H={} L={} D={}".format(*q.shape))
+        calls.append(key)
 
     hooks = [m.register_forward_pre_hook(hold) for m in reranker.model.modules() if isinstance(m, BertSelfAttention)]
     try:
         with torch.no_grad():
-            reranker.test(batch, torch.device("cuda"))
+            reranker.test(batch, next(reranker.model.parameters()).device)
     finally:
         for h in hooks:
             h.remove()
-    check(len(errs) == len(hooks) > 0, f"K2 on {label}: {len(errs)} layers held of {len(hooks)}")
-    print(f"[9 K2] {label}: {len(errs)} layers at {sorted(shapes)}: max |kernel - plain| {max(errs):.3g} over "
-          f"the first 128 sequences (tolerance {K2_TOL[torch.float32]})")
-    held["flash_attention"] = max(held.get("flash_attention", 0.0), max(errs))
-    return max(errs)
+    check(len(calls) == len(hooks) > 0, f"K2 on {label}: {len(calls)} attentions held of {len(hooks)}")
+    print(f"{prefix} {label}: {len(calls)} attentions at {', '.join(sorted(shapes))}: max |kernel - plain| "
+          f"{errs} over the first 128 sequences (tolerance {K2_TOL[torch.float32]})")
+    if held is not None:
+        held["flash_attention"] = max(held.get("flash_attention", 0.0), max(errs.values()))
+    return errs
 
 
-def step_parity(task, batch, label, exclude=None):
+def step_parity(task, batch, label, exclude=None, prefix="[9a parity]"):
     """Step 1 from one init (``init_params`` on the CPU) and one batch: the
     loss and every gradient on the card against the CPU's, with the card's
     kernel launches in that step. ``exclude`` ({parameter: [indices]}) leaves
@@ -2405,7 +2442,7 @@ def step_parity(task, batch, label, exclude=None):
         err = float(diff.max()) / max(float(g.abs().max()), floor, 1e-30)
         if err >= grad_err:
             grad_err, worst = err, name
-    print(f"[9a parity] {label}: step-1 loss {card_loss:.6f} on the card, {cpu_loss:.6f} on the CPU (rel err "
+    print(f"{prefix} {label}: step-1 loss {card_loss:.6f} on the card, {cpu_loss:.6f} on the CPU (rel err "
           f"{loss_err:.3g}); largest gradient error {grad_err:.3g} of its tensor's largest entry ({worst}) over "
           f"{len(cpu_grads)} tensors (tolerance {STEP_RTOL}); card launches in the step: "
           f"{ {k: n for k, n in launched.items() if n} }")
@@ -2459,8 +2496,8 @@ def phase_train_golden(workdir, launches, held):
         check(abs(mean - pin) <= RERANK_PIN_TOL, f"{name}: test MAP {mean:.4f} is not within {RERANK_PIN_TOL} of {pin}")
         check(stages["train"]["flash_attention"] == 0, f"{name}: K2 launched inside a training step")
         if name == "BERTMaxP":
-            out[name]["k2_max_abs_err"] = hold_k2(task.reranker, stages["first_predict_batch"],
-                                                  "tiny BERT-MaxP's first prediction batch", held)
+            out[name]["k2_max_abs_err"] = max(hold_k2(task.reranker, stages["first_predict_batch"],
+                                                      "tiny BERT-MaxP's first prediction batch", held).values())
     exact = [KNRM_SIGMAS.index(0.001)]
     knrm = rerank_task(RERANK_GOLDEN_CONFIGS["KNRM"], "cuda")
     out["parity_knrm"] = step_parity(knrm, training_batch(knrm, 16), "KNRM (finetune, gradkernels)",
@@ -2572,7 +2609,8 @@ def phase_training(workdir, corpus_dir, topics, qrels, launches, held):
                         hold_k1(trainer._model, stages["first_predict_batch"], ("posdoc",),
                                 "the full-width KNRM's first prediction batch", held))
         else:
-            k_err = hold_k2(reranker, stages["first_predict_batch"], "monoBERT-MaxP's first prediction batch", held)
+            k_err = max(hold_k2(reranker, stages["first_predict_batch"], "monoBERT-MaxP's first prediction batch",
+                                held).values())
 
         # dev.best served: the trainer's own test prediction of the first test query's docs
         q0 = test_q[0]
@@ -3174,6 +3212,499 @@ def phase_robust04(workdir, shape=ROBUST04_SHAPED, cache_dir=None):
     return summary
 
 
+# ---------------------------------------------------------------- phase 12: the other BERT rerankers
+PARADE_EXTRACTOR = {"name": "pooledbertpassage", "maxseqlen": 256, "numpassages": 16, "passagelen": 150,
+                    "stride": 75}  # docs/reproduction/configs/config_parade.txt
+CEDR_RERANKER = {"simmat_layers": "0..12,1", "cls": "avg", "combine_hidden": 1024, "gradkernels": True}
+CEDR_EXTRACTOR = {"name": "pooledbertpassage", "maxseqlen": 256, "numpassages": 4, "passagelen": 225,
+                  "stride": 225}  # docs/reproduction/configs/config_cedrknrm_pt.txt
+BIRCH_EXTRACTOR = {"name": "birchbertpassage", "sentences": True}  # its defaults: maxseqlen 256, 16 passages of 150
+PHASE12_QUERIES = {"parade": 4, "parade_int8": 4, "cedr": 4, "birch": 2, "moe": 1}  # served after a warm-up request
+PHASE12_WARMUP = 8  # the topic of each service's warm-up request, after the served ones
+PHASE12_CPU_DOCS = {"parade": 8, "cedr": 8, "birch": 4, "moe": 8}  # docs of query 0 scored on the CPU too
+BIRCH_CPU_TOL = 2e-3  # bert-large scores, GPU vs CPU: 24 layers of f32 matmuls summed in other orders, twice
+# BERT-base's 12 (BERT_CPU_TOL)
+MOE_FLIP_SHARE = 1e-3  # tokens of a layer whose top-2 experts may differ between the devices: a gate
+# probability an ulp from the next one can rank apart; such a token's output moves by a whole expert's
+MOE_EXPERTS, MOE_TOPK = 4, 2
+# the reranker's task at tiny width on phase 9a's rerank golden: every passage of a doc of ~40 words
+GOLDEN_POOLED_EXTRACTOR = {"maxseqlen": 96, "maxqlen": 8, "numpassages": 2, "passagelen": 40, "stride": 40}
+GOLDEN_TRAINER = {"niters": 4, "itersize": 256, "batch": 16, "lr": 1e-3, "bertlr": 1e-3, "validatefreq": 1}
+
+
+def smi_line():
+    """The card's name and power limit as ``nvidia-smi`` reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def seeded_model_params(model, seed, std=0.02):
+    """Flat ``params/...`` arrays of any BERT reranker's model, named as the JAX
+    trainer saves them: N(0, std) matrices, embeddings and PARADE's vectors,
+    zero biases, unit LayerNorm scales; CEDR-KNRM's kernel bank and Birch's
+    top-k weights at their initial values."""
+    from capreolus_tpu_torch.convert import _flax_leaves
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    params = dict(model.named_parameters())
+    flat = {}
+    for key, name, transposed in _flax_leaves(model):
+        value = params[name].detach().cpu()
+        shape = tuple(value.T.shape) if transposed else tuple(value.shape)
+        leaf = key.rsplit("/", 1)[1]
+        if leaf in ("mus", "sigmas", "topk_weights"):
+            flat[key] = value.numpy().copy()
+        elif leaf == "scale":
+            flat[key] = np.ones(shape, np.float32)
+        elif leaf == "bias":
+            flat[key] = np.zeros(shape, np.float32)
+        else:
+            flat[key] = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+    return flat
+
+
+def write_birch_checkpoint(directory, config, seed=12, std=0.02):
+    """A Hugging Face ``BertForNextSentencePrediction`` checkpoint at ``config``'s
+    geometry with seeded N(0, std) weights (zero biases, unit LayerNorm
+    scales), as ``pytorch_model.bin`` (``torch.save`` of its state dict) and
+    ``config.json``. Returns the state dict written."""
+    gen = torch.Generator().manual_seed(seed)
+    h, inter = config.hidden_size, config.intermediate_size
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen) * std
+
+    sd = {"bert.embeddings.word_embeddings.weight": normal(config.vocab_size, h),
+          "bert.embeddings.position_embeddings.weight": normal(config.max_position, h),
+          "bert.embeddings.token_type_embeddings.weight": normal(config.type_vocab_size, h),
+          "bert.embeddings.LayerNorm.weight": torch.ones(h), "bert.embeddings.LayerNorm.bias": torch.zeros(h)}
+    for i in range(config.num_layers):
+        pre = f"bert.encoder.layer.{i}."
+        for name, (n_out, n_in) in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                                    ("attention.self.value", (h, h)), ("attention.output.dense", (h, h)),
+                                    ("intermediate.dense", (inter, h)), ("output.dense", (h, inter))):
+            sd[pre + name + ".weight"], sd[pre + name + ".bias"] = normal(n_out, n_in), torch.zeros(n_out)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[pre + name + ".weight"], sd[pre + name + ".bias"] = torch.ones(h), torch.zeros(h)
+    sd["bert.pooler.dense.weight"], sd["bert.pooler.dense.bias"] = normal(h, h), torch.zeros(h)
+    sd["cls.seq_relationship.weight"], sd["cls.seq_relationship.bias"] = normal(2, h), normal(2)
+    os.makedirs(directory, exist_ok=True)
+    torch.save(sd, os.path.join(directory, "pytorch_model.bin"))
+    with open(os.path.join(directory, "config.json"), "wt") as fh:
+        json.dump({"architectures": ["BertForNextSentencePrediction"], "model_type": "bert",
+                   "vocab_size": config.vocab_size, "hidden_size": h, "num_hidden_layers": config.num_layers,
+                   "num_attention_heads": config.num_heads, "intermediate_size": inter,
+                   "max_position_embeddings": config.max_position, "type_vocab_size": config.type_vocab_size,
+                   "hidden_act": "gelu", "layer_norm_eps": 1e-12}, fh)
+    return sd
+
+
+def serve_reranker(label, name, rr_cfg, ckpt, corpus_dir, topics, n_queries):
+    """A ``RerankingService`` on the card for reranker ``name`` over the phase-4
+    corpus (BM25 first stage, topn 100, k 10): a warm-up request (which
+    calibrates an int8 model), then ``n_queries`` served with the launches of
+    every kernel counted from 0, their times, the peak device memory and one
+    profiled request. Returns (service, summary)."""
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.serving import RerankingService
+
+    coll = {"name": "dummy", "path": corpus_dir}
+    cfg = json.loads(json.dumps(rr_cfg))
+    cfg.setdefault("extractor", {})["index"] = {"collection": coll}
+    t0 = time.perf_counter()
+    index = Index.create("tpu", {"collection": coll})
+    index.create_index()
+    reranker = Reranker.create(name, cfg)
+    svc = RerankingService(index, reranker, ckpt, topn=100, device="cuda")
+    torch.cuda.synchronize()
+    t_service = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.search(topics[PHASE12_WARMUP:PHASE12_WARMUP + 1], k=10)  # warm-up request (calibrates an int8 model)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    queries = topics[:n_queries]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    request_ms, rerank_ms, features_ms, results = [], [], [], []
+    for query in queries:
+        t0 = time.perf_counter()
+        results.append(svc.search([query], k=10)[0])
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        rerank_ms.append(svc.last_stage_ms["rerank"])
+        features_ms.append(svc.last_stage_ms["features"])
+    launches = launch_counts()
+    launches.update(int8_matmul_modes=dict(int8_matmul.mode_launches), pad_copies=int8_matmul.pad_copies)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results),
+          f"{label}: a served request did not return 10 finite scores")
+    print(f"{label} set-up: service {t_service:.1f} s (model built and weights moved to the card; extractor "
+          f"{svc.extractor_seconds:.1f} s), warm-up request {warm_ms:.1f} ms; per request (median of {len(queries)}): "
+          f"{np.median(request_ms):.2f} ms (each: {', '.join(f'{t:.1f}' for t in request_ms)}; spread "
+          f"{max(request_ms) - min(request_ms):.1f} ms), rerank {np.median(rerank_ms):.2f} ms, of which the host's "
+          f"features {np.median(features_ms):.2f} ms; peak device memory {peak_gb:.2f} GB; launches in the run: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    profiled = profile_request(svc, queries[0], label)
+    summary = {"request_ms": float(np.median(request_ms)), "request_ms_each": [round(t, 2) for t in request_ms],
+               "rerank_ms": float(np.median(rerank_ms)), "features_ms": float(np.median(features_ms)),
+               "peak_gb": peak_gb, "launches": launches, "queries": len(queries), "warm_ms": warm_ms,
+               "service_s": t_service,
+               "profiled": {k: profiled[k] for k in ("wall_ms", "busy_ms", "top_ops", "copy_kernels")}}
+    return svc, results, summary
+
+
+def served_candidates(svc, query):
+    """The ``topn`` first-stage docids a request for ``query`` reranks."""
+    from capreolus_tpu_torch.serving import RetrievalService
+
+    docids = [d for d, _ in RetrievalService.search_async(svc, [query], k=svc.topn)()[0]]
+    check(len(docids) == svc.topn, f"{len(docids)} first-stage candidates, not topn {svc.topn}")
+    return docids
+
+
+def served_batch(svc, query, qid):
+    """The reranker's input of a request for ``query``: all its ``topn``
+    candidates, the batch the served forward runs."""
+    return svc.rerank_batch(qid, query, served_candidates(svc, query))
+
+
+def card_vs_cpu(label, svc, name, rr_cfg, query, n_docs, tol, state=None):
+    """Query 0's top ``n_docs`` first-stage candidates scored on the card and by
+    the same reranker on the CPU with the card's weights (``state``: the card
+    model's state dict, else its own). Returns the max |err|."""
+    from capreolus_tpu_torch.reranker import Reranker
+
+    docids = served_candidates(svc, query)[:n_docs]
+    batch = svc.rerank_batch("smoke12", query, docids)
+    cfg = json.loads(json.dumps(rr_cfg))
+    cfg.setdefault("extractor", {})["index"] = svc.reranker.extractor.config["index"]
+    cpu_rr = Reranker.create(name, cfg)
+    cpu_model = cpu_rr.build_model()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in (state or svc.reranker.model.state_dict()).items()})
+    cpu_model.eval()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        gpu = svc.reranker.test(batch, svc.device).cpu().numpy()
+        cpu = cpu_rr.test(batch, "cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(gpu - cpu).max())
+    print(f"{label} query 0's top {len(docids)} first-stage docs, card vs CPU ({cpu_s:.1f} s with the CPU): max |err| "
+          f"{err:.3g} (tolerance {tol}; scores {np.round(gpu, 5).tolist()})")
+    check(np.isfinite(gpu).all() and err <= tol, f"{label}: card scores {gpu} vs CPU {cpu}")
+    return err, batch, cpu_rr
+
+
+def phase_parade(workdir, corpus_dir, topics):
+    """12a: PARADE (transformer aggregation) at BERT-base width, f32 then int8."""
+    from capreolus_tpu_torch.convert import save_params
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.reranker import Reranker
+
+    label = "[12a parade]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")  # phase 5's indexes
+    rr_cfg = {"pretrained": "bert-base-uncased", "allowrandominit": True, "aggregation": "transformer",
+              "extractor": dict(PARADE_EXTRACTOR)}
+    model = Reranker.create("parade", json.loads(json.dumps(rr_cfg))).build_model()
+    ckpt = save_params(seeded_model_params(model, seed=5), os.path.join(workdir, "parade.npz"))
+    layers = model.config.num_layers + 2
+    del model
+    svc, results, f32 = serve_reranker(label, "parade", rr_cfg, ckpt, corpus_dir, topics, PHASE12_QUERIES["parade"])
+    k2 = f32["launches"]["flash_attention"]
+    check(k2 == layers * f32["queries"], f"{label}: K2 launched {k2} times, expected {layers} per request "
+                                         f"(12 encoder layers + 2 aggregation layers)")
+    f32["cpu_err"], batch, _ = card_vs_cpu(label, svc, "parade", rr_cfg, topics[0], PHASE12_CPU_DOCS["parade"],
+                                           BERT_CPU_TOL)
+    f32["k2_err"] = hold_k2(svc.reranker, served_batch(svc, topics[0], "smoke12_k2"),
+                            f"a served request's forward over its {svc.topn} candidates", prefix=label)
+    check(set(f32["k2_err"]) == {"L256", "L17"}, f"{label}: K2 was not held at L 256 and 17: {f32['k2_err']}")
+    scores0 = dict(svc.search([topics[0]], k=svc.topn)[0])
+    del svc
+    torch.cuda.empty_cache()
+
+    label8 = "[12a parade int8]"
+    rr8 = dict(rr_cfg, quantize="int8")
+    svc, results8, int8 = serve_reranker(label8, "parade", rr8, ckpt, corpus_dir, topics, PHASE12_QUERIES["parade_int8"])
+    n = int8["queries"]
+    want = {"int8_matmul": 6 * layers * n, "quantize_per_token": 3 * layers * n, "flash_attention": layers * n}
+    for kernel, count in want.items():
+        check(int8["launches"][kernel] == count, f"{label8}: {kernel} launched {int8['launches'][kernel]} times, "
+                                                 f"expected {count}")
+    check(int8["launches"]["int8_matmul_modes"]["int8_gelu"] == layers * n, f"{label8}: int8-gelu epilogues "
+                                                                            f"{int8['launches']['int8_matmul_modes']}")
+    model = svc.reranker.model
+    amax = [getattr(model, name).gelu_amax for name in ("agg_layer_0", "agg_layer_1")]
+    check(all(bool((a > 0).all()) for a in amax), f"{label8}: the aggregation layers were not calibrated")
+    # the int8 aggregation layers of a served request's 100 candidates (M = 17 x 100 rows) on the CPU,
+    # from the card's input to each
+    b8 = served_batch(svc, topics[0], "smoke12_int8")
+    captured = []
+    hook = model.agg_layer_0.register_forward_pre_hook(lambda m, args: captured.append(args[0].detach().clone()))
+    with torch.inference_mode():
+        gpu8 = svc.reranker.test(b8, svc.device).cpu().numpy()
+    hook.remove()
+    cpu_rr = Reranker.create("parade", dict(json.loads(json.dumps(rr8)), extractor=dict(
+        PARADE_EXTRACTOR, index=svc.reranker.extractor.config["index"])))
+    cpu_model = cpu_rr.build_model().eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    layer_err = []
+    with torch.inference_mode():
+        x = captured[0]
+        full = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        for name in ("agg_layer_0", "agg_layer_1"):
+            out = getattr(model, name)(x, full)
+            layer_err.append(float((out.cpu() - getattr(cpu_model, name)(x.cpu(), full.cpu())).abs().max()))
+            x = out
+        head = cpu_model.classifier(x[:, 0].cpu().float())[:, 0].numpy()
+    head_err = float(np.abs(gpu8 - head).max())
+    check(max(layer_err) <= INT8_LAYER_TOL and head_err <= BERT_CPU_TOL,
+          f"{label8}: int8 aggregation layers card vs CPU {layer_err}, head {head_err}")
+    int8_scores = dict(svc.search([topics[0]], k=svc.topn)[0])
+    gap = max(abs(int8_scores[d] - s) for d, s in scores0.items())
+    overlap = len({d for d, _ in results8[0]} & {d for d, _ in results[0]})
+    spread = max(scores0.values()) - min(scores0.values())
+    int8.update(agg_layer_err=layer_err, head_err=head_err, int8_f32_gap=gap, top10_overlap_f32=overlap)
+    print(f"{label8} aggregation layers (M = {x.shape[0]} x {x.shape[1]} rows) card vs CPU from the card's input: "
+          f"max |err| {layer_err} (tolerance {INT8_LAYER_TOL}), head {head_err:.3g} (tolerance {BERT_CPU_TOL}); "
+          f"int8 vs f32 on query 0's {len(scores0)} docs: max |gap| {gap:.4g} (f32 scores spread over {spread:.4g}), "
+          f"top-10 overlap {overlap}/10 (reported, not pinned); zero-padded X1 copies {int8['launches']['pad_copies']}")
+    del svc, model, cpu_model
+    torch.cuda.empty_cache()
+    return {"f32": f32, "int8": int8}
+
+
+def phase_cedr(workdir, corpus_dir, topics):
+    """12b: CEDR-KNRM at electra-base width (random init), f32."""
+    from capreolus_tpu_torch.convert import save_params
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.reranker import Reranker
+
+    label = "[12b cedrknrm]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")
+    rr_cfg = dict(CEDR_RERANKER, pretrained="electra-base", allowrandominit=True, extractor=dict(CEDR_EXTRACTOR))
+    model = Reranker.create("CEDRKNRM", json.loads(json.dumps(rr_cfg))).build_model()
+    ckpt = save_params(seeded_model_params(model, seed=6), os.path.join(workdir, "cedr.npz"))
+    layers = model.config.num_layers
+    del model
+    print(f"{label} in f32, TF32 off: the published config's trainer.amp=both is the amp slice (ROADMAP.md item 5), "
+          f"which the port's trainer refuses")
+    svc, _, out = serve_reranker(label, "CEDRKNRM", rr_cfg, ckpt, corpus_dir, topics, PHASE12_QUERIES["cedr"])
+    check(out["launches"]["flash_attention"] == layers * out["queries"],
+          f"{label}: K2 launched {out['launches']['flash_attention']} times, expected {layers} per request")
+    out["cpu_err"], _, _ = card_vs_cpu(label, svc, "CEDRKNRM", rr_cfg, topics[0], PHASE12_CPU_DOCS["cedr"], BERT_CPU_TOL)
+    out["k2_err"] = hold_k2(svc.reranker, served_batch(svc, topics[0], "smoke12_k2"),
+                            f"a served request's forward over its {svc.topn} candidates", prefix=label)
+    del svc
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_birch(workdir, corpus_dir, topics):
+    """12c: Birch at bert-large width over a seeded NSP checkpoint read from disk,
+    the encoder frozen, sentence passages."""
+    from capreolus_tpu_torch.convert import save_params
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.reranker.bert import convert_hf_weights, get_bert_config
+
+    label = "[12c birch]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")
+    directory = os.path.join(workdir, "birch_bert_large_nsp")
+    large = get_bert_config("bert-large-uncased")
+    t0 = time.perf_counter()
+    written = write_birch_checkpoint(directory, large)
+    t_write = time.perf_counter() - t0
+    rr_cfg = {"pretrained": directory, "finetune": False, "topk": 3, "extractor": dict(BIRCH_EXTRACTOR)}
+    # the serving checkpoint of a frozen Birch: its dev.best holds the top-k weights alone
+    ckpt = save_params({"params/topk_weights": np.asarray([0.5, 0.3, 0.2], np.float32)},
+                       os.path.join(workdir, "birch.npz"))
+    svc, results, out = serve_reranker(label, "birch", rr_cfg, ckpt, corpus_dir, topics, PHASE12_QUERIES["birch"])
+    model = svc.reranker.model
+    check(model.config.num_layers == 24 and model.config.hidden_size == 1024, f"{label}: not bert-large")
+    check(out["launches"]["flash_attention"] == 24 * out["queries"],
+          f"{label}: K2 launched {out['launches']['flash_attention']} times, expected 24 per request")
+    want = convert_hf_weights(written, model.config)
+    state = {k: v.cpu() for k, v in model.bert.state_dict().items()}
+    loaded = all(torch.equal(state[k], v) for k, v in want.items()) and set(want) == set(state)
+    head = (torch.equal(model.relevance.weight[0].cpu(), written["cls.seq_relationship.weight"][1])
+            and torch.equal(model.relevance.bias.cpu(), written["cls.seq_relationship.bias"][1:]))
+    check(loaded and head, f"{label}: the encoder or NSP head on the card differ from the checkpoint written")
+    ext = svc.reranker.extractor
+    check(ext._punkt is not None and ext._punkt._punkt is None, f"{label}: the sentence splitter did not run")
+    hits = [d for d, _ in results[0]]
+    valid = [sum(p != [ext.pad_tok] for p in ext._get_passages(d)) for d in hits]
+    out.update(checkpoint_write_s=t_write, checkpoint_bytes=os.path.getsize(os.path.join(directory, "pytorch_model.bin")),
+               trainable=sorted(k for k in ("params/bert/word_embeddings", "params/relevance/kernel",
+                                            "params/topk_weights") if svc.reranker.trainable(tuple(k.split("/")), None)))
+    print(f"{label} checkpoint: {out['checkpoint_bytes'] / 1e9:.2f} GB written in {t_write:.1f} s (torch.save, "
+          f"BertForNextSentencePrediction layout), read without transformers; encoder and NSP head on the card equal "
+          f"the tensors written; frozen (finetune=False): trainable {out['trainable']}; sentence passages through the "
+          f"splitter (nltk absent): {np.mean(valid):.2f} valid passages a doc over query 0's top 10 (the corpus has "
+          f"no sentence punctuation, so each doc is one sentence cut into whole chunks of 150 tokens)")
+    out["cpu_err"], _, _ = card_vs_cpu(label, svc, "birch", rr_cfg, topics[0], PHASE12_CPU_DOCS["birch"], BIRCH_CPU_TOL)
+    del svc, model, state, want, written
+    torch.cuda.empty_cache()
+    return out, directory
+
+
+def phase_moe(workdir, corpus_dir, topics, dense_checkpoint):
+    """12d: BERTMaxP with 4 experts of top-2 routing in every layer, BERT-base
+    width; MoE over ``dense_checkpoint`` (12c's) must be refused."""
+    from capreolus_tpu_torch.convert import save_params
+    from capreolus_tpu_torch.core import ConfigError, constants
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.serving import RetrievalService
+
+    label = "[12d moe]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")
+    rr_cfg = {"pretrained": "bert-base-uncased", "allowrandominit": True, "moeexperts": MOE_EXPERTS,
+              "moetopk": MOE_TOPK}
+    try:  # a dense checkpoint cannot seed the experts: refused, as in JAX
+        Reranker.create("BERTMaxP", dict(rr_cfg, pretrained=dense_checkpoint, extractor={"index": {"collection": {
+            "name": "dummy", "path": corpus_dir}}})).build_model()
+        check(False, f"{label}: MoE took a dense checkpoint")
+    except ConfigError as e:
+        print(f"{label} MoE over a dense checkpoint refused: {e}")
+    model = Reranker.create("BERTMaxP", dict(rr_cfg, extractor={"index": {"collection": {
+        "name": "dummy", "path": corpus_dir}}})).build_model()
+    ckpt = save_params(seeded_model_params(model, seed=7), os.path.join(workdir, "moe.npz"))
+    layers = model.config.num_layers
+    del model
+    svc, results, out = serve_reranker(label, "BERTMaxP", rr_cfg, ckpt, corpus_dir, topics, PHASE12_QUERIES["moe"])
+    check(out["launches"]["flash_attention"] == layers * out["queries"],
+          f"{label}: K2 launched {out['launches']['flash_attention']} times, expected {layers} per request")
+    # 8 docs on the CPU, each layer from the card's input: a token whose top-2 set differs between the
+    # devices is counted and left out; the others' outputs within BERT_CPU_TOL; then the head from the
+    # card's last hidden states
+    hits = RetrievalService.search_async(svc, [topics[0]], k=svc.topn)()[0]
+    batch = svc.rerank_batch("smoke12_moe", topics[0], [d for d, _ in hits[:PHASE12_CPU_DOCS["moe"]]])
+    model = svc.reranker.model
+    cpu_rr = Reranker.create("BERTMaxP", dict(rr_cfg, extractor={"index": svc.reranker.extractor.config["index"]}))
+    cpu_model = cpu_rr.build_model().eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    seq = batch["pos_bert_input"].shape[-1]
+    ids, seg, mask = (torch.from_numpy(batch[k].reshape(-1, seq)) for k in ("pos_bert_input", "pos_seg", "pos_mask"))
+    doc_mask = torch.from_numpy(batch["pos_mask"])
+    t0 = time.perf_counter()
+    flips, tokens, layer_err = 0, 0, []
+    with torch.inference_mode():
+        gpu = svc.reranker.test(batch, svc.device).cpu().numpy()
+        keys = mask.bool().cuda()
+        hidden = model.bert.embed(ids.cuda(), seg.cuda())
+        for i in range(layers):
+            gl, cl = getattr(model.bert, f"layer_{i}"), getattr(cpu_model.bert, f"layer_{i}")
+            out_gpu = gl(hidden, keys)
+            out_cpu = cl(hidden.cpu(), keys.cpu())
+            inner = gl.attention_ln(hidden + gl.attention(hidden, keys))
+            top_gpu = gl.moe.gates(inner).cpu() > 0
+            top_cpu = cl.moe.gates(inner.cpu()) > 0
+            same = (top_gpu == top_cpu).all(dim=-1)
+            flips += int((~same).sum())
+            tokens += same.numel()
+            layer_err.append(float((out_gpu.cpu() - out_cpu).abs().amax(dim=-1)[same].max()))
+            hidden = out_gpu
+        pooled = torch.tanh(cpu_model.bert.pooler(hidden[:, 0].cpu()))
+        head = cpu_rr._head_scores(cpu_model.classifier(pooled)[:, 0].reshape(doc_mask.shape[:2]), doc_mask).numpy()
+    cpu_s = time.perf_counter() - t0
+    head_err = float(np.abs(gpu - head).max())
+    check(max(layer_err) <= BERT_CPU_TOL and flips <= MOE_FLIP_SHARE * tokens and head_err <= BERT_CPU_TOL,
+          f"{label}: MoE layers card vs CPU {layer_err}, {flips} routing flips of {tokens}, head {head_err}")
+    print(f"{label} query 0's top {len(gpu)} docs, card vs CPU ({cpu_s:.1f} s with the CPU): each layer from the card's "
+          f"input, max |err| {max(layer_err):.3g} (tolerance {BERT_CPU_TOL}) over tokens routed alike; tokens whose "
+          f"top-{MOE_TOPK} experts differ between the devices {flips} of {tokens} (share allowed {MOE_FLIP_SHARE}); "
+          f"scores from the card's last layer {head_err:.3g} (tolerance {BERT_CPU_TOL})")
+    out.update(cpu_err=head_err, layer_err=max(layer_err), routing_flips=flips, routed_tokens=tokens)
+    del svc, model, cpu_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_other_tasks(workdir):
+    """12e: rerank.traineval for PARADE, CEDR-KNRM and Birch at tiny width on
+    phase 9a's rerank golden on the card (step 1 against the CPU), bircheval,
+    and rererank.traineval with KNRM then tiny BERTMaxP."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.evaluation import DEFAULT_METRICS, eval_runs
+    from capreolus_tpu_torch.searcher import Searcher
+    from capreolus_tpu_torch.task import Task
+
+    label = "[12e tasks]"
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_rerank_golden")  # phase 9a's golden and caches
+    constants["RESULTS_BASE_PATH"] = os.path.join(workdir, "results_rerank_golden_12")
+    t0 = time.perf_counter()
+    topics, qrels = setup_rerank_golden(os.path.join(workdir, "rerank_golden"))
+    qids = sorted(topics)
+    split = RERANK_GOLDEN["split"]
+    test_q = qids[split[0] + split[1]:]
+    out = {}
+    reset_launch_counts()
+    for name, extra in (("parade", {}), ("CEDRKNRM", {"simmat_layers": "0..2,1"}), ("birch", {"finetune": True})):
+        cfg = dict(extra, name=name, pretrained="tiny", hidden_dropout_prob=0.0,
+                   extractor=dict(GOLDEN_POOLED_EXTRACTOR), trainer=dict(GOLDEN_TRAINER))
+        task = rerank_task(cfg, "cuda")
+        parity = step_parity(task, training_batch(task, 16), f"tiny {name} (dropout off)", prefix="[12e parity]")
+        check(parity["launches"]["flash_attention"] == 0, f"{label} {name}: K2 launched inside a training step")
+        task = rerank_task(cfg, "cuda")
+        first = task._best_search_run()
+        preds = task.rerank_run(first, task.get_results_path())
+        test_map = golden_map(preds["test"], qrels, test_q)
+        check(all(np.isfinite(v) for r in preds["test"].values() for v in r.values()), f"{label} {name}: non-finite")
+        out[name] = {"test_map": test_map, "first_stage_map": golden_map(first, qrels, test_q), "parity": parity}
+        print(f"{label} {name} trained on the card: first stage {out[name]['first_stage_map']:.4f} -> test MAP "
+              f"{test_map:.4f} (no pin: the JAX package has none for this model)")
+        if name == "birch":
+            metrics = task.bircheval()
+            run = Searcher.load_trec_run(task.get_results_path() / "pred" / "test" / "best")
+            want = eval_runs(run, task.benchmark.qrels, DEFAULT_METRICS, task.benchmark.relevance_level)
+            check(metrics == want, f"{label} bircheval {metrics} differs from eval_runs {want}")
+            out["bircheval_map"] = metrics["map"]
+            print(f"{label} rerank.bircheval: map {metrics['map']:.4f}, equal to eval_runs of the run file it read")
+    rr = Task.create("rererank", {
+        "benchmark": {"name": "rerank_golden"}, "topn": 3,
+        "rank": {"searcher": {"name": "BM25", "index": {"collection": {"name": "rerank_golden"}}}},
+        "rerank1": {"reranker": dict(json.loads(json.dumps(RERANK_GOLDEN_CONFIGS["KNRM"])),
+                                     trainer=dict(RERANK_GOLDEN_CONFIGS["KNRM"]["trainer"], niters=1)),
+                    "threshold": RERANK_GOLDEN["cands"], "testthreshold": RERANK_GOLDEN["cands"]},
+        "rerank2": {"reranker": dict(json.loads(json.dumps(RERANK_GOLDEN_CONFIGS["BERTMaxP"])),
+                                     trainer=dict(RERANK_GOLDEN_CONFIGS["BERTMaxP"]["trainer"], niters=1)),
+                    "threshold": 3, "testthreshold": 3}})
+    rr.device = "cuda"
+    stage3 = rr.train()
+    metrics = rr.evaluate()
+    check(all(len(docs) <= 3 for docs in stage3["test"].values()), f"{label} rererank: stage 3 took more than topn")
+    out["rererank"] = {"map": metrics["map"], "test_map_over_test_qids": golden_map(stage3["test"], qrels, test_q)}
+    launched = {k: v for k, v in launch_counts().items() if v}
+    out["launches"] = launched
+    print(f"{label} rererank.traineval (KNRM, then tiny BERT-MaxP over its top 3): test map {metrics['map']:.4f}; "
+          f"launches over phase 12e: {launched}; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_other_rerankers(workdir, corpus_dir, topics, launches):
+    """Phase 12: PARADE, CEDR-KNRM, Birch and MoE-BERT served on the card, then their tasks."""
+    t0 = time.perf_counter()
+    out = {"parade": phase_parade(workdir, corpus_dir, topics), "cedrknrm": phase_cedr(workdir, corpus_dir, topics)}
+    out["birch"], birch_checkpoint = phase_birch(workdir, corpus_dir, topics)
+    out["moe"] = phase_moe(workdir, corpus_dir, topics, birch_checkpoint)
+    out["tasks"] = phase_other_tasks(workdir)
+    served = [out["parade"]["f32"], out["parade"]["int8"], out["cedrknrm"], out["birch"], out["moe"]]
+    for entry in served:  # each served run's launches, counted from 0 just before it
+        for key in ("flash_attention", "int8_matmul", "quantize_per_token"):
+            launches[key] = launches.get(key, 0) + entry["launches"][key]
+    launches["int8_matmul_modes"] = out["parade"]["int8"]["launches"]["int8_matmul_modes"]
+    launches["pad_copies"] = out["parade"]["int8"]["launches"]["pad_copies"]
+    summary = {name: {k: v for k, v in entry.items() if k not in ("profiled",)} for name, entry in
+               (("parade_f32", out["parade"]["f32"]), ("parade_int8", out["parade"]["int8"]),
+                ("cedrknrm", out["cedrknrm"]), ("birch", out["birch"]), ("moe", out["moe"]))}
+    summary["profiled"] = {name: entry["profiled"] for name, entry in
+                           (("parade_f32", out["parade"]["f32"]), ("parade_int8", out["parade"]["int8"]),
+                            ("cedrknrm", out["cedrknrm"]), ("birch", out["birch"]), ("moe", out["moe"]))}
+    summary["tasks"] = {k: v for k, v in out["tasks"].items()}
+    print(f"[12 other rerankers] {smi_line()}: every sub-phase passed in {time.perf_counter() - t0:.1f} s; summary "
+          + json.dumps(summary, default=str))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -3211,6 +3742,8 @@ def main():
         print("[9 training] summary " + json.dumps({"golden": golden, "full_width": training}, default=str))
         timed(phase_sparse_engine, workdir)
         timed(phase_robust04, workdir)
+        other_launches = {}
+        other = timed(phase_other_rerankers, workdir, corpus_dir, topics, other_launches)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3242,13 +3775,21 @@ def main():
         "replaces": "capreolus_tpu/ops/flash_attention.py:47",
         "tpu": "capreolus_tpu/ops/flash_attention.py::_flash_kernel",
         "shape": k2_served["shape"] + " f32, layer-0 inputs of a served request",
-        # the runs of monoBERT f32 and int8, then ColBERT's over the bf16 and int8 corpora
+        # the runs of monoBERT f32 and int8, then ColBERT's over the bf16 and int8 corpora, then phase 12's
         "launches": (k2_launches + bert_int8_launches["flash_attention"] + colbert_launches["flash_attention"]
-                     + colbert_int8_launches["flash_attention"]),
+                     + colbert_int8_launches["flash_attention"] + other_launches["flash_attention"]),
         "launches_monobert": k2_launches,
         "launches_monobert_int8": bert_int8_launches["flash_attention"],
         "launches_colbert": colbert_launches["flash_attention"],
         "launches_colbert_int8": colbert_int8_launches["flash_attention"],
+        # PARADE f32 and int8 (12 encoder + 2 aggregation layers a forward), CEDR-KNRM, Birch, MoE-BERT
+        "launches_phase12": other_launches["flash_attention"],
+        "launches_phase12_by_model": {k: v["launches"]["flash_attention"] for k, v in (
+            ("parade", other["parade"]["f32"]), ("parade_int8", other["parade"]["int8"]),
+            ("cedrknrm", other["cedrknrm"]), ("birch", other["birch"]), ("moe", other["moe"]))},
+        # on a served PARADE forward's own q, k, v over its 100 candidates: the encoder's L 256 (B 1600)
+        # and the aggregation layers' L 17 (B 100)
+        "max_abs_err_phase12": other["parade"]["f32"]["k2_err"],
         "layout": k2_served["layout"],
         "max_abs_err": k2_served["max_abs_err"],
         "max_abs_err_small": k2["max_abs_err_small"],
@@ -3294,9 +3835,12 @@ def main():
         "replaces": "scripts/exp_pallas_int8.py:46, scripts/exp_pallas_int8b.py:32",
         "tpu": "scripts/exp_pallas_int8.py::matmul_kernel (X1), scripts/exp_pallas_int8b.py::matmul_kernel (X2)",
         "shape": x1["intermediate"]["shape"] + ", the served FFN up-projection, int32 epilogue",
-        # monoBERT int8's run, then ColBERT's int8 run and its int4 + rescore query
+        # monoBERT int8's run, then ColBERT's int8 run and its int4 + rescore query, then int8 PARADE's
         "launches": (bert_int8_launches["int8_matmul"] + colbert_int8_launches["int8_matmul"]
-                     + colbert_int8_launches["int8_matmul_int4"]),
+                     + colbert_int8_launches["int8_matmul_int4"] + other_launches["int8_matmul"]),
+        "launches_parade_int8": other_launches["int8_matmul"],
+        "launches_parade_int8_by_mode": other_launches["int8_matmul_modes"],
+        "pad_copies_parade_int8": other_launches["pad_copies"],
         "launches_monobert_int8": bert_int8_launches["int8_matmul"],
         "launches_monobert_int8_by_mode": bert_int8_launches["int8_matmul_modes"],
         "pad_copies_monobert_int8": bert_int8_launches["pad_copies"],
@@ -3323,7 +3867,9 @@ def main():
         # no TPU kernel: the JAX encoder's per-token quantization, which XLA fuses into the int8 dot
         "replaces": "capreolus_tpu/reranker/bert/encoder.py:139 (_quantize_per_token, no pl.pallas_call)",
         "shape": q1["shape"] + ", the served BERT-base hidden states",
-        "launches": bert_int8_launches["quantize_per_token"],
+        "launches": bert_int8_launches["quantize_per_token"] + other_launches["quantize_per_token"],
+        "launches_monobert_int8": bert_int8_launches["quantize_per_token"],
+        "launches_parade_int8": other_launches["quantize_per_token"],
         "max_abs_err": q1["max_abs_err"],
         "ms": q1["ms"],
         "plain_ms": q1["plain_ms"],

@@ -363,8 +363,35 @@ def test_load_pretrained_encoder_is_offline():
     ("reranker", {"quantize": "int8", "lora": 4}), ("reranker", {"moeexperts": 2}), ("reranker", {"lora": 4}),
     ("extractor", {"sentences": True}),
 ])
-def test_unported_options_raise(module, options):
+def test_unported_options_raise(tmpdir_as_cache, torch_cache, module, options):
+    """LoRA is refused, naming what it selects. ``moeexperts`` and
+    ``sentences=True`` were refused here until the port had them: those two
+    cases now build and agree with the JAX package (scores within 1e-4, the
+    features equal), as ``tests/test_torch_moe.py`` and
+    ``tests/test_torch_segmentation.py`` hold them in full."""
     extractor = dict(EXTRACTOR_TINY, tokenizer=OFFLINE_TOKENIZER, index={"collection": {"name": "dummy"}})
+    if options == {"moeexperts": 2}:
+        jax_rr, port_rr = _reranker_pair({"pretrained": "tiny", "moeexperts": 2})
+        batch = bert_batch(2, 2, 64, qlen=5, seed=15, vocab=5000)
+        params = jax_rr.init_params(jax.random.PRNGKey(2), batch)
+        port_rr.build_model().load_state_dict(port_rr.state_dict_from_params(flatten_params(params)))
+        port_rr.model.eval()
+        with torch.inference_mode():
+            got = port_rr.test(batch, "cpu").numpy()
+        assert_within(got, np.asarray(jax_rr.test(params, batch)), 1e-4, "BERTMaxP with 2 experts a layer")
+        return
+    if options == {"sentences": True}:
+        cfg = dict(extractor, sentences=True, passagelen=6)
+        jax_ext, port_ext = JaxExtractor.create("bertpassage", cfg), TorchExtractor.create("bertpassage", cfg)
+        topics = {"301": "orbital telescope launched"}
+        for ext in (jax_ext, port_ext):
+            ext.preprocess(list(topics), ["D001", "D002", "D003"], topics)
+        for docid in ("D001", "D002", "D003"):
+            want = jax_ext.id2vec("301", docid, label=[1, 0], training=False)
+            got = port_ext.id2vec("301", docid, label=[1, 0], training=False)
+            for key in ("pos_bert_input", "pos_mask", "pos_seg"):
+                np.testing.assert_array_equal(got[key], want[key], err_msg=f"{docid} {key}")
+        return
     if module == "extractor":
         extractor.update(options)
         options = {}

@@ -11,7 +11,8 @@ against its plain version at 1e-4 with f32 inputs (one softmax, f32 sums in
 another order, split-TF32 products that keep f32 accuracy) and 2e-2 with bf16
 inputs (probabilities and outputs rounded to bf16), on contiguous inputs and
 on the encoder's strided head views, which give the same bits; tiny
-BERTMaxP served on the card agrees with the CPU within 1e-4. K3 is held
+BERTMaxP served on the card agrees with the CPU within 1e-4, and so do tiny
+PARADE, CEDR-KNRM, Birch and MoE-BERTMaxP scores of one batch. K3 is held
 against its plain version at 1e-4 (relative and absolute; equal bf16 inputs,
 exact f32 products, the sums in another order), with invalid docs at -inf in
 both; ColBERT served on the card agrees with the CPU within 1e-2, the JAX
@@ -215,7 +216,10 @@ K2_CASES = [  # contiguous [B, H, L, D]
 ] + [  # the encoder's head views, at every L it serves or tests, every head dim, both dtypes
     (dtype, (3, 2, l, d), "heads") for dtype in (torch.float32, torch.bfloat16)
     for l in (1, 32, 77, 180, 256) for d in (32, 64, 128)
-] + [(torch.float32, (4, 12, 256, 64), "heads"), (torch.bfloat16, (4, 12, 256, 64), "heads")]
+] + [(torch.float32, (4, 12, 256, 64), "heads"), (torch.bfloat16, (4, 12, 256, 64), "heads")] + [
+    # PARADE's aggregation layers: 16 passages + the CLS vector, heads as views of [docs, 17, 768]
+    (dtype, (b, 12, 17, 64), "heads") for dtype in (torch.float32, torch.bfloat16) for b in (3, 100)
+]
 
 
 @pytest.mark.cuda
@@ -971,3 +975,48 @@ def test_pruned_streamed_and_packed_on_the_card_are_bit_identical(card, sparse_c
     np.testing.assert_array_equal(gpu._host[1].numpy(), cpu.ords.numpy())  # the packed words, bit for bit
     np.testing.assert_array_equal(gw[1], cw[1])
     np.testing.assert_allclose(gw[0], cw[0], rtol=1e-2)  # bf16: an ulp of f32 can round across a bf16 step
+
+
+OTHER_BERT_RERANKERS = [
+    ("parade", {"aggregation": "transformer"}, 4),  # 2 encoder layers + 2 aggregation layers
+    ("CEDRKNRM", {"simmat_layers": "0..2,1"}, 2),
+    ("birch", {"topk": 2}, 2),
+    ("BERTMaxP", {"moeexperts": 3, "moetopk": 2}, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,options,k2_per_forward", OTHER_BERT_RERANKERS,
+                         ids=["parade", "cedrknrm", "birch", "moe"])
+def test_other_bert_rerankers_on_the_card_match_cpu(card, name, options, k2_per_forward):
+    """Tiny PARADE, CEDR-KNRM, Birch and MoE-BERTMaxP: the scores of one batch
+    of 5 docs x 4 passages on the card (K2 in every attention) within 1e-4 of
+    the CPU's from the same weights (N(0, 0.2), as the tiny BERTMaxP above)."""
+    from capreolus_tpu_torch.reranker import Reranker
+
+    cfg = dict(options, pretrained="tiny", extractor={"maxseqlen": 64, "maxqlen": 8, "numpassages": 4,
+                                                     "index": {"collection": {"name": "dummy"}}})
+    gpu_rr, cpu_rr = Reranker.create(name, cfg), Reranker.create(name, cfg)
+    gpu_model = gpu_rr.build_model()
+    gpu_model.load_state_dict(gpu_rr.state_dict_from_params(seeded_bert_params(gpu_model, seed=9, std=0.2)))
+    gpu_model.to(card).eval()
+    rng = np.random.Generator(np.random.PCG64(10))
+    inp = rng.integers(1000, 30000, size=(5, 4, 64))
+    mask = np.zeros((5, 4, 64), dtype=np.int64)
+    for i in range(5):
+        for j in range(4):
+            mask[i, j, :int(rng.integers(12, 65))] = 1
+    inp[mask == 0], inp[..., 0] = 0, 101
+    seg = np.zeros_like(mask)
+    seg[..., 9:] = 1
+    batch = {"pos_bert_input": inp, "pos_mask": mask, "pos_seg": seg}
+    cpu_model = cpu_rr.build_model()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in gpu_model.state_dict().items()})
+    cpu_model.eval()
+    before = fa.flash_attention.launches
+    with torch.inference_mode():
+        got = gpu_rr.test(batch, card).cpu().numpy()
+        want = cpu_rr.test(batch, "cpu").numpy()
+    assert fa.flash_attention.launches == before + k2_per_forward
+    assert np.isfinite(got).all() and got.shape == (5,)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

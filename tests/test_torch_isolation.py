@@ -1,6 +1,9 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
-JAX package (nor HuggingFace ``transformers``: it downloads nothing), its
-module registry is its own, and so are its native libraries and data files.
+JAX package (nor HuggingFace ``transformers`` or ``safetensors``: it
+downloads nothing, and reads checkpoints with its own reader), its module
+registry is its own, and so are its native libraries and data files. ``nltk``
+is imported in one place only, inside ``PunktTokenizer.build`` under ``try``,
+so importing the port never loads it.
 
 ``capreolus_tpu_torch`` starts with ``capreolus_tpu``, so a forbidden module is
 ``capreolus_tpu`` itself or a name under ``capreolus_tpu.``, never a prefix match.
@@ -17,17 +20,20 @@ import capreolus_tpu
 import capreolus_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "transformers")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "transformers", "safetensors")
+IMPORT_TIME_FORBIDDEN_ROOTS = FORBIDDEN_ROOTS + ("nltk",)  # nltk: imported lazily, never at import time
 
 
-def is_forbidden(module_name: str) -> bool:
-    return (module_name.split(".")[0] in FORBIDDEN_ROOTS or module_name == "capreolus_tpu"
+def is_forbidden(module_name: str, roots=FORBIDDEN_ROOTS) -> bool:
+    return (module_name.split(".")[0] in roots or module_name == "capreolus_tpu"
             or module_name.startswith("capreolus_tpu."))
 
 
 def test_forbidden_name_rule():
     assert is_forbidden("capreolus_tpu") and is_forbidden("capreolus_tpu.ops.simmat")
     assert is_forbidden("jax.numpy") and is_forbidden("flax.linen") and is_forbidden("transformers.models")
+    assert is_forbidden("safetensors.torch") and not is_forbidden("nltk")
+    assert is_forbidden("nltk.data", IMPORT_TIME_FORBIDDEN_ROOTS)
     assert not is_forbidden("capreolus_tpu_torch") and not is_forbidden("capreolus_tpu_torch.ops")
     assert not is_forbidden("jaxtyping_like")
 
@@ -63,12 +69,14 @@ def test_importing_every_port_module_loads_no_jax():
             "capreolus_tpu_torch.benchmark.msmarco", "capreolus_tpu_torch.collection.standard",
             "capreolus_tpu_torch.evaluation.msmarco", "capreolus_tpu_torch.evaluation.significance",
             "capreolus_tpu_torch.searcher.special", "capreolus_tpu_torch.utils.common",
-            "capreolus_tpu_torch.utils.udel", "capreolus_tpu_torch.task.tutorial"} <= set(out["imported"])
+            "capreolus_tpu_torch.utils.udel", "capreolus_tpu_torch.task.tutorial",
+            "capreolus_tpu_torch.analysis.segmentation", "capreolus_tpu_torch.task.rererank",
+            "capreolus_tpu_torch.reranker.bert.checkpoint"} <= set(out["imported"])
     loaded = set(out["after"]) - set(out["before"])
-    assert not sorted(m for m in loaded if is_forbidden(m))
+    assert not sorted(m for m in loaded if is_forbidden(m, IMPORT_TIME_FORBIDDEN_ROOTS))
     # absent altogether, unless the interpreter's own start-up had loaded it
-    if not any(is_forbidden(m) for m in out["before"]):
-        assert not sorted(m for m in out["after"] if is_forbidden(m))
+    if not any(is_forbidden(m, IMPORT_TIME_FORBIDDEN_ROOTS) for m in out["before"]):
+        assert not sorted(m for m in out["after"] if is_forbidden(m, IMPORT_TIME_FORBIDDEN_ROOTS))
 
 
 def _imported_names(path: Path):
@@ -86,6 +94,27 @@ def test_port_sources_import_no_jax():
     offenders = {str(f.relative_to(ROOT)): bad for f in files
                  if (bad := sorted(n for n in _imported_names(f) if is_forbidden(n)))}
     assert offenders == {}
+
+
+def test_nltk_is_imported_only_inside_punkt_build():
+    """Every ``import nltk`` of the port sits in ``PunktTokenizer.build``, inside a ``try``."""
+    files = sorted((ROOT / "capreolus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    places = []
+    for path in files:
+        tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+        parents = {child: node for node in ast.walk(tree) for child in ast.iter_child_nodes(node)}
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if not any(n.split(".")[0] == "nltk" for n in names):
+                continue
+            chain, up = [], node
+            while up in parents:
+                up = parents[up]
+                chain.append(up)
+            funcs = [n.name for n in chain if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+            places.append((str(path.relative_to(ROOT)), funcs[:2], any(isinstance(n, ast.Try) for n in chain)))
+    assert places == [("capreolus_tpu_torch/tokenizer/__init__.py", ["build", "PunktTokenizer"], True)]
 
 
 def test_native_libraries_and_data_are_the_ports_own():

@@ -22,7 +22,6 @@ capreolus_tpu_torch.load_all_modules()
 torch.set_num_threads(2)
 
 from capreolus_tpu.task import Task as JaxTask  # noqa: E402
-from capreolus_tpu_torch.core import ConfigError  # noqa: E402
 from capreolus_tpu_torch.index import Index as TorchIndex  # noqa: E402
 from capreolus_tpu_torch.reranker import Reranker as TorchReranker  # noqa: E402
 from capreolus_tpu_torch.serving import RerankingService  # noqa: E402
@@ -102,8 +101,23 @@ def test_evaluate_without_train_raises(knrm_task):
 
 
 def test_bircheval_raises_config_error(knrm_task):
-    with pytest.raises(ConfigError, match="item 6"):
+    """``bircheval`` raised ConfigError until Birch was ported. It now
+    evaluates the fold's test run with the default metrics against every qrel,
+    equal to the JAX package's ``eval_runs`` of the same run file; before the
+    train command it raises ValueError, as the JAX task does."""
+    from capreolus_tpu.benchmark import Benchmark as JaxBenchmark
+    from capreolus_tpu.evaluation import DEFAULT_METRICS, eval_runs
+    from capreolus_tpu_torch.searcher import Searcher
+
+    knrm_task._place()
+    knrm_task.rank.search()
+    with pytest.raises(ValueError, match="could not find birch predictions"):
         knrm_task.bircheval()
+    knrm_task.train()
+    metrics = knrm_task.bircheval()
+    benchmark = JaxBenchmark.create("dummy")
+    run = Searcher.load_trec_run(knrm_task.get_results_path() / "pred" / "test" / "best")
+    assert metrics == eval_runs(run, benchmark.qrels, DEFAULT_METRICS, benchmark.relevance_level)
 
 
 def test_rerank_task_asks_for_the_card_by_default(torch_cache, monkeypatch):

@@ -385,7 +385,7 @@ def load_flat(port_rr, model, flat):
     model.load_state_dict(port_rr.state_dict_from_params(flat))
 
 
-def check_training_matches_jax(corpus, jax_rr, port_rr, sampler="triplet", own_steps=3, exclude=None):
+def check_training_matches_jax(corpus, jax_rr, port_rr, sampler="triplet", own_steps=3, exclude=None, unused=()):
     """From the JAX init, port against JAX:
 
     - step 1's loss and gradients (the port computes gradients for exactly the
@@ -400,7 +400,9 @@ def check_training_matches_jax(corpus, jax_rr, port_rr, sampler="triplet", own_s
 
     ``exclude`` ({key: [indices]}) names entries left out of the step-1
     gradients and the own steps' weights (ill-conditioned ones, each test
-    says why)."""
+    says why). ``unused`` names trainable weights that the loss does not
+    read: JAX's gradient of each is exactly 0, and the port computes none
+    (torch leaves it None); Adam moves neither."""
     c = port_rr.trainer.config
     gradacc, batch = c["gradacc"], c["batch"]
     samples = draw(samplers(corpus, (jax_rr, port_rr), sampler)[0], 3 * gradacc * batch)
@@ -412,9 +414,12 @@ def check_training_matches_jax(corpus, jax_rr, port_rr, sampler="triplet", own_s
     micro = {k: v[0] for k, v in batches[0].items()}
     j_loss, j_grads = jax_grads(jax_rr, params, micro)
     p_loss, p_grads = port_grads(port_rr, micro)
-    assert set(p_grads) == set(keys), "the port computes gradients for exactly the trainable weights"
+    assert set(p_grads) == set(keys) - set(unused), "the port computes gradients for exactly the trainable weights"
+    for key in unused:
+        np.testing.assert_array_equal(j_grads[key], 0.0, err_msg=f"JAX's gradient of the unused {key}")
+    keys = [k for k in keys if k not in unused] + list(unused)
     assert_within(p_loss, j_loss, GRAD_TOL, "step-1 loss")
-    for key in keys:
+    for key in keys[:len(keys) - len(unused)]:
         scale = max(1.0, float(np.abs(j_grads[key]).max()))
         keep = np.ones(j_grads[key].shape, dtype=bool)
         keep[tuple(np.asarray((exclude or {}).get(key, []), dtype=int)[None])] = False
@@ -728,7 +733,17 @@ def _distill_train(port_rr, corpus, tmp_path):
 
 
 @pytest.mark.parametrize("options,match", [({"lora": 4}, "item 4"), ({"moeexperts": 2}, "item 6")])
-def test_unported_bert_options_name_their_roadmap_item(corpus, options, match):
+def test_unported_bert_options_name_their_roadmap_item(corpus, tmp_path, options, match):
+    """LoRA is refused at create. MoE is ported (its experts train in the
+    ``bert`` group, as the JAX labels put them); the expert-parallel degree it
+    would shard over is not, and ``trainer.ep > 1`` names item 6."""
+    if "moeexperts" in options:
+        _, port_rr = bert_pair(corpus, trainer={"ep": 2, "niters": 1, "itersize": 4, "batch": 2}, **options)
+        labels = port_rr.trainer.param_labels(port_rr, port_rr.init_params(0))
+        assert labels["bert.layer_0.moe.experts_wi"] == labels["bert.layer_1.moe.gate.weight"] == "bert"
+        with pytest.raises(ConfigError, match=f"{match}, 'Multi-device'"):
+            _train(port_rr, corpus, tmp_path)
+        return
     with pytest.raises(ConfigError, match=match):
         bert_pair(corpus, **options)
 
