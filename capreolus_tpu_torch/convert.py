@@ -33,13 +33,20 @@ def save_params(flat: dict, path) -> Path:
     return path
 
 
+def params_file(path) -> Path:
+    """The file a checkpoint path names: ``path`` itself, or for a stem
+    (``dev.best``) that does not exist, the ``.params`` file beside it."""
+    path = Path(path)
+    if not path.exists() and path.with_name(path.name + ".params").exists():
+        return path.with_name(path.name + ".params")
+    return path
+
+
 def load_params(path) -> dict:
     """A flat ``{"params/...": array}`` dict from an .npz, a flax ``.params``
     file, or a checkpoint's stem (``dev.best``, whose ``dev.best.params``
     either trainer writes)."""
-    path = Path(path)
-    if not path.exists() and path.with_name(path.name + ".params").exists():
-        path = path.with_name(path.name + ".params")
+    path = params_file(path)
     if path.name.endswith(".params"):
         from capreolus_tpu_torch.utils.flax_msgpack import from_bytes
 
@@ -112,23 +119,23 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator)
 
 
 def init_flax_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
-    """Draw ``model``'s weights as flax initialises their counterparts: every
+    """Draw ``model``'s weights as flax initialises their counterparts: a
+    module's own parameters by its ``flax_init_(generator)`` where it has one
+    (BERT's embedding tables, a LoRA adapter's Dense layers), every other
     ``nn.Linear`` (a flax ``nn.Dense``) ``lecun_normal`` with a zero bias, every
-    ``nn.LayerNorm`` unit scale and zero bias, and a module's other parameters
-    by its own ``flax_init_(generator)`` where it has one (BERT's embedding
-    tables); other parameters keep their values. The draws come from
-    ``generator`` in module order."""
+    ``nn.LayerNorm`` unit scale and zero bias; other parameters keep their
+    values. The draws come from ``generator`` in module order."""
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, torch.nn.Linear):
+            if hasattr(module, "flax_init_"):
+                module.flax_init_(generator)
+            elif isinstance(module, torch.nn.Linear):
                 lecun_normal_(module.weight, module.in_features, generator)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, torch.nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
-            elif hasattr(module, "flax_init_"):
-                module.flax_init_(generator)
     return model
 
 

@@ -10,8 +10,9 @@ searcher's exact engine.
 
 - ``maxsim`` is the binding of the hand-written Hopper kernel
   ``csrc/maxsim.cu`` (``wgmma`` on bf16, fed by TMA) and counts its launches
-  in ``maxsim.launches``; ``maxsim_plan`` decides its launch (rows per
-  block, Ld splits, grid);
+  in ``maxsim.launches``; it has no backward and refuses a query that requires
+  grad, on any device (ColBERT trains through ``reranker.colbert.maxsim``);
+  ``maxsim_plan`` decides its launch (rows per block, Ld splits, grid);
 - ``maxsim_scores_plain`` is the plain torch version of the same function,
   which the kernel is held against on the card;
 - ``maxsim_scores`` is what the searcher calls: CUDA tensors go to the kernel,
@@ -124,7 +125,11 @@ def maxsim(q_emb, docs_t, bias_t, valid):
     """K3 on CUDA tensors: q_emb [Q, Lq, dim] (cast to bf16 here), docs_t
     [Ld, C, dim] bf16, bias_t [Ld, C] f32, valid [C] bool, the corpus tensors
     contiguous and 16-byte aligned, 1 <= dim <= 128. Raises on anything else,
-    CPU tensors included (``maxsim_scores`` routes those to the plain version)."""
+    CPU tensors included (``maxsim_scores`` routes those to the plain version),
+    and on a ``q_emb`` that requires grad: the kernel has no backward."""
+    if q_emb.requires_grad:
+        raise ValueError("maxsim: q_emb requires grad, and the kernel has no backward; "
+                         "a training forward takes reranker.colbert.maxsim")
     device = q_emb.device
     if device.type != "cuda":
         raise ValueError(f"maxsim: q_emb is on {device}; the kernel takes CUDA tensors only")

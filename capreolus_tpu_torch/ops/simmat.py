@@ -137,14 +137,17 @@ knrm_pool.launches = 0
 
 def knrm_inputs(embedding, querytoks, doctoks, mus, sigmas):
     """The arguments of ``knrm_pool`` for token ids, as the JAX ``knrm_simmat_pool``
-    builds them: rows gathered and normalised with ``norm + 1e-9``, pad (0) and
-    OOV (negative) rows zeroed so the dot products see nothing for them (the
-    OOV exact-match channel comes from the token ids), int32 ids, f32 kernels."""
+    builds them: rows gathered and normalised with ``norm + 1e-9`` in the
+    table's dtype, pad (0) and OOV (negative) rows zeroed so the dot products
+    see nothing for them (the OOV exact-match channel comes from the token
+    ids), then widened to f32; int32 ids, f32 kernels. A bf16 table (a frozen
+    KNRM under ``trainer.amp``) gives the bf16 rows JAX's Pallas path feeds its
+    kernel, widened exactly."""
 
     def norm_embed(toks):
         emb = embedding[torch.clamp_min(toks, 0)]
-        emb = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-9)
-        return torch.where((toks > 0)[..., None], emb, 0.0).contiguous()
+        emb = emb / (torch.sqrt(torch.sum(emb * emb, dim=-1, keepdim=True)) + 1e-9)
+        return torch.where((toks > 0)[..., None], emb, 0.0).float().contiguous()
 
     def f32(values):
         return torch.as_tensor(values, dtype=torch.float32, device=embedding.device).contiguous()

@@ -74,13 +74,26 @@ class Reranker(ModuleBase):
         """Scores [B] for the batch's posdoc, as a tensor on ``device``."""
         raise NotImplementedError
 
+    @staticmethod
+    def fold_seed(dropout_seed, i):
+        """Distinct dropout streams for the pos / neg (or LCE group) forwards."""
+        if dropout_seed is None:
+            return None
+        from capreolus_tpu_torch.reranker.bert.encoder import dropout_generator_seed
+
+        return dropout_generator_seed(dropout_seed, 1000 + i)
+
     # default score/test implementations for models with the
-    # forward(querytoks, doctoks, query_idf) -> [B] signature
+    # forward(querytoks, doctoks, query_idf) -> [B] signature; a model of a
+    # reranker with ``accepts_rngs`` also takes ``dropout_seed``
     def score_default(self, batch, device, dropout_seed=None):
         query, idf = self.put(batch, "query", device), self.put(batch, "query_idf", device)
-        pos = self.model(query, self.put(batch, "posdoc", device), idf)
-        neg = self.model(query, self.put(batch, "negdoc", device), idf)
-        return [pos.reshape(-1), neg.reshape(-1)]
+
+        def forward(side, i):
+            kwargs = {"dropout_seed": self.fold_seed(dropout_seed, i)} if dropout_seed is not None else {}
+            return self.model(query, self.put(batch, side, device), idf, **kwargs).reshape(-1)
+
+        return [forward("posdoc", 0), forward("negdoc", 1)]
 
     def test_default(self, batch, device):
         return self.model(self.put(batch, "query", device), self.put(batch, "posdoc", device),

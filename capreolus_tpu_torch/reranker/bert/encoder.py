@@ -35,9 +35,17 @@ initialises them, the embedding tables through ``BertEncoder.flax_init_``.
 softmax gate, dense dispatch). ``output_hidden_states=True`` also returns the
 embedding output and every layer's output (CEDR-KNRM's simmats).
 ``read_pretrained`` reads a checkpoint directory without
-``transformers`` (``reranker/bert/checkpoint.py``). Not in the port yet:
-``LoRAAdapter`` and other dtypes; the rerankers refuse the options that
-select them.
+``transformers`` (``reranker/bert/checkpoint.py``).
+
+``lora_rank > 0`` gives each attention a rank-r ``LoRAAdapter`` on the query
+and the value projections (``query_lora``, ``value_lora``), added to the
+projection's f32 output (after ``Int8Linear``'s f32 epilogue with int8); the
+sum is a fresh [B, L, H * D] tensor whose heads K2 reads as views. The
+reranker freezes the base weights (``BertRerankerBase.trainable``). The
+encoder computes in f32 at every ``trainer.amp``: the trainer rounds the
+weights to bf16 around it (``trainer/amp.py``), and the embedding sum, whose
+operands are all weights, is then a bf16 sum (``amp_bf16_params``), as the
+JAX encoder computes it on a bf16 parameter tree.
 """
 
 from __future__ import annotations
@@ -80,6 +88,9 @@ class BertConfig:
     # training-time dropout rates, active only in a training forward
     hidden_dropout_prob: float = 0.1
     attention_dropout_prob: float = 0.1
+    # LoRA: rank-r adapters on the attention query and value projections (0 = none)
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
 
     @property
     def head_dim(self):
@@ -162,7 +173,13 @@ class Int8Linear(nn.Linear):
     none when its scales are folded into the weight. The output is ``acc *
     xs * ws + bias`` in f32, in that order (``int8_linear_mm``: X1's f32
     epilogue on CUDA tensors). ``gelu_codes`` returns, in place of that output,
-    its GELU's int8 codes at per-channel scales (``int8_linear_gelu_mm``)."""
+    its GELU's int8 codes at per-channel scales (``int8_linear_gelu_mm``).
+
+    ``quant_dtype`` is the dtype of the weight's quantization arithmetic: f32,
+    or bf16 after ``set_quant_dtype`` under ``trainer.amp``, where the JAX
+    ``Int8Dense`` quantizes a bf16 kernel in bf16."""
+
+    quant_dtype = torch.float32
 
     def __init__(self, in_features, out_features):
         super().__init__(in_features, out_features)
@@ -171,12 +188,13 @@ class Int8Linear(nn.Linear):
 
     def quantize_weight(self, fold_scales=None):
         with torch.no_grad():
-            kf = self.weight.float()
+            kf = self.weight.to(self.quant_dtype)
             if fold_scales is not None:
-                kf = kf * fold_scales[None, :]
+                kf = kf * fold_scales.to(self.quant_dtype)[None, :]
             ws = int8_scale(kf.abs().amax(dim=1).clamp_min(1e-8))
-            self.weight_q = torch.round(kf / ws[:, None]).to(torch.int8)
-            self.weight_scale = ws
+            # saturated as XLA converts: a bf16 quotient can round up to 128
+            self.weight_q = torch.round(kf / ws[:, None]).clamp(-128, 127).to(torch.int8)
+            self.weight_scale = ws.float()
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)
@@ -261,6 +279,38 @@ class MoeFFN(nn.Module):
         return out
 
 
+class _LoRADense(nn.Linear):
+    """A bias-free Dense of a ``LoRAAdapter``, drawn as flax draws it: N(0,
+    ``std``), or zeros when ``std`` is None (``convert.init_flax_`` calls a
+    module's own ``flax_init_`` before its Linear rule)."""
+
+    def __init__(self, in_features, out_features, std=None):
+        super().__init__(in_features, out_features, bias=False)
+        self.std = std
+
+    def flax_init_(self, generator: torch.Generator):
+        with torch.no_grad():
+            if self.std is None:
+                self.weight.zero_()
+            else:
+                self.weight.normal_(0.0, self.std, generator=generator)
+
+
+class LoRAAdapter(nn.Module):
+    """Rank-r low-rank delta (Hu et al. 2021), the JAX ``LoRAAdapter``: x ->
+    (alpha / r) * (x @ down) @ up, ``down`` N(0, 0.02), ``up`` zeros, so a new
+    adapter adds exactly 0. Added to a frozen base projection's output."""
+
+    def __init__(self, in_features: int, features: int, rank: int, alpha: float):
+        super().__init__()
+        self.scale = alpha / rank
+        self.down = _LoRADense(in_features, rank, std=0.02)
+        self.up = _LoRADense(rank, features)
+
+    def forward(self, x):
+        return self.up(self.down(x)) * self.scale
+
+
 class BertSelfAttention(nn.Module):
     def __init__(self, config: BertConfig):
         super().__init__()
@@ -270,13 +320,17 @@ class BertSelfAttention(nn.Module):
         self.query = linear(h, h)
         self.key = linear(h, h)
         self.value = linear(h, h)
+        if config.lora_rank > 0:  # f32 adapters on the int8 path too, as in JAX
+            self.query_lora = LoRAAdapter(h, h, config.lora_rank, config.lora_alpha)
+            self.value_lora = LoRAAdapter(h, h, config.lora_rank, config.lora_alpha)
         self.output = linear(h, h)
 
     def heads(self, hidden):
         """The projections split into heads: q, k, v [B, H, L, D] as views of
         the projections' [B, L, H * D] outputs (no copy: K2 reads the strides).
         With int8, one per-token quantization of ``hidden`` feeds all three
-        projections."""
+        projections. With LoRA, q and v are the projection plus its adapter,
+        a fresh [B, L, H * D] tensor."""
         c = self.config
         b, l, _ = hidden.shape
 
@@ -285,8 +339,13 @@ class BertSelfAttention(nn.Module):
 
         if c.quantize == "int8":
             hq, hs = _quantize_per_token(hidden)
-            return tuple(split(p(None, x_pre=hq, x_scales=hs)) for p in (self.query, self.key, self.value))
-        return split(self.query(hidden)), split(self.key(hidden)), split(self.value(hidden))
+            q, k, v = (p(None, x_pre=hq, x_scales=hs) for p in (self.query, self.key, self.value))
+        else:
+            q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
+        if c.lora_rank > 0:
+            q = q + self.query_lora(hidden)
+            v = v + self.value_lora(hidden)
+        return split(q), split(k), split(v)
 
     def forward(self, hidden, mask, dropout_seed=None):
         b, l, h = hidden.shape
@@ -311,7 +370,10 @@ class BertLayer(nn.Module):
 
     The fold depends on ``gelu_amax``, so the layer requantizes ``ffn_output``
     whenever the stats change: when ``gelu_amax`` is assigned (calibration
-    assigns it too) and after a ``load_state_dict`` that reaches the layer."""
+    assigns it too) and after a ``load_state_dict`` that reaches the layer.
+    Its GELU scales are computed in ``quant_dtype``, as ``Int8Linear``'s."""
+
+    quant_dtype = torch.float32
 
     def __init__(self, config: BertConfig):
         super().__init__()
@@ -361,8 +423,10 @@ class BertLayer(nn.Module):
         return self.output_ln(hidden + dropout(ff, rate, dropout_seed, 2))
 
     def gelu_scales(self):
-        """Per-channel scales of the GELU output: amax / 127 (``int8_scale``), amax = 8 where uncalibrated."""
-        return int8_scale(torch.where(self.gelu_amax > 0, self.gelu_amax, 8.0))
+        """Per-channel scales of the GELU output: amax / 127 (``int8_scale``) in
+        ``quant_dtype``, amax = 8 where uncalibrated; f32 values."""
+        amax = self.gelu_amax.to(self.quant_dtype)
+        return int8_scale(torch.where(amax > 0, amax, 8.0)).float()
 
     def _int8_ffn(self, hidden, calibrate, approximate):
         if calibrate:
@@ -379,6 +443,20 @@ class BertLayer(nn.Module):
         return self.ffn_output(None, x_pre=gq)
 
 
+def set_quant_dtype(model: nn.Module, dtype: torch.dtype):
+    """Set the quantization arithmetic of every int8 layer of ``model`` to
+    ``dtype`` and requantize their weights at their next use (the FFN's
+    down-projections at once, with their folded GELU scales)."""
+    for module in model.modules():
+        if isinstance(module, (Int8Linear, BertLayer)):
+            module.quant_dtype = dtype
+        if isinstance(module, Int8Linear):
+            module.weight_q = module.weight_scale = None
+    for module in model.modules():
+        if isinstance(module, BertLayer) and module.config.quantize == "int8":
+            module.requantize_ffn_output()
+
+
 class BertEncoder(nn.Module):
     """Returns (sequence_output, pooled_output), and with
     ``output_hidden_states=True`` also the list of the embedding output and
@@ -386,6 +464,9 @@ class BertEncoder(nn.Module):
     updates each layer's ``gelu_amax`` from this batch as it passes;
     ``dropout_seed`` makes it a training forward (the module docstring), with
     each layer recomputed in the backward pass when ``config.remat``."""
+
+    # the tables ``trainer.amp`` hands over as bf16: their sum is bf16 arithmetic in JAX
+    amp_bf16_params = ("word_embeddings", "position_embeddings", "token_type_embeddings")
 
     def __init__(self, config: BertConfig):
         super().__init__()
@@ -407,14 +488,15 @@ class BertEncoder(nn.Module):
                 table.normal_(0.0, 0.02, generator=generator)
 
     def embed(self, input_ids, token_type_ids):
-        """Embedding sum + LayerNorm [B, L, H]. Ids are taken mod the vocab
+        """Embedding sum + f32 LayerNorm [B, L, H]. The sum is in the tables'
+        dtype (bf16 under ``trainer.amp``). Ids are taken mod the vocab
         sizes, as in the JAX encoder (identity for real checkpoints; keeps the
         hash-vocab fallback in range for small configs)."""
         c = self.config
         hidden = (self.word_embeddings[input_ids % c.vocab_size]
                   + self.position_embeddings[None, : input_ids.shape[1]]
                   + self.token_type_embeddings[token_type_ids % c.type_vocab_size])
-        return self.embeddings_ln(hidden)
+        return self.embeddings_ln(hidden.float())
 
     def forward(self, input_ids, attention_mask, token_type_ids, calibrate=False, dropout_seed=None,
                 output_hidden_states=False):

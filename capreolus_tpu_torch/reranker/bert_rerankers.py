@@ -22,7 +22,11 @@ prediction (``reranker/bert/encoder.py``, X1 and Q1 on the card), after
 in JAX. ``moeexperts > 0`` gives every encoder layer a mixture-of-experts FFN.
 A pretrained checkpoint (``pretrained``) is read from a local directory or the
 Hugging Face hub cache and loaded into the encoder; Birch also loads its NSP
-head. LoRA and the pipeline views are not ported yet.
+head. ``lora > 0`` (BERTMaxP and its aliases) adds rank-r adapters to every
+attention's query and value projections and freezes the rest of the encoder:
+the optimizer holds the adapters and the head, and ``dev.best`` holds them
+alone, the frozen leaves empty; serving fills those from the pretrained
+encoder (``state_dict_from_params``). The pipeline views are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from torch import nn
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
 from capreolus_tpu_torch.reranker import Reranker
 from capreolus_tpu_torch.reranker.bert import BertConfig, BertEncoder, read_pretrained
-from capreolus_tpu_torch.reranker.bert.encoder import BertLayer, dropout_generator_seed
+from capreolus_tpu_torch.reranker.bert.encoder import BertLayer, dropout_generator_seed, set_quant_dtype
 from capreolus_tpu_torch.reranker.common import rbf_kernel_bank
 from capreolus_tpu_torch.utils.loginit import get_logger
 
@@ -47,14 +51,13 @@ _QUANTIZE_OPT = ConfigOption(
     "inference-time quantization: none or int8 (int8 FFN matmuls on the v5e MXU double-rate path; training stays bf16/f32)")
 _DROPOUT_OPT = ConfigOption("hidden_dropout_prob", 0.1, "dropout probability of the encoder's hidden layers "
                             "during training (no effect at inference)")
-_LORA_OPT = ConfigOption("lora", 0, "LoRA rank: 0 = full model (LoRA adapters are not ported yet)",
-                         value_type="int")
+_LORA_OPT = ConfigOption(
+    "lora", 0,
+    "LoRA rank: 0 = full fine-tuning; r > 0 adds rank-r adapters to the attention "
+    "query/value projections, FREEZES the base encoder (checkpoints and optimizer "
+    "state shrink to adapters + head), and starts exactly at the pretrained model "
+    "(zero-init up-projection)", value_type="int")
 _LORA_ALPHA_OPT = ConfigOption("loraalpha", 16.0, "LoRA scaling alpha (delta = alpha/r * BA x)")
-
-# options whose non-default values select code the port does not have yet
-_UNPORTED = (
-    ("lora", lambda v: v > 0, "LoRA adapters; ROADMAP.md item 4, what the trainer slice leaves"),
-)
 # dropout sites of PARADE's aggregation layers: path entries no encoder layer takes (those take 1..num_layers)
 PARADE_AGG_DROPOUT_SITE = 1 << 20
 
@@ -117,10 +120,6 @@ class BertRerankerBase(Reranker):
             raise ConfigError(f"{self.module_name}: quantize must be 'none' or 'int8', got {self.config['quantize']!r}")
         if self.quantized and int(self.config.get("moeexperts", 0) or 0) > 0:
             raise ConfigError("moeexperts and quantize=int8 cannot be combined")
-        for key, selects, what in _UNPORTED:
-            if key in self.config and selects(self.config[key]):
-                raise ConfigError(f"{self.module_name}: {key}={self.config[key]!r} selects {what} "
-                                  f"(not ported to PyTorch yet)")
         gelu = self.config.get("gelu", "tanh")
         if gelu not in ("tanh", "erf"):
             raise ValueError(f"gelu must be 'tanh' or 'erf', got {gelu!r}")
@@ -128,7 +127,7 @@ class BertRerankerBase(Reranker):
     def encoder_config(self) -> BertConfig:
         """The encoder's config: the pretrained checkpoint's (read once, its
         weights and NSP head kept for ``_load_pretrained``) with this reranker's GELU,
-        quantization, remat, dropout and MoE options, and the JAX package's
+        quantization, remat, dropout, LoRA and MoE options, and the JAX package's
         two refusals of MoE."""
         if getattr(self, "_encoder_config", None) is not None:
             return self._encoder_config
@@ -140,6 +139,9 @@ class BertRerankerBase(Reranker):
         hdp = self.config.get("hidden_dropout_prob")
         if hdp is not None:  # one knob sets both dropout sites, as in JAX
             cfg = dataclasses.replace(cfg, hidden_dropout_prob=float(hdp), attention_dropout_prob=float(hdp))
+        lora = int(self.config.get("lora", 0) or 0)
+        if lora:
+            cfg = dataclasses.replace(cfg, lora_rank=lora, lora_alpha=float(self.config.get("loraalpha", 16.0)))
         moe = int(self.config.get("moeexperts", 0) or 0)
         if moe:
             if self.quantized:
@@ -160,12 +162,13 @@ class BertRerankerBase(Reranker):
 
     def _load_pretrained(self, model):
         """Copy the pretrained encoder weights, when a checkpoint was read,
-        into ``model.bert`` (the int8 stats buffers keep their values)."""
+        into ``model.bert``; the int8 stats buffers and the LoRA adapters,
+        which only the model has, keep their values (the JAX ``_merge_params``)."""
         state = getattr(self, "_pretrained_state", None)
         if state is None:
             return
         missing, unexpected = model.bert.load_state_dict(state, strict=False)
-        missing = [k for k in missing if not k.endswith("gelu_amax")]
+        missing = [k for k in missing if not k.endswith("gelu_amax") and "_lora." not in k]
         if missing or unexpected:
             raise KeyError(f"the pretrained encoder does not fit the model: missing {missing[:3]}, "
                            f"unexpected {unexpected[:3]}")
@@ -212,6 +215,16 @@ class BertRerankerBase(Reranker):
                 state.setdefault(name, torch.zeros_like(buf))
         return state
 
+    def trainable(self, path, value):
+        """With LoRA on, only the adapters and everything outside the encoder
+        (the head, ...) train; the base encoder is frozen: no gradient, no
+        optimizer state, empty in checkpoints."""
+        if int(self.config.get("lora", 0) or 0) > 0:
+            name = "/".join(map(str, path))
+            if "bert" in name and "lora" not in name:
+                return False
+        return True
+
     def _shape_inputs(self, inp, mask, seg):
         """Inputs as the model takes them (models over [B, P, L] override)."""
         return inp, mask, seg
@@ -229,6 +242,7 @@ class BertRerankerBase(Reranker):
         if not self.quantized:
             return
         model = self.build_model()
+        set_quant_dtype(model, torch.float32)  # trainer.amp's predictions quantize in bf16
         if hasattr(self, "_train_model"):  # the trained weights, requantized as they load
             model.to(device).load_state_dict(self._train_model.state_dict(), strict=False)
 
@@ -271,13 +285,6 @@ class BertRerankerBase(Reranker):
         model = self.model if dropout_seed is None else self.build_train_model()
         inp, mask, seg = self._shape_inputs(inp, mask, seg)
         return self._head_scores(model(inp, mask, seg, dropout_seed=dropout_seed), mask)
-
-    @staticmethod
-    def fold_seed(dropout_seed, i):
-        """Distinct dropout streams for the pos / neg (or LCE group) forwards."""
-        if dropout_seed is None:
-            return None
-        return dropout_generator_seed(dropout_seed, 1000 + i)
 
     def _inputs(self, batch, side, device):
         """(input ids, mask, segment ids) of the batch's ``side`` ("pos" or "neg") on ``device``."""

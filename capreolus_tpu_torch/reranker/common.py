@@ -30,15 +30,17 @@ def exact_match_matrix(query_tok, doc_tok):
 
 
 def cosine_similarity_matrix(q_emb, d_emb, query_tok, doc_tok, eps=1e-9):
-    """Cosine similarity [B, Q, D] with padding masked to 0.
+    """Cosine similarity [B, Q, D] with padding masked to 0, in f32.
 
     The norm is clamped BELOW the sqrt (``sqrt(max(sum_sq, eps^2))``) rather than
     added after it, so the gradient stays finite at the all-zero padding row
-    (torch ``cosine_similarity``'s clamp_min semantics).
+    (torch ``cosine_similarity``'s clamp_min semantics). The norms are in the
+    embeddings' dtype (bf16 under ``trainer.amp``) and the dot products in f32,
+    as the JAX function's ``preferred_element_type`` takes them.
     """
     q_norm = torch.sqrt(torch.clamp_min(torch.sum(q_emb * q_emb, dim=2, keepdim=True), eps * eps))
     d_norm = torch.sqrt(torch.clamp_min(torch.sum(d_emb * d_emb, dim=2, keepdim=True), eps * eps))
-    sim = torch.bmm(q_emb, d_emb.transpose(1, 2))
+    sim = torch.bmm(q_emb.float(), d_emb.float().transpose(1, 2))
     sim = sim / q_norm / d_norm.transpose(1, 2)
     return _mask_padding(sim, query_tok, doc_tok)
 

@@ -2,11 +2,14 @@
 Xiong et al., End-to-End Neural Ad-hoc Ranking with Kernel Pooling, SIGIR'17):
 RBF kernel bank over the query x doc similarity matrix, log-sum pooling, linear
 combination, with the gradkernels / singlefc / scoretanh / finetune options.
-The JAX reranker's ``add_summary`` also plots the combine weights with
-matplotlib; the port writes the parameter statistics only.
+``add_summary`` writes the parameter statistics and, as the JAX reranker
+does, the combine weights as a figure (``combine_weight_{niter}.png``) when
+matplotlib imports.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -16,12 +19,17 @@ from capreolus_tpu_torch.core import ConfigOption
 from capreolus_tpu_torch.ops.simmat import knrm_simmat_pool
 from capreolus_tpu_torch.reranker import Reranker
 from capreolus_tpu_torch.reranker.common import KNRM_MUS, KNRM_SIGMAS, knrm_pool, similarity_matrix
+from capreolus_tpu_torch.utils.loginit import get_logger
+
+logger = get_logger(__name__)
 
 
 class KNRMModel(nn.Module):
     """Parameters: ``embedding`` [V, E], ``mus`` / ``sigmas`` [K], and the
     combine layer(s), named as the JAX model's (``combine`` or ``combine1`` +
     ``combine2``)."""
+
+    amp_bf16_params = ("embedding",)  # gathered and normalised in bf16 under trainer.amp, as in JAX
 
     def __init__(self, embedding: np.ndarray, gradkernels=True, singlefc=True, scoretanh=False, finetune=False):
         super().__init__()
@@ -93,6 +101,28 @@ class KNRM(Reranker):
 
     score = Reranker.score_default
     test = Reranker.test_default
+
+    def add_summary(self, niter, output_path):
+        """The parameter statistics, and with ``singlefc`` the combine layer's
+        weights as ``combine_weight_{niter}.png`` (a matshow of its [1, K]
+        kernel transposed; best-effort: nothing without matplotlib)."""
+        super().add_summary(niter, output_path)
+        if not self.config["singlefc"]:
+            return
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            weight = self.build_train_model().combine.weight.detach().cpu().numpy()  # the flax kernel [K, 1], transposed
+            fig = plt.figure()
+            ax = fig.add_subplot(1, 1, 1)
+            ax.matshow(weight)
+            fig.savefig(Path(output_path) / f"combine_weight_{niter}.png", bbox_inches="tight")
+            plt.close(fig)
+        except Exception as e:  # plotting must never break training
+            logger.debug("combine-weight figure not written: %s", e)
 
     def state_dict_from_params(self, flat, model=None):
         from capreolus_tpu_torch.convert import knrm_state_dict

@@ -32,8 +32,11 @@ Not ported yet; each raises ``ConfigError`` naming its ROADMAP item:
 ``prefilter > 0``, ``shards > 1``, and corpora above ``hbmbudget`` (host
 streaming), quantized or not. The doc-embedding cache covers generation 0
 only: the port's index has no generations, and incremental reuse comes with
-``refresh``. Reading flax msgpack checkpoints comes with the trainer; a
-``checkpointfile`` is the port's ``.npz`` (``convert.save_params``).
+``refresh``. A ``checkpointfile`` is a trained ``colbert`` reranker's
+``dev.best.params`` from either package's trainer (flax's msgpack bytes,
+``utils/flax_msgpack.py``), its ``dev.best`` stem, or the port's ``.npz``
+(``convert.save_params``); each must hold the ``bert`` and ``linear``
+submodules, as the JAX searcher checks.
 """
 
 from __future__ import annotations
@@ -191,8 +194,9 @@ class LateInteractionSearcher(Searcher):
     def _encoder(self):
         """The ColBERT model on the searcher's device, in eval mode: random
         init (seeded, so a random-init cache key always means the same
-        weights) for ``tiny`` or ``allowrandominit``, the ``checkpointfile``'s
-        weights when one is given."""
+        weights) for ``tiny`` or ``allowrandominit``, the pretrained
+        encoder's when its checkpoint was read, the ``checkpointfile``'s
+        weights over both when one is given."""
         if getattr(self, "_enc", None) is None:
             from capreolus_tpu_torch.convert import bert_state_dict, load_params
             from capreolus_tpu_torch.reranker.bert import load_pretrained_encoder
@@ -205,6 +209,8 @@ class LateInteractionSearcher(Searcher):
                 torch.manual_seed(0)
                 model = ColBERTModel(cfg, dim=int(self.config["dim"]))
             self._random_init = bert_params is None
+            if bert_params is not None:
+                model.bert.load_state_dict(bert_params)
             ckpt = self.config.get("checkpointfile")
             if ckpt:
                 flat = load_params(ckpt)
@@ -245,7 +251,9 @@ class LateInteractionSearcher(Searcher):
                  "randominit" if getattr(self, "_random_init", False) else "pretrained"]
         ckpt = self.config.get("checkpointfile")
         if ckpt:
-            st = os.stat(ckpt)
+            from capreolus_tpu_torch.convert import params_file
+
+            st = os.stat(params_file(ckpt))
             parts += [ckpt, str(st.st_size), str(st.st_mtime_ns)]
         key = hashlib.md5("|".join(parts).encode()).hexdigest()[:16]
         return self.index.get_cache_path() / "colbert" / f"doc_token_embeddings_{key}.emb.npy"

@@ -21,6 +21,17 @@ paths carry over.
 - Dropout: a training forward of a reranker with ``accepts_rngs`` gets a seed
   deterministic in (seed + 0x5eed, iteration, step, micro-batch), so
   fastforward replays the same masks; the masks differ from JAX's.
+- ``amp``: ``train`` and ``both`` run each training forward and its backward
+  on every f32 weight rounded to bf16, the gradient passing back through the
+  rounding to the f32 weights Adam updates; ``pred`` and ``both`` predict with
+  rounded weights (``trainer/amp.py``: the JAX trainer's cast of its parameter
+  tree, not ``torch.autocast``). TF32 stays off at every mode. With
+  ``quantize=int8`` the int8 model calibrates on the f32 weights, then its
+  weights and GELU stats are rounded and its weights quantized in bf16, as
+  the JAX trainer's ``_amp_pred_params`` leaves them.
+- Figures: ``info/loss.png`` after every iteration and ``info/metrics.png``
+  after every validation, with matplotlib when it imports (best-effort, as
+  in JAX: nothing is written without it).
 - Checkpoints: ``<path>.params`` in flax's msgpack bytes of the JAX parameter
   tree (``utils/flax_msgpack.py``), frozen leaves written empty and keys in
   the order the JAX trainer writes them, so a
@@ -32,14 +43,14 @@ The trainer runs on ``self.device`` (an attribute, not a config option, so it
 never enters the results path; ``None`` means "cuda"), which the rerank task
 sets. Options that select code the port does not have raise ``ConfigError``
 naming their ROADMAP.md item: ``tp``, ``pp``, ``ep``, ``sp``, ``fsdp`` and a
-``ckpt`` other than ``flat`` (item 6, "Multi-device"), ``amp`` other than
-``none`` (item 6, "the amp slice") and ``loss=infonce`` (item 6, dense
-retrieval).
+``ckpt`` other than ``flat`` (item 6, "Multi-device") and ``loss=infonce``
+(item 6, dense retrieval).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import queue as _queue
 import threading
@@ -53,6 +64,7 @@ from capreolus_tpu_torch.core import ConfigError, ConfigOption, constants
 from capreolus_tpu_torch.evaluation import eval_runs
 from capreolus_tpu_torch.reranker.common import LOSS_FUNCTIONS
 from capreolus_tpu_torch.trainer import Trainer
+from capreolus_tpu_torch.trainer.amp import amp_mode, bf16_params, round_int8_inference
 from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
 from capreolus_tpu_torch.utils.loginit import get_logger
 
@@ -91,6 +103,48 @@ def schedule(base_lr, step, warmup_steps, decaytype, decay, decay_steps, per_ite
         warm = np.minimum((step + f32(1.0)) / f32(warmup_steps), f32(1.0))
         mult = warm if step <= warmup_steps else mult
     return f32(base_lr) * f32(mult)
+
+
+def _plot_loss(losses, path):
+    """The loss curve as a figure (best-effort: nothing without matplotlib)."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        ax.plot(range(len(losses)), losses)
+        ax.set_xlabel("iteration")
+        ax.set_ylabel("loss")
+        fig.savefig(path, dpi=80)
+        plt.close(fig)
+    except Exception as e:  # plotting must never break training
+        logger.debug("loss figure not written: %s", e)
+
+
+def _plot_metrics(history, path):
+    """The dev-metric curves of [(iteration, {metric: value})] as a figure
+    (best-effort: nothing without matplotlib)."""
+    if not history:
+        return
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        iters = [it for it, _ in history]
+        for name in sorted(history[0][1]):
+            ax.plot(iters, [m[name] for _, m in history], label=name)
+        ax.set_xlabel("iteration")
+        ax.set_ylabel("metric")
+        ax.legend()
+        fig.savefig(path, dpi=80)
+        plt.close(fig)
+    except Exception as e:  # plotting must never break training
+        logger.debug("metrics figure not written: %s", e)
 
 
 def _unported(what, item):
@@ -178,12 +232,7 @@ class TorchTrainer(Trainer):
             if str(c["ckpt"]) not in ("sharded", "sharded_async"):
                 raise ConfigError(f"trainer.ckpt must be flat, sharded, or sharded_async (got {c['ckpt']!r})")
             raise _unported(f"trainer.ckpt={c['ckpt']} (sharded checkpoints)", "item 6, 'Multi-device'")
-        raw = str(c["amp"]).lower()
-        mode = {"false": "none", "none": "none", "0": "none", "": "none", "true": "both", "1": "both"}.get(raw, raw)
-        if mode not in ("none", "train", "pred", "both"):
-            raise ConfigError(f"amp must be one of: none, train, pred, both (got {c['amp']!r})")
-        if mode != "none":
-            raise _unported(f"trainer.amp={c['amp']} (bf16 mixed precision)", "item 6, 'the amp slice'")
+        amp_mode(c["amp"])
         if c["loss"] == "infonce":
             raise _unported("trainer.loss=infonce (in-batch negatives over a biencoder's embeddings)",
                             "item 6, 'Dense and learned-sparse retrieval'")
@@ -254,6 +303,14 @@ class TorchTrainer(Trainer):
                 f"trainer.loss=lce needs a reranker with multi-negative scoring "
                 f"(score_lce); {type(reranker).module_name} does not support it")
 
+    def amp_train(self):
+        """Whether training forwards run on bf16-rounded weights (amp train or both)."""
+        return amp_mode(self.config["amp"]) in ("train", "both")
+
+    def amp_pred(self):
+        """Whether predictions run on bf16-rounded weights (amp pred or both)."""
+        return amp_mode(self.config["amp"]) in ("pred", "both")
+
     def compute_loss(self, reranker, micro, device, dropout_seed=None):
         """The training loss of one micro-batch (a training forward)."""
         loss_fn = self._loss_fn()
@@ -280,8 +337,9 @@ class TorchTrainer(Trainer):
         loss_sum = torch.zeros((), device=device)
         for g in range(gradacc):
             micro = {k: v[g] for k, v in batches.items()}
-            loss = self.compute_loss(reranker, micro, device, dropout_generator_seed(step_seed, g))
-            loss.backward()
+            with bf16_params(model, self.amp_train()):  # around the backward too: remat recomputes layers
+                loss = self.compute_loss(reranker, micro, device, dropout_generator_seed(step_seed, g))
+                loss.backward()
             loss_sum = loss_sum + loss.detach()
         if gradacc > 1:
             for group in optimizer.param_groups:
@@ -359,6 +417,7 @@ class TorchTrainer(Trainer):
         if metrics_fn.exists():
             best_metric = self.load_best_metric(metrics_fn, metric)
         dev_best_metrics = {}
+        metric_history = []
 
         # background prefetch: host sample generation and collation overlap the device steps
         batch_queue: _queue.Queue = _queue.Queue(maxsize=4)
@@ -409,11 +468,14 @@ class TorchTrainer(Trainer):
                 if self.config["fastforward"]:
                     self.save_checkpoint(weights_path / f"{niter}", model, optimizer, reranker)
                 self.write_to_loss_file(loss_fn_path, train_loss)
+                _plot_loss(train_loss, info_path / "loss.png")
 
                 if (niter + 1) % self.config["validatefreq"] == 0 and dev_data is not None:
                     preds = self.predict(reranker, dev_data)
                     metrics = eval_runs(preds, qrels, self._validation_metrics(metric), relevance_level)
                     logger.info("dev metrics: %s", " ".join(f"{k}={v:0.3f}" for k, v in sorted(metrics.items())))
+                    metric_history.append((niter, dict(metrics)))
+                    _plot_metrics(metric_history, info_path / "metrics.png")
                     if tb is not None:
                         for name, value in metrics.items():
                             tb.add_scalar(f"dev/{name}", value, niter)
@@ -512,7 +574,7 @@ class TorchTrainer(Trainer):
         was_training = self._model.training
         self._model.eval()
         prepared = False
-        with torch.no_grad():
+        with torch.no_grad(), contextlib.ExitStack() as amp:
             while True:
                 chunk = list(itertools.islice(sample_iter, batch_size))
                 if not chunk:
@@ -521,8 +583,13 @@ class TorchTrainer(Trainer):
                 if not prepared:
                     prepared = True
                     if hasattr(reranker, "prepare_inference"):
-                        # int8 calibration against the current weights, every predict
+                        # int8 calibration against the current f32 weights, every predict
                         reranker.prepare_inference(batch, device)
+                    if self.amp_pred():  # the weights the scoring model reads, rounded to bf16
+                        model = reranker.model
+                        if getattr(reranker, "quantized", False):
+                            round_int8_inference(model)
+                        amp.enter_context(bf16_params(model))
                 pending.append((reranker.test(batch, device), [(s["qid"], s["posdocid"]) for s in chunk]))
                 if len(pending) >= PREDICT_PIPELINE_DEPTH:
                     _drain_one()

@@ -6,8 +6,10 @@ then int8 and int4 corpora), then the rank task's sparse searchers over the
 50k-doc golden corpus, then trains KNRM and monoBERT-MaxP through the rerank
 task, then times the sparse engine at bench.py's 200k-doc shape, then runs a
 Robust04-shaped experiment through ``rank.searcheval``, then serves PARADE,
-CEDR-KNRM, Birch and MoE-BERT and trains them through their tasks, and holds
-every kernel against its plain PyTorch version.
+CEDR-KNRM, Birch and MoE-BERT and trains them through their tasks, then trains
+LoRA BERT-MaxP, CEDR-KNRM and KNRM under ``trainer.amp`` and the ColBERT
+reranker and serves what they wrote, and holds every kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py   # needs one CUDA device; builds the kernels
 
@@ -194,7 +196,7 @@ printed only when every phase passed):
    features ms, peak device memory, one profiled request (busy share, top
    device ops) and its launches counted from 0: 12a PARADE at BERT-base width
    (``aggregation=transformer``; pooledbertpassage as
-   ``config_parade.txt``: 16 passages of 150, stride 75), 4 queries in f32
+   ``config_parade.txt``: 16 passages of 150, stride 75), 2 queries in f32
    (K2 14 times a request: 12 encoder and 2 aggregation layers), 8 docs card
    vs CPU within 1e-3, K2 held against its plain version at every attention
    of a served forward (L 256 and the aggregation layers' L 17), then 4 in
@@ -202,12 +204,12 @@ printed only when every phase passed):
    from the card's input, within 5e-2 of the CPU's, the head within 1e-3; the
    int8-vs-f32 gap and top-10 overlap reported); 12b CEDR-KNRM at
    electra-base width as ``config_cedrknrm_pt.txt`` (13 simmat layers, cls
-   avg, combine_hidden 1024, 4 passages of 225), 4 queries, 8 docs within
+   avg, combine_hidden 1024, 4 passages of 225), 2 queries, 8 docs within
    1e-3; 12c Birch at bert-large width over a seeded
    ``BertForNextSentencePrediction`` checkpoint it writes with ``torch.save``
    under the gitignored ``build/`` (the encoder and NSP head on the card equal
    to the tensors written; frozen; birchbertpassage with ``sentences=True``,
-   through the splitter), 2 queries, 24 K2 launches a request, 4 docs within
+   through the splitter), 1 query, 24 K2 launches a request, 4 docs within
    2e-3; 12d BERTMaxP with 4 experts of top-2 in every layer (a dense
    checkpoint refused), 1 query, 8 docs on the CPU layer by layer from the
    card's input (tokens routed alike within 1e-3; routing flips counted, at
@@ -218,12 +220,41 @@ printed only when every phase passed):
    step), ``rerank.bircheval`` equal to ``eval_runs`` of its run file, and
    ``rererank.traineval`` with KNRM then tiny BERT-MaxP over the top 3, each
    test MAP reported;
+13. what the trainer left (after 12), over phase 4's corpus and topics in
+   phase 9b's fold (benchmark ``trainer_options``), threshold 100: 13a
+   BERTMaxP at BERT-base width with ``lora=8``, ``loraalpha=16`` over a seeded
+   BERT-base checkpoint directory it writes, trained by ``rerank.traineval``
+   (batch 32, 2 iterations of 8 steps): seconds per iteration, step ms, peak
+   memory and optimizer-state bytes beside phase 9b's full fine-tune, the
+   dev.best bytes, the frozen base bit-identical to the checkpoint after
+   training, no K2 in a step; the dev.best served by ``RerankingService`` in
+   f32 (12 K2 a request, no head copy, the frozen base the checkpoint's, 1 doc
+   card vs CPU within 1e-3) and int8 (72 X1, 36 Q1, 12 K2 a request; each layer
+   on the CPU from the card's input within 5e-2, the head 1e-3), 4 requests of
+   100 docs each; 13b ``trainer.amp``: CEDR-KNRM at electra-base width as
+   ``config_cedrknrm_pt.txt`` (``amp=both``, batch 6, 4 passages of 225, 13
+   simmat layers, evalbatch 128): step 1 card vs CPU on 1 of its samples with
+   dropout off (loss 1e-4, gradients 2^-8 of each tensor's largest entry), 8
+   steps timed, a prediction of 100 docs in amp and in f32 (the score gap, 12
+   K2 each); a frozen KNRM at phase 9's width under ``amp=both`` through the
+   rerank task, K1 twice a step and once a prediction forward, held against
+   its plain version on the bf16-normalised rows amp hands it (RBF kernels
+   2e-4, the exact-match kernel 1e-3); one monoBERT ``amp=pred`` prediction
+   of 100 docs beside f32; 13c the ``colbert`` reranker at BERT-base width
+   (dim 128, maxqlen 32, maxdoclen 180) trained by the rerank task (batch 32,
+   16 steps; no K3 and no K2 in a step, 24 K2 per prediction forward), its
+   dev.best the ``checkpointfile`` of ``ColbertRetrievalService`` over the
+   20k-doc bf16 corpus: set-up, 8 single queries and one 64-query batch (9 K3
+   launches), K3 timed on the served corpus, query 0's top 10 card vs CPU
+   within 1e-2;
 7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
    ``launches_training`` and ``launches_training_predict``, phase 9's
    launches in training steps and in the trainer's predictions, and K1 and
    K2 with ``max_abs_err_training``, their largest error on phase 9's own
-   batches; K2, X1 and Q1 with phase 12's launches, K2 with its errors there),
-   then the result line.
+   batches; K2, X1 and Q1 with phase 12's launches, K2 with its errors there;
+   each kernel with ``launches_phase13``, its launches in phase 13's served
+   runs, training steps and predictions, the served ones also in
+   ``launches``; K1 with its error on bf16 rows), then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
 and read just after it.
@@ -2406,11 +2437,15 @@ def hold_k2(reranker, batch, label, held=None, prefix="[9 K2]"):
     return errs
 
 
-def step_parity(task, batch, label, exclude=None, prefix="[9a parity]"):
+def step_parity(task, batch, label, exclude=None, prefix="[9a parity]", amp=False, grad_rtol=STEP_RTOL,
+                loss_rtol=STEP_RTOL):
     """Step 1 from one init (``init_params`` on the CPU) and one batch: the
     loss and every gradient on the card against the CPU's, with the card's
     kernel launches in that step. ``exclude`` ({parameter: [indices]}) leaves
-    ill-conditioned gradient entries out."""
+    ill-conditioned gradient entries out. ``amp`` runs the step on the weights
+    rounded to bf16, as ``trainer.amp`` does."""
+    from capreolus_tpu_torch.trainer.amp import bf16_params
+
     reranker, trainer = task.reranker, task.reranker.trainer
     model = reranker.init_params(trainer.config["seed"])
     trainer.make_optimizer(reranker, model)  # freezes what the trainer freezes
@@ -2420,33 +2455,50 @@ def step_parity(task, batch, label, exclude=None, prefix="[9a parity]"):
         model.to(device)
         model.zero_grad(set_to_none=True)
         before = launch_counts()
-        loss = trainer.compute_loss(reranker, micro, torch.device(device), dropout_seed=trainer.step_seed(0, 0))
-        loss.backward()
+        with bf16_params(model, amp):
+            loss = trainer.compute_loss(reranker, micro, torch.device(device), dropout_seed=trainer.step_seed(0, 0))
+            loss.backward()
         launched = {k: n - before[k] for k, n in launch_counts().items()}
         return float(loss.detach()), {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
                              if p.grad is not None}, launched
 
+    def use_scales():
+        """Per tensor, on the CPU, the largest gradient entry of the positive
+        forward plus the negative's: under amp each use's gradient is rounded
+        to bf16 before the pairwise loss subtracts one from the other, so two
+        devices a rounding apart differ by a bf16 step of each use, which can
+        be many times the difference itself."""
+        model.to("cpu")
+        named = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        with bf16_params(model):
+            pos, neg = reranker.score(micro, torch.device("cpu"), dropout_seed=trainer.step_seed(0, 0))
+            uses = [torch.autograd.grad(side.float().mean(), list(named.values()), retain_graph=True, allow_unused=True)
+                    for side in (pos, neg)]
+        return {n: sum(float(g[i].abs().max()) for g in uses if g[i] is not None) for i, n in enumerate(named)}
+
     cpu_loss, cpu_grads, _ = grads("cpu")
+    scales = use_scales() if amp else {n: float(g.abs().max()) for n, g in cpu_grads.items()}
     card_loss, card_grads, launched = grads("cuda")
     check(set(card_grads) == set(cpu_grads), f"{label}: the card computes gradients for other parameters")
     loss_err = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-12)
-    # a tensor's errors against its largest entry, or against GRAD_NOISE_FLOOR of the model's largest
-    # entry where that is larger: the attention key bias's gradient is 0 but for rounding
-    # (softmax is invariant to it), so its own largest entry is noise
-    floor = GRAD_NOISE_FLOOR * max(float(g.abs().max()) for g in cpu_grads.values())
+    # a tensor's errors against its largest entry (under amp, its uses'), or against GRAD_NOISE_FLOOR of
+    # the model's largest entry where that is larger: the attention key bias's gradient is 0 but for
+    # rounding (softmax is invariant to it), so its own largest entry is noise
+    floor = GRAD_NOISE_FLOOR * max(scales.values())
     grad_err, worst = 0.0, None
     for name, g in cpu_grads.items():
         diff = (card_grads[name] - g).abs()
         for index in (exclude or {}).get(name, []):
             diff[index] = 0.0
-        err = float(diff.max()) / max(float(g.abs().max()), floor, 1e-30)
+        err = float(diff.max()) / max(scales[name], floor, 1e-30)
         if err >= grad_err:
             grad_err, worst = err, name
     print(f"{prefix} {label}: step-1 loss {card_loss:.6f} on the card, {cpu_loss:.6f} on the CPU (rel err "
-          f"{loss_err:.3g}); largest gradient error {grad_err:.3g} of its tensor's largest entry ({worst}) over "
-          f"{len(cpu_grads)} tensors (tolerance {STEP_RTOL}); card launches in the step: "
+          f"{loss_err:.3g}); largest gradient error {grad_err:.3g} of its tensor's largest entry"
+          f"{' (its two uses summed)' if amp else ''} ({worst}) over "
+          f"{len(cpu_grads)} tensors (tolerance {grad_rtol}; the loss {loss_rtol}); card launches in the step: "
           f"{ {k: n for k, n in launched.items() if n} }")
-    check(loss_err <= STEP_RTOL and grad_err <= STEP_RTOL, f"{label}: step 1 on the card differs from the CPU's")
+    check(loss_err <= loss_rtol and grad_err <= grad_rtol, f"{label}: step 1 on the card differs from the CPU's")
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err, "launches": launched}
 
 
@@ -3219,7 +3271,8 @@ CEDR_RERANKER = {"simmat_layers": "0..12,1", "cls": "avg", "combine_hidden": 102
 CEDR_EXTRACTOR = {"name": "pooledbertpassage", "maxseqlen": 256, "numpassages": 4, "passagelen": 225,
                   "stride": 225}  # docs/reproduction/configs/config_cedrknrm_pt.txt
 BIRCH_EXTRACTOR = {"name": "birchbertpassage", "sentences": True}  # its defaults: maxseqlen 256, 16 passages of 150
-PHASE12_QUERIES = {"parade": 4, "parade_int8": 4, "cedr": 4, "birch": 2, "moe": 1}  # served after a warm-up request
+PHASE12_QUERIES = {"parade": 2, "parade_int8": 4, "cedr": 2, "birch": 1, "moe": 1}  # served after a warm-up request
+# (4, 4, 4, 2, 1 before phase 13 joined the script; lowered to keep it under 1000 s)
 PHASE12_WARMUP = 8  # the topic of each service's warm-up request, after the served ones
 PHASE12_CPU_DOCS = {"parade": 8, "cedr": 8, "birch": 4, "moe": 8}  # docs of query 0 scored on the CPU too
 BIRCH_CPU_TOL = 2e-3  # bert-large scores, GPU vs CPU: 24 layers of f32 matmuls summed in other orders, twice
@@ -3487,8 +3540,7 @@ def phase_cedr(workdir, corpus_dir, topics):
     ckpt = save_params(seeded_model_params(model, seed=6), os.path.join(workdir, "cedr.npz"))
     layers = model.config.num_layers
     del model
-    print(f"{label} in f32, TF32 off: the published config's trainer.amp=both is the amp slice (ROADMAP.md item 5), "
-          f"which the port's trainer refuses")
+    print(f"{label} served in f32, TF32 off (the published config's trainer.amp=both is phase 13b's)")
     svc, _, out = serve_reranker(label, "CEDRKNRM", rr_cfg, ckpt, corpus_dir, topics, PHASE12_QUERIES["cedr"])
     check(out["launches"]["flash_attention"] == layers * out["queries"],
           f"{label}: K2 launched {out['launches']['flash_attention']} times, expected {layers} per request")
@@ -3705,6 +3757,522 @@ def phase_other_rerankers(workdir, corpus_dir, topics, launches):
     return out
 
 
+# ---------------------------------------------------------------- phase 13: what the trainer left
+PHASE13_BENCHMARK = "trainer_options"  # phase 4's corpus and topics in phase 9b's fold of 15 / 5 / 5
+LORA_TRAIN = {"name": "BERTMaxP", "lora": 8, "loraalpha": 16.0, "hidden_dropout_prob": 0.1,
+              "trainer": TRAINER_FULL}  # pretrained: a seeded BERT-base checkpoint directory phase 13a writes
+PHASE9B_BERT = {"step_ms": 276.51, "peak_gb": 17.06, "s_per_iter": 5.57}  # phase 9b's full fine-tune, measured
+# by this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §5)
+LORA_QUERIES = 4  # served LoRA dev.best requests a precision, after a warm-up
+LORA_CPU_DOCS = 1  # docs of query 0 scored on the CPU too (f32 end to end; int8 layer by layer)
+CEDR_AMP_TRAINER = {"amp": "both", "batch": 6, "evalbatch": 128, "lr": 2e-5, "softmaxloss": False}  # as
+# config_cedrknrm_pt.txt
+AMP_STEPS = 8  # CEDR-KNRM training steps under amp
+AMP_PARITY_SAMPLES = 1  # samples of the step-1 batch held card vs CPU (a CPU step of electra-base over
+# 6 samples x 2 docs x 4 passages of 256 tokens takes minutes)
+AMP_LOSS_RTOL = 1e-4  # step 1 under amp, card vs CPU: the loss as phase 9a's (f32 sums in other orders on the
+# same bf16-rounded weights; the embedding sum is bf16 on both devices, one rounding per add)
+AMP_GRAD_RTOL = 2 ** -8  # each gradient tensor against the largest entries of its positive and negative
+# uses, summed: each use's gradient passes back through its own bf16 rounding of the weights, so two devices
+# a rounding apart in f32 can land one bf16 step apart in each use, and the pairwise loss subtracts the uses
+PHASE12B_CEDR_MS = 585.10  # phase 12b's f32 CEDR-KNRM request, measured by this script on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md §5)
+K1_EXACT_TOL = 1e-3  # K1's exact-match kernel (sigma 0.001) on bf16-normalised rows against its plain
+# version: a row's self-similarity sits on the kernel's slope, where f32 rounding moves it 1/sigma times as
+# much as at the flat peak f32 rows reach (tests/test_torch_amp.py); the other ten kernels at ERR_TOL
+COLBERT_TRAIN = {"name": "colbert", "pretrained": "bert-base-uncased", "allowrandominit": True,
+                 "dim": COLBERT["dim"], "extractor": {"maxqlen": COLBERT["maxqlen"], "maxdoclen": COLBERT["maxdoclen"]},
+                 "trainer": {"batch": 32, "itersize": 256, "niters": 2, "validatefreq": 1, "evalbatch": TRAIN_THRESHOLD}}
+
+
+def register_phase13_benchmark(workdir, corpus_dir, topics, qrels):
+    """Phase 4's corpus and topics as the benchmark ``PHASE13_BENCHMARK`` (phase
+    9b's fold). Returns (collection config, qids, {qid: topic})."""
+    coll = {"name": "dummy", "path": corpus_dir}
+    qids = [str(100 + t) for t in range(len(topics))]
+    topic_of = dict(zip(qids, topics))
+    register_golden(corpus_dir, *write_qrels_topics(topic_of, qrels, os.path.join(workdir, "phase13")), qids,
+                    name=PHASE13_BENCHMARK, split=TRAIN_SPLIT, collection=coll)
+    return coll, qids, topic_of
+
+
+def training_batches(task, batch, steps):
+    """``steps`` [1, batch, ...] training batches of ``task``'s sampler (``training_batch``'s, consecutive)."""
+    from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
+
+    first = training_batch(task, batch)
+    it = iter(task.sampler)
+    for _ in range(batch):  # the stream position after the first batch
+        next(it)
+    out = [first]
+    for _ in range(steps - 1):
+        collated = collate([next(it) for _ in range(batch)], ARRAY_KEYS)
+        out.append({k: v[None] for k, v in collated.items()})
+    return out
+
+
+def pred_sampler(task, qid, docids):
+    """A ``pred`` sampler of ``docids`` for ``qid`` over ``task``'s extractor."""
+    from capreolus_tpu_torch.sampler import Sampler
+
+    sampler = Sampler.create("pred", {})
+    sampler.prepare({qid: list(docids)}, task.benchmark.qrels, task.reranker.extractor)
+    return sampler
+
+
+def timed_predict(trainer, reranker, sampler, amp):
+    """The trainer's prediction of ``sampler`` with ``trainer.amp`` set to
+    ``amp`` (synchronized): (ms, {docid: score}, launches)."""
+    trainer.config["amp"] = amp
+    before = launch_counts()
+    t0 = time.perf_counter()
+    preds = trainer.predict(reranker, sampler)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
+    return ms, next(iter(preds.values())), launched
+
+
+def optimizer_state_bytes(optimizer):
+    return sum(t.numel() * t.element_size() for state in optimizer.state.values() for t in state.values()
+               if torch.is_tensor(t) and t.dim() > 0)
+
+
+def phase_lora(workdir, coll, qids, topic_of, corpus_dir, topics):
+    """13a: BERTMaxP at BERT-base width with rank-8 adapters over a seeded
+    pretrained checkpoint, trained by the rerank task, its dev.best served in
+    f32 and int8."""
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+
+    label = "[13a lora]"
+    directory = os.path.join(workdir, "bert_base_pretrained")
+    t0 = time.perf_counter()
+    write_birch_checkpoint(directory, get_bert_config("bert-base-uncased"), seed=13)
+    t_write = time.perf_counter() - t0
+    cfg = dict(LORA_TRAIN, pretrained=directory)
+    task = rerank_task(cfg, "cuda", name=PHASE13_BENCHMARK, collection=coll, threshold=TRAIN_THRESHOLD)
+    reranker, trainer = task.reranker, task.reranker.trainer
+    stages = count_stages(trainer, reranker)
+    first = task._best_search_run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    preds = task.rerank_run(first, task.get_results_path())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    c = trainer.config
+    steps = c["niters"] * trainer.steps_per_iter
+    check(stages["steps"] == steps, f"{label}: {stages['steps']} training steps, expected {steps}")
+    sec = stages["seconds"]
+    per_iter = (sec["train"] - sec["setup"] - sec["validation"] - sec["checkpoint"]) / c["niters"]
+    check(stages["train"]["flash_attention"] == 0, f"{label}: K2 launched inside a training step")
+    check(stages["predict"]["flash_attention"] == BERT_LAYERS * stages["forwards"],
+          f"{label}: K2 launched {stages['predict']['flash_attention']} times in {stages['forwards']} predictions")
+    model, optimizer = trainer._model, trainer._optimizer
+    opt_bytes = optimizer_state_bytes(optimizer)
+    trainable = sum(p.numel() for group in optimizer.param_groups for p in group["params"])
+    # the frozen base after training: bit-identical to the checkpoint read from disk
+    pretrained = reranker._pretrained_state
+    moved = [k for k, v in model.bert.state_dict().items() if k in pretrained and not torch.equal(v.cpu(), pretrained[k])]
+    check(not moved, f"{label}: frozen base weights moved in training: {moved[:3]}")
+    adapters = [n for n, p in model.named_parameters() if "_lora." in n]
+    check(len(adapters) == 4 * BERT_LAYERS, f"{label}: {len(adapters)} adapter weights")
+    batch = training_batch(task, c["batch"])
+    step_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(reranker, model, optimizer, batch, steps + i, trainer.step_seed(c["niters"], i))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    results = task.get_results_path()
+    best_bytes = (results / "dev.best.params").stat().st_size
+    full_bytes = sum(p.numel() * 4 for p in model.parameters())
+    test_q = qids[sum(TRAIN_SPLIT[:2]):]
+    scores = [v for q in test_q for v in preds["test"].get(q, {}).values()]
+    check(scores and all(np.isfinite(scores)), f"{label}: a test score is not finite")
+    print(f"{label} {steps} steps of {c['batch']} (rank {cfg['lora']}, alpha {cfg['loraalpha']}, base frozen; seeded "
+          f"checkpoint written in {t_write:.1f} s): {per_iter:.2f} s per iteration (phase 9b full fine-tune "
+          f"{PHASE9B_BERT['s_per_iter']}), step {np.median(step_ms):.2f} ms (median of 3 more steps; 9b "
+          f"{PHASE9B_BERT['step_ms']}), peak device memory {peak_gb:.2f} GB (9b {PHASE9B_BERT['peak_gb']}); "
+          f"{trainable} trainable weights, optimizer state {opt_bytes / 1e6:.2f} MB (full fine-tune "
+          f"{2 * full_bytes / 1e6:.1f} MB); dev.best {best_bytes / 1e6:.3f} MB (a full dump {full_bytes / 1e6:.1f} "
+          f"MB); the frozen base bit-identical after training; K2 in steps {stages['train']['flash_attention']}, "
+          f"in {stages['forwards']} prediction forwards {stages['predict']['flash_attention']}; test MAP "
+          f"{golden_map(preds['test'], task.benchmark.qrels, test_q):.4f}")
+    out = {"s_per_iter": per_iter, "step_ms": float(np.median(step_ms)), "peak_gb": peak_gb,
+           "optimizer_state_bytes": opt_bytes, "trainable_weights": trainable, "dev_best_bytes": best_bytes,
+           "launches_train": stages["train"], "launches_predict": stages["predict"]}
+    del task, model, optimizer, trainer
+    torch.cuda.empty_cache()
+
+    # the dev.best served: f32, then int8, over phase 5's index and extractor caches
+    from capreolus_tpu_torch.core import constants
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")
+    serve_cfg = {k: v for k, v in cfg.items() if k not in ("name", "trainer")}
+    svc, _, f32 = serve_reranker(f"{label} f32 dev.best", "BERTMaxP", serve_cfg, results / "dev.best", corpus_dir,
+                                 topics, LORA_QUERIES)
+    check(f32["launches"]["flash_attention"] == BERT_LAYERS * LORA_QUERIES,
+          f"{label}: K2 launched {f32['launches']['flash_attention']} times in {LORA_QUERIES} f32 requests")
+    served_base = svc.reranker.model.bert.layer_0.attention.query.weight.cpu()
+    check(torch.equal(served_base, pretrained["layer_0.attention.query.weight"]),
+          f"{label}: the served frozen base is not the pretrained checkpoint's")
+    check_no_head_copies(f32["profiled"], BERT_LAYERS, label)
+    f32["cpu_err"], _, _ = card_vs_cpu(f"{label} f32", svc, "BERTMaxP", serve_cfg, topics[0], LORA_CPU_DOCS,
+                                       BERT_CPU_TOL)
+    del svc
+    torch.cuda.empty_cache()
+    cfg8 = dict(serve_cfg, quantize="int8")
+    svc, _, int8 = serve_reranker(f"{label} int8 dev.best", "BERTMaxP", cfg8, results / "dev.best", corpus_dir,
+                                  topics, LORA_QUERIES)
+    want = {"int8_matmul": X1_PER_REQUEST * LORA_QUERIES, "quantize_per_token": Q1_PER_REQUEST * LORA_QUERIES,
+            "flash_attention": BERT_LAYERS * LORA_QUERIES}
+    for kernel, n in want.items():
+        check(int8["launches"][kernel] == n, f"{label} int8: {kernel} launched {int8['launches'][kernel]} times, "
+                                             f"expected {n}")
+    int8["layer_err"], int8["head_err"] = int8_layers_card_vs_cpu(f"{label} int8", svc, cfg8, topics[0],
+                                                                  LORA_CPU_DOCS)
+    del svc
+    torch.cuda.empty_cache()
+    out.update(f32=f32, int8=int8)
+    return out
+
+
+def int8_layers_card_vs_cpu(label, svc, rr_cfg, query, n_docs):
+    """An int8 BERT reranker's layers on query 0's top ``n_docs`` candidates,
+    each on the CPU from the card's input to it (INT8_LAYER_TOL), and the head
+    from the card's last hidden states (BERT_CPU_TOL), as phase 5b holds them."""
+    from capreolus_tpu_torch.reranker import Reranker
+
+    model = svc.reranker.model
+    batch = svc.rerank_batch("smoke13_int8", query, served_candidates(svc, query)[:n_docs])
+    cfg = json.loads(json.dumps(rr_cfg))
+    cfg.setdefault("extractor", {})["index"] = svc.reranker.extractor.config["index"]
+    cpu_rr = Reranker.create("BERTMaxP", cfg)
+    cpu_model = cpu_rr.build_model().eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    seq_len = batch["pos_bert_input"].shape[-1]
+    ids, seg, mask = (torch.from_numpy(batch[key].reshape(-1, seq_len)) for key in ("pos_bert_input", "pos_seg",
+                                                                                    "pos_mask"))
+    doc_mask = torch.from_numpy(batch["pos_mask"])
+    layer_err = []
+    with torch.inference_mode():
+        gpu = svc.reranker.test(batch, svc.device).cpu().numpy()
+        keys = mask.bool().cuda()
+        hidden = model.bert.embed(ids.cuda(), seg.cuda())
+        for i in range(model.config.num_layers):
+            out = getattr(model.bert, f"layer_{i}")(hidden, keys)
+            layer_err.append(float((out.cpu() - getattr(cpu_model.bert, f"layer_{i}")(hidden.cpu(), keys.cpu())).abs().max()))
+            hidden = out
+        raw = cpu_model.classifier(torch.tanh(cpu_model.bert.pooler(hidden.cpu()[:, 0])).float())[:, 0]
+        head = cpu_rr._head_scores(raw.reshape(doc_mask.shape[:2]), doc_mask).numpy()
+    head_err = float(np.abs(gpu - head).max())
+    print(f"{label} query 0's top {n_docs} docs, each layer on the CPU from the card's input: max |err| "
+          f"{max(layer_err):.3g} (tolerance {INT8_LAYER_TOL}); the head from the card's last layer {head_err:.3g} "
+          f"(tolerance {BERT_CPU_TOL})")
+    check(max(layer_err) <= INT8_LAYER_TOL and head_err <= BERT_CPU_TOL,
+          f"{label}: int8 layers card vs CPU {layer_err}, head {head_err}")
+    return max(layer_err), head_err
+
+
+def hold_k1_bf16(model, batch, label):
+    """K1 against its plain version on the frozen KNRM's rows as ``amp``
+    hands them over (normalised in bf16, widened): the ten RBF kernels at
+    ERR_TOL, the exact-match kernel at K1_EXACT_TOL. Launches after the
+    path's counts are read."""
+    from capreolus_tpu_torch.ops.simmat import knrm_inputs, knrm_pool, knrm_pool_plain
+    from capreolus_tpu_torch.reranker.common import KNRM_SIGMAS
+    from capreolus_tpu_torch.trainer.amp import bf16_params
+
+    exact = KNRM_SIGMAS.index(0.001)
+    err = {"rbf": 0.0, "exact": 0.0}
+    with torch.no_grad(), bf16_params(model):
+        check(model.embedding.dtype == torch.bfloat16, f"{label}: the table is not bf16 under amp")
+        query = torch.from_numpy(np.asarray(batch["query"])).cuda()
+        for side in ("posdoc", "negdoc"):
+            args = knrm_inputs(model.embedding, query, torch.from_numpy(np.asarray(batch[side])).cuda(),
+                               model.mus, model.sigmas)
+            check(bool(torch.equal(args[0], args[0].bfloat16().float())), f"{label}: K1's rows are not bf16 values")
+            diff = (knrm_pool(*args) - knrm_pool_plain(*args)).abs()
+            err["exact"] = max(err["exact"], float(diff[:, exact].max()))
+            diff[:, exact] = 0.0
+            err["rbf"] = max(err["rbf"], float(diff.max()))
+    print(f"{label} K1 on bf16-normalised rows vs its plain version: RBF kernels {err['rbf']:.3g} (tolerance "
+          f"{ERR_TOL}), exact-match kernel {err['exact']:.3g} (tolerance {K1_EXACT_TOL})")
+    check(err["rbf"] <= ERR_TOL and err["exact"] <= K1_EXACT_TOL, f"{label}: K1 on bf16 rows differs from plain")
+    return err
+
+
+def phase_amp(workdir, coll, qids, topic_of):
+    """13b: trainer.amp: CEDR-KNRM as config_cedrknrm_pt.txt (amp=both), a
+    frozen KNRM at phase 9's shape (K1 on bf16 rows), a monoBERT amp=pred
+    prediction beside f32."""
+    from capreolus_tpu_torch.trainer.amp import bf16_params
+
+    out = {}
+    test_q = qids[sum(TRAIN_SPLIT[:2]):]
+    label = "[13b cedrknrm amp]"
+    cfg = dict(CEDR_RERANKER, name="CEDRKNRM", pretrained="electra-base", allowrandominit=True,
+               extractor=dict(CEDR_EXTRACTOR, usecache=True), trainer=dict(CEDR_AMP_TRAINER))
+    task = rerank_task(cfg, "cuda", name=PHASE13_BENCHMARK, collection=coll, threshold=TRAIN_THRESHOLD)
+    reranker, trainer = task.reranker, task.reranker.trainer
+    batches = training_batches(task, CEDR_AMP_TRAINER["batch"], AMP_STEPS)
+    # step 1 card vs CPU with dropout off (the two devices' generators draw other masks)
+    parity = rerank_task(dict(cfg, hidden_dropout_prob=0.0), "cuda", name=PHASE13_BENCHMARK, collection=coll,
+                         threshold=TRAIN_THRESHOLD)
+    out["parity"] = step_parity(parity, training_batch(parity, AMP_PARITY_SAMPLES),
+                                "CEDR-KNRM electra-base, amp=both, dropout off", prefix=label, amp=True,
+                                grad_rtol=AMP_GRAD_RTOL, loss_rtol=AMP_LOSS_RTOL)
+    del parity
+    check(out["parity"]["launches"]["flash_attention"] == 0, f"{label}: K2 launched inside an amp training step")
+    model = reranker.init_params(trainer.config["seed"]).cuda()
+    optimizer = trainer.make_optimizer(reranker, model)
+    trainer._model, trainer._optimizer = model, optimizer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms, losses = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(reranker, model, optimizer, b, i, trainer.step_seed(0, i))))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and train_launches["flash_attention"] == 0,
+          f"{label}: losses {losses}, K2 launches in steps {train_launches['flash_attention']}")
+    check(all(p.dtype == torch.float32 and isinstance(p, torch.nn.Parameter) for p in model.parameters()),
+          f"{label}: a weight is not an f32 parameter after the amp steps")
+    first = task._best_search_run()
+    docids = list(first[test_q[0]])[:TRAIN_THRESHOLD]
+    sampler = pred_sampler(task, test_q[0], docids)
+    timed_predict(trainer, reranker, sampler, "both")  # warm-up; materializes the features
+    amp_ms, amp_scores, amp_launches = timed_predict(trainer, reranker, sampler, "both")
+    f32_ms, f32_scores, _ = timed_predict(trainer, reranker, sampler, "none")
+    layers = model.config.num_layers
+    check(amp_launches["flash_attention"] == layers, f"{label}: K2 launched {amp_launches['flash_attention']} "
+                                                     f"times in an amp prediction of {len(docids)} docs")
+    gap = max(abs(amp_scores[d] - f32_scores[d]) for d in docids)
+    check(all(np.isfinite(list(amp_scores.values()))), f"{label}: an amp score is not finite")
+    print(f"{label} {AMP_STEPS} steps of {CEDR_AMP_TRAINER['batch']} (4 passages of 225, 13 simmat layers): step "
+          f"{np.median(step_ms[1:]):.2f} ms (median of steps 2-{AMP_STEPS}; first {step_ms[0]:.1f}), losses "
+          f"{[round(x, 4) for x in losses]}, peak device memory {peak_gb:.2f} GB; a prediction of {len(docids)} docs "
+          f"(features cached): amp {amp_ms:.2f} ms, f32 {f32_ms:.2f} ms (phase 12b's f32 request {PHASE12B_CEDR_MS} "
+          f"ms with its features), K2 {amp_launches['flash_attention']}; amp vs f32 max |score gap| {gap:.4g}")
+    out["cedrknrm"] = {"step_ms": float(np.median(step_ms[1:])), "peak_gb": peak_gb, "predict_ms_amp": amp_ms,
+                       "predict_ms_f32": f32_ms, "amp_f32_gap": gap, "launches_predict": amp_launches}
+    del task, reranker, trainer, model, optimizer
+    torch.cuda.empty_cache()
+
+    label = "[13b knrm amp]"
+    cfg = dict(KNRM_TRAIN, trainer=dict(TRAINER_FULL, amp="both"))
+    task = rerank_task(cfg, "cuda", name=PHASE13_BENCHMARK, collection=coll, threshold=TRAIN_THRESHOLD)
+    stages = count_stages(task.reranker.trainer, task.reranker)
+    first = task._best_search_run()
+    preds = task.rerank_run(first, task.get_results_path())
+    trainer = task.reranker.trainer
+    steps = trainer.config["niters"] * trainer.steps_per_iter
+    k1, k1_pred = stages["train"]["knrm_pool"], stages["predict"]["knrm_pool"]
+    check(k1 == 2 * steps and k1_pred == stages["forwards"],
+          f"{label}: K1 launched {k1} times in {steps} amp steps and {k1_pred} in {stages['forwards']} predictions")
+    scores = [v for r in preds["test"].values() for v in r.values()]
+    check(scores and all(np.isfinite(scores)), f"{label}: a test score is not finite")
+    batch = training_batch(task, trainer.config["batch"])
+    k1_err = hold_k1_bf16(trainer._model, {k: v[0] for k, v in batch.items()}, label)
+    print(f"{label} frozen KNRM (random300, maxdoclen 800) under amp=both: K1 {k1} launches in {steps} steps, "
+          f"{k1_pred} in {stages['forwards']} prediction forwards; test MAP "
+          f"{golden_map(preds['test'], task.benchmark.qrels, test_q):.4f}")
+    out["knrm"] = {"launches_train": k1, "launches_predict": k1_pred, "k1_err": k1_err}
+    del task, trainer
+    torch.cuda.empty_cache()
+
+    label = "[13b monobert amp=pred]"
+    cfg = dict(BERT_TRAIN, trainer=dict(TRAINER_FULL, amp="pred"))
+    task = rerank_task(cfg, "cuda", name=PHASE13_BENCHMARK, collection=coll, threshold=TRAIN_THRESHOLD)
+    reranker, trainer = task.reranker, task.reranker.trainer
+    seeded_init(reranker)
+    trainer._model = reranker.init_params(trainer.config["seed"]).cuda()
+    first = task._best_search_run()
+    docids = list(first[test_q[0]])[:TRAIN_THRESHOLD]
+    reranker.extractor.preprocess(qids=[test_q[0]], docids=docids,
+                                  topics=task.benchmark.topics[task.benchmark.query_type])
+    sampler = pred_sampler(task, test_q[0], docids)
+    timed_predict(trainer, reranker, sampler, "pred")  # warm-up; materializes the features
+    amp_ms, amp_scores, amp_launches = timed_predict(trainer, reranker, sampler, "pred")
+    f32_ms, f32_scores, f32_launches = timed_predict(trainer, reranker, sampler, "none")
+    check(amp_launches["flash_attention"] == f32_launches["flash_attention"] == BERT_LAYERS,
+          f"{label}: K2 launches {amp_launches['flash_attention']} (amp), {f32_launches['flash_attention']} (f32)")
+    gap = max(abs(amp_scores[d] - f32_scores[d]) for d in docids)
+    check(gap > 0, f"{label}: the amp scores equal the f32 scores: nothing was rounded")
+    with torch.no_grad(), bf16_params(trainer._model):
+        dtypes = {p.dtype for p in trainer._model.parameters()}
+    print(f"{label} a prediction of {len(docids)} docs (features cached): amp=pred {amp_ms:.2f} ms, f32 "
+          f"{f32_ms:.2f} ms; K2 {amp_launches['flash_attention']} each (f32 inputs); amp vs f32 max |score gap| "
+          f"{gap:.4g}; the weights under amp: {sorted(map(str, dtypes))}")
+    out["monobert_pred"] = {"predict_ms_amp": amp_ms, "predict_ms_f32": f32_ms, "amp_f32_gap": gap,
+                            "launches_predict": amp_launches}
+    del task, reranker, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_colbert_training(workdir, coll, qids, corpus_dir, topics, peaks):
+    """13c: the colbert reranker trained by the rerank task at BERT-base width,
+    its dev.best the checkpointfile of ColbertRetrievalService over phase 4's
+    bf16 corpus."""
+    from capreolus_tpu_torch.convert import bert_state_dict, load_params
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.ops.maxsim import maxsim_scores_plain
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+    from capreolus_tpu_torch.reranker.colbert import ColBERTModel
+    from capreolus_tpu_torch.searcher import Searcher
+    from capreolus_tpu_torch.serving import ColbertRetrievalService
+
+    label = "[13c colbert]"
+    task = rerank_task(COLBERT_TRAIN, "cuda", name=PHASE13_BENCHMARK, collection=coll, threshold=TRAIN_THRESHOLD)
+    reranker, trainer = task.reranker, task.reranker.trainer
+    stages = count_stages(trainer, reranker)
+    first = task._best_search_run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    preds = task.rerank_run(first, task.get_results_path())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    c = trainer.config
+    steps = c["niters"] * trainer.steps_per_iter
+    sec = stages["seconds"]
+    per_iter = (sec["train"] - sec["setup"] - sec["validation"] - sec["checkpoint"]) / c["niters"]
+    check(stages["steps"] == steps, f"{label}: {stages['steps']} training steps, expected {steps}")
+    check(stages["train"]["maxsim"] == 0 and stages["train"]["flash_attention"] == 0,
+          f"{label}: K3 {stages['train']['maxsim']} and K2 {stages['train']['flash_attention']} launches in steps")
+    check(stages["predict"]["flash_attention"] == 2 * BERT_LAYERS * stages["forwards"],
+          f"{label}: K2 launched {stages['predict']['flash_attention']} times in {stages['forwards']} prediction "
+          f"forwards (a query and a doc encoder each)")
+    test_q = qids[sum(TRAIN_SPLIT[:2]):]
+    scores = [v for q in test_q for v in preds["test"].get(q, {}).values()]
+    check(scores and all(np.isfinite(scores)), f"{label}: a test score is not finite")
+    ckpt = task.get_results_path() / "dev.best.params"
+    print(f"{label} {steps} steps of {c['batch']} (dim {COLBERT['dim']}, maxqlen {COLBERT['maxqlen']}, maxdoclen "
+          f"{COLBERT['maxdoclen']}): {per_iter:.2f} s per iteration of {c['itersize']} samples, set-up before the "
+          f"first step {sec['setup']:.2f} s, validation {sec['validation']:.2f} s in all, peak device memory "
+          f"{peak_gb:.2f} GB; K3 in steps {stages['train']['maxsim']}, K2 in steps {stages['train']['flash_attention']}, "
+          f"in {stages['forwards']} prediction forwards {stages['predict']['flash_attention']}; test MAP "
+          f"{golden_map(preds['test'], task.benchmark.qrels, test_q):.4f}; dev.best {ckpt.stat().st_size / 1e6:.1f} MB")
+    train_out = {"s_per_iter": per_iter, "setup_s": sec["setup"], "peak_gb": peak_gb,
+                 "launches_train": stages["train"], "launches_predict": stages["predict"]}
+    del task, reranker, trainer
+    torch.cuda.empty_cache()
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")  # phase 6's index
+    config = get_bert_config("bert-base-uncased")
+    searcher = Searcher.create("colbert", {**COLBERT, "pretrained": "bert-base-uncased", "allowrandominit": True,
+                                           "checkpointfile": str(ckpt), "index": {"collection": coll}})
+    t0 = time.perf_counter()
+    searcher.index.create_index()
+    svc = ColbertRetrievalService(searcher, max_k=100, device="cuda")
+    torch.cuda.synchronize()
+    t_service = time.perf_counter() - t0
+    setup = searcher.setup_seconds
+    queries = topics[:COLBERT_QUERIES]
+    batch = [topics[i % len(topics)] + " " + topics[(7 * i + 3) % len(topics)].split()[0] for i in range(64)]
+    svc.search(topics[COLBERT_QUERIES:COLBERT_QUERIES + 1], k=10)  # warm-up request
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    request_ms, results = [], []
+    for query in queries:
+        t0 = time.perf_counter()
+        results.append(svc.search([query], k=10)[0])
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    batch_results = svc.search(batch, k=10)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    check(launches["maxsim"] == len(queries) + 1 and launches["flash_attention"] == BERT_LAYERS * (len(queries) + 1),
+          f"{label}: K3 {launches['maxsim']} and K2 {launches['flash_attention']} launches for {len(queries)} "
+          f"requests and one batch")
+    check(all(len(h) == 10 and all(np.isfinite(s) for _, s in h) for h in results + batch_results),
+          f"{label}: a served request did not return 10 finite scores")
+    q0 = searcher.encode_queries(searcher._tokenize(queries[:1], COLBERT["maxqlen"]))
+    k3 = k3_measure(q0, *svc._corpus, peaks)
+    print(k3_line(f"{label} maxsim on the served corpus with the trained encoder,", k3))
+
+    # query 0's top 10 on the CPU: the trained checkpoint in the port's encoder, plain MaxSim
+    cpu_model = ColBERTModel(config, dim=COLBERT["dim"])
+    cpu_model.load_state_dict(bert_state_dict(load_params(ckpt)))
+    cpu_model.eval()
+    docids = [d for d, _ in results[0]]
+    with torch.inference_mode():
+        cq, _ = cpu_model.encode_query(torch.from_numpy(searcher._tokenize(queries[:1], COLBERT["maxqlen"])))
+        texts = [searcher.index.get_doc(d) for d in docids]
+        emb, dmask = cpu_model.encode_doc(torch.from_numpy(searcher._tokenize(texts, COLBERT["maxdoclen"])))
+    docs_cpu = torch.from_numpy(np.ascontiguousarray(emb.numpy().astype(np.float16).swapaxes(0, 1))).to(torch.bfloat16)
+    mask_cpu = dmask.T.contiguous() > 0
+    cpu_scores = maxsim_scores_plain(cq, docs_cpu, torch.where(mask_cpu, 0.0, MASKED_BIAS).float(),
+                                     mask_cpu.any(dim=0))[0].numpy()
+    served = dict(results[0])
+    err_cpu = float(max(abs(served[d] - float(s)) for d, s in zip(docids, cpu_scores)))
+    check(err_cpu <= COLBERT_CPU_TOL, f"{label}: query 0's top 10 served {[served[d] for d in docids]} vs CPU "
+                                      f"{cpu_scores.tolist()}")
+    print(f"{label} ColbertRetrievalService(checkpointfile=dev.best.params): set-up {t_service:.1f} s (tokenization "
+          f"{setup['tokenize']:.1f} s, encoding {setup['encode']:.1f} s, upload {setup['upload']:.2f} s); per request "
+          f"(median of {len(queries)}) {np.median(request_ms):.2f} ms (spread {min(request_ms):.2f}-"
+          f"{max(request_ms):.2f}), one 64-query batch {batch_ms:.2f} ms; launches K3 {launches['maxsim']}, K2 "
+          f"{launches['flash_attention']}; query 0's top 10 card vs CPU max |err| {err_cpu:.3g} (tolerance "
+          f"{COLBERT_CPU_TOL})")
+    del svc, searcher, q0
+    torch.cuda.empty_cache()
+    return {"training": train_out, "service_s": t_service, "setup": dict(setup),
+            "request_ms": float(np.median(request_ms)), "request_ms_each": [round(t, 2) for t in request_ms],
+            "batch_ms": batch_ms, "launches": launches, "k3": k3, "max_abs_err_cpu": err_cpu}
+
+
+def phase_trainer_options(workdir, corpus_dir, topics, qrels, peaks):
+    """Phase 13: LoRA (13a), trainer.amp (13b) and the trainable ColBERT (13c)."""
+    import capreolus_tpu_torch
+    from capreolus_tpu_torch.core import constants
+
+    capreolus_tpu_torch.load_all_modules()
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")  # phase 4's indexes
+    constants["RESULTS_BASE_PATH"] = os.path.join(workdir, "results_phase13")
+    t0 = time.perf_counter()
+    coll, qids, topic_of = register_phase13_benchmark(workdir, corpus_dir, topics, qrels)
+    seconds = {}
+    out = {"lora": phase_lora(workdir, coll, qids, topic_of, corpus_dir, topics)}
+    seconds["13a"] = round(time.perf_counter() - t0, 1)
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")
+    out["amp"] = phase_amp(workdir, coll, qids, topic_of)
+    seconds["13b"] = round(time.perf_counter() - t0 - seconds["13a"], 1)
+    out["colbert"] = phase_colbert_training(workdir, coll, qids, corpus_dir, topics, peaks)
+    seconds["13c"] = round(time.perf_counter() - t0 - seconds["13a"] - seconds["13b"], 1)
+    summary = dict(out, seconds=seconds)
+    print(f"[13 trainer options] {smi_line()}: every sub-phase passed in {time.perf_counter() - t0:.1f} s; summary "
+          + json.dumps(summary, default=str))
+    return out
+
+
+def add_phase13_launches(kernels, p13, k3_fields):
+    """Phase 13's launches into the ``kernels`` line: the served runs' (LoRA
+    dev.best f32 and int8, the trained ColBERT's service) join each kernel's
+    ``launches``; its launches in phase 13's training steps and predictions go
+    under ``launches_phase13``; K1 gets its error on bf16 rows, K3 its times
+    over the trained encoder's corpus."""
+    lora, amp, colbert13 = p13["lora"], p13["amp"], p13["colbert"]
+    for entry in kernels:
+        name = entry["name"]
+        served = lora["f32"]["launches"][name] + lora["int8"]["launches"][name] + colbert13["launches"][name]
+        entry["launches"] += served
+        entry["launches_phase13"] = {
+            "served": served, "lora_f32_served": lora["f32"]["launches"][name],
+            "lora_int8_served": lora["int8"]["launches"][name], "colbert_served": colbert13["launches"][name],
+            "lora_training_steps": lora["launches_train"][name], "lora_training_predict": lora["launches_predict"][name],
+            "colbert_training_steps": colbert13["training"]["launches_train"][name],
+            "colbert_training_predict": colbert13["training"]["launches_predict"][name],
+            "cedrknrm_amp_predict": amp["cedrknrm"]["launches_predict"][name],
+            "monobert_amp_pred_predict": amp["monobert_pred"]["launches_predict"][name]}
+    kernels[0]["launches_phase13"].update(knrm_amp_training_steps=amp["knrm"]["launches_train"],
+                                          knrm_amp_training_predict=amp["knrm"]["launches_predict"])
+    kernels[0]["max_abs_err_phase13_bf16_rows"] = amp["knrm"]["k1_err"]  # RBF kernels and the exact-match kernel
+    kernels[2]["phase13_trained_checkpoint"] = {key: colbert13["k3"][key] for key in k3_fields}
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -3744,6 +4312,7 @@ def main():
         timed(phase_robust04, workdir)
         other_launches = {}
         other = timed(phase_other_rerankers, workdir, corpus_dir, topics, other_launches)
+        p13 = timed(phase_trainer_options, workdir, corpus_dir, topics, qrels, peaks)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3877,6 +4446,7 @@ def main():
         "bound_by": q1["bound_by"],
         "library_ms": None,  # no single PyTorch call computes per-token quantization
     }]
+    add_phase13_launches(kernels, p13, k3_fields)
     for entry in kernels:  # phase 9: launches inside training steps, and inside the trainer's predictions
         entry["launches_training"] = training_launches["train"].get(entry["name"], 0)
         entry["launches_training_predict"] = training_launches["predict"].get(entry["name"], 0)

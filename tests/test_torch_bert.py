@@ -46,7 +46,6 @@ from capreolus_tpu.reranker.bert_rerankers import _BertScorer as JaxBertScorer  
 from capreolus_tpu.reranker.bert_rerankers import aggregate_passage_scores as jax_aggregate  # noqa: E402
 from capreolus_tpu.tokenizer import Tokenizer as JaxTokenizer  # noqa: E402
 from capreolus_tpu_torch.convert import bert_state_dict  # noqa: E402
-from capreolus_tpu_torch.core import ConfigError  # noqa: E402
 from capreolus_tpu_torch.extractor import Extractor as TorchExtractor  # noqa: E402
 from capreolus_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from capreolus_tpu_torch.reranker import Reranker as TorchReranker  # noqa: E402
@@ -241,6 +240,13 @@ def bert_batch(b, p, l, qlen, seed, vocab=30522):
     return {"pos_bert_input": inp, "pos_mask": mask, "pos_seg": seg}
 
 
+def with_adapters(params, shift=0.01):
+    """The ``params`` of a JAX init (quant stats dropped) with every LoRA
+    up-projection moved off 0, so the adapters add to q and v."""
+    return jax.tree_util.tree_map_with_path(lambda path, x: x + shift if "'up'" in jax.tree_util.keystr(path) else x,
+                                            {"params": params["params"]})
+
+
 def _reranker_pair(options):
     cfg = dict(options, extractor=dict(EXTRACTOR_TINY, tokenizer=OFFLINE_TOKENIZER,
                                        index={"collection": {"name": "dummy"}}))
@@ -364,12 +370,26 @@ def test_load_pretrained_encoder_is_offline():
     ("extractor", {"sentences": True}),
 ])
 def test_unported_options_raise(tmpdir_as_cache, torch_cache, module, options):
-    """LoRA is refused, naming what it selects. ``moeexperts`` and
-    ``sentences=True`` were refused here until the port had them: those two
-    cases now build and agree with the JAX package (scores within 1e-4, the
-    features equal), as ``tests/test_torch_moe.py`` and
-    ``tests/test_torch_segmentation.py`` hold them in full."""
+    """Every case here was refused until the port had it; each now builds and
+    agrees with the JAX package: LoRA (with and without int8) and
+    ``moeexperts`` scores within 1e-4 (LoRA's adapters non-zero; int8 with the
+    stats JAX calibrated), ``sentences=True``'s features equal, as
+    ``tests/test_torch_lora.py``, ``test_torch_moe.py`` and
+    ``test_torch_segmentation.py`` hold them in full."""
     extractor = dict(EXTRACTOR_TINY, tokenizer=OFFLINE_TOKENIZER, index={"collection": {"name": "dummy"}})
+    if "lora" in options:
+        jax_rr, port_rr = _reranker_pair(dict(options, pretrained="tiny"))
+        batch = bert_batch(3, 2, 64, qlen=5, seed=16, vocab=5000)
+        params = with_adapters(jax_rr.init_params(jax.random.PRNGKey(3), batch))
+        if port_rr.quantized:
+            jax_rr.prepare_inference(params, batch)
+            params = jax_rr.inference_variables(params)
+        port_rr.build_model().load_state_dict(port_rr.state_dict_from_params(flatten_params(params)))
+        port_rr.model.eval()
+        with torch.inference_mode():
+            got = port_rr.test(batch, "cpu").numpy()
+        assert_within(got, np.asarray(jax_rr.test(params, batch)), 1e-4, f"BERTMaxP with {options}")
+        return
     if options == {"moeexperts": 2}:
         jax_rr, port_rr = _reranker_pair({"pretrained": "tiny", "moeexperts": 2})
         batch = bert_batch(2, 2, 64, qlen=5, seed=15, vocab=5000)
@@ -380,7 +400,7 @@ def test_unported_options_raise(tmpdir_as_cache, torch_cache, module, options):
             got = port_rr.test(batch, "cpu").numpy()
         assert_within(got, np.asarray(jax_rr.test(params, batch)), 1e-4, "BERTMaxP with 2 experts a layer")
         return
-    if options == {"sentences": True}:
+    if options == {"sentences": True}:  # the last case: every option here is ported
         cfg = dict(extractor, sentences=True, passagelen=6)
         jax_ext, port_ext = JaxExtractor.create("bertpassage", cfg), TorchExtractor.create("bertpassage", cfg)
         topics = {"301": "orbital telescope launched"}
@@ -391,12 +411,6 @@ def test_unported_options_raise(tmpdir_as_cache, torch_cache, module, options):
             got = port_ext.id2vec("301", docid, label=[1, 0], training=False)
             for key in ("pos_bert_input", "pos_mask", "pos_seg"):
                 np.testing.assert_array_equal(got[key], want[key], err_msg=f"{docid} {key}")
-        return
-    if module == "extractor":
-        extractor.update(options)
-        options = {}
-    with pytest.raises(ConfigError, match="not ported"):
-        TorchReranker.create("BERTMaxP", dict(options, pretrained="tiny", extractor=extractor))
 
 
 @pytest.mark.parametrize("name", ["ptBERTMaxP", "TFBERTMaxP", "TFVanillaBERT"])

@@ -1020,3 +1020,121 @@ def test_other_bert_rerankers_on_the_card_match_cpu(card, name, options, k2_per_
     assert fa.flash_attention.launches == before + k2_per_forward
     assert np.isfinite(got).all() and got.shape == (5,)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_tensors_that_require_grad(card):
+    """K3 has no backward: a query that requires grad raises on the card and
+    nothing is launched (ColBERT trains through the plain ``maxsim``)."""
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn(1, 4, 64, generator=gen).to(card).requires_grad_(True)
+    docs = torch.randn(8, 16, 64, generator=gen).to(card, torch.bfloat16)
+    before = ms.maxsim.launches
+    with pytest.raises(ValueError, match="requires grad"):
+        ms.maxsim(q, docs, torch.zeros(8, 16, device=card), torch.ones(16, dtype=torch.bool, device=card))
+    assert ms.maxsim.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 4, 37, 20), (100, 4, 800, 300)])
+def test_k1_on_bf16_rows_matches_plain(card, shape):
+    """A frozen KNRM under ``trainer.amp`` hands K1 its rows normalised in
+    bf16 and widened to f32: K1 against its plain version on those inputs,
+    the ten RBF kernels at 2e-4 and the exact-match kernel at 1e-3 (a bf16
+    row's self-similarity sits on the sigma = 0.001 kernel's slope, where f32
+    dot-product rounding moves it 1/sigma times as much;
+    ``tests/test_torch_amp.py``)."""
+    b, q, d, e = shape
+    args = _k1_args(b, q, d, e, seed=12, device=card)
+    rng = np.random.Generator(np.random.PCG64(13))
+    emb = torch.from_numpy(rng.standard_normal((500, e)).astype(np.float32)).to(card)
+    emb[0] = 0.0
+    qt, dt = args[2].long(), args[3].long()
+    mus = torch.tensor(KNRM_MUS, device=card).bfloat16().float()
+    sigmas = torch.tensor(KNRM_SIGMAS, device=card).bfloat16().float()
+    inputs = simmat.knrm_inputs(emb.bfloat16(), qt, dt, mus, sigmas)
+    assert torch.equal(inputs[0], inputs[0].bfloat16().float())
+    before = simmat.knrm_pool.launches
+    got = simmat.knrm_pool(*inputs)
+    assert simmat.knrm_pool.launches == before + 1
+    want = simmat.knrm_pool_plain(*inputs)
+    exact = KNRM_SIGMAS.index(0.001)
+    rbf = [k for k in range(len(KNRM_MUS)) if k != exact]
+    torch.testing.assert_close(got[:, rbf], want[:, rbf], rtol=TOL, atol=TOL)
+    torch.testing.assert_close(got[:, exact], want[:, exact], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_frozen_knrm_amp_step_launches_k1_on_bf16_rows(card, rerank_golden):
+    """A frozen KNRM's training step under amp=both on the card launches K1
+    once per forward, the parameters f32 again after it."""
+    from chip_smoke import RERANK_GOLDEN_CONFIGS, rerank_task, training_batch
+
+    cfg = dict(RERANK_GOLDEN_CONFIGS["KNRM"], finetune=False, gradkernels=False)
+    cfg["trainer"] = dict(cfg.get("trainer", {}), amp="both")
+    task = rerank_task(cfg, "cuda")
+    reranker, trainer = task.reranker, task.reranker.trainer
+    batch = training_batch(task, 8)
+    model = reranker.init_params(0).to(card)
+    optimizer = trainer.make_optimizer(reranker, model)
+    before = simmat.knrm_pool.launches
+    loss = float(trainer.train_step(reranker, model, optimizer, batch, 0, trainer.step_seed(0, 0)))
+    assert np.isfinite(loss) and simmat.knrm_pool.launches == before + 2
+    assert all(p.dtype == torch.float32 and isinstance(p, torch.nn.Parameter) for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_lora_bertmaxp_on_the_card_matches_cpu(card, quantize):
+    """Tiny BERTMaxP with rank-2 adapters (N(0, 0.2) weights, the adapters
+    non-zero) on one batch: f32 scores within 1e-4 of the CPU's, K2 once per
+    layer; int8 (X1 6 and Q1 3 per layer, calibrated on the card) layer by
+    layer from the card's input at the int8 bounds above, the head within
+    1e-4."""
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.ops import int8_matmul as im
+    from capreolus_tpu_torch.ops import quantization as pq
+
+    cfg = {"pretrained": "tiny", "lora": 2, "quantize": quantize,
+           "extractor": {"maxseqlen": 64, "maxqlen": 8, "numpassages": 4, "index": {"collection": {"name": "dummy"}}}}
+    gpu_rr, cpu_rr = Reranker.create("BERTMaxP", cfg), Reranker.create("BERTMaxP", cfg)
+    gpu_model = gpu_rr.build_model()
+    gpu_model.load_state_dict(gpu_rr.state_dict_from_params(seeded_bert_params(gpu_model, seed=11, std=0.2)))
+    gpu_model.to(card).eval()
+    rng = np.random.Generator(np.random.PCG64(14))
+    inp = rng.integers(1000, 30000, size=(5, 4, 64))
+    mask = np.zeros((5, 4, 64), dtype=np.int64)
+    for i in range(5):
+        for j in range(4):
+            mask[i, j, :int(rng.integers(12, 65))] = 1
+    inp[mask == 0], inp[..., 0] = 0, 101
+    seg = np.zeros_like(mask)
+    seg[..., 9:] = 1
+    batch = {"pos_bert_input": inp, "pos_mask": mask, "pos_seg": seg}
+    gpu_rr.prepare_inference(batch, card)
+    before = fa.flash_attention.launches, im.int8_matmul.launches, pq.quantize_per_token.launches
+    with torch.inference_mode():
+        got = gpu_rr.test(batch, card).cpu().numpy()
+    launched = (fa.flash_attention.launches - before[0], im.int8_matmul.launches - before[1],
+                pq.quantize_per_token.launches - before[2])
+    assert launched == ((2, 12, 6) if quantize == "int8" else (2, 0, 0)), launched
+    cpu_model = cpu_rr.build_model()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in gpu_model.state_dict().items()})
+    cpu_model.eval()
+    assert np.isfinite(got).all()
+    if quantize == "none":
+        with torch.inference_mode():
+            np.testing.assert_allclose(got, cpu_rr.test(batch, "cpu").numpy(), rtol=1e-4, atol=1e-4)
+        return
+    ids, seg_t, keys = (torch.from_numpy(batch[k].reshape(-1, 64)) for k in ("pos_bert_input", "pos_seg", "pos_mask"))
+    with torch.inference_mode():
+        hidden = gpu_model.bert.embed(ids.to(card), seg_t.to(card))
+        for i in range(2):
+            out = getattr(gpu_model.bert, f"layer_{i}")(hidden, keys.bool().to(card))
+            err = (out.cpu() - getattr(cpu_model.bert, f"layer_{i}")(hidden.cpu(), keys.bool())).abs()
+            moved = float((err > 1e-4).float().mean())
+            assert float(err.max()) <= INT8_LAYER_TOL and moved <= INT8_LAYER_MOVED_SHARE, (i, float(err.max()), moved)
+            hidden = out
+        raw = cpu_model.classifier(torch.tanh(cpu_model.bert.pooler(hidden.cpu()[:, 0])))[:, 0]
+        head = cpu_rr._head_scores(raw.reshape(5, 4), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, head, rtol=1e-4, atol=1e-4)

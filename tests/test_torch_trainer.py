@@ -12,6 +12,7 @@ above ``GRAD_FLOOR``.
 """
 
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -644,6 +645,27 @@ def _train(port_rr, corpus, out, sampler="triplet", dev=True):
     return metrics, train_s, dev_s
 
 
+@pytest.mark.parametrize("matplotlib", [True, False])
+def test_training_figures_are_best_effort(corpus, tmp_path, monkeypatch, matplotlib):
+    """The JAX trainer's figures: ``info/loss.png`` after each iteration,
+    ``info/metrics.png`` after each validation, and KNRM's combine weights as
+    ``summaries/combine_weight_{niter}.png`` at each new best. Without
+    matplotlib (its import fails) training completes and writes none."""
+    if not matplotlib:
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+    _, port_rr = knrm_pair(corpus, trainer={"niters": 2, "itersize": 8, "batch": 4})
+    metrics, _, _ = _train(port_rr, corpus, tmp_path)
+    assert np.isfinite(metrics["map"])
+    info = tmp_path / "train" / "info"
+    figures = sorted(p.relative_to(info).as_posix() for p in info.rglob("*.png"))
+    if matplotlib:
+        assert {"loss.png", "metrics.png", "summaries/combine_weight_0.png"} <= set(figures), figures
+        assert all((info / f).stat().st_size > 0 for f in figures)
+    else:
+        assert figures == []
+    assert len(TorchTrainerBase.load_loss_file(info / "loss.txt")) == 2
+
+
 def test_fastforward_equals_an_uninterrupted_run(corpus, tmp_path):
     """A run cut after 2 of 3 iterations and resumed from its per-iteration
     checkpoints ends with the weights, loss history and dev.best of a run of 3."""
@@ -705,7 +727,25 @@ def test_negrefresh_swaps_in_the_hardest_negatives(corpus, tmp_path):
     ({"loss": "infonce"}, "Dense"),
 ])
 def test_unported_trainer_options_raise(corpus, tmp_path, trainer, item):
-    _, port_rr = knrm_pair(corpus, trainer=dict({"niters": 1, "itersize": 4, "batch": 4}, **trainer))
+    """The options the port does not have raise, naming their ROADMAP item.
+    ``amp`` was refused here until the port had it: those cases now train,
+    and step 1 of KNRM under the mode agrees with the JAX trainer's cast
+    parameter tree (the loss within GRAD_TOL, ``tests/test_torch_amp.py``
+    holds every model's amp forward and gradients in full)."""
+    jax_rr, port_rr = knrm_pair(corpus, trainer=dict({"niters": 1, "itersize": 4, "batch": 4}, **trainer))
+    if "amp" in trainer:
+        samples = draw(samplers(corpus, (jax_rr, port_rr))[0], 4)
+        params = carry_over(jax_rr, port_rr, samples)
+        cast = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16) if x.dtype == jnp.float32 else x, params)
+        batch = jax_collate(samples, ARRAY_KEYS)
+        want = float(jax_rr.trainer._loss_fn()([x.astype(jnp.float32) for x in jax_rr.score(cast, batch)]))
+        model = port_rr.build_train_model()
+        got = float(port_rr.trainer.train_step(port_rr, model, port_rr.trainer.make_optimizer(port_rr, model),
+                                               {k: v[None] for k, v in batch.items()}, 0, 0))
+        assert_within(got, want, GRAD_TOL, f"KNRM step 1 under amp={trainer['amp']}")
+        metrics, _, _ = _train(port_rr, corpus, tmp_path)
+        assert np.isfinite(metrics["map"])
+        return
     with pytest.raises(ConfigError, match=item):
         _train(port_rr, corpus, tmp_path)
 
@@ -734,18 +774,28 @@ def _distill_train(port_rr, corpus, tmp_path):
 
 @pytest.mark.parametrize("options,match", [({"lora": 4}, "item 4"), ({"moeexperts": 2}, "item 6")])
 def test_unported_bert_options_name_their_roadmap_item(corpus, tmp_path, options, match):
-    """LoRA is refused at create. MoE is ported (its experts train in the
-    ``bert`` group, as the JAX labels put them); the expert-parallel degree it
-    would shard over is not, and ``trainer.ep > 1`` names item 6."""
+    """LoRA and MoE were refused here until the port had them. LoRA now
+    trains: its adapters in the ``bert`` group and the head in ``other``, as
+    the JAX labels put them, the base encoder frozen (``tests/test_torch_lora.py``
+    holds it against JAX). MoE's experts train in the ``bert`` group; the
+    expert-parallel degree it would shard over is not ported, and
+    ``trainer.ep > 1`` names item 6."""
+    if "lora" in options:
+        _, port_rr = bert_pair(corpus, trainer={"niters": 1, "itersize": 4, "batch": 2}, **options)
+        labels = port_rr.trainer.param_labels(port_rr, port_rr.init_params(0))
+        assert labels["bert.layer_0.attention.query_lora.down.weight"] == "bert"
+        assert labels["bert.layer_1.attention.value_lora.up.weight"] == "bert"
+        assert labels["bert.layer_0.attention.query.weight"] == labels["bert.word_embeddings"] == "frozen"
+        assert labels["classifier.weight"] == "other"
+        metrics, _, _ = _train(port_rr, corpus, tmp_path)
+        assert np.isfinite(metrics["map"])
+        return
     if "moeexperts" in options:
         _, port_rr = bert_pair(corpus, trainer={"ep": 2, "niters": 1, "itersize": 4, "batch": 2}, **options)
         labels = port_rr.trainer.param_labels(port_rr, port_rr.init_params(0))
         assert labels["bert.layer_0.moe.experts_wi"] == labels["bert.layer_1.moe.gate.weight"] == "bert"
         with pytest.raises(ConfigError, match=f"{match}, 'Multi-device'"):
             _train(port_rr, corpus, tmp_path)
-        return
-    with pytest.raises(ConfigError, match=match):
-        bert_pair(corpus, **options)
 
 
 
