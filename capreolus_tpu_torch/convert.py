@@ -4,14 +4,27 @@ The JAX parameter tree, flattened to ``"params/<module>/<leaf>"`` paths of
 numpy arrays, is the port's exchange format: ``save_params`` writes it as an
 ``.npz`` and ``load_params`` reads it back, or a ``.params`` file in flax's
 own msgpack bytes (a ``dev.best`` of either trainer). ``knrm_state_dict``
-maps it onto ``KNRMModel``'s ``state_dict`` and ``bert_state_dict`` onto
+maps it onto ``KNRMModel``'s ``state_dict`` (``flax_state_dict`` with the
+frozen leaves refilled) and ``bert_state_dict`` onto
 any BERT reranker's model (``_BertScorer``, PARADE, CEDR-KNRM, Birch, MoE
 layers and int8 stats included) or ``ColBERTModel``'s.
 ``flax_flat_params`` is the inverse for any port model whose modules carry the
 flax modules' names: every parameter, in the JAX tree's order, as the JAX
-parameter of the same path (an ``nn.Linear`` ``weight`` [out, in] as a Dense
-``kernel`` [in, out], a LayerNorm ``weight`` as its ``scale``).
-``init_flax_`` draws those parameters as flax initialises them.
+parameter of the same path, through its layer's layout (``flax_leaves``):
+- an ``nn.Linear`` ``weight`` [out, in] is a Dense ``kernel`` [in, out];
+  a ``DenseGeneral`` (a Linear with ``flax_in_shape`` / ``flax_out_shape``)
+  is flax's ``DenseGeneral`` kernel [*in_shape, *out_shape] and bias
+  [*out_shape] (``MultiHeadDotProductAttention``'s query, key and value
+  [E, H, D], its out [H, D, E]);
+- an ``nn.Conv1d`` / ``nn.Conv2d`` ``weight`` [out, in, *k] is a flax
+  ``Conv`` kernel [*k, in, out];
+- a ``nn.LayerNorm`` ``weight`` is its ``scale``;
+- any other parameter (an embedding table, a kernel bank, HINT's raw
+  ``Wrz_kernel``) keeps its name and layout.
+flax's ``GRUCell`` and ``OptimizedLSTMCell`` are modules of such Dense
+layers (``ir``, ``hn``, ``ii``, ``hf``, ...), so they carry over by name.
+``flax_state_dict`` maps a flat dict back onto any such model, checking every
+shape. ``init_flax_`` draws those parameters as flax initialises them.
 """
 
 from __future__ import annotations
@@ -79,22 +92,45 @@ def unflatten_tree(flat: dict) -> dict:
     return tree
 
 
-def _flax_leaves(model: torch.nn.Module):
-    """(JAX key, torch parameter name, transposed) for every parameter of
-    ``model``, in module order: a module's own parameters, then its children's,
-    which is the order flax creates a compact module's parameters in."""
-    leaves = []
+def _is_dense_general(module) -> bool:
+    return isinstance(module, torch.nn.Linear) and getattr(module, "flax_in_shape", None) is not None
+
+
+def _layout(module, pname, param):
+    """(flax leaf name, torch -> flax function, flax -> torch function, flax
+    shape) of ``module``'s parameter ``pname``."""
+    if _is_dense_general(module):
+        ins, outs = tuple(module.flax_in_shape), tuple(module.flax_out_shape)
+        if pname == "weight":
+            return ("kernel", lambda t: t.T.reshape(ins + outs),
+                    lambda a: a.reshape(int(np.prod(ins)), int(np.prod(outs))).T, ins + outs)
+        return ("bias", lambda t: t.reshape(outs), lambda a: a.reshape(-1), outs)
+    if isinstance(module, torch.nn.Linear) and pname == "weight":
+        return "kernel", lambda t: t.T, lambda a: a.T, tuple(param.shape[::-1])
+    if isinstance(module, (torch.nn.Conv1d, torch.nn.Conv2d)) and pname == "weight":
+        nd = param.dim() - 2  # [out, in, *k] <-> [*k, in, out]
+        to_flax = tuple(range(2, 2 + nd)) + (1, 0)
+        from_flax = (nd + 1, nd) + tuple(range(nd))
+        return ("kernel", lambda t: t.permute(to_flax), lambda a: a.permute(from_flax),
+                tuple(param.shape[i] for i in to_flax))
+    if isinstance(module, torch.nn.LayerNorm) and pname == "weight":
+        return "scale", lambda t: t, lambda a: a, tuple(param.shape)
+    return pname, lambda t: t, lambda a: a, tuple(param.shape)
+
+
+def flax_leaves(model: torch.nn.Module):
+    """(JAX key, torch parameter name, torch -> flax, flax -> torch, flax
+    shape) for every parameter of ``model``, in module order: a module's own
+    parameters, then its children's, which is the order flax creates a
+    compact module's parameters in."""
+    out = []
     for mname, module in model.named_modules():
         parts = mname.split(".") if mname else []
-        for pname, _ in module.named_parameters(recurse=False):
-            leaf, transposed = pname, False
-            if isinstance(module, torch.nn.Linear):
-                leaf, transposed = {"weight": ("kernel", True), "bias": ("bias", False)}[pname]
-            elif isinstance(module, torch.nn.LayerNorm):
-                leaf = {"weight": "scale", "bias": "bias"}[pname]
-            torch_name = f"{mname}.{pname}" if mname else pname
-            leaves.append(("/".join(["params"] + parts + [leaf]), torch_name, transposed))
-    return leaves
+        for pname, param in module.named_parameters(recurse=False):
+            leaf, to_flax, from_flax, shape = _layout(module, pname, param)
+            out.append(("/".join(["params"] + parts + [leaf]), f"{mname}.{pname}" if mname else pname,
+                        to_flax, from_flax, shape))
+    return out
 
 
 def flax_flat_params(model: torch.nn.Module) -> dict:
@@ -102,10 +138,42 @@ def flax_flat_params(model: torch.nn.Module) -> dict:
     JAX tree's order)."""
     params = dict(model.named_parameters())
     out = {}
-    for key, name, transposed in _flax_leaves(model):
-        value = params[name].detach().to("cpu", torch.float32)
-        out[key] = np.array((value.T if transposed else value).numpy(), order="C")  # a copy, never a view
+    for key, name, to_flax, _, _ in flax_leaves(model):
+        value = to_flax(params[name].detach().to("cpu", torch.float32))
+        out[key] = np.array(value.numpy(), order="C")  # a copy, never a view
     return out
+
+
+def flax_state_dict(model: torch.nn.Module, flat: dict, refill: dict = None) -> dict:
+    """``model``'s parameters from the flat JAX parameter dict, each through
+    its layer's layout and checked against the shape the model gives it.
+    A leaf the checkpoint leaves out or empty (a frozen leaf) takes its value
+    from ``refill`` (by JAX key), else keeps the model's own, as the JAX
+    trainer's ``_merge_frozen`` does. A key the model lacks raises."""
+    params = dict(model.named_parameters())
+    leaves = flax_leaves(model)
+    unknown = sorted(set(flat) - {key for key, *_ in leaves})
+    if unknown:
+        raise KeyError(f"{type(model).__name__} has no parameter for {unknown[:3]}")
+    state = {}
+    for key, name, _, from_flax, shape in leaves:
+        if _present(flat, key):
+            value = np.asarray(flat[key], dtype=np.float32)
+            if tuple(value.shape) != shape:
+                raise ValueError(f"{key}: the checkpoint's shape {tuple(value.shape)} is not the model's {shape}")
+            state[name] = from_flax(torch.from_numpy(np.array(value, order="C"))).contiguous()
+        elif refill is not None and key in refill:
+            state[name] = torch.as_tensor(np.asarray(refill[key], dtype=np.float32)).reshape(params[name].shape)
+        else:
+            state[name] = params[name].detach().to("cpu", torch.float32).clone()
+    return state
+
+
+def orthogonal_(weight: torch.Tensor, generator: torch.Generator):
+    """flax's ``orthogonal()`` of a recurrent kernel [H, H] (a Haar draw: the Q
+    of a normal matrix's QR, its columns' signs fixed by R's diagonal)."""
+    with torch.no_grad():
+        return torch.nn.init.orthogonal_(weight, gain=1.0, generator=generator)
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator):
@@ -121,10 +189,14 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator)
 def init_flax_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """Draw ``model``'s weights as flax initialises their counterparts: a
     module's own parameters by its ``flax_init_(generator)`` where it has one
-    (BERT's embedding tables, a LoRA adapter's Dense layers), every other
-    ``nn.Linear`` (a flax ``nn.Dense``) ``lecun_normal`` with a zero bias, every
-    ``nn.LayerNorm`` unit scale and zero bias; other parameters keep their
-    values. The draws come from ``generator`` in module order."""
+    (BERT's embedding tables, a LoRA adapter's Dense layers, a recurrent
+    cell's hidden-state Dense layers, HINT's spatial GRU), every other
+    ``nn.Linear`` (a flax ``nn.Dense`` or ``DenseGeneral``) ``lecun_normal``
+    over its input features with a zero bias, every ``nn.Conv1d`` /
+    ``nn.Conv2d`` (a flax ``nn.Conv``) ``lecun_normal`` over its receptive
+    field times its input channels with a zero bias, every ``nn.LayerNorm``
+    unit scale and zero bias; other parameters keep their values. The draws
+    come from ``generator`` in module order."""
     with torch.no_grad():
         for module in model.modules():
             if hasattr(module, "flax_init_"):
@@ -133,11 +205,14 @@ def init_flax_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.M
                 lecun_normal_(module.weight, module.in_features, generator)
                 if module.bias is not None:
                     module.bias.zero_()
+            elif isinstance(module, (torch.nn.Conv1d, torch.nn.Conv2d)):
+                lecun_normal_(module.weight, module.weight[0].numel(), generator)
+                if module.bias is not None:
+                    module.bias.zero_()
             elif isinstance(module, torch.nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
     return model
-
 
 
 def _present(flat, key):
@@ -145,38 +220,24 @@ def _present(flat, key):
     return value is not None and np.asarray(value).size > 0
 
 
-def _dense(flat, prefix, name):
-    """flax Dense kernel [in, out] -> nn.Linear weight [out, in]."""
-    kernel = np.asarray(flat[f"{prefix}/{name}/kernel"], dtype=np.float32)
-    bias = np.array(flat[f"{prefix}/{name}/bias"], dtype=np.float32)
-    return {f"{name}.weight": torch.from_numpy(np.array(kernel.T, order="C")),
-            f"{name}.bias": torch.from_numpy(bias)}
-
-
-def knrm_state_dict(flat: dict, embedding: np.ndarray = None) -> dict:
-    """KNRMModel state_dict from the flat JAX KNRM params.
+def knrm_state_dict(flat: dict, embedding: np.ndarray = None, model: torch.nn.Module = None) -> dict:
+    """KNRMModel state_dict from the flat JAX KNRM params, through
+    ``flax_state_dict`` (``model``, else a KNRMModel of the checkpoint's
+    shapes).
 
     A JAX checkpoint leaves out frozen leaves (empty arrays or absent): the
     embedding table is then refilled from ``embedding`` (the extractor's
     table) and the kernel bank from the KNRM defaults, never kept stale.
     """
-    prefix = "params"
-    state = {}
-    if _present(flat, f"{prefix}/embedding"):
-        state["embedding"] = torch.from_numpy(np.array(flat[f"{prefix}/embedding"], dtype=np.float32))
-    elif embedding is not None:
-        state["embedding"] = torch.from_numpy(np.array(embedding, dtype=np.float32))
-    else:
+    table = flat["params/embedding"] if _present(flat, "params/embedding") else embedding
+    if table is None:
         raise KeyError("the checkpoint has no embedding table and no extractor table was given")
-    for name, default in (("mus", KNRM_MUS), ("sigmas", KNRM_SIGMAS)):
-        value = flat[f"{prefix}/{name}"] if _present(flat, f"{prefix}/{name}") else default
-        state[name] = torch.from_numpy(np.array(value, dtype=np.float32))
-    if f"{prefix}/combine/kernel" in flat:
-        state.update(_dense(flat, prefix, "combine"))
-    else:
-        state.update(_dense(flat, prefix, "combine1"))
-        state.update(_dense(flat, prefix, "combine2"))
-    return state
+    if model is None:
+        from capreolus_tpu_torch.reranker.knrm import KNRMModel
+
+        model = KNRMModel(np.zeros(np.shape(table), np.float32), singlefc="params/combine/kernel" in flat)
+    return flax_state_dict(model, flat, {"params/embedding": table, "params/mus": KNRM_MUS,
+                                         "params/sigmas": KNRM_SIGMAS})
 
 
 def bert_state_dict(flat: dict) -> dict:

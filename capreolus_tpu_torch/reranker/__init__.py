@@ -9,6 +9,14 @@ flattened JAX parameter tree's (``("params", "combine", "kernel")``), so one
 ``trainable`` serves the trainer, the checkpoints and the JAX tests. Its
 ``trainer`` dependency (default ``jax``, the port's ``TorchTrainer``) trains
 it; weights may also arrive as a flat ``params/...`` npz (``convert.py``).
+
+Ported: KNRM, the BERT rerankers (BERTMaxP and its aliases, PARADE,
+CEDR-KNRM, Birch), the ColBERT reranker, and the zoo of ``interaction.py``
+(TFKNRM, DRMM, DRMMTKS, ConvKNRM, PACRR, DSSM, CDSSM) and
+``sequence_models.py`` (DUET, POSITDRMM, HINT, TK, DeepTileBar). Creating
+one of the JAX package's rerankers the port lacks (``biencoder``,
+``unicoil``, ``splade``) raises ``ConfigError`` naming the ROADMAP.md item
+that queues it.
 """
 
 from __future__ import annotations
@@ -19,7 +27,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from capreolus_tpu_torch.core import Dependency, ModuleBase, import_all_modules, register_module_type
+from capreolus_tpu_torch.core import (ConfigError, Dependency, ModuleBase, import_all_modules, module_registry,
+                                      register_module_type)
+
+_DENSE = "item 6, 'Dense and learned-sparse retrieval'"
+# the JAX package's rerankers that the port lacks, and the ROADMAP.md item that queues each
+UNPORTED_RERANKERS = {"biencoder": _DENSE, "unicoil": _DENSE, "splade": _DENSE}
 
 
 @register_module_type
@@ -29,6 +42,14 @@ class Reranker(ModuleBase):
         Dependency(key="extractor", module="extractor", name="embedtext"),
         Dependency(key="trainer", module="trainer", name="jax"),
     ]
+
+    @classmethod
+    def create(cls, name=None, config=None, provide=None):
+        wanted = name or (config or {}).get("name")
+        if wanted in UNPORTED_RERANKERS and wanted not in module_registry.get_module_names("reranker"):
+            raise ConfigError(f"reranker {wanted!r} is not ported to PyTorch yet "
+                              f"(ROADMAP.md {UNPORTED_RERANKERS[wanted]})")
+        return super().create(name, config, provide)
     # rerankers whose models apply dropout set this True; the trainer then hands
     # a training forward its dropout seed (the JAX package's "dropout" rng)
     accepts_rngs = False

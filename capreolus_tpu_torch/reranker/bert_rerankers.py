@@ -196,13 +196,13 @@ class BertRerankerBase(Reranker):
         that it lacks or leaves empty keeps ``model``'s own value, as the JAX
         ``_merge_frozen`` keeps it (Birch's frozen encoder and NSP head); a
         trainable one it lacks raises KeyError."""
-        from capreolus_tpu_torch.convert import _flax_leaves, _present, bert_state_dict
+        from capreolus_tpu_torch.convert import _present, bert_state_dict, flax_leaves
 
         model = self.build_model() if model is None else model
         state = bert_state_dict({k: v for k, v in flat.items() if _present(flat, k)})
         own, params = model.state_dict(), dict(model.named_parameters())
         missing = []
-        for key, name, _ in _flax_leaves(model):
+        for key, name, *_ in flax_leaves(model):
             if name not in state:
                 if self.trainable(tuple(key.split("/")), params[name]):
                     missing.append(key)

@@ -5,17 +5,72 @@ the training losses (``LOSS_FUNCTIONS``, all six of its keys).
 These are the model's differentiable path. The fused inference kernel
 (``ops/simmat.py``) normalises differently (``norm + 1e-9``); each is held
 against its own JAX counterpart.
+
+``cudnn_f32`` keeps cuDNN's convolutions and recurrences in IEEE f32 (the JAX
+package's f32; PyTorch's ``torch.backends.cudnn.allow_tf32`` defaults to
+True), and ``conv_same`` pads a convolution's input as XLA's ``SAME`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+import torch.nn.functional as F
 
 # KNRM / CEDR kernel bank defaults (Xiong et al. SIGIR'17)
 KNRM_MUS = (-0.9, -0.7, -0.5, -0.3, -0.1, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0)
 KNRM_SIGMAS = (0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.001)
 
 PAD = 0
+
+
+_CUDNN_F32_LOCK = threading.Lock()
+_cudnn_f32_holders = [0, None]  # [callers inside cudnn_f32, the flag the first of them found]
+
+
+@contextlib.contextmanager
+def cudnn_f32():
+    """cuDNN convolutions and recurrences without TF32 for the duration (also a
+    decorator): the zoo's convolutions and GRU / LSTM layers compute in f32
+    whatever the caller's ``torch.backends.cudnn.allow_tf32``. The flag is
+    process-wide, so the callers inside are counted: the first to enter
+    clears it and the last to leave restores what the first found, and
+    overlapping threads (a threaded server's requests) or nested calls never
+    restore it while another caller is still inside."""
+    with _CUDNN_F32_LOCK:
+        if _cudnn_f32_holders[0] == 0:
+            _cudnn_f32_holders[1] = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        _cudnn_f32_holders[0] += 1
+    try:
+        yield
+    finally:
+        with _CUDNN_F32_LOCK:
+            _cudnn_f32_holders[0] -= 1
+            if _cudnn_f32_holders[0] == 0:
+                torch.backends.cudnn.allow_tf32 = _cudnn_f32_holders[1]
+
+
+def same_padding(kernel_size: int):
+    """XLA's ``SAME`` padding of one axis at stride 1: (k - 1) // 2 before,
+    the rest after (0 and 1 for a kernel of 2)."""
+    return (kernel_size - 1) // 2, kernel_size - 1 - (kernel_size - 1) // 2
+
+
+def conv_same(conv, x):
+    """``conv`` (an ``nn.Conv1d`` or ``nn.Conv2d``) over channels-first ``x``
+    padded with zeros as flax's ``nn.Conv(padding="SAME")`` pads it."""
+    pads = []
+    for k in reversed(conv.kernel_size):  # F.pad takes the last axis first
+        pads.extend(same_padding(k))
+    return conv(F.pad(x, pads))
+
+
+def cosine_rows(x, eps=1e-9):
+    """``x / (‖x‖ + eps)`` over the last axis (the zoo models' ``norm``)."""
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
 
 
 def _mask_padding(sim, query_tok, doc_tok):

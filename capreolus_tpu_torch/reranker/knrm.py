@@ -127,4 +127,4 @@ class KNRM(Reranker):
     def state_dict_from_params(self, flat, model=None):
         from capreolus_tpu_torch.convert import knrm_state_dict
 
-        return knrm_state_dict(flat, embedding=self.extractor.embeddings)
+        return knrm_state_dict(flat, self.extractor.embeddings, model if model is not None else self.build_model())

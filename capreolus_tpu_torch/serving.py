@@ -135,7 +135,8 @@ class RetrievalService:
 
 class RerankingService(RetrievalService):
     """Retrieve-then-rerank serving: first-stage engine + a trained reranker
-    (KNRM over embedtext features, or a BERT cross-encoder such as BERTMaxP
+    (KNRM or another model of the zoo over embedtext, slowembedtext,
+    bagofwords or deeptiles features, or a BERT cross-encoder such as BERTMaxP
     over bertpassage features, one batch of ``topn`` docs per query).
 
     ``checkpoint_path`` names the weights: a ``dev.best`` written by either

@@ -28,7 +28,9 @@ paths carry over.
   tree, not ``torch.autocast``). TF32 stays off at every mode. With
   ``quantize=int8`` the int8 model calibrates on the f32 weights, then its
   weights and GELU stats are rounded and its weights quantized in bf16, as
-  the JAX trainer's ``_amp_pred_params`` leaves them.
+  the JAX trainer's ``_amp_pred_params`` leaves them. cuDNN's convolutions
+  and recurrences (the zoo's) stay in f32 through each step's backward too
+  (``cudnn_f32``).
 - Figures: ``info/loss.png`` after every iteration and ``info/metrics.png``
   after every validation, with matplotlib when it imports (best-effort, as
   in JAX: nothing is written without it).
@@ -62,7 +64,7 @@ import torch
 
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, constants
 from capreolus_tpu_torch.evaluation import eval_runs
-from capreolus_tpu_torch.reranker.common import LOSS_FUNCTIONS
+from capreolus_tpu_torch.reranker.common import LOSS_FUNCTIONS, cudnn_f32
 from capreolus_tpu_torch.trainer import Trainer
 from capreolus_tpu_torch.trainer.amp import amp_mode, bf16_params, round_int8_inference
 from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
@@ -265,11 +267,11 @@ class TorchTrainer(Trainer):
     def param_labels(reranker, model):
         """{torch parameter name: "frozen" | "bert" | "other"}, from the JAX path
         of each parameter, as the JAX trainer labels its tree."""
-        from capreolus_tpu_torch.convert import _flax_leaves
+        from capreolus_tpu_torch.convert import flax_leaves
 
         params = dict(model.named_parameters())
         labels = {}
-        for key, name, _ in _flax_leaves(model):
+        for key, name, *_ in flax_leaves(model):
             path = tuple(key.split("/"))
             if not reranker.trainable(path, params[name]):
                 labels[name] = "frozen"
@@ -337,7 +339,8 @@ class TorchTrainer(Trainer):
         loss_sum = torch.zeros((), device=device)
         for g in range(gradacc):
             micro = {k: v[g] for k, v in batches.items()}
-            with bf16_params(model, self.amp_train()):  # around the backward too: remat recomputes layers
+            # around the backward too: remat recomputes layers, and cuDNN's backward reads the TF32 flag
+            with bf16_params(model, self.amp_train()), cudnn_f32():
                 loss = self.compute_loss(reranker, micro, device, dropout_generator_seed(step_seed, g))
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
@@ -665,18 +668,18 @@ class TorchTrainer(Trainer):
         checkpoint leaves empty with their values (``_merge_frozen``: a frozen
         KNRM's extractor table and kernel bank, Birch's frozen encoder); and
         this trainer's ``<path>.optstate`` into ``optimizer`` when given."""
-        from capreolus_tpu_torch.convert import _flax_leaves, _present, load_params
+        from capreolus_tpu_torch.convert import _present, flax_leaves, load_params
 
         flat = load_params(_ext(path, ".params"))
         params = dict(model.named_parameters())
-        missing = [key for key, name, _ in _flax_leaves(model)
+        missing = [key for key, name, *_ in flax_leaves(model)
                    if reranker.trainable(tuple(key.split("/")), params[name]) and not _present(flat, key)]
         if missing:
             raise KeyError(f"checkpoint {path} lacks trainable parameters {missing[:3]}...")
         own = model.state_dict()  # an f32 training model of an int8 reranker has no int8 stats
         try:
             model.load_state_dict({k: v for k, v in reranker.state_dict_from_params(flat, model).items() if k in own})
-        except RuntimeError as e:
+        except (RuntimeError, ValueError) as e:
             raise RuntimeError(f"checkpoint {path} does not fit the model (a vocabulary-sized table needs the "
                                f"training-time extractor state): {e}") from e
         opt_fn = _ext(path, ".optstate")

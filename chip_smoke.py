@@ -2288,6 +2288,8 @@ TRAIN_THRESHOLD = 100  # threshold = testthreshold of the full-width training ru
 STEP_RTOL = 1e-4  # step 1's loss, and each gradient tensor against its largest entry, card vs CPU from
 # one init and one batch: f32 sums in other orders (K1's pooled features sit within 2e-4 of the
 # plain path's on log sums of up to ~10, so a frozen KNRM's combine gradients move by ~2e-5)
+REFEREE_FACTOR = 4  # a card gradient against the CPU's may differ by this many times the CPU f32 gradient's
+# own error against f64 (two f32 sums in other orders, each about that far from the exact one)
 GRAD_NOISE_FLOOR = 1e-3  # share of the model's largest gradient entry below which a tensor's own
 # largest entry is not its scale (a gradient that is 0 but for rounding)
 SERVED_DEV_BEST_TOL = 1e-5  # a dev.best served on the card against the trainer's own test prediction of
@@ -2438,25 +2440,38 @@ def hold_k2(reranker, batch, label, held=None, prefix="[9 K2]"):
 
 
 def step_parity(task, batch, label, exclude=None, prefix="[9a parity]", amp=False, grad_rtol=STEP_RTOL,
-                loss_rtol=STEP_RTOL):
+                loss_rtol=STEP_RTOL, dropout=True, per_use=False, referee64=False):
     """Step 1 from one init (``init_params`` on the CPU) and one batch: the
     loss and every gradient on the card against the CPU's, with the card's
     kernel launches in that step. ``exclude`` ({parameter: [indices]}) leaves
     ill-conditioned gradient entries out. ``amp`` runs the step on the weights
-    rounded to bf16, as ``trainer.amp`` does."""
+    rounded to bf16, as ``trainer.amp`` does. ``dropout=False`` runs the
+    deterministic training forward (no dropout seed: the card's and the CPU's
+    generators draw different masks). ``per_use`` (always under ``amp``)
+    scales each tensor's errors by the largest entries of its two uses'
+    gradients (pos, neg) summed, not its own largest entry. ``referee64``
+    also computes the step in f64 on the CPU and lets a tensor's card error
+    reach ``REFEREE_FACTOR`` times the CPU f32 gradient's own error against
+    it, where that is larger: a gradient that f32 itself cannot compute to
+    ``grad_rtol`` (CDSSM's at its init, where both towers' cosine is ±1 to
+    1e-4) is held to f32's own accuracy."""
+    from capreolus_tpu_torch.reranker.common import cudnn_f32
     from capreolus_tpu_torch.trainer.amp import bf16_params
 
     reranker, trainer = task.reranker, task.reranker.trainer
     model = reranker.init_params(trainer.config["seed"])
     trainer.make_optimizer(reranker, model)  # freezes what the trainer freezes
     micro = {k: v[0] for k, v in batch.items()}
+    seed = trainer.step_seed(0, 0) if dropout else None
 
     def grads(device):
         model.to(device)
         model.zero_grad(set_to_none=True)
         before = launch_counts()
-        with bf16_params(model, amp):
-            loss = trainer.compute_loss(reranker, micro, torch.device(device), dropout_seed=trainer.step_seed(0, 0))
+        # the forward and the backward under cudnn_f32, as train_step runs them: cuDNN's backward reads the
+        # TF32 flag when it runs, not when the forward did
+        with bf16_params(model, amp), cudnn_f32():
+            loss = trainer.compute_loss(reranker, micro, torch.device(device), dropout_seed=seed)
             loss.backward()
         launched = {k: n - before[k] for k, n in launch_counts().items()}
         return float(loss.detach()), {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
@@ -2470,14 +2485,26 @@ def step_parity(task, batch, label, exclude=None, prefix="[9a parity]", amp=Fals
         be many times the difference itself."""
         model.to("cpu")
         named = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        with bf16_params(model):
-            pos, neg = reranker.score(micro, torch.device("cpu"), dropout_seed=trainer.step_seed(0, 0))
+        with bf16_params(model, amp):
+            pos, neg = reranker.score(micro, torch.device("cpu"), dropout_seed=seed)
             uses = [torch.autograd.grad(side.float().mean(), list(named.values()), retain_graph=True, allow_unused=True)
                     for side in (pos, neg)]
         return {n: sum(float(g[i].abs().max()) for g in uses if g[i] is not None) for i, n in enumerate(named)}
 
+    def f32_errors():
+        """Per tensor, the CPU f32 gradient's largest error against the same step in f64."""
+        model.to("cpu").double()
+        model.zero_grad(set_to_none=True)
+        wide = {k: (np.asarray(v, np.float64) if np.asarray(v).dtype.kind == "f" else v) for k, v in micro.items()}
+        trainer.compute_loss(reranker, wide, torch.device("cpu"), dropout_seed=seed).backward()
+        out = {n: float((p.grad - cpu_grads[n].double()).abs().max()) for n, p in model.named_parameters()
+               if p.grad is not None}
+        model.float()
+        return out
+
     cpu_loss, cpu_grads, _ = grads("cpu")
-    scales = use_scales() if amp else {n: float(g.abs().max()) for n, g in cpu_grads.items()}
+    scales = use_scales() if amp or per_use else {n: float(g.abs().max()) for n, g in cpu_grads.items()}
+    f32_err = f32_errors() if referee64 else {}
     card_loss, card_grads, launched = grads("cuda")
     check(set(card_grads) == set(cpu_grads), f"{label}: the card computes gradients for other parameters")
     loss_err = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-12)
@@ -2491,11 +2518,14 @@ def step_parity(task, batch, label, exclude=None, prefix="[9a parity]", amp=Fals
         for index in (exclude or {}).get(name, []):
             diff[index] = 0.0
         err = float(diff.max()) / max(scales[name], floor, 1e-30)
+        if name in f32_err:  # held to f32's own accuracy where that is coarser than grad_rtol
+            err = min(err, grad_rtol * float(diff.max()) / max(REFEREE_FACTOR * f32_err[name], 1e-30))
         if err >= grad_err:
             grad_err, worst = err, name
     print(f"{prefix} {label}: step-1 loss {card_loss:.6f} on the card, {cpu_loss:.6f} on the CPU (rel err "
           f"{loss_err:.3g}); largest gradient error {grad_err:.3g} of its tensor's largest entry"
-          f"{' (its two uses summed)' if amp else ''} ({worst}) over "
+          f"{' (its two uses summed)' if amp or per_use else ''}"
+          f"{f', or {REFEREE_FACTOR} x the CPU f32 error against f64' if referee64 else ''} ({worst}) over "
           f"{len(cpu_grads)} tensors (tolerance {grad_rtol}; the loss {loss_rtol}); card launches in the step: "
           f"{ {k: n for k, n in launched.items() if n} }")
     check(loss_err <= loss_rtol and grad_err <= grad_rtol, f"{label}: step 1 on the card differs from the CPU's")
@@ -3296,14 +3326,13 @@ def seeded_model_params(model, seed, std=0.02):
     trainer saves them: N(0, std) matrices, embeddings and PARADE's vectors,
     zero biases, unit LayerNorm scales; CEDR-KNRM's kernel bank and Birch's
     top-k weights at their initial values."""
-    from capreolus_tpu_torch.convert import _flax_leaves
+    from capreolus_tpu_torch.convert import flax_leaves
 
     rng = np.random.Generator(np.random.PCG64(seed))
     params = dict(model.named_parameters())
     flat = {}
-    for key, name, transposed in _flax_leaves(model):
+    for key, name, _, _, shape in flax_leaves(model):
         value = params[name].detach().cpu()
-        shape = tuple(value.T.shape) if transposed else tuple(value.shape)
         leaf = key.rsplit("/", 1)[1]
         if leaf in ("mus", "sigmas", "topk_weights"):
             flat[key] = value.numpy().copy()
@@ -3352,12 +3381,13 @@ def write_birch_checkpoint(directory, config, seed=12, std=0.02):
     return sd
 
 
-def serve_reranker(label, name, rr_cfg, ckpt, corpus_dir, topics, n_queries):
+def serve_reranker(label, name, rr_cfg, ckpt, corpus_dir, topics, n_queries, reranker=None):
     """A ``RerankingService`` on the card for reranker ``name`` over the phase-4
     corpus (BM25 first stage, topn 100, k 10): a warm-up request (which
     calibrates an int8 model), then ``n_queries`` served with the launches of
     every kernel counted from 0, their times, the peak device memory and one
-    profiled request. Returns (service, summary)."""
+    profiled request. ``reranker`` is one already created from ``rr_cfg``
+    (its extractor preprocessed or not). Returns (service, summary)."""
     from capreolus_tpu_torch.index import Index
     from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
     from capreolus_tpu_torch.reranker import Reranker
@@ -3369,7 +3399,7 @@ def serve_reranker(label, name, rr_cfg, ckpt, corpus_dir, topics, n_queries):
     t0 = time.perf_counter()
     index = Index.create("tpu", {"collection": coll})
     index.create_index()
-    reranker = Reranker.create(name, cfg)
+    reranker = reranker or Reranker.create(name, cfg)
     svc = RerankingService(index, reranker, ckpt, topn=100, device="cuda")
     torch.cuda.synchronize()
     t_service = time.perf_counter() - t0
@@ -4273,6 +4303,343 @@ def add_phase13_launches(kernels, p13, k3_fields):
     kernels[2]["phase13_trained_checkpoint"] = {key: colbert13["k3"][key] for key in k3_fields}
 
 
+# ---------------------------------------------------------------- phase 14: the rest of the reranker zoo
+ZOO_WIDTH = {"embeddings": "random300", "maxqlen": 4, "maxdoclen": 800}  # phase 4's served width (GloVe-6B's 300)
+ZOO_SERVED = {  # label: (reranker config at the JAX defaults, extractor, served requests after a warm-up)
+    "DRMM": ({"name": "DRMM"}, "embedtext", 4),
+    "DRMMTKS": ({"name": "DRMMTKS"}, "embedtext", 4),
+    "PACRR": ({"name": "PACRR"}, "embedtext", 4),
+    "ConvKNRM": ({"name": "ConvKNRM"}, "slowembedtext", 4),
+    "CDSSM": ({"name": "CDSSM"}, "slowembedtext", 4),
+    "DUET": ({"name": "DUET"}, "slowembedtext", 4),
+    "POSITDRMM": ({"name": "POSITDRMM"}, "slowembedtext", 4),
+    "TK": ({"name": "TK"}, "slowembedtext", 4),
+    "HINT": ({"name": "HINT"}, "slowembedtext", 4),
+    "HINT_windowed": ({"name": "HINT", "mode": "windowed"}, "slowembedtext", 1),
+    "DSSM": ({"name": "DSSM"}, "bagofwords", 4),
+    "DeepTileBar": ({"name": "DeepTileBar"}, "deeptiles", 4),
+}
+ZOO_RECURRENT = ("POSITDRMM", "TK", "HINT", "HINT_windowed", "DeepTileBar")
+ZOO_RECURRENT_TOL = 1e-3  # card vs CPU for the recurrent models and TK: a GRU over 800 positions (POSITDRMM), the
+# 2-D GRU's 2 x 103 dependent steps a window (HINT), TK's softmax over 800 keys: f32 sums in other orders carried
+# through each step; the feed-forward models at ERR_TOL, as KNRM
+TFKNRM_FROZEN = {"name": "TFKNRM", "gradkernels": False, "finetune": False}
+ZOO_STEP_BATCH = 8  # 14c's step-1 batch, card vs CPU
+ZOO_REFEREE64 = ("CDSSM",)  # 14c's models held to f32's own accuracy (step_parity's referee64): CDSSM's towers
+# meet at a cosine of +-1 to 1e-4 at init, so its CPU f32 gradient is itself further than STEP_RTOL from f64's
+ZOO_ZERO_UNK_SHARE = 0.7  # share of the corpus's terms the pretrained table of 14a's zerounk batch holds
+ZOO_GOLDEN = {  # 14c's rerank.traineval runs on phase 9a's rerank golden (its KNRM width and schedule)
+    "TFKNRM": dict(TFKNRM_FROZEN, extractor=RERANK_GOLDEN_CONFIGS["KNRM"]["extractor"],
+                   trainer=RERANK_GOLDEN_CONFIGS["KNRM"]["trainer"]),
+    "POSITDRMM": {"name": "POSITDRMM", "extractor": RERANK_GOLDEN_CONFIGS["KNRM"]["extractor"],
+                  "trainer": dict(RERANK_GOLDEN_CONFIGS["KNRM"]["trainer"], lr=1e-3, bertlr=1e-3)},
+}
+
+
+def zoo_config(label):
+    """``ZOO_SERVED[label]``'s reranker config with its extractor at phase 4's width."""
+    cfg, extractor, _ = ZOO_SERVED.get(label, (TFKNRM_FROZEN, "slowembedtext", 0))
+    cfg = json.loads(json.dumps(cfg))
+    width = {"maxqlen": ZOO_WIDTH["maxqlen"]} if extractor == "bagofwords" else dict(ZOO_WIDTH)
+    cfg["extractor"] = dict(width, name=extractor)
+    return cfg
+
+
+def zoo_card_vs_cpu(label, svc, query, tol):
+    """Query 0's ``topn`` first-stage candidates scored on the card and, with
+    the card's weights and extractor state, on the CPU. Returns (max |err|, the batch)."""
+    from capreolus_tpu_torch.reranker import Reranker
+
+    batch = served_batch(svc, query, "smoke14")
+    cfg = zoo_config(label)
+    cfg["extractor"]["index"] = svc.reranker.extractor.config["index"]
+    cpu_rr = Reranker.create(cfg.pop("name"), cfg)
+    cpu_rr.extractor.set_state(svc.reranker.extractor.get_state())
+    cpu_rr.build_model().load_state_dict({k: v.cpu() for k, v in svc.reranker.model.state_dict().items()})
+    cpu_rr.model.eval()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        gpu = svc.reranker.test(batch, svc.device).cpu().numpy()
+        cpu = cpu_rr.test(batch, "cpu").numpy()
+    err = float(np.abs(gpu - cpu).max())
+    print(f"[14 zoo] {label}: query 0's {len(gpu)} candidates, card vs CPU ({time.perf_counter() - t0:.1f} s with "
+          f"the CPU): max |err| {err:.3g} (tolerance {tol}{'; DRMM is held layer by layer' if label == 'DRMM' else ''})")
+    check(np.isfinite(gpu).all(), f"{label}: a card score is not finite")
+    if label == "DRMM":
+        return drmm_layers_card_vs_cpu(svc, cpu_rr, batch, tol), batch
+    check(err <= tol, f"{label}: card scores vs CPU: max |err| {err:.3g} > {tol}")
+    return err, batch
+
+
+def drmm_layers_card_vs_cpu(svc, cpu_rr, batch, tol):
+    """DRMM card vs CPU layer by layer from the card's input to each layer: its
+    histograms are a step function of the similarities (a self-similarity an
+    ulp either side of the last edge, 1.0, moves a count), as an int8 layer is
+    of its input. The similarity matrices within 1e-5; the counts of the
+    card's similarities on the CPU equal to the card's exactly, and their
+    ``histType`` transform (a log for LCH) within 1e-6; the scores from the
+    card's histograms at ``tol``; the query terms whose counts differ between
+    the devices' own similarities are reported. Returns the score error from
+    the card's histograms."""
+    from capreolus_tpu_torch.reranker.common import similarity_matrix
+    from capreolus_tpu_torch.reranker.interaction import matching_histogram
+
+    gpu_m, cpu_m = svc.reranker.model, cpu_rr.model
+    q, d, idf = (torch.from_numpy(np.asarray(batch[k])) for k in ("query", "posdoc", "query_idf"))
+    d_mask = (d != 0).float()
+    with torch.inference_mode():
+        sim_gpu = similarity_matrix(gpu_m.embedding, q.cuda(), d.cuda())
+        sim_cpu = similarity_matrix(cpu_m.embedding, q, d)
+        sim_err = float((sim_gpu.cpu() - sim_cpu).abs().max())
+        counts_gpu = matching_histogram(sim_gpu, d_mask.cuda(), gpu_m.nbins, "CH").cpu()
+        same = bool(torch.equal(matching_histogram(sim_gpu.cpu(), d_mask, cpu_m.nbins, "CH"), counts_gpu))
+        moved = int((matching_histogram(sim_cpu, d_mask, cpu_m.nbins, "CH") != counts_gpu).any(dim=-1).sum())
+        hist_gpu = gpu_m.histograms(q.cuda(), d.cuda())
+        hist_err = float((matching_histogram(sim_gpu.cpu(), d_mask, cpu_m.nbins, cpu_m.hist_type)
+                          - hist_gpu.cpu()).abs().max())
+        score_err = float((gpu_m.score_histograms(hist_gpu, q.cuda(), idf.cuda()).cpu()
+                           - cpu_m.score_histograms(hist_gpu.cpu(), q, idf)).abs().max())
+    print(f"[14 zoo] DRMM layer by layer: similarities card vs CPU {sim_err:.3g} (tolerance 1e-5); counts of the "
+          f"card's similarities on the CPU {'equal' if same else 'NOT equal'} to the card's, their {cpu_m.hist_type} "
+          f"transform {hist_err:.3g} (tolerance 1e-6); scores from the card's histograms {score_err:.3g} (tolerance "
+          f"{tol}); {moved} of {q.shape[0] * q.shape[1]} query terms' counts differ between the devices' own "
+          f"similarities")
+    check(sim_err <= 1e-5 and same and hist_err <= 1e-6 and score_err <= tol,
+          "DRMM: a layer differs between the card and the CPU")
+    return score_err
+
+
+def zoo_zerounk_batch(coll, query, docids, seed=14):
+    """14a's ``zerounk=True`` batch: a pretrained table of GloVe-6B's width
+    over ``ZOO_ZERO_UNK_SHARE`` of the terms of ``docids`` and ``query``,
+    written to the cache, and a ``slowembedtext`` extractor with ``zerounk``
+    over it, so that the other terms take the pad id 0 inside documents.
+    Returns (the extractor, the collated batch of the query over ``docids``)."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.extractor import Extractor
+    from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
+
+    ext = Extractor.create("slowembedtext", dict(ZOO_WIDTH, embeddings="glove6b", zerounk=True,
+                                                 index={"collection": coll}))
+    ext.index.create_index()
+    terms = sorted({t for d in docids for t in ext.tokenizer.tokenize(ext.index.get_doc(d))}
+                   | set(ext.tokenizer.tokenize(query)))
+    rng = np.random.Generator(np.random.PCG64(seed))
+    kept = [t for t in terms if rng.random() < ZOO_ZERO_UNK_SHARE]
+    emb_dir = os.path.join(constants["CACHE_BASE_PATH"], "embeddings")
+    os.makedirs(emb_dir, exist_ok=True)
+    np.save(os.path.join(emb_dir, "glove6b.npy"), rng.standard_normal((len(kept), 300), dtype=np.float32))
+    with open(os.path.join(emb_dir, "glove6b.vocab.txt"), "wt", encoding="utf-8") as fh:
+        fh.write("\n".join(kept) + "\n")
+    ext.preprocess(["zq"], list(docids), {"zq": query})
+    batch = collate([ext.id2vec("zq", d, label=[1, 0], training=False) for d in docids], ARRAY_KEYS)
+    return ext, batch
+
+
+def phase_zoo_serving(workdir, corpus_dir, topics, held):
+    """14a and 14b: frozen TFKNRM (K1) and every other zoo model served on the
+    card over phase 4's corpus and indexes, each extractor preprocessed once
+    and handed to every service that reads it; cuDNN's TF32 flag left at
+    PyTorch's default (True) throughout, so the package must keep its
+    convolutions and recurrences in f32 on its own."""
+    from capreolus_tpu_torch.convert import flax_flat_params, save_params
+    from capreolus_tpu_torch.extractor import Extractor
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.serving import RetrievalService
+
+    coll = {"name": "dummy", "path": corpus_dir}
+    out = {}
+    t0 = time.perf_counter()
+    # phase 4's embedtext state (its cache hit) serves embedtext and slowembedtext alike: the same features
+    ext = Extractor.create("embedtext", dict(ZOO_WIDTH, index={"collection": coll}))
+    ext.index.create_index()
+    ext.preprocess([], list(ext.index.data.docid_strings), {})
+    t_embed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bow = Extractor.create("bagofwords", {"maxqlen": 4, "index": {"collection": coll}})
+    bow.preprocess([], list(ext.index.data.docid_strings), {})
+    t_bow = time.perf_counter() - t0
+    # deeptiles: TextTiling is host Python, so only the served queries' first-stage candidates are tiled
+    t0 = time.perf_counter()
+    first = RetrievalService(ext.index, device="cuda")
+    n_tiled = max(n for _, _, n in ZOO_SERVED.values())
+    served = topics[:n_tiled] + topics[PHASE12_WARMUP:PHASE12_WARMUP + 1]
+    cands = sorted({d for hits in first.search(served, k=100) for d, _ in hits})
+    tiles = Extractor.create("deeptiles", dict(ZOO_WIDTH, usecache=False, index={"collection": coll}))
+    tiles.preprocess([], cands, {})
+    t_tiles = time.perf_counter() - t0
+    shared = {"embedtext": ext, "slowembedtext": ext, "bagofwords": bow, "deeptiles": tiles}
+    print(f"[14 zoo] extractors: embedtext state {t_embed:.1f} s (phase 4's, {len(ext.docid2toks)} docs), "
+          f"bagofwords {t_bow:.1f} s ({bow.feature_dim} features), deeptiles {t_tiles:.1f} s ({len(cands)} docs: "
+          f"the union of {len(served)} queries' top 100, not the corpus)")
+    out["extractor_s"] = {"embedtext": t_embed, "bagofwords": t_bow, "deeptiles": t_tiles, "deeptiles_docs": len(cands)}
+
+    for label in ["TFKNRM"] + list(ZOO_SERVED):
+        cfg = zoo_config(label)
+        name = cfg.pop("name")
+        cfg["extractor"]["index"] = {"collection": coll}
+        reranker = Reranker.create(name, cfg)
+        # the extractor's state handed over in memory (a service restores it, preprocessed, as it would a file)
+        reranker.extractor.set_state(shared[cfg["extractor"]["name"]].get_state())
+        ckpt = save_params(flax_flat_params(reranker.init_params(14)), os.path.join(workdir, "zoo", f"{label}.npz"))
+        n_queries = 4 if label == "TFKNRM" else ZOO_SERVED[label][2]
+        svc, results, summary = serve_reranker(f"[14 zoo] {label}", name, cfg, ckpt, corpus_dir, topics, n_queries,
+                                               reranker=reranker)
+        k1 = summary["launches"]["knrm_pool"]
+        if label == "TFKNRM":
+            check(k1 == n_queries, f"TFKNRM: K1 launched {k1} times in {n_queries} requests, not once a request")
+        else:
+            check(k1 == 0, f"{label}: K1 launched {k1} times")
+        tol = ZOO_RECURRENT_TOL if label in ZOO_RECURRENT else ERR_TOL
+        summary["cpu_err"], batch = zoo_card_vs_cpu(label, svc, topics[0], tol)
+        summary["cpu_tol"] = tol
+        if label == "TFKNRM":
+            summary["k1_err_served"] = hold_k1(svc.reranker.model, batch, ("posdoc",), "a served TFKNRM batch", held)
+            docids = served_candidates(svc, topics[0])
+            zext, zbatch = zoo_zerounk_batch(coll, topics[0], docids)
+            posdoc = zbatch["posdoc"]
+            inside = int(sum(((row[:np.nonzero(row)[0].max() + 1] == 0).sum() if row.any() else 0) for row in posdoc))
+            check(posdoc.min() == 0 and inside > 0, "the zerounk batch has no pad id inside a document")
+            zrr = Reranker.create("TFKNRM", {**TFKNRM_FROZEN, "extractor": dict(ZOO_WIDTH, embeddings="glove6b",
+                                                                                  zerounk=True)})
+            zrr.extractor = zext
+            zmodel = zrr.init_params(14).cuda().eval()
+            summary["k1_err_zerounk"] = hold_k1(zmodel, zbatch, ("posdoc",),
+                                                f"a zerounk batch ({inside} pad ids inside its documents)", held)
+            summary["zerounk_pads_inside"] = inside
+        out[label] = summary
+        del svc
+        torch.cuda.empty_cache()
+    return out, shared
+
+
+def phase_zoo_training(workdir, corpus_dir, topics, held, shared):
+    """14c: step 1 of each zoo model on one batch of ``ZOO_STEP_BATCH`` at full
+    width, card vs CPU from one init with dropout off; frozen TFKNRM (K1 twice
+    a step) and POSITDRMM through rerank.traineval on phase 9a's rerank golden."""
+    from types import SimpleNamespace
+
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.reranker.common import KNRM_SIGMAS
+    from capreolus_tpu_torch.serving import RetrievalService
+    from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
+
+    coll = {"name": "dummy", "path": corpus_dir}
+    out = {"parity": {}}
+    exact = [KNRM_SIGMAS.index(0.001)]
+    docids = None
+    for label in ["TFKNRM"] + [lab for lab in ZOO_SERVED if lab != "HINT_windowed"] + ["HINT_windowed"]:
+        cfg = zoo_config(label)
+        name = cfg.pop("name")
+        cfg["extractor"]["index"] = {"collection": coll}
+        cfg["trainer"] = {"batch": ZOO_STEP_BATCH}
+        reranker = Reranker.create(name, cfg)
+        reranker.extractor.set_state(shared[cfg["extractor"]["name"]].get_state())
+        if docids is None:  # the served candidates of query 0: pairs of its top 16 (pos) and next 16 (neg)
+            first = RetrievalService(reranker.extractor.index, device="cuda")
+            docids = [d for d, _ in first.search(topics[:1], k=2 * ZOO_STEP_BATCH)[0]]
+        reranker.extractor.qid2toks["zq"] = reranker.extractor.tokenizer.tokenize(topics[0])
+        if hasattr(reranker.extractor, "idf"):
+            for tok in reranker.extractor.qid2toks["zq"]:
+                reranker.extractor.idf.setdefault(tok, reranker.extractor.index.get_idf(tok))
+        samples = [reranker.extractor.id2vec("zq", docids[i], docids[ZOO_STEP_BATCH + i], label=[1, 0])
+                   for i in range(ZOO_STEP_BATCH)]
+        batch = {k: v[None] for k, v in collate(samples, ARRAY_KEYS).items()}
+        gradkernels = reranker.config.get("gradkernels", False)
+        exclude = {"mus": exact, "sigmas": exact} if gradkernels else None
+        # per use: the pairwise loss subtracts the negative's gradient from the positive's, and where the
+        # two nearly cancel (DRMMTKS's mlp bias, alike for both docs) the difference keeps their rounding
+        out["parity"][label] = step_parity(SimpleNamespace(reranker=reranker), batch, label, exclude=exclude,
+                                           prefix="[14c parity]", dropout=False, per_use=True,
+                                           referee64=label in ZOO_REFEREE64)
+        expected = 2 if label == "TFKNRM" else 0
+        check(out["parity"][label]["launches"]["knrm_pool"] == expected,
+              f"{label}: K1 launched {out['parity'][label]['launches']['knrm_pool']} times in a step, not {expected}")
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_rerank_golden")  # phase 9a's golden and caches
+    constants["RESULTS_BASE_PATH"] = os.path.join(workdir, "results_rerank_golden_14")
+    golden_topics, golden_qrels = rerank_golden_corpus()[1:]
+    qids = sorted(golden_topics)
+    test_q = qids[sum(RERANK_GOLDEN["split"][:2]):]
+    for name, cfg in ZOO_GOLDEN.items():
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        task = rerank_task(cfg, "cuda")
+        stages = count_stages(task.reranker.trainer, task.reranker)
+        first_stage = task._best_search_run()
+        preds = task.rerank_run(first_stage, task.get_results_path())
+        fs_map, test_map = golden_map(first_stage, golden_qrels, test_q), golden_map(preds["test"], golden_qrels, test_q)
+        check(all(np.isfinite(v) for r in preds["test"].values() for v in r.values()), f"{name}: a score is not finite")
+        entry = {"first_stage_map": fs_map, "test_map": test_map, "steps": stages["steps"],
+                 "launches_train": stages["train"]["knrm_pool"], "launches_predict": stages["predict"]["knrm_pool"],
+                 "forwards_predict": stages["forwards"], "seconds": time.perf_counter() - t0}
+        if name == "TFKNRM":
+            check(entry["launches_train"] == 2 * stages["steps"],
+                  f"TFKNRM: K1 launched {entry['launches_train']} times in {stages['steps']} steps, not twice a step")
+            check(entry["launches_predict"] == stages["forwards"], "TFKNRM: K1 did not launch once a prediction forward")
+            entry["k1_err_predict"] = hold_k1(task.reranker.model, stages["first_predict_batch"], ("posdoc",),
+                                              "TFKNRM's first prediction batch", held)
+        else:
+            check(entry["launches_train"] == entry["launches_predict"] == 0, "POSITDRMM launched K1")
+        print(f"[14c golden] {name} through rerank.traineval on the card: {stages['steps']} steps, first stage "
+              f"{fs_map:.4f} -> test MAP {test_map:.4f} (no pin: the JAX package has none); K1 launches in steps "
+              f"{entry['launches_train']}, in {stages['forwards']} prediction forwards {entry['launches_predict']}; "
+              f"{entry['seconds']:.1f} s")
+        out[name] = entry
+    return out
+
+
+def phase_zoo(workdir, corpus_dir, topics):
+    """Phase 14: the rest of the reranker zoo on the card, served (14a, 14b)
+    and trained (14c). Returns the summary, with K1's launches and errors."""
+    import capreolus_tpu_torch
+    from capreolus_tpu_torch.core import constants
+
+    capreolus_tpu_torch.load_all_modules()
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")  # phase 4's indexes and extractor state
+    constants["RESULTS_BASE_PATH"] = os.path.join(workdir, "results_zoo")
+    os.makedirs(os.path.join(workdir, "zoo"), exist_ok=True)
+    t0 = time.perf_counter()
+    held = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the zoo's forwards must not rely on phase 1's False
+    try:
+        served, shared = phase_zoo_serving(workdir, corpus_dir, topics, held)
+        check(torch.backends.cudnn.allow_tf32 is True, "a zoo forward left cuDNN's TF32 flag changed")
+        training = phase_zoo_training(workdir, corpus_dir, topics, held, shared)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    summary = {"served": {k: ({kk: vv for kk, vv in v.items() if kk != "profiled"} if isinstance(v, dict) else v)
+                          for k, v in served.items()},
+               "profiled": {k: v["profiled"] for k, v in served.items() if isinstance(v, dict) and "profiled" in v},
+               "training": training, "k1_max_abs_err": held.get("knrm_pool"), "seconds": time.perf_counter() - t0}
+    print(f"[14 zoo] {smi_line()}: every sub-phase passed in {summary['seconds']:.1f} s; summary "
+          + json.dumps(summary, default=str))
+    return summary
+
+
+def add_phase14_launches(kernels, p14):
+    """Phase 14's K1 launches and errors into the ``kernels`` line: the served
+    TFKNRM's requests join K1's ``launches``; its training steps, predictions
+    and parity step go under ``launches_phase14`` (every other kernel: 0)."""
+    served = {label: entry["launches"] for label, entry in p14["served"].items() if isinstance(entry, dict)
+              and "launches" in entry}
+    for entry in kernels:
+        name = entry["name"]
+        total = sum(launches[name] for launches in served.values())
+        entry["launches"] += total
+        entry["launches_phase14"] = {"served": total, "served_by_model": {k: v[name] for k, v in served.items()}}
+    k1 = kernels[0]["launches_phase14"]
+    training = p14["training"]
+    k1.update(tfknrm_training_steps=training["TFKNRM"]["launches_train"],
+              tfknrm_training_predict=training["TFKNRM"]["launches_predict"],
+              parity_steps={k: v["launches"]["knrm_pool"] for k, v in training["parity"].items()})
+    kernels[0]["max_abs_err_phase14"] = {"served": p14["served"]["TFKNRM"]["k1_err_served"],
+                                         "served_zerounk": p14["served"]["TFKNRM"]["k1_err_zerounk"],
+                                         "training_predict": training["TFKNRM"]["k1_err_predict"]}
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -4313,6 +4680,7 @@ def main():
         other_launches = {}
         other = timed(phase_other_rerankers, workdir, corpus_dir, topics, other_launches)
         p13 = timed(phase_trainer_options, workdir, corpus_dir, topics, qrels, peaks)
+        p14 = timed(phase_zoo, workdir, corpus_dir, topics)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4447,6 +4815,7 @@ def main():
         "library_ms": None,  # no single PyTorch call computes per-token quantization
     }]
     add_phase13_launches(kernels, p13, k3_fields)
+    add_phase14_launches(kernels, p14)
     for entry in kernels:  # phase 9: launches inside training steps, and inside the trainer's predictions
         entry["launches_training"] = training_launches["train"].get(entry["name"], 0)
         entry["launches_training_predict"] = training_launches["predict"].get(entry["name"], 0)

@@ -60,7 +60,7 @@ from capreolus_tpu.reranker.common import similarity_matrix as jax_similarity_ma
 from capreolus_tpu.reranker.knrm import KNRMModel as JaxKNRMModel  # noqa: E402
 from capreolus_tpu.trainer import Trainer as JaxTrainerBase  # noqa: E402
 from capreolus_tpu.trainer.jax_trainer import collate as jax_collate  # noqa: E402
-from capreolus_tpu_torch.convert import _flax_leaves, flax_flat_params, knrm_state_dict  # noqa: E402
+from capreolus_tpu_torch.convert import flax_flat_params, flax_leaves, knrm_state_dict  # noqa: E402
 from capreolus_tpu_torch.core import ConfigError  # noqa: E402
 from capreolus_tpu_torch.ops import simmat  # noqa: E402
 from capreolus_tpu_torch.reranker.bert.encoder import BertSelfAttention  # noqa: E402
@@ -234,8 +234,8 @@ def port_amp_grads(port_rr, batch):
         loss = port_rr.trainer.compute_loss(port_rr, batch, torch.device("cpu"), dropout_seed=0)
         loss.backward()
     names = dict(model.named_parameters())
-    return float(loss.detach()), {key: (names[n].grad.T if t else names[n].grad).numpy().copy()
-                                  for key, n, t in _flax_leaves(model) if names[n].grad is not None}
+    return float(loss.detach()), {key: to_flax(names[n].grad).numpy().copy()
+                                  for key, n, to_flax, _, _ in flax_leaves(model) if names[n].grad is not None}
 
 
 AMP_TRAIN = {"knrm": {}, "knrm-frozen": {"gradkernels": False}, "bert": {}, "bert-lora": {"lora": 4}}

@@ -1138,3 +1138,128 @@ def test_lora_bertmaxp_on_the_card_matches_cpu(card, quantize):
         raw = cpu_model.classifier(torch.tanh(cpu_model.bert.pooler(hidden.cpu()[:, 0])))[:, 0]
         head = cpu_rr._head_scores(raw.reshape(5, 4), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, head, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 4, 37, 20), (100, 4, 800, 300)])
+def test_k1_on_a_zerounk_batch_matches_plain(card, shape):
+    """slowembedtext's ``zerounk=True`` turns unknown terms into the pad id 0
+    inside documents and queries: K1 against its plain version (2e-4) on such
+    ids, pads among real terms and a tail of pads, no negative id."""
+    b, q, d, e = shape
+    rng = np.random.Generator(np.random.PCG64(21))
+    emb = torch.from_numpy(rng.standard_normal((500, e)).astype(np.float32)).to(card)
+    emb[0] = 0.0
+    qt = rng.integers(1, 500, size=(b, q))
+    dt = rng.integers(1, 500, size=(b, d))
+    dt[rng.random((b, d)) < 0.2] = 0  # unknown terms inside the documents
+    qt[rng.random((b, q)) < 0.2] = 0
+    dt[:, d - d // 4:] = 0  # and the pads after the document's end
+    qt, dt = torch.from_numpy(qt).to(card), torch.from_numpy(dt).to(card)
+    mus, sigmas = torch.tensor(KNRM_MUS, device=card), torch.tensor(KNRM_SIGMAS, device=card)
+    inputs = simmat.knrm_inputs(emb, qt, dt, mus, sigmas)
+    before = simmat.knrm_pool.launches
+    got = simmat.knrm_pool(*inputs)
+    assert simmat.knrm_pool.launches == before + 1
+    torch.testing.assert_close(got, simmat.knrm_pool_plain(*inputs), rtol=TOL, atol=TOL)
+
+
+ZOO_CARD_TOL = {"ConvKNRM": 2e-4, "POSITDRMM": 1e-3}  # a feed-forward model as KNRM; a BiGRU over 800 steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ZOO_CARD_TOL))
+def test_zoo_forward_on_the_card_matches_cpu_with_tf32_left_on(card, name):
+    """ConvKNRM (cuDNN convolutions) and POSITDRMM (a cuDNN GRU) at the served
+    width (E 300, D 800) with ``torch.backends.cudnn.allow_tf32`` at PyTorch's
+    default, True: the package runs them in f32 (``cudnn_f32``), so the card
+    agrees with the CPU at ``ZOO_CARD_TOL``; the caller's flag is left as it was."""
+    from capreolus_tpu_torch.convert import init_flax_
+    from capreolus_tpu_torch.reranker.interaction import ConvKNRMModel
+    from capreolus_tpu_torch.reranker.sequence_models import POSITDRMMModel
+
+    rng = np.random.Generator(np.random.PCG64(22))
+    emb = rng.standard_normal((3000, 300)).astype(np.float32)
+    emb[0] = 0.0
+    model = (ConvKNRMModel(emb) if name == "ConvKNRM" else POSITDRMMModel(emb))
+    init_flax_(model, torch.Generator().manual_seed(3)).eval()
+    qt = rng.integers(1, 3000, size=(16, 4))
+    dt = rng.integers(1, 3000, size=(16, 800))
+    dt[:, 600:] = 0
+    qt[:, 3] = 0
+    idf = rng.random((16, 4)).astype(np.float32) * 5
+    args = [torch.from_numpy(a) for a in (qt, dt, idf)]
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            want = model(*args).numpy()
+            got = model.to(card)(*(a.to(card) for a in args)).cpu().numpy()
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    np.testing.assert_allclose(got, want, rtol=ZOO_CARD_TOL[name], atol=ZOO_CARD_TOL[name])
+
+
+ZOO_STEP_CASES = {"ConvKNRM": {}, "HINT_windowed": {"mode": "windowed"}}  # neither has a dropout site
+ZOO_STEP_RTOL = 1e-4  # chip_smoke.py's STEP_RTOL; TF32's unit, 2^-11 (4.9e-4), is five times it
+ZOO_STEP_NOISE_FLOOR = 1e-3  # chip_smoke.py's GRAD_NOISE_FLOOR: the share of the model's largest gradient
+# entry below which a tensor's own largest entry is not its scale (combine.bias's, which the pairwise loss cancels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ZOO_STEP_CASES))
+def test_zoo_training_step_on_the_card_matches_cpu_with_tf32_left_on(card, case):
+    """One ``TorchTrainer.train_step`` of ConvKNRM (cuDNN convolutions) and of
+    windowed HINT (cuDNN GRU and LSTM), forward and backward, at the served
+    width (E 300, D 800) with ``torch.backends.cudnn.allow_tf32`` at PyTorch's
+    default, True, from one init on one batch of 8: the loss within
+    ``ZOO_STEP_RTOL`` relative and each gradient within ``ZOO_STEP_RTOL`` of
+    its tensor's largest entry (floored at ``ZOO_STEP_NOISE_FLOOR`` of the
+    model's largest); the caller's flag is left as it was. cuDNN's backward
+    reads the flag when it runs, so a step that left it out of ``cudnn_f32``
+    would compute its gradients in TF32 and fail."""
+    import copy
+
+    from capreolus_tpu_torch.reranker import Reranker
+
+    rng = np.random.Generator(np.random.PCG64(23))
+    emb = rng.standard_normal((3000, 300)).astype(np.float32)
+    emb[0] = 0.0
+    reranker = Reranker.create(case.split("_")[0], dict(
+        ZOO_STEP_CASES[case], trainer={"batch": 8},
+        extractor={"maxqlen": 4, "maxdoclen": 800, "index": {"collection": {"name": "dummy"}}}))
+    reranker.extractor.embeddings = emb
+    trainer = reranker.trainer
+    cpu_model = reranker.init_params(0)
+    models = {"cpu": cpu_model, "card": copy.deepcopy(cpu_model).to(card)}
+    qt = rng.integers(1, 3000, size=(1, 8, 4))
+    qt[..., 3] = 0
+    docs = rng.integers(1, 3000, size=(2, 1, 8, 800))
+    docs[..., 600:] = 0
+    batch = {"query": qt, "query_idf": (rng.random((1, 8, 4)) * 5).astype(np.float32), "posdoc": docs[0],
+             "negdoc": docs[1], "label": np.tile(np.array([1.0, 0.0], np.float32), (1, 8, 1))}
+    losses, grads = {}, {}
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for where, model in models.items():
+            reranker.model = model
+            optimizer = trainer.make_optimizer(reranker, model)
+            losses[where] = float(trainer.train_step(reranker, model, optimizer, batch, 0, trainer.step_seed(0, 0)))
+            grads[where] = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert set(grads["card"]) == set(grads["cpu"]) and grads["cpu"]
+    assert abs(losses["card"] - losses["cpu"]) <= ZOO_STEP_RTOL * abs(losses["cpu"]), losses
+    if case == "ConvKNRM":  # the exact-match kernel's (mu 1.0, sigma 0.001) gradient is rounding's sign
+        for name in ("mus", "sigmas"):
+            for where in grads:
+                grads[where][name][KNRM_SIGMAS.index(0.001)] = 0.0
+    floor = ZOO_STEP_NOISE_FLOOR * max(float(g.abs().max()) for g in grads["cpu"].values())
+    errs = {n: float((grads["card"][n] - g).abs().max()) / max(float(g.abs().max()), floor)
+            for n, g in grads["cpu"].items()}
+    assert all(np.isfinite(float(g.abs().max())) for g in grads["card"].values())
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= ZOO_STEP_RTOL, (worst, errs[worst])

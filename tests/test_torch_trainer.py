@@ -166,12 +166,12 @@ def port_grads(port_rr, batch):
     loss.backward()
     grads = {}
     names = dict(model.named_parameters())
-    from capreolus_tpu_torch.convert import _flax_leaves
+    from capreolus_tpu_torch.convert import flax_leaves
 
-    for key, name, transposed in _flax_leaves(model):
+    for key, name, to_flax, _, _ in flax_leaves(model):
         g = names[name].grad
         if g is not None:
-            grads[key] = (g.T if transposed else g).numpy().copy()
+            grads[key] = to_flax(g).numpy().copy()
     return float(loss.detach()), grads
 
 
@@ -429,7 +429,7 @@ def check_training_matches_jax(corpus, jax_rr, port_rr, sampler="triplet", own_s
 
     import optax
 
-    from capreolus_tpu_torch.convert import _flax_leaves
+    from capreolus_tpu_torch.convert import flax_leaves
 
     # the JAX trainer's optimizer and the port's, fed the same gradients
     jt, pt = jax_rr.trainer, port_rr.trainer
@@ -448,9 +448,9 @@ def check_training_matches_jax(corpus, jax_rr, port_rr, sampler="triplet", own_s
         updates, opt_state = tx.update(tree_g, opt_state, jparams)
         jparams = optax.apply_updates(jparams, updates)
         optimizer.zero_grad(set_to_none=True)
-        for key, name, transposed in _flax_leaves(model):
+        for key, name, _, from_flax, _ in flax_leaves(model):
             if key in keys:
-                named[name].grad = torch.from_numpy(np.array(g[key].T if transposed else g[key], order="C"))
+                named[name].grad = from_flax(torch.from_numpy(np.array(g[key], order="C"))).contiguous()
         pt.optimizer_step(optimizer, i)
     want, got = jax_flat(jparams), flax_flat_params(model)
     for key in init:
