@@ -29,6 +29,7 @@ shape. ``init_flax_`` draws those parameters as flax initialises them.
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 
 import numpy as np
@@ -179,11 +180,22 @@ def orthogonal_(weight: torch.Tensor, generator: torch.Generator):
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator):
     """flax's ``lecun_normal``: a normal truncated at two standard deviations,
     its scale divided by the truncated normal's own std (0.8796...) so that the
-    variance is 1 / fan_in."""
+    variance is 1 / fan_in. Drawn by the inverse CDF, as
+    ``jax.random.truncated_normal`` draws it (a uniform between the bounds'
+    CDF values, then ``erfinv``), in the steps of torch 2.11's
+    ``torch.nn.init.trunc_normal_``: torch 2.13's samples by rejection, so
+    its values at a seed differ from 2.11's."""
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+
+    def norm_cdf(x):
+        return (1.0 + math.erf(x / math.sqrt(2.0))) / 2.0
+
+    lo, hi = norm_cdf(-2.0), norm_cdf(2.0)
     with torch.no_grad():
-        return torch.nn.init.trunc_normal_(weight, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std,
-                                           generator=generator)
+        weight.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+        weight.erfinv_()
+        weight.mul_(std * math.sqrt(2.0))
+        return weight.clamp_(min=-2.0 * std, max=2.0 * std)
 
 
 def init_flax_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:

@@ -1,6 +1,5 @@
 """Symmetric int8 / int4 quantization of embeddings (the JAX package's
-``ops/quantization.py``, as far as the ColBERT searcher's quantized corpora
-need it).
+``ops/quantization.py``).
 
 - ``quantize_rows`` and ``quantize_rows_int4`` are the port's own copies of the
   JAX module's numpy functions, line for line, so that a corpus quantizes to the
@@ -12,6 +11,14 @@ need it).
   per-row quantization of a query batch on its own device, one scale per
   query, reduced over every axis but the first.
 - ``unpack_int4`` is the counterpart of ``unpack_int4_jnp``.
+- ``int8_mips_scores`` and ``int4_mips_scores``: [Q, D] float queries against
+  an int8 or packed-int4 corpus with per-row scales -> [Q, N] f32, the dense
+  searcher's quantized scores. Queries quantize per row
+  (``quantize_rows_torch``); the int8 x int8 -> int32 product is X1's int32
+  epilogue on CUDA tensors and its plain version on CPU tensors
+  (``ops/int8_matmul.int8_mm``), over corpus chunks of at most ``MAX_N``
+  rows; the f32 epilogue keeps the JAX functions' order of operations, which
+  differs between int4's two paths (``score_chunk``).
 - Q1, the per-token int8 quantization of the int8 BERT layer (the JAX
   encoder's ``_quantize_per_token``): the binding ``quantize_per_token`` of the
   hand-written kernel ``csrc/quantize_per_token.cu`` (launches counted in
@@ -102,6 +109,68 @@ def unpack_int4(packed):
     lo = torch.where(lo > 7, lo - 16, lo)
     hi = torch.where(hi > 7, hi - 16, hi)
     return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def _int8_product(q_i8, docs_i8):
+    """q [Q, D] int8 @ docs [N, D].T -> [Q, N] int32 through ``int8_mm``, in
+    chunks of at most X1's ``MAX_N`` corpus rows."""
+    from capreolus_tpu_torch.ops.int8_matmul import MAX_N, int8_mm
+
+    n = docs_i8.shape[0]
+    if n <= MAX_N:
+        return int8_mm(q_i8, docs_i8.contiguous())
+    out = torch.empty((q_i8.shape[0], n), dtype=torch.int32, device=q_i8.device)
+    for c0 in range(0, n, MAX_N):
+        out[:, c0 : c0 + MAX_N] = int8_mm(q_i8, docs_i8[c0 : c0 + MAX_N].contiguous())
+    return out
+
+
+def int8_mips_scores(q_emb, docs_i8, dscale):
+    """[Q, D] float queries x ([N, D] int8, [N] f32) docs -> [Q, N] f32 scores:
+    the int32 product (X1 on the card), then ``isc * qscale[:, None] *
+    dscale[None, :]`` in that order, as the JAX function computes it."""
+    q_i8, qscale = quantize_rows_torch(q_emb)
+    iscores = _int8_product(q_i8, docs_i8)
+    return iscores.float() * qscale[:, None] * dscale[None, :]
+
+
+def _padded_queries(q_i8, d_up):
+    """Queries zero-padded to the unpacked width (odd-D corpora pack a zero dim)."""
+    if q_i8.shape[-1] < d_up:
+        q_i8 = torch.nn.functional.pad(q_i8, (0, d_up - q_i8.shape[-1]))
+    return q_i8.contiguous()
+
+
+def score_chunk(q_i8, docs_p4, dscale, start, rows):
+    """One chunk of the chunked int4 path: rows [start, start+rows) of the
+    packed corpus unpacked to int8, the int32 product, times the docs'
+    scales: ``isc * s[None, :]`` (the query scale multiplies the whole matrix
+    afterwards, as in the JAX ``fori_loop``)."""
+    isc = _int8_product(q_i8, unpack_int4(docs_p4[start : start + rows]))
+    return isc.float() * dscale[None, start : start + rows]
+
+
+def int4_mips_scores(q_emb, docs_p4, dscale, row_chunk: int = 131072):
+    """[Q, D] float queries x ([N, P] packed int4, [N] f32) docs -> [Q, N] f32.
+
+    Queries quantize to int8; documents unpack to int8, in chunks of
+    ``row_chunk`` rows above ``row_chunk`` so that the int8 corpus never
+    exists whole. Up to ``row_chunk`` rows the epilogue is ``isc *
+    qscale[:, None] * dscale[None, :]``; above, ``(isc * s[None, :]) *
+    qscale[:, None]``, as the JAX function's two paths round. (Its last chunk
+    starts at ``n - row_chunk`` and rewrites overlapping columns with equal
+    values; chunks here do not overlap, which gives the same matrix.)"""
+    q_i8, qscale = quantize_rows_torch(q_emb)
+    q_i8 = _padded_queries(q_i8, docs_p4.shape[-1] * 2)
+    n = docs_p4.shape[0]
+    if n <= row_chunk:
+        iscores = _int8_product(q_i8, unpack_int4(docs_p4))
+        return iscores.float() * qscale[:, None] * dscale[None, :]
+    out = torch.empty((q_i8.shape[0], n), dtype=torch.float32, device=q_emb.device)
+    for start in range(0, n, row_chunk):
+        rows = min(row_chunk, n - start)
+        out[:, start : start + rows] = score_chunk(q_i8, docs_p4, dscale, start, rows)
+    return out * qscale[:, None]
 
 
 def quantize_per_token_plain(x):

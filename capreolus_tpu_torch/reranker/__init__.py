@@ -13,10 +13,9 @@ it; weights may also arrive as a flat ``params/...`` npz (``convert.py``).
 Ported: KNRM, the BERT rerankers (BERTMaxP and its aliases, PARADE,
 CEDR-KNRM, Birch), the ColBERT reranker, and the zoo of ``interaction.py``
 (TFKNRM, DRMM, DRMMTKS, ConvKNRM, PACRR, DSSM, CDSSM) and
-``sequence_models.py`` (DUET, POSITDRMM, HINT, TK, DeepTileBar). Creating
-one of the JAX package's rerankers the port lacks (``biencoder``,
-``unicoil``, ``splade``) raises ``ConfigError`` naming the ROADMAP.md item
-that queues it.
+``sequence_models.py`` (DUET, POSITDRMM, HINT, TK, DeepTileBar), and the
+retrieval models ``biencoder``, ``unicoil`` and ``splade``: every reranker of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -27,12 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from capreolus_tpu_torch.core import (ConfigError, Dependency, ModuleBase, import_all_modules, module_registry,
-                                      register_module_type)
-
-_DENSE = "item 6, 'Dense and learned-sparse retrieval'"
-# the JAX package's rerankers that the port lacks, and the ROADMAP.md item that queues each
-UNPORTED_RERANKERS = {"biencoder": _DENSE, "unicoil": _DENSE, "splade": _DENSE}
+from capreolus_tpu_torch.core import Dependency, ModuleBase, import_all_modules, register_module_type
 
 
 @register_module_type
@@ -43,13 +37,6 @@ class Reranker(ModuleBase):
         Dependency(key="trainer", module="trainer", name="jax"),
     ]
 
-    @classmethod
-    def create(cls, name=None, config=None, provide=None):
-        wanted = name or (config or {}).get("name")
-        if wanted in UNPORTED_RERANKERS and wanted not in module_registry.get_module_names("reranker"):
-            raise ConfigError(f"reranker {wanted!r} is not ported to PyTorch yet "
-                              f"(ROADMAP.md {UNPORTED_RERANKERS[wanted]})")
-        return super().create(name, config, provide)
     # rerankers whose models apply dropout set this True; the trainer then hands
     # a training forward its dropout seed (the JAX package's "dropout" rng)
     accepts_rngs = False

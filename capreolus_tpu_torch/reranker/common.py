@@ -178,7 +178,6 @@ LOSS_FUNCTIONS = {
     "lce": lce_loss,
     # margin_mse takes the batch's per-triple teacher margin (sampler.name=distill)
     "margin_mse": margin_mse_loss,
-    # infonce needs embeddings from a reranker with encode() (the biencoder,
-    # not ported: the trainer refuses loss=infonce)
+    # infonce takes the in-batch similarity matrix of a reranker with encode() (the biencoder)
     "infonce": infonce_loss,
 }

@@ -6,16 +6,17 @@ interactive ``query``. Ported so far: the sparse scoring engine
 (``scoring.py``: exact and tiered paths, block-max pruning, host streaming)
 with the BM25 family (``tpu.py``), the feedback searchers
 (``feedback.py``), fusion (``fusion.py``), the static-run and MS MARCO
-searchers (``special.py``), and the late-interaction searcher ``colbert``
-(``late_interaction.py``). Creating a JAX searcher that is not ported yet
-raises ``ConfigError`` naming the ROADMAP.md item that queues it.
+searchers (``special.py``), the late-interaction searcher ``colbert``
+(``late_interaction.py``), the dense searcher ``dense`` (``dense.py``, with
+``ivf.py``, ``streamed.py`` and ``embedding_cache.py``) and the learned-sparse
+searcher ``impact`` (``impact.py``): every searcher of the JAX package.
 """
 
 from __future__ import annotations
 
 import os
 
-from capreolus_tpu_torch.core import ConfigError, ModuleBase, import_all_modules, module_registry, register_module_type
+from capreolus_tpu_torch.core import ModuleBase, import_all_modules, register_module_type
 from capreolus_tpu_torch.utils.trec import load_trec_run, write_trec_run
 
 
@@ -26,24 +27,11 @@ def _hbm_budget_mb(config):
     return 12000.0 if v is None else float(v)
 
 
-_DENSE = "item 6, 'Dense and learned-sparse retrieval'"
-# the JAX package's searchers that the port lacks, and the ROADMAP.md item that queues each
-UNPORTED_SEARCHERS = {"dense": _DENSE, "impact": _DENSE}
-
-
 @register_module_type
 class Searcher(ModuleBase):
     """Base class for Searcher modules."""
 
     module_type = "searcher"
-
-    @classmethod
-    def create(cls, name=None, config=None, provide=None):
-        wanted = name or (config or {}).get("name")
-        if wanted in UNPORTED_SEARCHERS and wanted not in module_registry.get_module_names("searcher"):
-            raise ConfigError(f"searcher {wanted!r} is not ported to PyTorch yet "
-                              f"(ROADMAP.md {UNPORTED_SEARCHERS[wanted]})")
-        return super().create(name, config, provide)
 
     @staticmethod
     def load_trec_run(fn):

@@ -4,8 +4,7 @@ interpolation. Both sub-searchers run over the same collection (the
 dependency graph provides it to both), each through its own engine, on the
 device the caller sets on each (the rank task sets its own on both). The
 default ``searcher2`` is ``dense``, as in the JAX package, so that configs and
-paths match; the port lacks it, and creating fusion with it raises
-``ConfigError`` (ROADMAP.md item 6). ``colbert`` and the sparse searchers work.
+paths match.
 
 Fusion methods:
 

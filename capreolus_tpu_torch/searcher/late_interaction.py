@@ -52,6 +52,7 @@ import torch
 
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
 from capreolus_tpu_torch.searcher import Searcher, _hbm_budget_mb
+from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
 from capreolus_tpu_torch.utils.caching import TargetFileExists, cached_file, done_file
 from capreolus_tpu_torch.utils.loginit import get_logger
 
@@ -100,14 +101,6 @@ def quantized_maxsim_scores(q_emb, docs, mask, dscale):
         per_q_token = sim.amax(dim=-1).float()  # [Q, Lq, C]
         out[:, c0 : c0 + c] = per_q_token.sum(dim=1) * qscale[:, None] * dscale[None, c0 : c0 + c]
     return torch.where(mask.any(dim=1)[None, :], out, float("-inf"))
-
-
-def topk_lower_ordinal_first(scores, k):
-    """(values, indices) of the ``k`` largest scores per row, ties to the lower
-    index, as ``jax.lax.top_k`` orders them (``torch.topk`` promises no tie
-    order on CUDA; a stable descending sort does)."""
-    values, indices = torch.sort(scores, dim=1, descending=True, stable=True)
-    return values[:, :k], indices[:, :k]
 
 
 @Searcher.register

@@ -13,9 +13,13 @@ and FFN matmul with ``quantize=int8``); ``ColbertRetrievalService`` serves
 ColBERT late-interaction retrieval (K2 in the query encoder, K3 for MaxSim, or
 X1 over an int8 / int4 corpus). ``RetrievalService`` serves BM25 through
 exact block-max pruning by default (``pruning=True``, bit-identical to
-exhaustive scoring) and streams postings above ``hbm_budget_mb``. Not ported
-yet: ``shards``, ``refresh``, ``snippets``, the dense / impact / hybrid
-services and the HTTP front end.
+exhaustive scoring) and streams postings above ``hbm_budget_mb``.
+``DenseRetrievalService`` serves the dense searcher's engines (K2 in the
+query encoder; bf16, or X1 over an int8 / int4 corpus; IVF, streaming, PRF),
+``ImpactRetrievalService`` the learned-sparse impact index on the sparse
+engine, and ``HybridRetrievalService`` fuses two services' hit lists. Not
+ported yet: ``shards`` (ROADMAP.md item 6, 'Multi-device'), ``refresh``,
+``snippets`` and the HTTP front end (item 9).
 """
 
 from __future__ import annotations
@@ -241,9 +245,14 @@ class RerankingService(RetrievalService):
         return results, features_s
 
 
+def _not_ported(what):
+    return NotImplementedError(f"{what} is not ported to PyTorch yet: ROADMAP.md item 9, "
+                               f"'The other serving families'")
+
+
 class _EmbeddingRetrievalService:
-    """Shared serving core of the embedding searchers (the JAX package's;
-    ColBERT late-interaction MaxSim is the one ported so far).
+    """Shared serving core of the embedding searchers (the JAX package's):
+    dense MIPS and ColBERT late-interaction MaxSim.
 
     Wraps the searcher's ``build_topk`` engine and keeps it warm across
     calls: the corpus stays on the device and the query encoder stays loaded.
@@ -252,6 +261,7 @@ class _EmbeddingRetrievalService:
     results are the same, and a one-query request costs one query's work).
     Subclasses provide the searcher's registry name and the query-embedding
     hook; result filtering (-inf and out-of-corpus slots) lives here.
+    ``refresh`` and ``snippets`` raise (ROADMAP.md item 9).
     """
 
     _searcher_name: str = ""
@@ -260,15 +270,18 @@ class _EmbeddingRetrievalService:
         self.device = resolve_device(device)
         searcher.device = self.device
         self.searcher = searcher
-        self._topk, self._corpus, self._n = searcher.build_topk(max_k)
+        self._topk, corpus, self._n = searcher.build_topk(max_k)
+        self._corpus = corpus if isinstance(corpus, tuple) else (corpus,)  # ColBERT's tuple, dense's one corpus
         self.max_k = min(int(max_k), self._n)
         self._docids = searcher.index.data.docid_strings
         self.batch_size = int(searcher.config["batch"])
         self._prepare()
 
     def refresh(self) -> bool:
-        raise NotImplementedError("refresh (NRT reopen with incremental embedding caches) is not ported to "
-                                  "PyTorch yet: ROADMAP.md item 6, 'ColBERT options'")
+        raise _not_ported("refresh (NRT reopen with incremental embedding caches)")
+
+    def snippets(self, query: str, hits) -> List[str]:
+        raise _not_ported("snippets (analysis/highlight.py)")
 
     def _prepare(self):
         """Subclass hook: warm the query encoder."""
@@ -347,3 +360,161 @@ class ColbertRetrievalService(_EmbeddingRetrievalService):
 
     def _embed_batch(self, chunk):
         return self.searcher.encode_queries(self.searcher._tokenize(chunk, self.maxqlen))
+
+
+class DenseRetrievalService(_EmbeddingRetrievalService):
+    """Low-latency dense (bi-encoder MIPS) serving over ``searcher/dense.py``'s
+    engines: the query encoder through K2, then the bf16 product, X1 over an
+    int8 / int4 corpus (int4 with its host rescore), IVF or the host stream,
+    with ``prf`` applied per request as in the batch pipeline.
+
+        svc = DenseRetrievalService.from_config(collection="dummy", pretrained="tiny")
+        hits = svc.search(["distant galaxies"], k=10)              # on "cuda"
+    """
+
+    _searcher_name = "dense"
+
+    def _prepare(self):
+        self.searcher._encoder()
+
+    def _embed_batch(self, chunk):
+        q_emb = self.searcher.embed_queries(chunk)
+        if int(self.searcher.config["prf"]) > 0:
+            q_emb = self.searcher._prf_expand(q_emb, self._topk, *self._corpus)
+        return q_emb
+
+
+class ImpactRetrievalService:
+    """Low-latency learned-sparse (uniCOIL / SPLADE impact) serving over
+    ``searcher/impact.py``: the quantized impact index on the sparse engine,
+    the query-weighting encoder (K2) warm across calls. Scores are the true
+    quantized-impact dot products (dequantization folded into the query
+    weights); each hit list ends at its first score <= 0.
+
+        svc = ImpactRetrievalService.from_config(collection="dummy", checkpointfile=".../dev.best.params")
+        hits = svc.search(["distant galaxies"], k=10)              # on "cuda"
+    """
+
+    def __init__(self, searcher, *, device=None):
+        self.device = resolve_device(device)
+        searcher.device = self.device
+        self.searcher = searcher
+        self.batch_size = max(1, int(searcher.config["batch"]))
+        # the (engine, docids, scale) tuple, read once: the hot path never re-derives it
+        self._snapshot = searcher._impact_index()
+
+    def refresh(self) -> bool:
+        raise _not_ported("refresh (NRT reopen with incremental impact caches)")
+
+    def snippets(self, query: str, hits) -> List[str]:
+        raise _not_ported("snippets (analysis/highlight.py)")
+
+    @classmethod
+    def from_config(cls, collection: str = "dummy", collection_path: Optional[str] = None, device=None,
+                    **searcher_config):
+        import capreolus_tpu_torch
+
+        capreolus_tpu_torch.load_all_modules()
+        from capreolus_tpu_torch.searcher import Searcher
+
+        coll_cfg = {"name": collection}
+        if collection_path:
+            coll_cfg["path"] = collection_path
+        index_cfg = searcher_config.pop("index", {})
+        searcher = Searcher.create("impact", {**searcher_config, "index": {**index_cfg, "collection": coll_cfg}})
+        return cls(searcher, device=device)
+
+    def search_async(self, queries: Sequence[str], k: int = 10):
+        """Dispatch-now / collect-later variant of ``search`` (identical
+        results): the engine's device work is queued when this returns."""
+        from capreolus_tpu_torch.searcher.tpu import fetch
+
+        engine, docids, scale = self._snapshot
+        maxpost = int(self.searcher.config["maxpostings"])
+        pending = []
+        for start in range(0, len(queries), self.batch_size):
+            batch = list(queries[start : start + self.batch_size])
+            term_lists = self.searcher.term_lists(engine, scale, self.searcher.query_weights_batch(batch))
+            res = engine.search(term_lists, model="impact", params={}, topk=k,
+                                max_postings_per_term=maxpost, materialize=False)
+            pending.append((len(batch), res))
+
+        def collect() -> List[List[Tuple[str, float]]]:
+            results: List[List[Tuple[str, float]]] = []
+            for n, res in pending:
+                scores, ords = fetch(res)
+                scores, ords = scores[0], ords[0]
+                for qi in range(n):
+                    hits = []
+                    for s, o in zip(scores[qi], ords[qi]):
+                        if s <= 0.0:
+                            break  # scores descend; the zero / sentinel tail follows
+                        if int(o) >= len(docids):
+                            continue
+                        hits.append((docids[int(o)], float(s)))
+                    results.append(hits)
+            return results
+
+        return collect
+
+    def search(self, queries: Sequence[str], k: int = 10) -> List[List[Tuple[str, float]]]:
+        """Returns, per query, the top-k (docid, score) pairs."""
+        return self.search_async(queries, k)()
+
+    def get_document(self, docid: str) -> Optional[str]:
+        return self.searcher.index.get_doc(docid)
+
+
+class HybridRetrievalService:
+    """Serving-level hybrid retrieval: two warm services' hit lists fused per
+    query, ``rrf`` (reciprocal rank fusion, the default) or ``interp``
+    (``searcher/fusion.py``'s math over live hit lists). Any two services with
+    the ``search_async(queries, k)`` contract compose; an embedding service's
+    ``max_k`` clamps ``depth`` for BOTH legs, so that fusion sees equal-depth
+    lists."""
+
+    def __init__(self, service1, service2, method: str = "rrf", k_rrf: int = 60,
+                 alpha: float = 0.5, depth: int = 100):
+        if method not in ("rrf", "interp"):
+            raise ConfigError(f"hybrid method must be 'rrf' or 'interp', got {method!r}")
+        self.services = (service1, service2)
+        self.method = method
+        self.k_rrf = int(k_rrf)
+        self.alpha = float(alpha)
+        self._depth_limit = min((int(svc.max_k) for svc in self.services if hasattr(svc, "max_k")), default=None)
+        self.depth = int(depth)
+        if self._depth_limit is not None and self.depth > self._depth_limit:
+            logger.warning("hybrid depth %d exceeds an embedding service's max_k=%d; clamping BOTH legs "
+                           "to %d (build the service with max_k>=%d for deeper fusion)",
+                           self.depth, self._depth_limit, self._depth_limit, self.depth)
+            self.depth = self._depth_limit
+
+    def search_async(self, queries: Sequence[str], k: int = 10):
+        """Dispatch-now / collect-later variant of ``search`` (identical
+        results): both legs are dispatched before either is collected."""
+        depth = max(self.depth, k)
+        if self._depth_limit is not None:
+            depth = min(depth, self._depth_limit)
+        collectors = [svc.search_async(queries, k=depth) for svc in self.services]
+
+        def collect() -> List[List[Tuple[str, float]]]:
+            from capreolus_tpu_torch.searcher.fusion import interp_fuse, rrf_fuse
+
+            runs = [{str(i): dict(h) for i, h in enumerate(c())} for c in collectors]
+            if self.method == "rrf":
+                fused = rrf_fuse(runs, k=self.k_rrf, hits=k)
+            else:
+                fused = interp_fuse(runs[0], runs[1], alpha=self.alpha, hits=k)
+            return [sorted(fused.get(str(i), {}).items(), key=lambda kv: (-kv[1], kv[0]))
+                    for i in range(len(queries))]
+
+        return collect
+
+    def search(self, queries: Sequence[str], k: int = 10) -> List[List[Tuple[str, float]]]:
+        return self.search_async(queries, k)()
+
+    def get_document(self, docid: str) -> Optional[str]:
+        return self.services[0].get_document(docid)
+
+    def snippets(self, query: str, hits) -> List[str]:
+        raise _not_ported("snippets (analysis/highlight.py)")

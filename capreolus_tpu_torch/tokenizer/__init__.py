@@ -54,6 +54,9 @@ class AnseriniTokenizerAlias(LuceneTokenizer):
     module_name = "anserini"
 
 
+_MAX_CACHED_IDS = 1 << 20  # the hash fallback's token -> id cache is cleared at this size
+
+
 class _HashWordpieceFallback:
     """Deterministic offline stand-in for a pretrained wordpiece vocab: whitespace +
     lowercase tokens hashed into the BERT id space (a copy of the JAX package's,
@@ -63,18 +66,25 @@ class _HashWordpieceFallback:
     pad_token, cls_token, sep_token, unk_token = "[PAD]", "[CLS]", "[SEP]", "[UNK]"
     pad_token_id, cls_token_id, sep_token_id, unk_token_id = 0, 101, 102, 100
     _special = {"[PAD]": 0, "[CLS]": 101, "[SEP]": 102, "[UNK]": 100, "[MASK]": 103}
+    _ids = {}  # token -> id, shared by every instance (an md5 a token is most of the tokenizer's host time)
 
     def tokenize(self, text):
         return re.findall(r"[^\W_]+|[^\w\s]", text.lower())
 
     def convert_tokens_to_ids(self, tokens):
+        ids = self._ids
         out = []
         for tok in tokens:
-            if tok in self._special:
-                out.append(self._special[tok])
-            else:
-                h = int(hashlib.md5(tok.encode("utf-8")).hexdigest()[:8], 16)
-                out.append(1000 + h % (self.vocab_size - 1000))
+            i = ids.get(tok)
+            if i is None:
+                i = self._special.get(tok)
+                if i is None:
+                    h = int(hashlib.md5(tok.encode("utf-8")).hexdigest()[:8], 16)
+                    i = 1000 + h % (self.vocab_size - 1000)
+                if len(ids) >= _MAX_CACHED_IDS:
+                    ids.clear()
+                ids[tok] = i
+            out.append(i)
         return out
 
 

@@ -45,8 +45,13 @@ The trainer runs on ``self.device`` (an attribute, not a config option, so it
 never enters the results path; ``None`` means "cuda"), which the rerank task
 sets. Options that select code the port does not have raise ``ConfigError``
 naming their ROADMAP.md item: ``tp``, ``pp``, ``ep``, ``sp``, ``fsdp`` and a
-``ckpt`` other than ``flat`` (item 6, "Multi-device") and ``loss=infonce``
-(item 6, dense retrieval).
+``ckpt`` other than ``flat`` (item 6, "Multi-device").
+
+``loss=infonce`` trains a reranker with ``encode`` (the biencoder) on the
+in-batch similarity matrix: f32 ``q @ pos.T``, each sample's hard negative
+appended as ``q @ neg.T``, times the reranker's ``scale``, against the labels
+``arange(B)``. It needs a triplet-form stream. A reranker with a
+``regularizer`` (SPLADE's FLOPS penalty) adds it to every training loss.
 """
 
 from __future__ import annotations
@@ -235,9 +240,6 @@ class TorchTrainer(Trainer):
                 raise ConfigError(f"trainer.ckpt must be flat, sharded, or sharded_async (got {c['ckpt']!r})")
             raise _unported(f"trainer.ckpt={c['ckpt']} (sharded checkpoints)", "item 6, 'Multi-device'")
         amp_mode(c["amp"])
-        if c["loss"] == "infonce":
-            raise _unported("trainer.loss=infonce (in-batch negatives over a biencoder's embeddings)",
-                            "item 6, 'Dense and learned-sparse retrieval'")
 
     def _loss_fn(self):
         loss = self.config["loss"]
@@ -304,6 +306,25 @@ class TorchTrainer(Trainer):
             raise ConfigError(
                 f"trainer.loss=lce needs a reranker with multi-negative scoring "
                 f"(score_lce); {type(reranker).module_name} does not support it")
+        if self.config["loss"] == "infonce" and not hasattr(reranker, "encode"):
+            raise ConfigError(
+                f"trainer.loss=infonce needs a reranker exposing embeddings (encode); "
+                f"{type(reranker).module_name} does not support it (use reranker.name=biencoder)")
+
+    def _check_infonce_stream(self, first_sample, train_dataset):
+        """infonce treats every sample's posdoc as a true positive (the
+        diagonal labels) and its negdoc as one hard negative: a pair stream
+        (pos and neg alternate in the posdoc slot, a zeros negdoc with an
+        empty negdocid) or an LCE stream (nneg stacked negatives) would train
+        on a corrupted objective, so both are refused."""
+        neg0 = first_sample.get("negdoc")
+        if neg0 is None or np.asarray(neg0).ndim != 1 or not first_sample.get("negdocid"):
+            raise ConfigError(
+                "trainer.loss=infonce needs a triplet-form stream (one true positive in "
+                "posdoc plus a single hard negative in negdoc per sample); use "
+                f"sampler.name=triplet or distill — sampler.name="
+                f"{type(train_dataset).module_name} is incompatible (pair alternates "
+                "pos/neg in the posdoc slot; LCE stacks nneg negatives per sample)")
 
     def amp_train(self):
         """Whether training forwards run on bf16-rounded weights (amp train or both)."""
@@ -319,14 +340,32 @@ class TorchTrainer(Trainer):
         kwargs = {"dropout_seed": dropout_seed} if reranker.accepts_rngs else {}
         name = self.config["loss"]
         if name == "lce":
-            return loss_fn(reranker.score_lce(micro, device, **kwargs), None)
+            return self._regularized(reranker, micro, device, kwargs,
+                                     loss_fn(reranker.score_lce(micro, device, **kwargs), None))
+        if name == "infonce":
+            q, pos, neg, scale = reranker.encode(micro, device, **kwargs)
+            logits = q.float() @ pos.float().T
+            if neg is not None:
+                logits = torch.cat([logits, q.float() @ neg.float().T], dim=1)
+            labels = torch.arange(logits.shape[0], device=logits.device)
+            return self._regularized(reranker, micro, device, kwargs, loss_fn(scale * logits, labels))
         pos, neg = reranker.score(micro, device, **kwargs)
         if name == "crossentropy":
-            return loss_fn(torch.stack([neg, pos], dim=1).float(), reranker.put(micro, "label", device))
+            return self._regularized(reranker, micro, device, kwargs, loss_fn(
+                torch.stack([neg, pos], dim=1).float(), reranker.put(micro, "label", device)))
         if name == "margin_mse":
-            return loss_fn(pos.float().reshape(-1), neg.float().reshape(-1),
+            loss = loss_fn(pos.float().reshape(-1), neg.float().reshape(-1),
                            reranker.put(micro, "teacher_margin", device).float().reshape(-1))
-        return loss_fn([pos.float(), neg.float()])
+        else:
+            loss = loss_fn([pos.float(), neg.float()])
+        return self._regularized(reranker, micro, device, kwargs, loss)
+
+    @staticmethod
+    def _regularized(reranker, micro, device, kwargs, loss):
+        """The loss plus the reranker's training regularizer, where it has one."""
+        if hasattr(reranker, "regularizer"):
+            loss = loss + reranker.regularizer(micro, device, **kwargs)
+        return loss
 
     def train_step(self, reranker, model, optimizer, batches, step, step_seed):
         """One optimizer step over ``batches`` ([gradacc, batch, ...] arrays) at
@@ -393,6 +432,8 @@ class TorchTrainer(Trainer):
             raise ConfigError("trainer.loss=margin_mse needs per-triple teacher margins "
                               "in the samples; use sampler.name=distill with a teacher "
                               "run file (sampler.teacherrunfile)")
+        if self.config["loss"] == "infonce":
+            self._check_infonce_stream(first_samples[0], train_dataset)
         model = reranker.init_params(self.config["seed"]).to(device)
         optimizer = self.make_optimizer(reranker, model)
 

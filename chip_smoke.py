@@ -8,8 +8,9 @@ task, then times the sparse engine at bench.py's 200k-doc shape, then runs a
 Robust04-shaped experiment through ``rank.searcheval``, then serves PARADE,
 CEDR-KNRM, Birch and MoE-BERT and trains them through their tasks, then trains
 LoRA BERT-MaxP, CEDR-KNRM and KNRM under ``trainer.amp`` and the ColBERT
-reranker and serves what they wrote, and holds every kernel against its plain
-PyTorch version.
+reranker and serves what they wrote, then serves and trains the reranker zoo,
+then serves dense and learned-sparse retrieval and trains its rerankers, and
+holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py   # needs one CUDA device; builds the kernels
 
@@ -74,7 +75,7 @@ printed only when every phase passed):
 5. monoBERT serving: the same corpus, fresh caches, BERTMaxP at BERT-base width
    and depth (seeded N(0, 0.02) weights; hash-wordpiece tokenizer) over
    bertpassage at its defaults (maxseqlen 256, 16 passages of 150 tokens,
-   stride 100), topn 100: one warm-up request, then 4 served queries with 12
+   stride 100), topn 100: one warm-up request, then 2 served queries with 12
    K2 launches each (one batch of 1600 passages per layer); one profiled
    request, whose copy kernels are counted: fewer than one per layer, so no
    head split or merge copy is left; K2 timed on a served request's layer-0
@@ -83,7 +84,7 @@ printed only when every phase passed):
    CPU, max |err| <= 1e-3;
 5b. monoBERT int8 serving: the same corpus, caches and checkpoint with
    ``quantize=int8``: one warm-up request, which calibrates the GELU scales on
-   its batch, then the 4 queries with 72 X1 launches (q, k, v, output,
+   its batch, then the 2 queries with 72 X1 launches (q, k, v, output,
    intermediate, ffn_output in 12 layers: 60 in the f32 epilogue, 12 in the
    int8-gelu one), 36 Q1 launches (three per layer), no zero-padded copy and
    12 K2 launches each, and the run's peak device memory; one profiled
@@ -146,7 +147,7 @@ printed only when every phase passed):
    fold of 15 / 5 / 5, threshold 100: KNRM at its published width with frozen
    kernels and embeddings (K1 in every step) and monoBERT-MaxP at BERT-base
    width and depth (seeded N(0, 0.02) weights, bertpassage defaults, batch 32,
-   itersize 256, 2 iterations, dropout 0.1), each with its seconds per
+   itersize 256, 1 iteration, dropout 0.1), each with its seconds per
    iteration, samples per second, validation seconds, peak device memory and
    one profiled training step (device busy share, top ops); the launches of K1
    and K2 in training steps (K2: 0; K1: one per forward) and in predictions;
@@ -164,28 +165,31 @@ printed only when every phase passed):
    (``search_pruned_stream``), ``maxpostings`` 100, streaming with a quarter
    of the tiles' bytes as budget (exhaustive and pruned), and tiered,
    forced-pruned and adaptive-pruned at k = 10, each with queries/s (best and
-   median of 3 pipelined passes), ms per batch, peak device memory, one
+   median of 2 pipelined passes), ms per batch, peak device memory, one
    profiled batch (busy share, top device ops), the prune and stream
    statistics and the adaptive verdicts, the numpy span builder's earlier rows beside; the
    span build alone per batch, native against numpy, at k = 10 and 1000
    (total lanes and tiles equal, kept tiles within 5% of the total); checks:
    tiered against exact (the same docs, scores within 1e-5), the packed
    ordinals and bf16 scores against f32 tiered, pruned and streamed
-   bit-identical to resident tiered, card against CPU on 64 queries (tiered
+   bit-identical to resident tiered, card against CPU on 32 queries (tiered
    and capped: ordinals identical but for near-ties, scores within 1e-6 of
    the row's top score), no port kernel launched; then exact against tiered
    on 25k-200k-doc prefixes of the uniform corpus, pipelined and one batch
    alone, where tiered becomes faster against the engine's 65,536-doc rule;
-11. a Robust04-shaped experiment (after 10): 75k seeded docs of 200-1200
+11. a Robust04-shaped experiment (after 10): 66k seeded docs of 200-1200
    words in Robust04's TREC layout (1000 a file, cached under the gitignored
    ``build/robust04_shaped``; Robust04 itself has 528,155 docs), Robust04's
    250 shipped topics planted in 5-30 docs each with graded qrels written to
    ``benchmark.qrelfile``; index builds timed: native porter over every doc,
-   and on a 5k-doc prefix the native build, the Python path
+   and on a 1k-doc prefix the native build, the Python path
    (``CAPREOLUS_NATIVE=0``, its arrays identical to the native build's) and
    krovetz; ``rank.searcheval`` with ``benchmark.name=robust04.yang19`` (its
-   shipped five folds) for BM25 (the tiered, pruned stream with native spans)
-   and BM25RM3 (fbTerms 10, fbDocs 10) on "cuda" and the CPU: BM25's run
+   shipped five folds) for BM25 and BM25RM3 (fbTerms 10, fbDocs 10), both on
+   the tiered path's pruned stream with native spans (the corpus is above the
+   engine's 65,536-doc exact rule), on "cuda" and the CPU (the corpus, the
+   builds and the CPU's runs in a process of their own, started before phase
+   5 and waited for here, on 4 of the host's threads): BM25's run
    files docid for docid with scores within 1e-6, RM3's equal but for
    near-ties, every metric within 1e-4, ``significance.compare_runs`` of BM25
    against RM3 (MAP) within 1e-4 on both, search seconds, and the busy share
@@ -196,22 +200,22 @@ printed only when every phase passed):
    features ms, peak device memory, one profiled request (busy share, top
    device ops) and its launches counted from 0: 12a PARADE at BERT-base width
    (``aggregation=transformer``; pooledbertpassage as
-   ``config_parade.txt``: 16 passages of 150, stride 75), 2 queries in f32
-   (K2 14 times a request: 12 encoder and 2 aggregation layers), 8 docs card
+   ``config_parade.txt``: 16 passages of 150, stride 75), 1 query in f32
+   (K2 14 times a request: 12 encoder and 2 aggregation layers), 2 docs card
    vs CPU within 1e-3, K2 held against its plain version at every attention
-   of a served forward (L 256 and the aggregation layers' L 17), then 4 in
+   of a served forward (L 256 and the aggregation layers' L 17), then 2 in
    int8 (84 X1 and 42 Q1 a request, the aggregation layers calibrated and,
    from the card's input, within 5e-2 of the CPU's, the head within 1e-3; the
    int8-vs-f32 gap and top-10 overlap reported); 12b CEDR-KNRM at
    electra-base width as ``config_cedrknrm_pt.txt`` (13 simmat layers, cls
-   avg, combine_hidden 1024, 4 passages of 225), 2 queries, 8 docs within
+   avg, combine_hidden 1024, 4 passages of 225), 1 query, 4 docs within
    1e-3; 12c Birch at bert-large width over a seeded
    ``BertForNextSentencePrediction`` checkpoint it writes with ``torch.save``
    under the gitignored ``build/`` (the encoder and NSP head on the card equal
    to the tensors written; frozen; birchbertpassage with ``sentences=True``,
-   through the splitter), 1 query, 24 K2 launches a request, 4 docs within
+   through the splitter), 1 query, 24 K2 launches a request, 1 doc within
    2e-3; 12d BERTMaxP with 4 experts of top-2 in every layer (a dense
-   checkpoint refused), 1 query, 8 docs on the CPU layer by layer from the
+   checkpoint refused), 1 query, 2 docs on the CPU layer by layer from the
    card's input (tokens routed alike within 1e-3; routing flips counted, at
    most 1e-3 of the tokens) and the head from the card's last layer within
    1e-3; 12e
@@ -224,17 +228,17 @@ printed only when every phase passed):
    phase 9b's fold (benchmark ``trainer_options``), threshold 100: 13a
    BERTMaxP at BERT-base width with ``lora=8``, ``loraalpha=16`` over a seeded
    BERT-base checkpoint directory it writes, trained by ``rerank.traineval``
-   (batch 32, 2 iterations of 8 steps): seconds per iteration, step ms, peak
+   (batch 32, 1 iteration of 8 steps): seconds per iteration, step ms, peak
    memory and optimizer-state bytes beside phase 9b's full fine-tune, the
    dev.best bytes, the frozen base bit-identical to the checkpoint after
    training, no K2 in a step; the dev.best served by ``RerankingService`` in
    f32 (12 K2 a request, no head copy, the frozen base the checkpoint's, 1 doc
    card vs CPU within 1e-3) and int8 (72 X1, 36 Q1, 12 K2 a request; each layer
-   on the CPU from the card's input within 5e-2, the head 1e-3), 4 requests of
+   on the CPU from the card's input within 5e-2, the head 1e-3), 2 requests of
    100 docs each; 13b ``trainer.amp``: CEDR-KNRM at electra-base width as
    ``config_cedrknrm_pt.txt`` (``amp=both``, batch 6, 4 passages of 225, 13
    simmat layers, evalbatch 128): step 1 card vs CPU on 1 of its samples with
-   dropout off (loss 1e-4, gradients 2^-8 of each tensor's largest entry), 8
+   dropout off (loss 1e-4, gradients 2^-8 of each tensor's largest entry), 4
    steps timed, a prediction of 100 docs in amp and in f32 (the score gap, 12
    K2 each); a frozen KNRM at phase 9's width under ``amp=both`` through the
    rerank task, K1 twice a step and once a prediction forward, held against
@@ -242,11 +246,41 @@ printed only when every phase passed):
    2e-4, the exact-match kernel 1e-3); one monoBERT ``amp=pred`` prediction
    of 100 docs beside f32; 13c the ``colbert`` reranker at BERT-base width
    (dim 128, maxqlen 32, maxdoclen 180) trained by the rerank task (batch 32,
-   16 steps; no K3 and no K2 in a step, 24 K2 per prediction forward), its
+   8 steps; no K3 and no K2 in a step, 24 K2 per prediction forward), its
    dev.best the ``checkpointfile`` of ``ColbertRetrievalService`` over the
    20k-doc bf16 corpus: set-up, 8 single queries and one 64-query batch (9 K3
    launches), K3 timed on the served corpus, query 0's top 10 card vs CPU
    within 1e-2;
+15. dense and learned-sparse retrieval (after 14), over a seeded BERT-base
+   ``BertForMaskedLM`` checkpoint directory it writes with ``torch.save``:
+   15a ``DenseRetrievalService`` over phase 4's corpus at the dense searcher's
+   defaults (maxdoclen 256, maxqlen 32, batch 128, hits 1000, mean pooling),
+   one embedding cache for every engine (bf16, int8, int4 with rescore 200,
+   IVF with 128 cells probing 8 and 128, streamed in 4 chunks, prf 10): set-up,
+   8 single queries and one 128-query batch, peak memory and a profiled
+   request each; 12 K2 launches per query batch, X1 on every int8 / int4
+   batch and equal to plain on the served product; K2 against plain at layer
+   0 of a served doc (L 256) and query (L 32) batch; card vs CPU the
+   embeddings of query 0 and 8 docs (1e-3) and every engine's top 1000 over
+   the card's own matrix (near-ties, 1e-5); streamed bit-identical to
+   resident; IVF with every cell probed equal to exact, with 8 its recall;
+   15d ``HybridRetrievalService`` (rrf and interp, depth 100) over BM25 and
+   15a's bf16 service, equal to ``fusion.py``'s math on the host; 15b the
+   engines over a seeded clustered 1M x 768 matrix written into the dense
+   cache (MS MARCO passage's width, cut from 8.8M rows): a 128-query batch at
+   k 1000, the product and the selection apart, peak memory and busy share;
+   X1 and the bf16 product at [128 x 768] x [1M x 768]; 15c
+   ``ImpactRetrievalService`` for uniCOIL over the 20k docs and SPLADE over a
+   4000-doc prefix: set-up, postings, requests, raw impacts of 8 docs card vs
+   CPU (1e-3) and rankings from the card's CSR equal on both devices; 15e the
+   biencoder (``loss=infonce``), uniCOIL and SPLADE (with its regularizer)
+   at BERT-base width: step 1 card vs CPU on 2 samples (1e-4; SPLADE's
+   decoder rows whose max over positions is a near-tie left out), 8 steps
+   timed, no K2 in a step; the biencoder and uniCOIL through
+   ``rerank.traineval`` at tiny width on the rerank golden, each dev.best
+   served by ``rank.searcheval`` with hits (its test MAP reported; uniCOIL
+   with dropout 0 from its init at trainer seed 53, which trains in the JAX
+   package too, where the default seed's dies in both);
 7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
    ``launches_training`` and ``launches_training_predict``, phase 9's
    launches in training steps and in the trainer's predictions, and K1 and
@@ -254,7 +288,9 @@ printed only when every phase passed):
    batches; K2, X1 and Q1 with phase 12's launches, K2 with its errors there;
    each kernel with ``launches_phase13``, its launches in phase 13's served
    runs, training steps and predictions, the served ones also in
-   ``launches``; K1 with its error on bf16 rows), then the result line.
+   ``launches``; K1 with its error on bf16 rows; K2 and X1 with
+   ``launches_phase15`` and ``max_abs_err_phase15``, X1's 1M-doc shape under
+   ``served_shapes``), then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
 and read just after it.
@@ -270,6 +306,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -283,7 +320,7 @@ BERT_CPU_TOL = 1e-3  # BERT-base scores, GPU vs CPU: 12 layers of f32 matmuls
 # summed in other orders on the two devices
 SERVING_DOCS = 20000  # corpus of the serving phases
 TIMED_ROUNDS = 25  # timed rounds of 20 back-to-back calls per kernel (median)
-BERT_QUERIES = 4  # served monoBERT queries after the warm-up request
+BERT_QUERIES = 2  # served monoBERT queries after the warm-up request
 K2_SHAPE = (1600, 12, 256, 64)  # 100 docs x 16 passages, BERT-base heads, maxseqlen 256
 K3_TOL = 1e-4  # K3 vs its plain version: equal bf16 inputs, exact f32 products, the
 # sums in another order; L2-normalised embeddings keep a score within Lq = 32
@@ -2294,7 +2331,7 @@ GRAD_NOISE_FLOOR = 1e-3  # share of the model's largest gradient entry below whi
 # largest entry is not its scale (a gradient that is 0 but for rounding)
 SERVED_DEV_BEST_TOL = 1e-5  # a dev.best served on the card against the trainer's own test prediction of
 # the same docs in one batch of the same size (the same kernels on the same inputs)
-TRAINER_FULL = {"batch": 32, "itersize": 256, "niters": 2, "validatefreq": 1, "evalbatch": TRAIN_THRESHOLD}
+TRAINER_FULL = {"batch": 32, "itersize": 256, "niters": 1, "validatefreq": 1, "evalbatch": TRAIN_THRESHOLD}
 KNRM_TRAIN = {"name": "KNRM", "gradkernels": False, "finetune": False,  # frozen: K1 in every step
               "extractor": {"embeddings": "random300", "maxqlen": 4, "maxdoclen": 800}, "trainer": TRAINER_FULL}
 BERT_TRAIN = {"name": "BERTMaxP", "pretrained": "bert-base-uncased", "allowrandominit": True,
@@ -2675,7 +2712,7 @@ def phase_training(workdir, corpus_dir, topics, qrels, launches, held):
               f"the first step {sec['setup']:.2f} s), validation {per_validation:.2f} s "
               f"({stages['forwards']} prediction forwards of {c['evalbatch']} docs in all, {sec['predict']:.2f} s), "
               f"peak device memory {peak_gb:.2f} GB; launches in training steps: K1 {k1}, K2 {k2}; in "
-              f"predictions: K1 {k1_pred}, K2 {k2_pred}; test MAP {test_map:.4f} (random init, 2 iterations)")
+              f"predictions: K1 {k1_pred}, K2 {k2_pred}; test MAP {test_map:.4f} (random init, {c['niters']} iteration(s))")
 
         # one more training step, profiled (the run's test predictions are already written)
         batch = training_batch(task, c["batch"])
@@ -2729,8 +2766,8 @@ SPARSE = {  # bench.py's headline shape: corpus, query recipe, batches and depth
 SPARSE_PARAMS = {"k1": 0.9, "b": 0.4}  # Anserini's BM25 defaults, as bench.py
 SPARSE_CAP = 100  # the maxpostings mode's cap
 TIERED_RTOL = 1e-5  # tiered vs exact scores: a tree sum against a sequential sum (tests/test_compact_topk.py)
-SPARSE_CPU_QUERIES = 64  # queries of each corpus scored on the card and on the CPU
-SPARSE_PASSES = 3  # timed pipelined passes per mode (qps: best and median)
+SPARSE_CPU_QUERIES = 32  # queries of each corpus scored on the card and on the CPU
+SPARSE_PASSES = 2  # timed pipelined passes per mode (qps: best and median)
 SPAN_STATS_TOL = 0.05  # native vs numpy spans: kept tiles within this share of the total (tests/test_block_max.py)
 # ms per batch measured by this phase with the numpy span builder, before the native one
 # (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's rows
@@ -2739,7 +2776,7 @@ NUMPY_SPANS_MS = {"uniform": {"pruned_adaptive": 7.327, "pruned_forced": 9.156, 
                  "clustered": {"pruned_adaptive": 9.424, "pruned_forced": 10.767, "tiered_k10": 8.25,
                                "pruned_forced_k10": 303.03}}
 CROSSOVER_DOCS = (25_000, 50_000, 100_000, 200_000)  # prefixes of the uniform corpus
-CROSSOVER_REPS = 5
+CROSSOVER_REPS = 3
 
 
 def sparse_queries(data, seed, n, terms, num_docs):
@@ -3086,11 +3123,15 @@ def phase_native():
 
 # ---------------------------------------------------------------- phase 11: a Robust04-shaped experiment
 ROBUST04_SHAPED = {  # Robust04's topics and folds over a seeded corpus in its TREC layout
-    # cut from Robust04's 528,155 docs to 75,000 (above the engine's 65,536-doc exact rule, so BM25 runs
-    # the tiered, pruned stream) to keep the phase near 120 s: one native build of 100,000 took 64 s
-    "num_docs": 75_000, "docs_per_file": 1000, "min_len": 200, "max_len": 1200, "bg_vocab": 20_000,
-    "rel_min": 5, "rel_max": 30, "seed": 4, "python_prefix": 5_000,
+    # cut from Robust04's 528,155 docs to 66,000, just above the engine's exact rule (up to 65,536 docs), so that
+    # BM25 and RM3's weighted, expanded queries take the tiered, pruned path with native spans on both devices
+    "num_docs": 66_000, "docs_per_file": 1000, "min_len": 200, "max_len": 1200, "bg_vocab": 20_000,
+    "rel_min": 5, "rel_max": 30, "seed": 4, "python_prefix": 1_000,
 }
+# the CPU's threads for phase 11's card-free work (the corpus, the index builds and the CPU's runs: most of the
+# phase at 66,000 docs), which runs in a process of its own beside phases 5-10
+ROBUST04_HOST_THREADS = 4
+ROBUST04_HOST_WAIT_S = 900  # how long phase 11 waits for that process once it starts
 ROBUST04_PUBLISHED_DOCS = 528_155  # TREC disks 4 and 5 minus the Congressional Record
 # BM25 at the rank task's defaults; BM25RM3 at Anserini's RM3 defaults (one grid point)
 ROBUST04_SEARCHERS = {"BM25": {"name": "BM25"}, "BM25RM3": {"name": "BM25RM3", "fbTerms": 10, "fbDocs": 10}}
@@ -3179,37 +3220,33 @@ def index_arrays_equal(a, b):
         np.array_equal(da.prune_tables[k], db.prune_tables[k]) for k in da.prune_tables)
 
 
-def phase_robust04(workdir, shape=ROBUST04_SHAPED, cache_dir=None):
-    """A Robust04-shaped experiment through ``rank.searcheval``: the corpus read
-    by the native TREC reader, index builds (native porter on every doc; the
-    Python path and krovetz on a prefix), BM25 and BM25RM3 on
-    ``robust04.yang19``'s five folds on the card and the CPU, their run files,
-    metrics and significance test against each other."""
+def robust04_host_side(workdir, out_fn, shape=ROBUST04_SHAPED, cache_dir=None, threads=ROBUST04_HOST_THREADS):
+    """Phase 11's work that needs no card, run in a process of its own while
+    the card runs phases 5-10 (``start_robust04_host_side``): the corpus read
+    by the native TREC reader, the index builds (native porter on every doc;
+    the Python path and krovetz on a prefix) under ``workdir``'s
+    ``cache_robust04``, and BM25 and BM25RM3 through ``rank.searcheval`` on the
+    CPU with ``threads`` threads. Pickles what phase 11 reads to ``out_fn``."""
+    import pickle
+
     from capreolus_tpu_torch.core import constants
-    from capreolus_tpu_torch.evaluation import DEFAULT_METRICS
-    from capreolus_tpu_torch.evaluation.significance import compare_runs
     from capreolus_tpu_torch.index import Index
-    from capreolus_tpu_torch.native import get_pruner_lib, native_status
-    from capreolus_tpu_torch.searcher.scoring import EXACT_MAX_DOCS
-    from capreolus_tpu_torch.utils.trec import load_qrels
+    from capreolus_tpu_torch.native import native_status
 
     import capreolus_tpu_torch
 
+    torch.set_num_threads(threads)
     capreolus_tpu_torch.load_all_modules()
     label = "[11 robust04-shaped]"
     check(all(st["loaded"] for st in native_status().values()), f"{label} a native library is missing")
     cache_dir = cache_dir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "robust04_shaped")
     n, seed, per_file = shape["num_docs"], shape["seed"], shape["docs_per_file"]
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     docs_dir, qrel_fn = robust04_shaped_corpus(
         os.path.join(cache_dir, f"corpus_{n}_{seed}"), n, seed, per_file, shape["min_len"], shape["max_len"],
         shape["bg_vocab"], shape["rel_min"], shape["rel_max"])
-    made = time.perf_counter() - t0
-    qrels = load_qrels(qrel_fn)
+    made = time.perf_counter() - t_start
     files = sorted(os.listdir(docs_dir))
-    print(f"{label} corpus: {n} docs (Robust04 has {ROBUST04_PUBLISHED_DOCS}) in {len(files)} TREC files of "
-          f"{per_file}, {shape['min_len']}-{shape['max_len']} words, {sum(len(q) for q in qrels.values())} judgements "
-          f"over {len(qrels)} topics; ready in {made:.1f} s")
 
     # index builds: native porter on all docs; on a prefix of the files the native build, the
     # Python path and krovetz (each prefix build over a directory of its own, so under an index path of its own)
@@ -3231,26 +3268,96 @@ def phase_robust04(workdir, shape=ROBUST04_SHAPED, cache_dir=None):
             index.create_index()
             builds[name] = round(time.perf_counter() - t0, 2)
         indexes[name] = index
-    check(index_arrays_equal(indexes["native_porter_prefix"], indexes["python_porter_prefix"]),
-          f"{label} the Python path's index differs from the native build of the same prefix")
-    prefix_docs = len(indexes["python_porter_prefix"].data.docid_strings)
     data = indexes["native_porter_all"].data
-    print(f"{label} index builds (s): native porter on {data.num_docs} docs {builds['native_porter_all']} "
-          f"({len(data.doc_ids)} postings, {data.num_terms} terms); on a {prefix_docs}-doc prefix native "
-          f"{builds['native_porter_prefix']}, Python (CAPREOLUS_NATIVE=0) {builds['python_porter_prefix']} "
-          f"(arrays identical to native), krovetz {builds['krovetz_prefix']}; {constants['MAX_THREADS']} threads")
-
-    # the rank task on the card and the CPU, over the full index built above
+    out = {"docs_dir": docs_dir, "qrel_fn": qrel_fn, "files": len(files), "corpus_s": round(made, 1),
+           "builds_s": builds, "prefix_docs": len(indexes["python_porter_prefix"].data.docid_strings),
+           "python_equals_native": index_arrays_equal(indexes["native_porter_prefix"], indexes["python_porter_prefix"]),
+           "num_docs": int(data.num_docs), "postings": int(len(data.doc_ids)), "terms": int(data.num_terms),
+           "threads": constants["MAX_THREADS"], "secs": {}, "metrics": {}, "runs": {}}
     benchmark = {"name": "robust04.yang19", "qrelfile": qrel_fn, "collection": {"path": docs_dir}}
+    for name, config in ROBUST04_SEARCHERS.items():
+        _, out["secs"][name], out["metrics"][name], out["runs"][name] = rank_search(
+            config, "cpu", os.path.join(workdir, "results_robust04_cpu"), benchmark)
+    out["seconds"] = round(time.perf_counter() - t_start, 1)
+    with open(out_fn + ".tmp", "wb") as fh:
+        pickle.dump(out, fh)
+    os.replace(out_fn + ".tmp", out_fn)
+
+
+def _robust04_host_main(workdir, out_fn, shape):
+    try:
+        robust04_host_side(workdir, out_fn, shape)
+    except SmokeFailure as e:
+        print(f"FAILED: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def start_robust04_host_side(workdir, shape=ROBUST04_SHAPED):
+    """Start phase 11's card-free work (``robust04_host_side``) in a spawned
+    process. Returns (process, the file it writes)."""
+    import multiprocessing
+
+    out_fn = os.path.join(workdir, "robust04_host_side.pkl")
+    proc = multiprocessing.get_context("spawn").Process(target=_robust04_host_main, args=(workdir, out_fn, shape),
+                                                         name="robust04_host_side")
+    proc.start()
+    return proc, out_fn
+
+
+def phase_robust04(workdir, host, shape=ROBUST04_SHAPED):
+    """A Robust04-shaped experiment through ``rank.searcheval``: the corpus, the
+    index builds and the CPU's runs from ``host`` (``start_robust04_host_side``,
+    waited for here), then BM25 and BM25RM3 on ``robust04.yang19``'s five folds
+    on the card, their run files and metrics against the CPU's, and the
+    significance test of BM25 against RM3 on each device."""
+    import pickle
+
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.evaluation import DEFAULT_METRICS
+    from capreolus_tpu_torch.evaluation.significance import compare_runs
+    from capreolus_tpu_torch.native import get_pruner_lib
+    from capreolus_tpu_torch.searcher.scoring import EXACT_MAX_DOCS
+    from capreolus_tpu_torch.utils.trec import load_qrels
+
+    import capreolus_tpu_torch
+
+    capreolus_tpu_torch.load_all_modules()
+    label = "[11 robust04-shaped]"
+    proc, out_fn = host
+    t0 = time.perf_counter()
+    proc.join(timeout=ROBUST04_HOST_WAIT_S)
+    waited = time.perf_counter() - t0
+    check(not proc.is_alive(), f"{label} the host side did not end within {ROBUST04_HOST_WAIT_S} s")
+    check(proc.exitcode == 0 and os.path.exists(out_fn), f"{label} the host side failed (exit code {proc.exitcode})")
+    with open(out_fn, "rb") as fh:
+        cpu = pickle.load(fh)
+    n, per_file, builds = shape["num_docs"], shape["docs_per_file"], cpu["builds_s"]
+    qrels = load_qrels(cpu["qrel_fn"])
+    check(cpu["num_docs"] == n, f"{label} the index holds {cpu['num_docs']} docs, not {n}")
+    print(f"{label} corpus: {n} docs (Robust04 has {ROBUST04_PUBLISHED_DOCS}) in {cpu['files']} TREC files of "
+          f"{per_file}, {shape['min_len']}-{shape['max_len']} words, {sum(len(q) for q in qrels.values())} judgements "
+          f"over {len(qrels)} topics; ready in {cpu['corpus_s']:.1f} s")
+    check(cpu["python_equals_native"], f"{label} the Python path's index differs from the native build of the same prefix")
+    print(f"{label} index builds (s): native porter on {n} docs {builds['native_porter_all']} "
+          f"({cpu['postings']} postings, {cpu['terms']} terms); on a {cpu['prefix_docs']}-doc prefix native "
+          f"{builds['native_porter_prefix']}, Python (CAPREOLUS_NATIVE=0) {builds['python_porter_prefix']} "
+          f"(arrays identical to native), krovetz {builds['krovetz_prefix']}; {cpu['threads']} threads; in a "
+          f"process of their own while the card ran phases 5-10 (all of it {cpu['seconds']} s with the CPU's "
+          f"runs below; {waited:.1f} s waited for it here)")
+
+    # the rank task on the card over the index the host side built (its done file: no rebuild)
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_robust04")
+    benchmark = {"name": "robust04.yang19", "qrelfile": cpu["qrel_fn"], "collection": {"path": cpu["docs_dir"]}}
     reset_launch_counts()
     secs, metrics, runs, tasks = {}, {}, {}, {}
-    for device in ("cuda", "cpu"):
-        for name, config in ROBUST04_SEARCHERS.items():
-            tasks[name, device], secs[name, device], metrics[name, device], runs[name, device] = rank_search(
-                config, device, os.path.join(workdir, f"results_robust04_{device}"), benchmark)
+    for name, config in ROBUST04_SEARCHERS.items():
+        tasks[name], secs[name, "cuda"], metrics[name, "cuda"], runs[name, "cuda"] = rank_search(
+            config, "cuda", os.path.join(workdir, "results_robust04_cuda"), benchmark)
+        secs[name, "cpu"], metrics[name, "cpu"], runs[name, "cpu"] = (cpu["secs"][name], cpu["metrics"][name],
+                                                                      cpu["runs"][name])
     launched = {k: v for k, v in launch_counts().items() if v}
     check(not launched, f"{label} the sparse path launched a port kernel: {launched}")
-    engine = tasks["BM25", "cuda"].searcher.get_engine()
+    engine = tasks["BM25"].searcher.get_engine()
     check(get_pruner_lib() is not None and engine.exact_path() == (n <= EXACT_MAX_DOCS),
           f"{label} BM25 took the {'exact' if engine.exact_path() else 'tiered'} path over {n} docs "
           f"(the rule: exact up to {EXACT_MAX_DOCS}), or without the native span builder")
@@ -3265,10 +3372,10 @@ def phase_robust04(workdir, shape=ROBUST04_SHAPED, cache_dir=None):
     for name in ROBUST04_SEARCHERS:
         gaps[name] = max(abs(metrics[name, "cuda"][m] - metrics[name, "cpu"][m]) for m in DEFAULT_METRICS)
         check(gaps[name] <= METRIC_TOL, f"{label} {name}: metrics card vs CPU differ by {gaps[name]:.2e}")
-        print(f"{label} {name}: search {secs[name, 'cuda']:.2f} s on the card, {secs[name, 'cpu']:.2f} s on the CPU; "
-              f"cross-validated map {metrics[name, 'cuda']['map']:.4f} ndcg_cut_20 "
-              f"{metrics[name, 'cuda']['ndcg_cut_20']:.4f} P_20 {metrics[name, 'cuda']['P_20']:.4f}; max metric gap "
-              f"card vs CPU {gaps[name]:.2e} (tolerance {METRIC_TOL})")
+        print(f"{label} {name}: search {secs[name, 'cuda']:.2f} s on the card, {secs[name, 'cpu']:.2f} s on the CPU "
+              f"({ROBUST04_HOST_THREADS} threads, beside phases 5-10); cross-validated map "
+              f"{metrics[name, 'cuda']['map']:.4f} ndcg_cut_20 {metrics[name, 'cuda']['ndcg_cut_20']:.4f} P_20 "
+              f"{metrics[name, 'cuda']['P_20']:.4f}; max metric gap card vs CPU {gaps[name]:.2e} (tolerance {METRIC_TOL})")
     print(f"{label} BM25 pruning verdict at k=1000: {verdict}")
 
     significance = {}
@@ -3280,12 +3387,13 @@ def phase_robust04(workdir, shape=ROBUST04_SHAPED, cache_dir=None):
     print(f"{label} compare_runs(BM25, BM25RM3, map) on the card {json.dumps(significance['cuda'])}; "
           f"on the CPU {'identical' if significance['cuda'] == significance['cpu'] else significance['cpu']}")
 
-    searcher = tasks["BM25", "cuda"].searcher
-    topic_fn = tasks["BM25", "cuda"].benchmark.get_topics_file()
+    searcher = tasks["BM25"].searcher
+    topic_fn = tasks["BM25"].benchmark.get_topics_file()
     profiled = profile_call(lambda: searcher.query_from_file(topic_fn, os.path.join(workdir, "robust04_profiled")),
                             f"{label} BM25", top=6, what=f"search of {len(robust04_topics())} topics")
-    summary = {"shape": shape, "corpus_s": round(made, 1), "builds_s": builds, "prefix_docs": prefix_docs,
-               "postings": int(len(data.doc_ids)), "terms": int(data.num_terms),
+    summary = {"shape": shape, "corpus_s": cpu["corpus_s"], "builds_s": builds, "prefix_docs": cpu["prefix_docs"],
+               "postings": cpu["postings"], "terms": cpu["terms"], "host_side_s": cpu["seconds"],
+               "waited_s": round(waited, 1),
                "search_s": {f"{k}_{d}": round(v, 3) for (k, d), v in secs.items()},
                "map": {k: metrics[k, "cuda"]["map"] for k in ROBUST04_SEARCHERS},
                "metric_gap_card_cpu": gaps, "significance": significance["cuda"], "bm25_pruning": verdict,
@@ -3301,10 +3409,10 @@ CEDR_RERANKER = {"simmat_layers": "0..12,1", "cls": "avg", "combine_hidden": 102
 CEDR_EXTRACTOR = {"name": "pooledbertpassage", "maxseqlen": 256, "numpassages": 4, "passagelen": 225,
                   "stride": 225}  # docs/reproduction/configs/config_cedrknrm_pt.txt
 BIRCH_EXTRACTOR = {"name": "birchbertpassage", "sentences": True}  # its defaults: maxseqlen 256, 16 passages of 150
-PHASE12_QUERIES = {"parade": 2, "parade_int8": 4, "cedr": 2, "birch": 1, "moe": 1}  # served after a warm-up request
+PHASE12_QUERIES = {"parade": 1, "parade_int8": 2, "cedr": 1, "birch": 1, "moe": 1}  # served after a warm-up request
 # (4, 4, 4, 2, 1 before phase 13 joined the script; lowered to keep it under 1000 s)
 PHASE12_WARMUP = 8  # the topic of each service's warm-up request, after the served ones
-PHASE12_CPU_DOCS = {"parade": 8, "cedr": 8, "birch": 4, "moe": 8}  # docs of query 0 scored on the CPU too
+PHASE12_CPU_DOCS = {"parade": 2, "cedr": 4, "birch": 1, "moe": 2}  # docs of query 0 scored on the CPU too
 BIRCH_CPU_TOL = 2e-3  # bert-large scores, GPU vs CPU: 24 layers of f32 matmuls summed in other orders, twice
 # BERT-base's 12 (BERT_CPU_TOL)
 MOE_FLIP_SHARE = 1e-3  # tokens of a layer whose top-2 experts may differ between the devices: a gate
@@ -3345,11 +3453,13 @@ def seeded_model_params(model, seed, std=0.02):
     return flat
 
 
-def write_birch_checkpoint(directory, config, seed=12, std=0.02):
+def write_birch_checkpoint(directory, config, seed=12, std=0.02, head="nsp"):
     """A Hugging Face ``BertForNextSentencePrediction`` checkpoint at ``config``'s
     geometry with seeded N(0, std) weights (zero biases, unit LayerNorm
     scales), as ``pytorch_model.bin`` (``torch.save`` of its state dict) and
-    ``config.json``. Returns the state dict written."""
+    ``config.json``; with ``head="mlm"`` a ``BertForMaskedLM`` one, whose
+    ``cls.predictions`` head has a seeded transform and bias and the decoder
+    tied to the word embeddings. Returns the state dict written."""
     gen = torch.Generator().manual_seed(seed)
     h, inter = config.hidden_size, config.intermediate_size
 
@@ -3369,11 +3479,20 @@ def write_birch_checkpoint(directory, config, seed=12, std=0.02):
         for name in ("attention.output.LayerNorm", "output.LayerNorm"):
             sd[pre + name + ".weight"], sd[pre + name + ".bias"] = torch.ones(h), torch.zeros(h)
     sd["bert.pooler.dense.weight"], sd["bert.pooler.dense.bias"] = normal(h, h), torch.zeros(h)
-    sd["cls.seq_relationship.weight"], sd["cls.seq_relationship.bias"] = normal(2, h), normal(2)
+    if head == "mlm":
+        sd["cls.predictions.transform.dense.weight"] = normal(h, h)
+        sd["cls.predictions.transform.dense.bias"] = torch.zeros(h)
+        sd["cls.predictions.transform.LayerNorm.weight"] = torch.ones(h)
+        sd["cls.predictions.transform.LayerNorm.bias"] = torch.zeros(h)
+        sd["cls.predictions.bias"] = normal(config.vocab_size)
+        sd["cls.predictions.decoder.weight"] = sd["bert.embeddings.word_embeddings.weight"]
+    else:
+        sd["cls.seq_relationship.weight"], sd["cls.seq_relationship.bias"] = normal(2, h), normal(2)
     os.makedirs(directory, exist_ok=True)
     torch.save(sd, os.path.join(directory, "pytorch_model.bin"))
+    architecture = "BertForMaskedLM" if head == "mlm" else "BertForNextSentencePrediction"
     with open(os.path.join(directory, "config.json"), "wt") as fh:
-        json.dump({"architectures": ["BertForNextSentencePrediction"], "model_type": "bert",
+        json.dump({"architectures": [architecture], "model_type": "bert",
                    "vocab_size": config.vocab_size, "hidden_size": h, "num_hidden_layers": config.num_layers,
                    "num_attention_heads": config.num_heads, "intermediate_size": inter,
                    "max_position_embeddings": config.max_position, "type_vocab_size": config.type_vocab_size,
@@ -3793,11 +3912,11 @@ LORA_TRAIN = {"name": "BERTMaxP", "lora": 8, "loraalpha": 16.0, "hidden_dropout_
               "trainer": TRAINER_FULL}  # pretrained: a seeded BERT-base checkpoint directory phase 13a writes
 PHASE9B_BERT = {"step_ms": 276.51, "peak_gb": 17.06, "s_per_iter": 5.57}  # phase 9b's full fine-tune, measured
 # by this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §5)
-LORA_QUERIES = 4  # served LoRA dev.best requests a precision, after a warm-up
+LORA_QUERIES = 2  # served LoRA dev.best requests a precision, after a warm-up
 LORA_CPU_DOCS = 1  # docs of query 0 scored on the CPU too (f32 end to end; int8 layer by layer)
 CEDR_AMP_TRAINER = {"amp": "both", "batch": 6, "evalbatch": 128, "lr": 2e-5, "softmaxloss": False}  # as
 # config_cedrknrm_pt.txt
-AMP_STEPS = 8  # CEDR-KNRM training steps under amp
+AMP_STEPS = 4  # CEDR-KNRM training steps under amp
 AMP_PARITY_SAMPLES = 1  # samples of the step-1 batch held card vs CPU (a CPU step of electra-base over
 # 6 samples x 2 docs x 4 passages of 256 tokens takes minutes)
 AMP_LOSS_RTOL = 1e-4  # step 1 under amp, card vs CPU: the loss as phase 9a's (f32 sums in other orders on the
@@ -3812,7 +3931,7 @@ K1_EXACT_TOL = 1e-3  # K1's exact-match kernel (sigma 0.001) on bf16-normalised 
 # much as at the flat peak f32 rows reach (tests/test_torch_amp.py); the other ten kernels at ERR_TOL
 COLBERT_TRAIN = {"name": "colbert", "pretrained": "bert-base-uncased", "allowrandominit": True,
                  "dim": COLBERT["dim"], "extractor": {"maxqlen": COLBERT["maxqlen"], "maxdoclen": COLBERT["maxdoclen"]},
-                 "trainer": {"batch": 32, "itersize": 256, "niters": 2, "validatefreq": 1, "evalbatch": TRAIN_THRESHOLD}}
+                 "trainer": {"batch": 32, "itersize": 256, "niters": 1, "validatefreq": 1, "evalbatch": TRAIN_THRESHOLD}}
 
 
 def register_phase13_benchmark(workdir, corpus_dir, topics, qrels):
@@ -4640,6 +4759,648 @@ def add_phase14_launches(kernels, p14):
                                          "training_predict": training["TFKNRM"]["k1_err_predict"]}
 
 
+# ---------------------------------------------------------------- phase 15: dense and learned-sparse retrieval
+DENSE_ENGINES = {  # 15a's engines over phase 4's corpus at the dense searcher's defaults (maxdoclen 256, maxqlen
+    # 32, batch 128, hits 1000, mean pooling), one embedding cache shared by all
+    "bf16": {}, "int8": {"quantize": "int8"}, "int4": {"quantize": "int4", "rescore": 200},
+    "ivf_nprobe8": {"clusters": 128, "nprobe": 8}, "ivf_nprobe128": {"clusters": 128, "nprobe": 128},
+    "streamed": {"hbmbudget": "chunks"}, "prf": {"prf": 10},
+}
+DENSE_STREAM_CHUNKS = 4  # the streamed engine's budget holds two chunks of 1/DENSE_STREAM_CHUNKS of the corpus
+DENSE_QUERIES = 8  # single-query requests per engine, after a warm-up
+DENSE_BATCH = 128  # one full query batch (the searcher's ``batch``) per engine
+DENSE_HITS = 1000
+DENSE_SCORE_TOL = 1e-5  # engines over one embedding matrix, card vs CPU: bf16 products in f32 (and int8 epilogues)
+# summed in other orders
+SCALE = {"docs": 1_000_000, "dim": 768, "centres": 4096, "noise": 0.35, "queries": 128, "hits": 1000, "seed": 15}
+SCALE_ENGINES = {  # 15b's engines over the synthetic 1M x 768 matrix (MS MARCO passage's width, cut from 8.8M rows)
+    "bf16": {}, "int8": {"quantize": "int8"}, "int4": {"quantize": "int4", "rescore": 200},
+    "ivf_nprobe8": {"clusters": 1024, "nprobe": 8}, "ivf_nprobe32": {"clusters": 1024, "nprobe": 32},
+    "streamed": {"hbmbudget": "chunks"},
+}
+SPLADE_DOCS = 4000  # 15c's SPLADE corpus: a prefix of phase 4's (its f32 decoder is ~12 GFLOP a document)
+IMPACT_QUERIES = 8
+IMPACT_RAW_TOL = 1e-3  # raw impacts of 8 docs, card vs CPU, against the largest: 12 f32 BERT-base layers (BERT_CPU_TOL)
+IMPACT_SCORE_RTOL = SPARSE_RTOL  # one CSR and one query on both devices: the sparse engine's contract
+HYBRID_DEPTH = 100
+TRAIN15 = {"batch": 4, "parity_samples": 2, "maxqlen": 32, "maxdoclen": 128, "steps": 8}  # 15e's BERT-base steps
+# (card vs CPU on step 1 over the batch's first parity_samples samples)
+SPLADE_TIE_RTOL = 1e-4  # 15e: a term whose two best positions' SPLADE weights are this close (relative to the
+# largest weight) may take its max at either position on the card and on the CPU
+TRAIN15_MODELS = {"biencoder": {"trainer": {"loss": "infonce"}}, "unicoil": {}, "splade": {"regweight": 1e-3}}
+GOLDEN15_TRAINER = dict(RERANK_GOLDEN_CONFIGS["BERTMaxP"]["trainer"], niters=2)  # phase 9a's rates, 2 iterations
+# uniCOIL's tiny loop trains from the port's init at this trainer seed, with dropout 0 (the card's dropout draws
+# are not the CPU's): at the default seed 42 its ReLU token weights all die in training, in the JAX package as in
+# the port from the same init, and nothing is indexed; from seed 53's init (the port's or JAX's) both train
+# (tests/torch_unicoil_init_witness.py)
+GOLDEN15_UNICOIL_SEED = 53
+GOLDEN15 = {  # 15e's tiny train-then-serve loops on phase 9a's rerank golden (its tiny BERT width)
+    "biencoder": ({"name": "biencoder", "pretrained": "tiny", "allowrandominit": True,
+                   "extractor": {"maxqlen": 8, "maxdoclen": 96},
+                   "trainer": dict(GOLDEN15_TRAINER, loss="infonce")},
+                  {"name": "dense", "pretrained": "tiny", "maxqlen": 8, "maxdoclen": 96, "batch": 64}),
+    "unicoil": ({"name": "unicoil", "pretrained": "tiny", "allowrandominit": True, "hidden_dropout_prob": 0.0,
+                 "extractor": {"maxqlen": 8, "maxdoclen": 96},
+                 "trainer": dict(GOLDEN15_TRAINER, seed=GOLDEN15_UNICOIL_SEED)},
+                {"name": "impact", "pretrained": "tiny", "maxqlen": 8, "maxdoclen": 96, "batch": 64}),
+}
+
+
+class SyntheticDenseIndex:
+    """The index of a corpus that exists only as its embedding matrix (15b):
+    docids, and the directory the dense searcher keys its caches under."""
+
+    def __init__(self, n, cache_path):
+        from types import SimpleNamespace
+
+        self.data = SimpleNamespace(docid_strings=[f"s{i}" for i in range(n)])
+        self.cache_path = Path(cache_path)
+
+    def create_index(self):
+        pass
+
+    def get_cache_path(self):
+        return self.cache_path
+
+
+def dense_searcher(options, device, index=None, encoder_of=None):
+    """A dense searcher on ``device``; ``encoder_of`` hands it another dense
+    searcher's loaded encoder (an engine of the same weights needs no second
+    load: the encoder only embeds, and keys the cache)."""
+    from capreolus_tpu_torch.searcher import Searcher
+
+    searcher = Searcher.create("dense", json.loads(json.dumps(options)))
+    searcher.device = device
+    if index is not None:
+        searcher.index = index
+    if encoder_of is not None:
+        searcher._enc, searcher._random_init = encoder_of._encoder(), encoder_of._random_init
+    return searcher
+
+
+def stream_budget_mb(n, dim, qmode):
+    """An hbmbudget (MB) that streams an n x dim corpus in DENSE_STREAM_CHUNKS chunks."""
+    row = {"int8": dim + 4, "int4": (dim + dim % 2) // 2 + 4}.get(qmode, 2 * dim)
+    return 2 * row * (-(-n // DENSE_STREAM_CHUNKS)) / 1e6
+
+
+def timed_requests(svc, queries, k=10):
+    """(median ms, [min, max] ms) of single-query requests after a warm-up;
+    each ends with its hits on the host."""
+    svc.search(queries[:1], k=k)
+    times = []
+    for q in queries:
+        t0 = time.perf_counter()
+        svc.search([q], k=k)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), [float(min(times)), float(max(times))]
+
+
+def hold_k2_layer0(encoder, encode, label, errs):
+    """K2 against ``attention_plain`` at layer 0 of one encoder forward
+    (``encode()``), on the q, k, v and mask it hands K2; the error by
+    sequence length into ``errs``. These launches come after the path's counts."""
+    attention = getattr(encoder, "layer_0").attention
+
+    def hold(module, args):
+        q, k, v = module.heads(args[0])
+        key = f"L{q.shape[2]}"
+        errs[key] = max(errs.get(key, 0.0), k2_error(q, k, v, args[1])[0])
+
+    hook = attention.register_forward_pre_hook(hold)
+    try:
+        encode()
+    finally:
+        hook.remove()
+    print(f"[15 K2] {label}: layer 0 max |kernel - plain| {errs} (tolerance {K2_TOL[torch.float32]})")
+
+
+def hits_of(scores, ords, docids, n):
+    s, o = scores.float().cpu().numpy(), ords.cpu().numpy()
+    return [[(docids[int(j)], float(v)) for v, j in zip(s[i], o[i]) if int(j) < n and np.isfinite(v)]
+            for i in range(len(s))]
+
+
+def phase_dense_serving(workdir, corpus_dir, topics, peaks, ckpt_dir):
+    """15a: DenseRetrievalService at BERT-base width over phase 4's corpus,
+    every engine from one embedding cache; K2 and X1 held against plain on
+    served inputs; each engine card vs CPU over the card's own matrix."""
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
+    from capreolus_tpu_torch.serving import DenseRetrievalService
+
+    queries = list(topics[:DENSE_QUERIES])
+    batch_queries = [topics[i % len(topics)] for i in range(DENSE_BATCH)]
+    out, services, k2_errs = {"engines": {}}, {}, {}
+    q_cpu, exact_hits = None, None
+    for label, opts in DENSE_ENGINES.items():
+        opts = dict(opts)
+        if opts.get("hbmbudget") == "chunks":
+            opts["hbmbudget"] = stream_budget_mb(SERVING_DOCS, 768, "none")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if "dense" not in services:
+            svc = DenseRetrievalService.from_config(collection="dummy", collection_path=corpus_dir, max_k=DENSE_HITS,
+                                                    device="cuda", pretrained=ckpt_dir, **opts)
+        else:  # the next engines over the first one's encoder
+            first = services["dense"].searcher
+            svc = DenseRetrievalService(dense_searcher(dict(first.config, **opts), "cuda", encoder_of=first),
+                                        max_k=DENSE_HITS, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        searcher = svc.searcher
+        reset_launch_counts()
+        single_ms, spread = timed_requests(svc, queries)
+        t0 = time.perf_counter()
+        batch_hits = svc.search(batch_queries, k=DENSE_HITS)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        launched = launch_counts()
+        batches = 1 + len(queries) + 1  # warm-up, singles, the batch
+        check(launched["flash_attention"] == 12 * batches,
+              f"15a {label}: K2 launched {launched['flash_attention']} times, not 12 per query batch ({batches})")
+        quantized = "quantize" in opts
+        check((launched["int8_matmul"] >= batches) if quantized else launched["int8_matmul"] == 0,
+              f"15a {label}: X1 launched {launched['int8_matmul']} times over {batches} query batches")
+        probed_all = opts.get("nprobe", 0) == opts.get("clusters", 0)  # IVF with fewer cells holds fewer docs
+        check(not probed_all or all(len(h) == DENSE_HITS for h in batch_hits),
+              f"15a {label}: a batch request returned fewer hits than {DENSE_HITS}")
+        profiled = profile_call(lambda: svc.search(queries[:1], k=10), f"[15a dense {label}]")
+        entry = {"setup_s": setup_s, "setup_parts_s": dict(searcher.setup_seconds), "single_ms": single_ms,
+                 "single_spread_ms": spread, "batch128_ms": batch_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "busy_share": profiled["busy_ms"] / profiled["wall_ms"], "top_ops": profiled["top_ops"],
+                 "launches": launched}
+        if label == "bf16":  # K2 on a served layer-0 doc batch (L 256) and query batch (L 32)
+            encoder = searcher._encoder()
+            index = searcher.index
+            doc_texts = [index.get_doc(d) for d in index.data.docid_strings[:DENSE_BATCH]]
+            hold_k2_layer0(encoder, lambda: searcher.encode(*searcher._tokenize(doc_texts, 256)), "doc batch", k2_errs)
+            hold_k2_layer0(encoder, lambda: searcher.embed_queries(batch_queries), "query batch", k2_errs)
+            # card vs CPU embeddings of query 0 and 8 docs, from one checkpoint
+            cpu = dense_searcher({"pretrained": ckpt_dir}, "cpu", index)
+            for what, texts, maxlen in (("query 0", queries[:1], 32), ("8 docs", doc_texts[:8], 256)):
+                inp, mask = searcher._tokenize(texts, maxlen)
+                err = float((searcher.encode(inp, mask).cpu() - cpu.encode(inp, mask)).abs().max())
+                check(err <= BERT_CPU_TOL, f"15a embeddings of {what}: card vs CPU {err:.3g} > {BERT_CPU_TOL}")
+                entry[f"embedding_err_{what.replace(' ', '_')}"] = err
+        if label == "int8":  # X1 against plain on the served product: the batch's codes x the corpus codes
+            codes = quantize_rows_torch(searcher.embed_queries(batch_queries))[0]
+            corpus = svc._corpus[0]["emb"]
+            entry["x1_equal_plain"] = bool(torch.equal(int8_matmul(codes, corpus), int8_matmul_plain(codes, corpus)))
+            check(entry["x1_equal_plain"], "15a int8: X1 differs from its plain version on the served product")
+        # the engine card vs CPU, over the card's own embedding matrix (the CPU searcher reads the card's cache,
+        # and IVF its layout), for the card's query embeddings
+        q = searcher.embed_queries(queries)
+        if q_cpu is None:
+            q_cpu = q.cpu()
+        cpu = dense_searcher(dict(searcher.config), "cpu", encoder_of=searcher)
+        ctopk, cdocs, n = cpu.build_topk(DENSE_HITS)
+        docids = searcher.index.data.docid_strings
+        if "prf" in opts:
+            card = hits_of(*svc._topk(searcher._prf_expand(q, svc._topk, *svc._corpus), *svc._corpus), docids, n)
+            on_cpu = hits_of(*ctopk(cpu._prf_expand(q_cpu, ctopk, cdocs), cdocs), docids, n)
+        else:
+            card = hits_of(*svc._topk(q, *svc._corpus), docids, n)
+            on_cpu = hits_of(*ctopk(q_cpu, cdocs), docids, n)
+        faults = [f for a, b in zip(card, on_cpu) for f in ranking_faults(a, b, DENSE_SCORE_TOL)]
+        check(not faults and all(len(a) == len(b) for a, b in zip(card, on_cpu)),
+              f"15a {label}: card vs CPU top {DENSE_HITS} differ beyond near-ties: {faults[:3]}")
+        entry["card_vs_cpu_max_err"] = max(abs(s - dict(b)[d]) for a, b in zip(card, on_cpu) for d, s in a
+                                           if d in dict(b))
+        if label == "bf16":
+            exact_hits, exact_raw = card, svc._topk(q, *svc._corpus)
+        elif label == "streamed":
+            got = svc._topk(q, *svc._corpus)
+            entry["equal_resident_bits"] = bool(torch.equal(got[0], exact_raw[0]) and torch.equal(got[1], exact_raw[1]))
+            entry["chunks"] = searcher.stream_chunks
+            check(entry["equal_resident_bits"] and searcher.stream_chunks >= DENSE_STREAM_CHUNKS,
+                  f"15a streamed: not bit-identical to the resident engine ({searcher.stream_chunks} chunks)")
+        elif label.startswith("ivf"):
+            recall = {}
+            for depth in (10, DENSE_HITS):
+                recall[f"recall@{depth}"] = float(np.mean([len({d for d, _ in a[:depth]} & {d for d, _ in e[:depth]})
+                                                           / depth for a, e in zip(card, exact_hits)]))
+            entry.update(recall)
+            if opts["nprobe"] == opts["clusters"]:
+                faults = [f for a, e in zip(card, exact_hits) for f in ranking_faults(a, e, DENSE_SCORE_TOL)]
+                check(not faults, f"15a IVF nprobe = clusters differs from exact: {faults[:3]}")
+        out["engines"][label] = entry
+        print(f"[15a dense {label}] {smi_line()}: set-up {setup_s:.2f} s {json.dumps(entry['setup_parts_s'])}; "
+              f"one query {single_ms:.2f} ms (spread {spread[0]:.2f}-{spread[1]:.2f}), 128 queries {batch_ms:.2f} ms, "
+              f"peak {entry['peak_gb']:.2f} GB, busy {100 * entry['busy_share']:.1f}%; launches "
+              f"{ {k: v for k, v in launched.items() if v} }; card vs CPU max err {entry['card_vs_cpu_max_err']:.3g}"
+              + "".join(f"; {k} {entry[k]}" for k in ("recall@10", "recall@1000", "chunks") if k in entry))
+        if label == "bf16":
+            services["dense"] = svc
+    out["k2_max_abs_err"] = k2_errs
+    return out, services
+
+
+def phase_dense_scale(workdir, peaks):
+    """15b: the dense engines over a seeded clustered 1M x 768 matrix written
+    straight into the searcher's cache file (no encoding): per engine the
+    128-query batch at k 1000, the product and the selection apart, peak
+    memory and busy share; X1 and the bf16 product at the served shape."""
+    import torch.nn.functional as F
+
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
+    from capreolus_tpu_torch.searcher.dense import _dense_scores, score_block
+    from capreolus_tpu_torch.searcher.ivf import bf16_sims
+    from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
+
+    n, dim = SCALE["docs"], SCALE["dim"]
+    t0 = time.perf_counter()
+    index = SyntheticDenseIndex(n, os.path.join(workdir, "dense_scale"))
+    first = dense_searcher({"pretrained": "tiny"}, "cuda", index)
+    cache_fn = first._doc_cache_file()
+    cache_fn.parent.mkdir(parents=True, exist_ok=True)
+    g = torch.Generator(device="cuda").manual_seed(SCALE["seed"])
+    centres = F.normalize(torch.randn((SCALE["centres"], dim), generator=g, device="cuda"), dim=1)
+
+    def around(count):
+        picks = torch.randint(0, SCALE["centres"], (count,), generator=g, device="cuda")
+        noise = torch.randn((count, dim), generator=g, device="cuda") * (SCALE["noise"] / dim ** 0.5)
+        return F.normalize(centres[picks] + noise, dim=1)
+
+    emb = np.lib.format.open_memmap(cache_fn, mode="w+", dtype=np.float32, shape=(n, dim))
+    for s0 in range(0, n, 131072):
+        emb[s0:s0 + 131072] = around(min(131072, n - s0)).cpu().numpy()
+    emb.flush()
+    del emb
+    q = around(SCALE["queries"])
+    out = {"write_s": time.perf_counter() - t0, "engines": {}}
+    print(f"[15b dense] {n} x {dim} around {SCALE['centres']} centres written to the searcher's cache in "
+          f"{out['write_s']:.1f} s")
+    exact = None
+    for label, opts in SCALE_ENGINES.items():
+        opts = dict(opts)
+        if opts.get("hbmbudget") == "chunks":
+            opts["hbmbudget"] = stream_budget_mb(n, dim, "none")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        searcher = dense_searcher({"pretrained": "tiny", **opts}, "cuda", index)
+        t0 = time.perf_counter()
+        topk, docs, _ = searcher.build_topk(SCALE["hits"])
+        torch.cuda.synchronize()
+        entry = {"setup_s": time.perf_counter() - t0, "setup_parts_s": dict(searcher.setup_seconds)}
+        reset_launch_counts()
+        topk(q, docs)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(1 if label in ("int4", "streamed") else 3):  # the host-bound engines once
+            t0 = time.perf_counter()
+            scores, ords = topk(q, docs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        entry["batch128_ms"] = float(np.median(walls))
+        entry["x1_launches"] = launch_counts()["int8_matmul"]
+        check((entry["x1_launches"] > 0) == ("quantize" in opts), f"15b {label}: X1 launched {entry['x1_launches']}")
+        if isinstance(docs, torch.Tensor) or (isinstance(docs, dict) and "starts" not in docs):
+            block = score_block(n)
+            entry["product_ms"] = cuda_ms(lambda: _dense_scores(q, docs, block), rounds=3, calls=2)
+            full = _dense_scores(q, docs, block)[:, :n]
+            entry["selection_ms"] = cuda_ms(lambda: topk_lower_ordinal_first(full, SCALE["hits"]), rounds=3, calls=2)
+            del full
+        profiled = profile_call(lambda: topk(q, docs), f"[15b dense {label}]", what="128-query batch")
+        entry.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, busy_share=profiled["busy_ms"] / profiled["wall_ms"],
+                     top_ops=profiled["top_ops"])
+        if label == "bf16":
+            exact = [set(r) for r in ords[:, :10].cpu().numpy().tolist()]
+            qb = q.to(torch.bfloat16)
+            entry["bf16_product_ms"] = cuda_ms(lambda: bf16_sims(qb, docs[:n]), rounds=3, calls=2)
+            nbytes = 2.0 * (q.numel() + n * dim) + 4.0 * q.shape[0] * n
+            entry["bf16_product_bound_ms"] = max(nbytes / peaks["bw"], 2.0 * q.shape[0] * n * dim
+                                                 / peaks[torch.bfloat16]) * 1e3
+        else:
+            entry["recall@10_vs_bf16"] = float(np.mean([len(set(r) & e) / 10 for r, e in
+                                                        zip(ords[:, :10].cpu().numpy().tolist(), exact)]))
+        if label == "int8":  # X1 at the served shape: [128 x 768] x [1M x 768]^T
+            codes, corpus = quantize_rows_torch(q)[0], docs["emb"]
+            want = int8_matmul_plain(codes, corpus)
+            check(torch.equal(int8_matmul(codes, corpus), want), "15b: X1 differs from its plain version at 1M docs")
+            del want
+            bound, by = x1_bound_ms(codes.shape[0], dim, n, peaks)
+            out["x1"] = {"shape": f"M={codes.shape[0]} K={dim} N={n}", "max_abs_err": 0,
+                         "ms": cuda_ms(lambda: int8_matmul(codes, corpus), rounds=5, calls=4),
+                         "library_ms": cuda_ms(lambda: torch._int_mm(codes, corpus.T), rounds=5, calls=4),
+                         "plain_ms": cuda_ms(lambda: int8_matmul_plain(codes, corpus), rounds=2, calls=1),
+                         "bound_ms": bound, "bound_by": by}
+            print(f"[15b X1] {out['x1']['shape']}: {out['x1']['ms']:.3f} ms (torch._int_mm {out['x1']['library_ms']:.3f}, "
+                  f"plain {out['x1']['plain_ms']:.3f}, bound {bound:.3f} by {by}); equal to plain")
+        out["engines"][label] = entry
+        print(f"[15b dense {label}] {smi_line()}: 1M x 768, 128 queries at k {SCALE['hits']}: {entry['batch128_ms']:.2f} ms"
+              + (f" (product {entry['product_ms']:.2f}, selection {entry['selection_ms']:.2f})" if "product_ms" in entry
+                 else "") + f", set-up {entry['setup_s']:.1f} s, peak {entry['peak_gb']:.2f} GB, busy "
+              f"{100 * entry['busy_share']:.1f}%" + (f", recall@10 vs bf16 {entry['recall@10_vs_bf16']:.3f}"
+                                                     if "recall@10_vs_bf16" in entry else ""))
+        del searcher, topk, docs, scores, ords
+    torch.cuda.empty_cache()
+    return out
+
+
+def impact_checkpoints(workdir, ckpt_dir):
+    """The 15c searchers' checkpoints (``params/...`` npz): uniCOIL's seeded
+    BERT-base encoder and ``tokweight`` head; SPLADE's encoder and MLM head
+    read from the phase's checkpoint directory."""
+    from capreolus_tpu_torch.convert import flax_flat_params, save_params
+    from capreolus_tpu_torch.reranker.bert import load_pretrained_encoder
+    from capreolus_tpu_torch.reranker.splade import SpladeModel, load_pretrained_mlm_head
+    from capreolus_tpu_torch.reranker.unicoil import UniCoilModel
+
+    cfg, state = load_pretrained_encoder(ckpt_dir)
+    unicoil = UniCoilModel(cfg)
+    unicoil.bert.load_state_dict(state)
+    with torch.no_grad():
+        unicoil.tokweight.weight.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(16))
+        unicoil.tokweight.bias.zero_()
+    splade = SpladeModel(cfg, vocab_size=cfg.vocab_size)
+    splade.bert.load_state_dict(state)
+    splade.mlm.load_state_dict(load_pretrained_mlm_head(ckpt_dir, cfg))
+    return {name: str(save_params(flax_flat_params(model), os.path.join(workdir, f"{name}_15.npz")))
+            for name, model in (("unicoil", unicoil), ("splade", splade))}
+
+
+def term_weight_err(card, cpu, cut):
+    """(largest error against the largest CPU weight, terms kept on one device
+    only) of per-text (term ids, weights) lists. A term kept on one device
+    only counts at its distance from the edge it straddles: ReLU's 0, or with
+    ``cut`` (SPLADE's ``topterms``) the other device's smallest kept weight."""
+    top = max(float(w.max()) for _, w in cpu if len(w))
+    err, edge_terms = 0.0, 0
+    for (ct, cw), (pt, pw) in zip(card, cpu):
+        a, b = dict(zip(ct.tolist(), cw.tolist())), dict(zip(pt.tolist(), pw.tolist()))
+        for t in a.keys() & b.keys():
+            err = max(err, abs(a[t] - b[t]) / top)
+        for t in a.keys() ^ b.keys():
+            mine, other = (a, b) if t in a else (b, a)
+            edge = min(other.values()) if cut and other else 0.0
+            err, edge_terms = max(err, abs(mine[t] - edge) / top), edge_terms + 1
+    return err, edge_terms
+
+
+def phase_impact_serving(workdir, corpus_dir, topics, ckpt_dir):
+    """15c: ImpactRetrievalService over phase 4's corpus (uniCOIL) and its
+    first SPLADE_DOCS docs (SPLADE); raw impacts and rankings card vs CPU."""
+    from capreolus_tpu_torch.searcher import Searcher
+    from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
+    from capreolus_tpu_torch.serving import ImpactRetrievalService
+
+    ckpts = impact_checkpoints(workdir, ckpt_dir)
+    queries = list(topics[:IMPACT_QUERIES])
+    batch_queries = [topics[i % len(topics)] for i in range(DENSE_BATCH)]
+    out = {}
+    for encoder in ("unicoil", "splade"):
+        coll_path = corpus_dir
+        if encoder == "splade":
+            from capreolus_tpu_torch.index import Index
+
+            index = Index.create("tpu", {"collection": {"name": "dummy", "path": corpus_dir}})
+            index.create_index()
+            docs = [(d, index.get_doc(d)) for d in index.data.docid_strings[:SPLADE_DOCS]]
+            coll_path = os.path.join(workdir, "corpus_splade")
+            write_trec(docs, coll_path)
+        config = {"encoder": encoder, "pretrained": ckpt_dir, "checkpointfile": ckpts[encoder]}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svc = ImpactRetrievalService.from_config(collection="dummy", collection_path=coll_path, device="cuda", **config)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        engine, docids, scale = svc._snapshot
+        reset_launch_counts()
+        single_ms, spread = timed_requests(svc, queries)
+        t0 = time.perf_counter()
+        batch_hits = svc.search(batch_queries, k=DENSE_HITS)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        launched = launch_counts()
+        batches = 2 + len(queries)
+        check(launched["flash_attention"] == 12 * batches,
+              f"15c {encoder}: K2 launched {launched['flash_attention']} times, not 12 per query batch ({batches})")
+        check(any(batch_hits), f"15c {encoder}: the batch request found nothing")
+        profiled = profile_call(lambda: svc.search(queries[:1], k=10), f"[15c impact {encoder}]")
+        entry = {"docs": len(docids), "postings": int(len(engine.dindex.host.doc_ids)), "setup_s": setup_s,
+                 "setup_parts_s": dict(svc.searcher.setup_seconds), "single_ms": single_ms, "single_spread_ms": spread,
+                 "batch128_ms": batch_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "busy_share": profiled["busy_ms"] / profiled["wall_ms"], "top_ops": profiled["top_ops"],
+                 "launches": launched}
+        # raw impacts of 8 docs and query weights, card vs CPU, from one checkpoint
+        cpu = Searcher.create("impact", dict(svc.searcher.config))
+        cpu.device = "cpu"
+        texts = [svc.searcher.index.get_doc(d) for d in docids[:8]]
+        err, edge_terms = term_weight_err(svc.searcher._doc_term_weights(texts), cpu._doc_term_weights(texts),
+                                          cut=encoder == "splade")
+        check(err <= IMPACT_RAW_TOL, f"15c {encoder}: raw impacts card vs CPU {err:.3g} > {IMPACT_RAW_TOL}")
+        entry.update(raw_impact_err=err, terms_at_an_edge=edge_terms)
+        # rankings from the card's CSR on both devices, for the card's query weights
+        cpu_engine = ScoringEngine(DeviceIndex(engine.dindex.host, device="cpu"))
+        terms = svc.searcher.term_lists(engine, scale, svc.searcher.query_weights_batch(queries))
+        card_s, card_o = engine.search(terms, model="impact", params={}, topk=DENSE_HITS)
+        cpu_s, cpu_o = cpu_engine.search(terms, model="impact", params={}, topk=DENSE_HITS)
+        rel = 0.0
+        for i in range(len(queries)):
+            keep = cpu_s[i] > 0
+            check(np.array_equal(card_o[i][keep], cpu_o[i][keep]), f"15c {encoder}: query {i}'s ranking differs on the CPU")
+            rel = max(rel, float(np.max(np.abs(card_s[i][keep] - cpu_s[i][keep]) / np.maximum(cpu_s[i][keep], 1e-30)))
+                      if keep.any() else 0.0)
+        check(rel <= IMPACT_SCORE_RTOL, f"15c {encoder}: scores card vs CPU {rel:.3g} > {IMPACT_SCORE_RTOL} relative")
+        entry["score_rel_err"] = rel
+        out[encoder] = entry
+        print(f"[15c impact {encoder}] {smi_line()}: {entry['docs']} docs, {entry['postings']} postings; set-up "
+              f"{setup_s:.2f} s {json.dumps(entry['setup_parts_s'])}; one query {single_ms:.2f} ms (spread "
+              f"{spread[0]:.2f}-{spread[1]:.2f}), 128 queries {batch_ms:.2f} ms; peak {entry['peak_gb']:.2f} GB, busy "
+              f"{100 * entry['busy_share']:.1f}%; K2 launches {launched['flash_attention']}; raw impacts card vs CPU "
+              f"{err:.3g} ({edge_terms} terms at ReLU's or topterms' edge), rankings equal, scores {rel:.3g} relative")
+    return out
+
+
+def phase_hybrid(corpus_dir, topics, dense_svc):
+    """15d: HybridRetrievalService over BM25 and 15a's bf16 dense service."""
+    from capreolus_tpu_torch.searcher.fusion import interp_fuse, rrf_fuse
+    from capreolus_tpu_torch.serving import HybridRetrievalService, RetrievalService
+
+    bm25 = RetrievalService.from_config(collection="dummy", collection_path=corpus_dir, device="cuda")
+    queries = list(topics[:DENSE_QUERIES])
+    out = {}
+    for method in ("rrf", "interp"):
+        hybrid = HybridRetrievalService(bm25, dense_svc, method=method, depth=HYBRID_DEPTH)
+        single_ms, spread = timed_requests(hybrid, queries)
+        fused = hybrid.search(queries, k=10)
+        legs = [{str(i): dict(h) for i, h in enumerate(svc.search(queries, k=HYBRID_DEPTH))} for svc in (bm25, dense_svc)]
+        want = rrf_fuse(legs, k=60, hits=10) if method == "rrf" else interp_fuse(legs[0], legs[1], alpha=0.5, hits=10)
+        same = all(fused[i] == sorted(want[str(i)].items(), key=lambda kv: (-kv[1], kv[0])) for i in range(len(queries)))
+        check(same, f"15d {method}: the fused lists differ from fusion.py's math over the legs' lists")
+        out[method] = {"single_ms": single_ms, "single_spread_ms": spread}
+        print(f"[15d hybrid {method}] {smi_line()}: depth {HYBRID_DEPTH}, one query {single_ms:.2f} ms (spread "
+              f"{spread[0]:.2f}-{spread[1]:.2f}); fused lists = fusion.py's math over the two legs")
+    return out
+
+
+def splade_tied_rows(rr, batch):
+    """{"mlm.decoder.weight": [vocab rows]} of the terms whose max over
+    positions is a near-tie (two valid positions' weights within
+    SPLADE_TIE_RTOL of the largest) in any text of ``batch`` ([1, B, ...]),
+    from the step's init on the CPU: the card and the CPU may route such a
+    term's gradient through different positions, a step of the max, not an
+    error of the arithmetic, so step 1's check leaves those rows out."""
+    from capreolus_tpu_torch.reranker.biencoder import encoder_inputs
+
+    model = rr.init_params(rr.trainer.config["seed"]).to("cpu")
+    rows = set()
+    with torch.no_grad():
+        for key in ("query", "posdoc", "negdoc"):
+            toks, mask = encoder_inputs(torch.from_numpy(np.asarray(batch[key][0])), model.config.max_position)
+            hidden, _ = model.bert(toks, mask, torch.zeros_like(toks))
+            w = torch.log1p(torch.relu(model.mlm(hidden.float())))
+            valid = (toks != 0) & (toks != model.cls_id) & (toks != model.sep_id)
+            top2 = torch.where(valid[..., None], w, 0.0).topk(2, dim=1).values  # [B, 2, V]
+            tied = (top2[:, 0] > 0) & (top2[:, 0] - top2[:, 1] <= SPLADE_TIE_RTOL * float(w.max()))
+            rows.update(torch.nonzero(tied.any(dim=0)).reshape(-1).tolist())
+    print(f"[15e parity] splade: {len(rows)} of {model.vocab_size} vocabulary rows take their max at a near-tie "
+          f"(within {SPLADE_TIE_RTOL} of the largest weight); mlm.decoder.weight's check leaves them out")
+    return {"mlm.decoder.weight": sorted(rows)}
+
+
+def phase_dense_training(workdir, corpus_dir, topics, ckpt_dir):
+    """15e: biencoder (infonce), uniCOIL and SPLADE (with its regularizer) at
+    BERT-base width: step 1 card vs CPU from one init (dropout off), 8 timed
+    steps, no K2 in a step; then the tiny train-then-serve loops."""
+    from types import SimpleNamespace
+
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.reranker import Reranker
+    from capreolus_tpu_torch.serving import RetrievalService
+    from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
+
+    coll = {"name": "dummy", "path": corpus_dir}
+    b = TRAIN15["batch"]
+    docids = [d for d, _ in RetrievalService.from_config(collection="dummy", collection_path=corpus_dir,
+                                                         device="cuda").search(topics[:1], k=2 * b)[0]]
+    out = {}
+    for name, extra in TRAIN15_MODELS.items():
+        # dropout 0: a training forward (attention_plain, never K2) whose masks draw nothing, so that the
+        # card's and the CPU's steps agree
+        cfg = json.loads(json.dumps({"pretrained": ckpt_dir, "hidden_dropout_prob": 0.0, **extra}))
+        cfg["extractor"] = {"maxqlen": TRAIN15["maxqlen"], "maxdoclen": TRAIN15["maxdoclen"], "index": {"collection": coll}}
+        cfg.setdefault("trainer", {})["batch"] = b
+        rr = Reranker.create(name, cfg)
+        rr.extractor.preprocess(["q15"], docids, {"q15": topics[0]})
+        samples = [rr.extractor.id2vec("q15", docids[i], docids[b + i], label=[1, 0]) for i in range(b)]
+        batch = {k: v[None] for k, v in collate(samples, ARRAY_KEYS).items()}
+        few = {k: v[:, :TRAIN15["parity_samples"]] for k, v in batch.items()}
+        exclude = splade_tied_rows(rr, few) if name == "splade" else None
+        parity = step_parity(SimpleNamespace(reranker=rr), few, name, prefix="[15e parity]", exclude=exclude)
+        check(parity["launches"]["flash_attention"] == 0, f"15e {name}: K2 launched in a training step")
+        trainer = rr.trainer
+        trainer.device = "cuda"
+        torch.cuda.reset_peak_memory_stats()
+        rr.build_train_model().to("cpu")  # step_parity left it on the card; flax's draws come from a CPU generator
+        model = rr.init_params(trainer.config["seed"]).to("cuda")
+        optimizer = trainer.make_optimizer(rr, model)
+        reset_launch_counts()
+        times = []
+        for i in range(TRAIN15["steps"]):
+            t0 = time.perf_counter()
+            loss = float(trainer.train_step(rr, model, optimizer, batch, i, trainer.step_seed(0, i)))
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(loss), f"15e {name}: step {i} loss {loss}")
+        check(launch_counts()["flash_attention"] == 0, f"15e {name}: K2 launched in a timed step")
+        out[name] = {"parity": parity, "step_ms": float(np.median(times[1:])), "first_step_ms": times[0],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"[15e train {name}] {smi_line()}: BERT-base, batch {b} (q {TRAIN15['maxqlen']}, d {TRAIN15['maxdoclen']}), "
+              f"{out[name]['step_ms']:.1f} ms a step (median of {TRAIN15['steps'] - 1} after the first, "
+              f"{times[0]:.1f}), peak {out[name]['peak_gb']:.2f} GB, no K2 in a step")
+        del model, optimizer
+    torch.cuda.empty_cache()
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_rerank_golden")  # phase 9a's golden and caches
+    golden_topics, golden_qrels = rerank_golden_corpus()[1:]
+    test_q = sorted(golden_topics)[sum(RERANK_GOLDEN["split"][:2]):]
+    for name, (rr_cfg, searcher_cfg) in GOLDEN15.items():
+        t0 = time.perf_counter()
+        constants["RESULTS_BASE_PATH"] = os.path.join(workdir, f"results_golden15_{name}")
+        reset_launch_counts()
+        task = rerank_task(rr_cfg, "cuda")
+        first_stage = task._best_search_run()
+        preds = task.rerank_run(first_stage, task.get_results_path())
+        rerank_map = golden_map(preds["test"], golden_qrels, test_q)
+        ckpt = task.get_results_path() / "dev.best.params"
+        check(ckpt.exists(), f"15e {name}: no dev.best.params")
+        _, secs, scores, runs = rank_search(dict(searcher_cfg, checkpointfile=str(ckpt),
+                                                 index={"collection": {"name": "rerank_golden"}}),
+                                            "cuda", os.path.join(workdir, f"results_golden15_{name}_rank"),
+                                            benchmark={"name": "rerank_golden"})
+        run = next(iter(runs.values()))
+        search_map = golden_map({q: run.get(q, {}) for q in test_q}, golden_qrels, test_q)
+        hits = sum(len(r) for r in run.values())
+        check(hits > 0 and np.isfinite(search_map) and all(np.isfinite(s) for r in run.values() for s in r.values()),
+              f"15e {name}: the served search returned {hits} hits, or scores that are not finite")
+        launched = launch_counts()
+        out[f"golden_{name}"] = {"rerank_test_map": rerank_map, "first_stage_map": golden_map(first_stage, golden_qrels, test_q),
+                                 "searcher_test_map": search_map, "served_hits": hits,
+                                 "search_s": secs, "launches": launched, "seconds": time.perf_counter() - t0}
+        print(f"[15e golden {name}] rerank.traineval test MAP {rerank_map:.4f} (first stage "
+              f"{out[f'golden_{name}']['first_stage_map']:.4f}); its dev.best as {searcher_cfg['name']}'s checkpointfile in "
+              f"rank.searcheval: test MAP {search_map:.4f}, {out[f'golden_{name}']['served_hits']} hits over "
+              f"{len(golden_topics)} topics (no pin: the JAX package has none); K2 launches "
+              f"{launched['flash_attention']}; {out[f'golden_{name}']['seconds']:.1f} s")
+    return out
+
+
+def phase_dense_retrieval(workdir, corpus_dir, topics, peaks):
+    """Phase 15: dense and learned-sparse retrieval on the card (15a-15e).
+    Returns the summary, with K2's and X1's launches and errors."""
+    import capreolus_tpu_torch
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+
+    capreolus_tpu_torch.load_all_modules()
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")  # phase 4's index
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "phase 15: TF32 is on for matmuls")
+    t0 = time.perf_counter()
+    ckpt_dir = os.path.join(workdir, "bert_mlm_15")
+    write_birch_checkpoint(ckpt_dir, get_bert_config("bert-base-uncased"), seed=15, head="mlm")
+    seconds = {}
+
+    def timed15(label, fn, *args):
+        t1 = time.perf_counter()
+        result = fn(*args)
+        seconds[label] = round(time.perf_counter() - t1, 1)
+        print(f"[{label} done] {seconds[label]} s")
+        return result
+
+    dense, services = timed15("15a", phase_dense_serving, workdir, corpus_dir, topics, peaks, ckpt_dir)
+    hybrid = timed15("15d", phase_hybrid, corpus_dir, topics, services["dense"])
+    del services
+    torch.cuda.empty_cache()
+    scale = timed15("15b", phase_dense_scale, workdir, peaks)
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")
+    impact = timed15("15c", phase_impact_serving, workdir, corpus_dir, topics, ckpt_dir)
+    training = timed15("15e", phase_dense_training, workdir, corpus_dir, topics, ckpt_dir)
+    summary = {"dense": dense, "scale": scale, "impact": impact, "hybrid": hybrid, "training": training,
+               "seconds": time.perf_counter() - t0, "seconds_by_part": seconds}
+    print(f"[15 dense and sparse] {smi_line()}: every sub-phase passed in {summary['seconds']:.1f} s "
+          f"({json.dumps(seconds)}); summary " + json.dumps(summary, default=str))
+    return summary
+
+
+def add_phase15_launches(kernels, p15):
+    """Phase 15's K2 and X1 launches and errors into the ``kernels`` line
+    (served requests of 15a and 15c; 15e's training steps launch neither)."""
+    served = {f"dense_{k}": v["launches"] for k, v in p15["dense"]["engines"].items()}
+    served.update({f"impact_{k}": v["launches"] for k, v in p15["impact"].items()})
+    for entry in kernels:
+        name = entry["name"]
+        if name not in ("flash_attention", "int8_matmul"):
+            continue
+        total = sum(launches[name] for launches in served.values())
+        entry["launches"] += total
+        entry["launches_phase15"] = {"served": total, "served_by_path": {k: v[name] for k, v in served.items()},
+                                     "training_steps": sum(t["parity"]["launches"][name]
+                                                           for k, t in p15["training"].items() if "parity" in t)}
+    kernels[1]["max_abs_err_phase15"] = p15["dense"]["k2_max_abs_err"]
+    kernels[3]["max_abs_err_phase15"] = 0  # int32 products, equal to the plain version on the served and 1M shapes
+    kernels[3]["served_shapes"]["dense_1m"] = p15["scale"]["x1"]
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -4649,6 +5410,7 @@ def main():
     os.environ["CAPREOLUS_RESULTS"] = os.path.join(workdir, "results")
     os.environ["CAPREOLUS_OFFLINE"] = "1"  # every file a module reads is local: a download must fail, not be tried
     seconds = {}
+    robust04_host = None
 
     def timed(phase, *args, **kwargs):
         t0 = time.perf_counter()
@@ -4666,6 +5428,7 @@ def main():
         q1 = timed(phase_q1_check, peaks)
         q1["scales_differing_from_cpu"] = timed(phase_scales_check)
         k1_launches, corpus_dir, topics, qrels = timed(phase_serving, workdir, SERVING_DOCS, ckpt_seed=3)
+        robust04_host = start_robust04_host_side(workdir)  # phase 11's card-free work, beside phases 5-10
         k2_launches, k2_served, f32 = timed(phase_bert_serving, workdir, corpus_dir, topics, peaks)
         bert_int8_launches, bert_int8 = timed(phase_bert_int8_serving, workdir, corpus_dir, topics, f32)
         colbert_launches, k3_served, none = timed(phase_colbert_serving, workdir, corpus_dir, topics, peaks)
@@ -4676,12 +5439,16 @@ def main():
         training = timed(phase_training, workdir, corpus_dir, topics, qrels, training_launches, training_held)
         print("[9 training] summary " + json.dumps({"golden": golden, "full_width": training}, default=str))
         timed(phase_sparse_engine, workdir)
-        timed(phase_robust04, workdir)
+        timed(phase_robust04, workdir, robust04_host)
         other_launches = {}
         other = timed(phase_other_rerankers, workdir, corpus_dir, topics, other_launches)
         p13 = timed(phase_trainer_options, workdir, corpus_dir, topics, qrels, peaks)
         p14 = timed(phase_zoo, workdir, corpus_dir, topics)
+        p15 = timed(phase_dense_retrieval, workdir, corpus_dir, topics, peaks)
     finally:
+        if robust04_host is not None and robust04_host[0].is_alive():
+            robust04_host[0].terminate()
+            robust04_host[0].join()
         shutil.rmtree(workdir, ignore_errors=True)
 
     serving = k1["serving"]
@@ -4816,6 +5583,7 @@ def main():
     }]
     add_phase13_launches(kernels, p13, k3_fields)
     add_phase14_launches(kernels, p14)
+    add_phase15_launches(kernels, p15)
     for entry in kernels:  # phase 9: launches inside training steps, and inside the trainer's predictions
         entry["launches_training"] = training_launches["train"].get(entry["name"], 0)
         entry["launches_training_predict"] = training_launches["predict"].get(entry["name"], 0)

@@ -1263,3 +1263,92 @@ def test_zoo_training_step_on_the_card_matches_cpu_with_tf32_left_on(card, case)
     assert all(np.isfinite(float(g.abs().max())) for g in grads["card"].values())
     worst = max(errs, key=errs.get)
     assert errs[worst] <= ZOO_STEP_RTOL, (worst, errs[worst])
+
+
+# ---------------------------------------------------------------- dense and learned-sparse retrieval (slice 15)
+def _duplicate_corpus(n=3000, dim=768, seed=15):
+    """Unit rows around a few centres, every tenth row a copy of the row
+    before it (exact score ties), and queries near the rows."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    centres = rng.standard_normal((32, dim)).astype(np.float32)
+    docs = centres[rng.integers(0, 32, n)] + 0.5 * rng.standard_normal((n, dim)).astype(np.float32)
+    docs[10::10] = docs[9:-1:10]
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    queries = docs[rng.integers(0, n, 16)] + 0.1 * rng.standard_normal((16, dim)).astype(np.float32)
+    return docs, queries / np.linalg.norm(queries, axis=1, keepdims=True)
+
+
+@pytest.mark.cuda
+def test_x1_at_the_dense_shape_matches_plain(card):
+    """X1's int32 epilogue at the dense searcher's product, [128 x 768] x
+    [N x 768]^T with N in the hundreds of thousands, equals the plain version."""
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    a = torch.randint(-127, 128, (128, 768), generator=g, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (300_001, 768), generator=g, device="cuda", dtype=torch.int8)
+    assert torch.equal(int8_matmul(a, w), int8_matmul_plain(a, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", ["none", "int8", "int4"])
+def test_dense_scores_and_ties_on_the_card_match_cpu(card, quantize):
+    """The dense engine's scores and top 1000 on the card against the CPU over
+    a corpus with duplicate rows: int8 / int4 scores equal bit for bit (int32
+    products, one f32 epilogue), bf16 within 1e-5; every exact tie to the
+    lower ordinal on both devices, and the same ordinals but for near-ties."""
+    from capreolus_tpu_torch.ops.quantization import quantize_rows, quantize_rows_int4
+    from capreolus_tpu_torch.searcher.dense import _dense_scores, score_block
+    from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
+
+    docs, queries = _duplicate_corpus()
+    n = len(docs)
+    results = {}
+    for device in ("cuda", "cpu"):
+        q = torch.from_numpy(queries).to(device)
+        if quantize == "none":
+            corpus = torch.from_numpy(docs).to(device).to(torch.bfloat16)
+        else:
+            codes, scale = (quantize_rows if quantize == "int8" else quantize_rows_int4)(docs)
+            key = "emb" if quantize == "int8" else "emb4"
+            corpus = {key: torch.from_numpy(codes).to(device), "scale": torch.from_numpy(scale).to(device)}
+        scores = _dense_scores(q, corpus, score_block(n))
+        results[device] = (scores.cpu(), *(x.cpu() for x in topk_lower_ordinal_first(scores, 1000)))
+    (s_card, v_card, o_card), (s_cpu, v_cpu, o_cpu) = results["cuda"], results["cpu"]
+    if quantize == "none":
+        assert float((s_card - s_cpu).abs().max()) <= 1e-5
+    else:
+        assert torch.equal(s_card, s_cpu)
+    for values, ords in ((v_card, o_card), (v_cpu, o_cpu)):
+        tied = values[:, 1:] == values[:, :-1]
+        assert bool(tied.any()) and bool((ords[:, 1:] > ords[:, :-1])[tied].all())
+    docids = [f"d{i}" for i in range(n)]
+    for i in range(len(queries)):
+        assert_same_ranking([(docids[o], s) for s, o in zip(v_card[i].tolist(), o_card[i].tolist())],
+                            [(docids[o], s) for s, o in zip(v_cpu[i].tolist(), o_cpu[i].tolist())], 1e-5, f"query {i}")
+
+
+@pytest.mark.cuda
+def test_splade_reps_on_the_card_match_cpu(card):
+    """SPLADE's [B, V] reps (its max over positions a chunk at a time) from
+    one seeded tiny model on the card and on the CPU, within 1e-4 of the
+    largest; the chunked inference max is the training path's one-shot max
+    within 1e-5 of the largest (its logits come from GEMMs of other shapes)."""
+    from capreolus_tpu_torch.convert import init_flax_
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+    from capreolus_tpu_torch.reranker.splade import SpladeModel
+
+    import dataclasses
+
+    config = dataclasses.replace(get_bert_config("tiny"), hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    model = init_flax_(SpladeModel(config, vocab_size=30522), torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(np.random.Generator(np.random.PCG64(4)).integers(1, 1000, size=(6, 40)))
+    toks[:, 0], toks[:, -1], toks[3, 20:] = 101, 102, 0
+    with torch.no_grad():
+        cpu = model.eval().rep(toks)
+        got = model.to("cuda").rep(toks.cuda()).cpu()
+    # grad enabled: the one-shot max of a training forward (a dropout seed, rates 0: attention_plain, not K2)
+    full = model.rep(toks.cuda(), dropout_seed=0).detach().cpu()
+    scale = float(cpu.abs().max())
+    assert float((got - cpu).abs().max()) <= 1e-4 * scale
+    assert float((full - got).abs().max()) <= 1e-5 * scale  # the same maximum, of logits from products of other shapes

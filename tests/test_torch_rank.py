@@ -27,6 +27,7 @@ The corpus is a 4,000-doc draw of the JAX suite's golden recipe
 import os
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -510,23 +511,35 @@ def test_second_search_writes_nothing(torch_cache, monkeypatch):
 @pytest.mark.parametrize("searcher,match", [
     ({"name": "BM25", "maxpostings": 2}, "item 5"),
     ({"name": "BM25", "shards": 2}, "item 6, 'Multi-device'"),
-    ({"name": "fusion"}, "item 6, 'Dense and learned-sparse retrieval'"),  # searcher2 defaults to dense
+    ({"name": "fusion"}, None),  # searcher2 defaults to dense
 ])
 def test_unported_options_raise(tmpdir_as_cache, torch_cache, searcher, match):
-    """``shards > 1`` and the dense fusion leg still raise, naming the ROADMAP
-    item that queues them. ``maxpostings`` (item 5) is ported: the capped
-    tiered search writes the JAX package's run file, docid for docid."""
+    """``shards > 1`` still raises, naming the ROADMAP item that queues it.
+    ``maxpostings`` (item 5) is ported: the capped tiered search writes the
+    JAX package's run file, docid for docid. So is fusion's default dense
+    leg: from one biencoder checkpoint (JAX's init, written by the JAX
+    trainer) as the dense searcher's ``checkpointfile`` in both packages, the
+    fused run equals JAX's run file."""
     config = {"benchmark": {"name": "dummy"}, "searcher": searcher}
-    if "maxpostings" not in searcher:
+    if "maxpostings" not in searcher and searcher["name"] != "fusion":
         with pytest.raises(ConfigError, match=match):
             TorchTask.create("rank", config)
         return
+    if searcher["name"] == "fusion":
+        from capreolus_tpu.reranker import Reranker as JaxReranker
+
+        rr = JaxReranker.create("biencoder", {"pretrained": "tiny", "allowrandominit": True})
+        batch = {"query": np.ones((1, 8), np.int64), "posdoc": np.ones((1, 32), np.int64)}
+        rr.trainer.save_checkpoint(tmpdir_as_cache / "dev.best", rr.init_params(jax.random.PRNGKey(2), batch), {}, rr)
+        config["searcher"] = dict(searcher, searcher2={"name": "dense", "maxdoclen": 32, "maxqlen": 8,
+                                                       "checkpointfile": str(tmpdir_as_cache / "dev.best.params")})
     port_task, jax_task = TorchTask.create("rank", config), JaxTask.create("rank", config)
     port_task.device = "cpu"
     port_out, jax_out = port_task.search(), jax_task.search()
-    assert port_task.searcher.get_engine().exact_path(max_postings_per_term=2) is False
+    if "maxpostings" in searcher:
+        assert port_task.searcher.get_engine().exact_path(max_postings_per_term=2) is False
     assert_same_run_files(port_out, jax_out)
-    assert all(load_trec_run(port_out / n) for n in _files(port_out) if n != "done")
+    assert all(load_trec_run(port_out / n) for n in _files(port_out) if Path(n).name != "done")
 
 
 def test_rank_task_without_a_device_asks_for_the_card(torch_cache):

@@ -31,8 +31,9 @@ torch.set_num_threads(2)
 
 from capreolus_tpu_torch.core import constants as port_constants  # noqa: E402
 from capreolus_tpu_torch.reranker import Reranker as TorchReranker  # noqa: E402
-from chip_smoke import (RERANK_GAIN, RERANK_GOLDEN, RERANK_GOLDEN_CONFIGS, RERANK_PIN_TOL,  # noqa: E402
-                        golden_map as map_of, rerank_golden_corpus, rerank_golden_run, setup_rerank_golden)
+from chip_smoke import (GOLDEN15_UNICOIL_SEED, RERANK_GAIN, RERANK_GOLDEN, RERANK_GOLDEN_CONFIGS,  # noqa: E402
+                        RERANK_PIN_TOL, golden_map as map_of, rerank_golden_corpus, rerank_golden_run,
+                        setup_rerank_golden)
 from test_e2e_rerank_golden import build_rerank_corpus  # noqa: E402
 
 PINS = RERANK_GOLDEN["pins"]
@@ -112,3 +113,40 @@ def test_knrm_from_the_jax_init_meets_the_pin(golden, monkeypatch):
     print(f"KNRM from the JAX init: first stage {first:.4f} -> test {test:.4f} (pin {PINS['KNRM']})")
     assert test > first + RERANK_GAIN
     assert test == pytest.approx(PINS["KNRM"], abs=RERANK_PIN_TOL)
+
+
+@pytest.fixture(scope="module")
+def unicoil_golden(tmp_path_factory):
+    """The rerank golden registered in both packages, each with caches of its own."""
+    from capreolus_tpu.core import constants as jax_constants
+    from torch_unicoil_init_witness import write_golden
+
+    base = tmp_path_factory.mktemp("unicoil_init_witness")
+    keys = ("CACHE_BASE_PATH", "RESULTS_BASE_PATH")
+    saved = [(c, k, c[k]) for c in (jax_constants, port_constants) for k in keys]
+    jax_constants["CACHE_BASE_PATH"], port_constants["CACHE_BASE_PATH"] = base / "jax_cache", base / "port_cache"
+    try:
+        qrels, test_qids = write_golden(base / "golden")
+        yield base, qrels, test_qids
+    finally:
+        for c, k, v in saved:
+            c[k] = v
+
+
+@pytest.mark.parametrize("seed, trains", [(42, False), (GOLDEN15_UNICOIL_SEED, True)],
+                         ids=["default_seed_collapses", "smoke_seed_trains"])
+def test_unicoil_golden_outcome_from_one_init_matches_jax(unicoil_golden, seed, trains):
+    """chip_smoke's tiny uniCOIL train-then-serve loop (dropout 0) from the
+    port's init at trainer ``seed``, through each package's rerank.traineval:
+    the same test MAP (to 4 places) and the same number of candidates scored
+    above 0. At the default seed 42 the ReLU token weights of both die in
+    training (every score 0, nothing to index); at chip_smoke's seed both
+    train (tests/torch_unicoil_init_witness.py prints the other seeds)."""
+    from torch_unicoil_init_witness import outcome, port_init, run_jax, run_port
+
+    base, qrels, test_qids = unicoil_golden
+    port = outcome(run_port(base, seed, None, "own"), qrels, test_qids)
+    jax_side = outcome(run_jax(base, seed, port_init(seed), "port_init"), qrels, test_qids)
+    print(f"uniCOIL from the port's init at seed {seed}: port {port}, JAX {jax_side} (test MAP, scores > 0)")
+    assert port == jax_side
+    assert (port[1] > 0) == trains

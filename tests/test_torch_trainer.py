@@ -724,10 +724,13 @@ def test_negrefresh_swaps_in_the_hardest_negatives(corpus, tmp_path):
     ({"tp": 2}, "Multi-device"), ({"pp": 2}, "Multi-device"), ({"ep": 2}, "Multi-device"),
     ({"sp": True}, "Multi-device"), ({"fsdp": True}, "Multi-device"), ({"ckpt": "sharded"}, "Multi-device"),
     ({"ckpt": "sharded_async"}, "Multi-device"), ({"amp": "both"}, "amp slice"), ({"amp": "train"}, "amp slice"),
-    ({"loss": "infonce"}, "Dense"),
+    ({"loss": "infonce"}, "needs a reranker exposing embeddings"),
 ])
 def test_unported_trainer_options_raise(corpus, tmp_path, trainer, item):
     """The options the port does not have raise, naming their ROADMAP item.
+    ``loss=infonce`` is ported: with KNRM, which has no ``encode``, it raises
+    the JAX trainer's message (``tests/test_torch_dense_rerankers.py`` holds
+    the biencoder's infonce steps against JAX).
     ``amp`` was refused here until the port had it: those cases now train,
     and step 1 of KNRM under the mode agrees with the JAX trainer's cast
     parameter tree (the loss within GRAD_TOL, ``tests/test_torch_amp.py``

@@ -1,7 +1,6 @@
 """The reranker zoo through the port's registry, trainer and CLI on the CPU:
 every reranker and extractor the JAX package registers is created in the port
-or raises ``ConfigError`` naming its ROADMAP.md item (the port's
-``test_all_rerankers_creatable``); ``rerank.traineval`` through
+(the port's ``test_all_rerankers_creatable``); ``rerank.traineval`` through
 ``python -m capreolus_tpu_torch ... --device=cpu`` for one model per
 extractor at tiny width; a ``dev.best`` of either trainer loads in the other
 package and scores the same (within ``MSGPACK_SCORE_TOL``, 2e-4, of
@@ -26,10 +25,9 @@ capreolus_tpu_torch.load_all_modules()
 from capreolus_tpu.core import module_registry as jax_registry  # noqa: E402
 from capreolus_tpu.trainer.jax_trainer import collate as jax_collate  # noqa: E402
 from capreolus_tpu_torch.convert import load_params  # noqa: E402
-from capreolus_tpu_torch.core import ConfigError  # noqa: E402
 from capreolus_tpu_torch.core import module_registry as torch_registry  # noqa: E402
 from capreolus_tpu_torch.extractor import Extractor  # noqa: E402
-from capreolus_tpu_torch.reranker import UNPORTED_RERANKERS, Reranker  # noqa: E402
+from capreolus_tpu_torch.reranker import Reranker  # noqa: E402
 from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate  # noqa: E402
 from test_torch_bert import assert_within  # noqa: E402
 from test_torch_index import torch_cache  # noqa: E402,F401
@@ -37,23 +35,20 @@ from test_torch_trainer import MSGPACK_SCORE_TOL, _score_both, corpus, draw, mak
 from torch_zoo_util import ZOO_EXTRACTOR  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-DENSE_ITEM = "ROADMAP.md item 6, 'Dense and learned-sparse retrieval'"
 ZOO = ["TFKNRM", "DRMM", "DRMMTKS", "ConvKNRM", "PACRR", "DSSM", "CDSSM", "DUET", "POSITDRMM", "HINT", "TK",
        "DeepTileBar"]
 
 
 def test_every_jax_reranker_is_created_or_names_its_roadmap_item(torch_cache):
+    """Every JAX reranker is created in the port: ``biencoder``, ``unicoil``
+    and ``splade`` were the last three (``tests/test_torch_dense_rerankers.py``
+    holds them against JAX)."""
     names = jax_registry.get_module_names("reranker")
     assert set(ZOO) <= set(names) and set(ZOO) <= set(torch_registry.get_module_names("reranker"))
-    unported = []
+    assert set(names) <= set(torch_registry.get_module_names("reranker"))
     for name in names:
-        if name in torch_registry.get_module_names("reranker"):
-            assert Reranker.create(name, {"trainer": {"niters": 1}}).module_name == name
-            continue
-        with pytest.raises(ConfigError, match=DENSE_ITEM.replace("(", r"\(").replace(")", r"\)")):
-            Reranker.create(name, {"trainer": {"niters": 1}})
-        unported.append(name)
-    assert sorted(unported) == sorted(UNPORTED_RERANKERS) == ["biencoder", "splade", "unicoil"]
+        assert Reranker.create(name, {"trainer": {"niters": 1}}).module_name == name
+    assert {"biencoder", "splade", "unicoil"} <= set(torch_registry.get_module_names("reranker"))
 
 
 def test_every_jax_extractor_is_created(torch_cache):
@@ -62,10 +57,13 @@ def test_every_jax_extractor_is_created(torch_cache):
 
 
 def test_unported_reranker_in_a_task_names_its_roadmap_item(torch_cache):
+    """``splade`` was refused here until the port had it: the rerank task now
+    creates it with its ``berttext`` extractor and the trainer."""
     from capreolus_tpu_torch.task import Task
 
-    with pytest.raises(ConfigError, match="item 6"):
-        Task.create("rerank", {"benchmark": {"name": "dummy"}, "reranker": {"name": "splade"}})
+    task = Task.create("rerank", {"benchmark": {"name": "dummy"}, "reranker": {"name": "splade"}})
+    assert task.reranker.module_name == "splade" and task.reranker.extractor.module_name == "berttext"
+    assert task.reranker.trainer.module_name == "jax" and task.reranker.config["regweight"] == 1e-3
 
 
 CLI_CASES = {  # one model per extractor, at tiny width
@@ -130,10 +128,12 @@ def test_training_steps_run_under_dropout(corpus):
         port_rr = pair[1]
         samples = draw(samplers(corpus, pair)[1], 3)
         batch = {k: v[None] for k, v in collate(samples, ARRAY_KEYS).items()}
-        model = port_rr.init_params(0)
+        # seed 1: at seed 0 TK's init scores run ~35, and under the step's dropout masks each of the 3
+        # positive docs beats its negative by more than the hinge's margin: the loss is 0, no weight moves
+        model = port_rr.init_params(1)
         before = {k: v.clone() for k, v in model.state_dict().items()}
         optimizer = port_rr.trainer.make_optimizer(port_rr, model)
         loss = port_rr.trainer.train_step(port_rr, model, optimizer, batch, 0, port_rr.trainer.step_seed(0, 0))
-        assert torch.isfinite(loss)
+        assert torch.isfinite(loss) and loss > 0, name
         moved = [k for k, v in model.state_dict().items() if not torch.equal(v, before[k])]
         assert moved and all(torch.isfinite(v).all() for v in model.state_dict().values()), name
