@@ -58,9 +58,16 @@ def params_file(path) -> Path:
 
 def load_params(path) -> dict:
     """A flat ``{"params/...": array}`` dict from an .npz, a flax ``.params``
-    file, or a checkpoint's stem (``dev.best``, whose ``dev.best.params``
-    either trainer writes)."""
+    file, a checkpoint's stem (``dev.best``, whose ``dev.best.params`` either
+    trainer writes), or a ``trainer.ckpt=sharded`` directory
+    (``utils/sharded_ckpt.py``; a tree without the ``params`` level gets it,
+    as the JAX searchers' ``restored.get("params", restored)`` reads it)."""
     path = params_file(path)
+    if path.is_dir():
+        from capreolus_tpu_torch.utils.sharded_ckpt import restore_params
+
+        tree = restore_params(path)
+        return flatten_tree(tree if "params" in tree else {"params": tree})
     if path.name.endswith(".params"):
         from capreolus_tpu_torch.utils.flax_msgpack import from_bytes
 

@@ -10,8 +10,12 @@ feedback searchers' input) as the JAX build, and with ``storepositions`` the
 same per-doc token-id sequences (SDM's input), the same internal ordinals
 under ``docreorder`` (``terms``: cluster by rarest term; ``bp``: recursive
 graph bisection, ``index/reorder.py``) and the same block-max prune tables
-(``build_prune_tables``, read by the scoring engine's exact pruning). Not
-ported yet: incremental segments.
+(``build_prune_tables``, read by the scoring engine's exact pruning).
+Incremental writes (``add_documents``, ``delete_documents``, ``refresh``,
+``compact_doc_stores``; ``index/segments.py``) buffer segment ops and merge
+them into generation directories ``gen-N/`` whose artifacts equal a fresh
+build over the surviving documents; ``_loaded_generation`` names the
+generation the loaded artifacts came from, and the engines' caches key on it.
 
 Artifacts written to the cache path:
   index/vocab.txt          one term per line (line number = term id)
@@ -26,6 +30,9 @@ Artifacts written to the cache path:
   index/docterm_spans.npy  (storepositions) int64 [N, 2] spans into docterms.bin
   index/tiles/             (index.mmap) the scoring engine's tile payloads on disk
                            and its settled pruning verdicts (searcher/scoring.py)
+  index/CURRENT, gen-N/    after an incremental merge: the generation directory
+                           holding the artifacts above (docs.bin and docterms.bin
+                           stay shared and append-only), and its pointer
 """
 
 from __future__ import annotations
@@ -377,62 +384,153 @@ class TpuIndex(Index):
         fwd_offsets = np.zeros(num_docs + 1, dtype=np.int64)
         np.cumsum(np.bincount(doc_ords, minlength=num_docs), out=fwd_offsets[1:])
 
-        terms_by_id = sorted(vocab, key=vocab.get)
-        (index_path / "vocab.txt").write_text("\n".join(terms_by_id), encoding="utf-8")
-        (index_path / "docids.txt").write_text("\n".join(docid_strings), encoding="utf-8")
-        np.save(index_path / "postings_doc_ids.npy", doc_ords.astype(np.int32))
-        np.save(index_path / "postings_tfs.npy", tfs.astype(np.int32))
-        np.save(index_path / "postings_fwd_term_ids.npy", term_ids[fwd_order].astype(np.int32))
-        np.save(index_path / "postings_fwd_tfs.npy", tfs[fwd_order].astype(np.int32))
-        np.savez(index_path / "postings.npz", layout_version=np.int64(LAYOUT_VERSION),
-                 term_offsets=term_offsets, doclens=doclens, norm_doclens=norm_doclens,
-                 fwd_offsets=fwd_offsets, **{f"pt_{k}": v for k, v in prune_tables.items()})
+        self._save_artifacts(
+            index_path, term_offsets=term_offsets, doc_ids=doc_ords.astype(np.int32), tfs=tfs.astype(np.int32),
+            doclens=doclens, norm_doclens=norm_doclens, fwd_offsets=fwd_offsets,
+            fwd_term_ids=term_ids[fwd_order].astype(np.int32), fwd_tfs=tfs[fwd_order].astype(np.int32),
+            docid_strings=docid_strings, vocab=vocab, prune_tables=prune_tables)
         logger.info("index built: %d docs, %d terms, %d postings, avgdl %.2f",
                     num_docs, num_terms, len(tfs), doclens.mean())
 
+    @staticmethod
+    def _save_artifacts(index_path, *, term_offsets, doc_ids, tfs, doclens, norm_doclens, fwd_offsets,
+                        fwd_term_ids, fwd_tfs, docid_strings, vocab, prune_tables):
+        """Write one generation's artifacts (the build's and every merge's: the
+        layout has one owner)."""
+        terms_by_id = sorted(vocab, key=vocab.get)
+        (index_path / "vocab.txt").write_text("\n".join(terms_by_id), encoding="utf-8")
+        (index_path / "docids.txt").write_text("\n".join(docid_strings), encoding="utf-8")
+        np.save(index_path / "postings_doc_ids.npy", doc_ids)
+        np.save(index_path / "postings_tfs.npy", tfs)
+        np.save(index_path / "postings_fwd_term_ids.npy", fwd_term_ids)
+        np.save(index_path / "postings_fwd_tfs.npy", fwd_tfs)
+        np.savez(index_path / "postings.npz", layout_version=np.int64(LAYOUT_VERSION),
+                 term_offsets=term_offsets, doclens=doclens, norm_doclens=norm_doclens,
+                 fwd_offsets=fwd_offsets, **{f"pt_{k}": v for k, v in prune_tables.items()})
+
+    # ------------------------------------------------------------------ incremental writes
+    def _check_incremental_supported(self):
+        if (self.config["docreorder"] or "none") != "none":
+            raise ConfigError(
+                "incremental indexing requires index.docreorder=none (reordered "
+                "internal ordinals would have to be recomputed on every merge); "
+                "rebuild the index with docreorder=none to use add/delete_documents"
+            )
+
+    def add_documents(self, docs):
+        """Append documents, an iterable of (docid, contents), to the built
+        index (Lucene's IndexWriter.addDocuments): tokenized once and buffered
+        as an on-disk segment op; the next ``.data`` access (or ``refresh()``)
+        merges the pending ops into a new generation whose artifacts equal a
+        fresh build over the combined corpus. Returns the op's directory."""
+        from capreolus_tpu_torch.index import segments
+
+        self._check_incremental_supported()
+        self.create_index()
+        op = segments.write_add_op(self.get_index_path(), docs, self._analyzer(), self.config["storepositions"])
+        self._dirty = True
+        return op
+
+    def delete_documents(self, docids):
+        """Buffer deletion tombstones for external docids (Lucene's
+        IndexWriter.deleteDocuments), applied and compacted at the next merge."""
+        from capreolus_tpu_torch.index import segments
+
+        self._check_incremental_supported()
+        self.create_index()
+        op = segments.write_delete_op(self.get_index_path(), docids)
+        self._dirty = True
+        return op
+
+    def refresh(self):
+        """Merge pending ops (if any) and re-open at the newest generation;
+        returns the current generation number."""
+        self._dirty = True
+        self._load()
+        return self.generation
+
+    @property
+    def generation(self):
+        """Commit generation of the artifacts on disk now (0: the original
+        build). Engine caches key on ``_loaded_generation`` instead, the
+        generation the loaded artifacts came from."""
+        from capreolus_tpu_torch.index import segments
+
+        return segments.generation(self.get_index_path())
+
+    def compact_doc_stores(self):
+        """Reclaim deleted documents' bytes from the append-only doc stores
+        (offline; ``segments.compact_doc_stores``). Returns the bytes reclaimed."""
+        from capreolus_tpu_torch.index import segments
+
+        self._check_incremental_supported()
+        self.create_index()
+        reclaimed = segments.compact_doc_stores(self.get_index_path(), self.config["storepositions"])
+        self._dirty = True
+        return reclaimed
+
     # ------------------------------------------------------------------ load/access
     def _load(self):
-        if getattr(self, "_data", None) is not None:
+        if getattr(self, "_data", None) is not None and not getattr(self, "_dirty", False):
             return self._data
+        from capreolus_tpu_torch.index import segments
+
         self.create_index()
         index_path = self.get_index_path()
+        if segments.pending_ops(index_path):
+            self._check_incremental_supported()
+            segments.merge_pending(index_path, self._save_artifacts, self.config["storepositions"])
+        self._dirty = False
+        self._data = None
+        art = segments.artifacts_dir(index_path)
         mmap_mode = "r" if self.config["mmap"] else None
-        with np.load(index_path / "postings.npz") as npz:
+        with np.load(art / "postings.npz") as npz:
             found = int(npz["layout_version"])
         if found != LAYOUT_VERSION:
+            if art != index_path:
+                # a generation holds incrementally added docs that a rebuild from the collection would drop
+                raise RuntimeError(f"index generation at {art} uses postings layout v{found} (current "
+                                   f"v{LAYOUT_VERSION}) and contains incrementally added documents; rebuild it "
+                                   f"by re-indexing and re-adding")
             # a cache from an older layout: rebuild it in place (the done file lives inside index_path)
             logger.warning("index at %s has layout v%d (current v%d); rebuilding", index_path, found, LAYOUT_VERSION)
             shutil.rmtree(index_path, ignore_errors=True)
             self.create_index()
-        with np.load(index_path / "postings.npz") as npz:
+        with np.load(art / "postings.npz") as npz:
             term_offsets, doclens, norm_doclens = npz["term_offsets"], npz["doclens"], npz["norm_doclens"]
             fwd_offsets = npz["fwd_offsets"]
             prune_tables = {k[3:]: npz[k] for k in npz.files if k.startswith("pt_")} or None
-        vocab_list = (index_path / "vocab.txt").read_text(encoding="utf-8").splitlines()
-        docid_strings = (index_path / "docids.txt").read_text(encoding="utf-8").splitlines()
+        vocab_list = (art / "vocab.txt").read_text(encoding="utf-8").splitlines()
+        docid_strings = (art / "docids.txt").read_text(encoding="utf-8").splitlines()
         self._data = IndexData(
             term_offsets=term_offsets,
-            doc_ids=np.load(index_path / "postings_doc_ids.npy", mmap_mode=mmap_mode),
-            tfs=np.load(index_path / "postings_tfs.npy", mmap_mode=mmap_mode),
+            doc_ids=np.load(art / "postings_doc_ids.npy", mmap_mode=mmap_mode),
+            tfs=np.load(art / "postings_tfs.npy", mmap_mode=mmap_mode),
             doclens=doclens,
             norm_doclens=norm_doclens,
             docid_strings=docid_strings,
             vocab={t: i for i, t in enumerate(vocab_list)},
             fwd_offsets=fwd_offsets,
-            fwd_term_ids=np.load(index_path / "postings_fwd_term_ids.npy", mmap_mode=mmap_mode),
-            fwd_tfs=np.load(index_path / "postings_fwd_tfs.npy", mmap_mode=mmap_mode),
+            fwd_term_ids=np.load(art / "postings_fwd_term_ids.npy", mmap_mode=mmap_mode),
+            fwd_tfs=np.load(art / "postings_fwd_tfs.npy", mmap_mode=mmap_mode),
             prune_tables=prune_tables,
-            tile_dir=(index_path / "tiles") if mmap_mode else None,
+            # per generation: a tile payload or a pruning verdict of one generation never serves another
+            tile_dir=(art / "tiles") if mmap_mode else None,
         )
         self._docid_to_ord = {d: i for i, d in enumerate(docid_strings)}
-        self._doc_spans = np.load(index_path / "doc_spans.npy")
-        self._docs_bin = np.memmap(index_path / "docs.bin", dtype=np.uint8, mode="r")
+        self._doc_spans = np.load(art / "doc_spans.npy")
+        sdir = segments.store_dir(index_path, art)
+        self._docs_bin = np.memmap(sdir / "docs.bin", dtype=np.uint8, mode="r")
         self._docterm_spans = None
-        if (index_path / "docterm_spans.npy").exists():
-            self._docterm_spans = np.load(index_path / "docterm_spans.npy")
+        if (art / "docterm_spans.npy").exists():
+            self._docterm_spans = np.load(art / "docterm_spans.npy")
             # np.memmap refuses an empty file (a corpus whose docs all analyze to nothing)
-            self._docterms_bin = (np.memmap(index_path / "docterms.bin", dtype=np.int32, mode="r")
-                                  if (index_path / "docterms.bin").stat().st_size else np.zeros(0, np.int32))
+            self._docterms_bin = (np.memmap(sdir / "docterms.bin", dtype=np.int32, mode="r")
+                                  if (sdir / "docterms.bin").stat().st_size else np.zeros(0, np.int32))
+        # read from the resolved directory, never from CURRENT again: another
+        # writer may have committed since, and a cache keyed on a fresh read
+        # would hold this generation's data under the next one's number
+        self._loaded_generation = 0 if art == index_path else int(art.name.split("-", 1)[1])
         return self._data
 
     @property

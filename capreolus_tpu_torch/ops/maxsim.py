@@ -38,29 +38,44 @@ ROW_TILE = 64  # query rows per consumer warpgroup: the wgmma M
 WARPGROUPS = 3  # consumer warpgroups of a block with more than 64 query rows: their registers fill an SM
 MAX_SPLITS = 8  # Ld ranges per doc tile: the portable thread-block cluster size
 SPLIT_WAVES = 4  # a split launch aims at this many waves of resident blocks
-PLAIN_CHUNK_ELEMENTS = 1 << 27  # similarity entries per step of the plain version (512 MB of f32)
+PLAIN_CHUNK_ELEMENTS = 1 << 26  # similarity entries per step of the plain version (512 MB of f64)
+
+
+def sum_query_tokens(x):
+    """[Q, Lq, C] -> [Q, C]: the sum over query tokens as a fixed pairwise
+    tree of elementwise adds, so that a doc's score is the same bits whatever
+    the other docs and queries of its call (a resident chunk, a streamed
+    slice, one query's prefilter candidates) and on every device;
+    ``sum(dim=1)``'s order may follow the shape."""
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        head = x[:, :half] + x[:, half : 2 * half]
+        x = torch.cat([head, x[:, 2 * half :]], dim=1) if x.shape[1] % 2 else head
+    return x[:, 0]
 
 
 def maxsim_scores_plain(q_emb, docs_t, bias_t, valid):
     """Plain torch version of K3: q_emb [Q, Lq, dim], docs_t [Ld, C, dim],
     bias_t [Ld, C], valid [C] -> [Q, C] f32.
 
-    q and docs are cast to bf16 and then computed in f32; a token with a
-    negative bias is left out of the max; an invalid doc gets -inf. The docs
-    go in slices of C so that the [Q*Lq, Ld, slice] similarities stay near
-    512 MB. On CUDA the matmul must run in true f32
-    (``torch.backends.cuda.matmul.allow_tf32`` False, torch's default)."""
+    q and docs are cast to bf16; each similarity is accumulated in f64 (the
+    products of bf16 values are exact, and so is their f64 sum but in
+    extreme exponent spreads) and rounded to f32, so that it does not depend
+    on the shape of the call; a token with a negative bias is left out of the
+    max; the maxima are summed over query tokens by ``sum_query_tokens``; an
+    invalid doc gets -inf. The docs go in slices of C so that the
+    [Q*Lq, Ld, slice] similarities stay near 512 MB."""
     nq, lq, dim = q_emb.shape
     ld, c = docs_t.shape[0], docs_t.shape[1]
-    q2d = q_emb.to(torch.bfloat16).float().reshape(nq * lq, dim)
+    q2d = q_emb.to(torch.bfloat16).double().reshape(nq * lq, dim)
     out = torch.empty((nq, c), dtype=torch.float32, device=q_emb.device)
     step = max(1, PLAIN_CHUNK_ELEMENTS // max(1, nq * lq * ld))
     for start in range(0, c, step):
-        d = docs_t[:, start:start + step].to(torch.bfloat16).float()  # [Ld, cc, dim]
+        d = docs_t[:, start:start + step].to(torch.bfloat16).double()  # [Ld, cc, dim]
         cc = d.shape[1]
-        sim = (q2d @ d.reshape(ld * cc, dim).T).view(nq * lq, ld, cc)
+        sim = (q2d @ d.reshape(ld * cc, dim).T).float().view(nq * lq, ld, cc)
         sim = sim.masked_fill((bias_t[:, start:start + step] < 0)[None], float("-inf"))
-        out[:, start:start + cc] = sim.amax(dim=1).view(nq, lq, cc).sum(dim=1)
+        out[:, start:start + cc] = sum_query_tokens(sim.amax(dim=1).view(nq, lq, cc))
     return torch.where(valid.bool()[None, :], out, float("-inf"))
 
 

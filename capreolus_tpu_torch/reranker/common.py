@@ -8,7 +8,8 @@ against its own JAX counterpart.
 
 ``cudnn_f32`` keeps cuDNN's convolutions and recurrences in IEEE f32 (the JAX
 package's f32; PyTorch's ``torch.backends.cudnn.allow_tf32`` defaults to
-True), and ``conv_same`` pads a convolution's input as XLA's ``SAME`` does.
+True), ``matmul_f32`` does the same for cuBLAS's f32 matmuls, and
+``conv_same`` pads a convolution's input as XLA's ``SAME`` does.
 """
 
 from __future__ import annotations
@@ -26,31 +27,46 @@ KNRM_SIGMAS = (0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.001)
 PAD = 0
 
 
-_CUDNN_F32_LOCK = threading.Lock()
-_cudnn_f32_holders = [0, None]  # [callers inside cudnn_f32, the flag the first of them found]
+class _F32Scope:
+    """A process-wide TF32 flag held off while any caller is inside: the
+    callers are counted under a lock, the first to enter clears the flag and
+    the last to leave restores what the first found, so that overlapping
+    threads (a threaded server's requests) or nested calls never restore it
+    while another caller is still inside. Usable as a context manager and as a
+    decorator (``@scope()``)."""
+
+    def __init__(self, module, attr):
+        self._module, self._attr = module, attr
+        self._lock = threading.Lock()
+        self._holders = [0, None]  # [callers inside, the flag the first of them found]
+
+    @contextlib.contextmanager
+    def __call__(self):
+        with self._lock:
+            if self._holders[0] == 0:
+                self._holders[1] = getattr(self._module, self._attr)
+                setattr(self._module, self._attr, False)
+            self._holders[0] += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._holders[0] -= 1
+                if self._holders[0] == 0:
+                    setattr(self._module, self._attr, self._holders[1])
 
 
-@contextlib.contextmanager
-def cudnn_f32():
-    """cuDNN convolutions and recurrences without TF32 for the duration (also a
-    decorator): the zoo's convolutions and GRU / LSTM layers compute in f32
-    whatever the caller's ``torch.backends.cudnn.allow_tf32``. The flag is
-    process-wide, so the callers inside are counted: the first to enter
-    clears it and the last to leave restores what the first found, and
-    overlapping threads (a threaded server's requests) or nested calls never
-    restore it while another caller is still inside."""
-    with _CUDNN_F32_LOCK:
-        if _cudnn_f32_holders[0] == 0:
-            _cudnn_f32_holders[1] = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-        _cudnn_f32_holders[0] += 1
-    try:
-        yield
-    finally:
-        with _CUDNN_F32_LOCK:
-            _cudnn_f32_holders[0] -= 1
-            if _cudnn_f32_holders[0] == 0:
-                torch.backends.cudnn.allow_tf32 = _cudnn_f32_holders[1]
+# cuDNN convolutions and recurrences without TF32 for the duration: the zoo's
+# convolutions and GRU / LSTM layers compute in f32 whatever the caller's
+# ``torch.backends.cudnn.allow_tf32`` (PyTorch's default is True)
+cudnn_f32 = _F32Scope(torch.backends.cudnn, "allow_tf32")
+# cuBLAS f32 matmuls without TF32 for the duration: every f32 path on the card
+# (the BERT encoders of the services and searchers, the rerank stage, the
+# trainer's steps and predictions) computes in IEEE f32 whatever the process
+# set. ``torch.set_float32_matmul_precision("high")`` or ``("medium")`` and
+# ``torch.backends.cuda.matmul.fp32_precision = "tf32"`` all set this flag,
+# and clearing it sets ``fp32_precision`` to "ieee"
+matmul_f32 = _F32Scope(torch.backends.cuda.matmul, "allow_tf32")
 
 
 def same_padding(kernel_size: int):

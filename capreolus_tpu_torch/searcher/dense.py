@@ -32,15 +32,17 @@ exact selection has recall 1.0. Embedding batches are not padded to
 ``batch`` rows (rows are independent; the results are the same).
 
 The searcher runs on ``self.device`` (set by the service or the caller;
-``None`` means "cuda"; ``build_topk`` refuses a card with TF32 matmuls on).
+``None`` means "cuda"); the encoder and k-means run under
+``reranker.common.matmul_f32``, whatever TF32 setting the process made.
 ``pretrained="tiny"`` is a seeded random init of the
 port's own (the JAX searcher draws flax's at ``PRNGKey(0)``): the two
 packages give the same embeddings only from the same weights, a checkpoint
 directory or a ``checkpointfile``. A ``checkpointfile`` is a trained
 biencoder's ``dev.best.params`` (its ``bert`` submodule) from either
-package's trainer, its ``dev.best`` stem, or the port's ``.npz``. Not ported
-yet: ``shards > 1`` (ROADMAP.md item 6, 'Multi-device'). The caches cover
-generation 0 (``embedding_cache.py``).
+package's trainer, its ``dev.best`` stem, a ``trainer.ckpt=sharded``
+directory, or the port's ``.npz``. Not ported yet: ``shards > 1`` (ROADMAP.md
+item 6, 'Multi-device'). The caches follow the index's generations
+(``embedding_cache.py``): an incremental merge encodes only the added docs.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
+from capreolus_tpu_torch.reranker.common import matmul_f32
 from capreolus_tpu_torch.searcher import Searcher, _hbm_budget_mb
 from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
 from capreolus_tpu_torch.utils.caching import TargetFileExists, cached_file, done_file
@@ -225,6 +228,7 @@ class DenseSearcher(Searcher):
             raise ConfigError(f"dense searcher: shards={self.config['shards']} selects the doc-sharded "
                               f"engine (not ported to PyTorch yet: ROADMAP.md item 6, 'Multi-device')")
         self.setup_seconds = {"tokenize": 0.0, "encode": 0.0, "quantize": 0.0, "upload": 0.0}
+        self.docs_encoded = 0  # documents this searcher's encoder embedded for the cache
 
     def _device(self):
         from capreolus_tpu_torch.serving import resolve_device
@@ -285,7 +289,7 @@ class DenseSearcher(Searcher):
         device = self._device()
         inp = torch.as_tensor(inp).to(device)
         mask = torch.as_tensor(mask).to(device)
-        with torch.inference_mode():
+        with torch.inference_mode(), matmul_f32():
             hidden, _ = model(inp, mask, torch.zeros_like(inp))
             if self.config["pooling"] == "cls":
                 vec = hidden[:, 0]
@@ -351,24 +355,53 @@ class DenseSearcher(Searcher):
         return fn if fn is not None else self._doc_cache_file()
 
     def _doc_embeddings(self):
-        """The [N, D] f32 doc embeddings, memory-mapped from the disk cache
-        (written on first use, atomically)."""
+        """The [N, D] f32 doc embeddings of the index's loaded generation,
+        memory-mapped from the disk cache (written on first use, atomically):
+        from the previous generation's cache where one exists (the surviving
+        docs' rows copied, or the file hardlinked when no doc changed),
+        encoding only the docs it lacks (``embedding_cache.py``, the JAX
+        searcher's rule; ``docs_encoded`` counts the encoded docs)."""
         from capreolus_tpu_torch.searcher import embedding_cache as ec
 
         self.index.create_index()
-        docid_strings = self.index.data.docid_strings
-        cache_fn = ec.generation_path(self._doc_cache_file(), 0)
+        docid_strings = self.index.data.docid_strings  # merges pending index ops first
+        gen = getattr(self.index, "_loaded_generation", 0)
+        base_fn = self._doc_cache_file()
+        cache_fn = ec.generation_path(base_fn, gen)
         self._active_cache_fn = cache_fn
+        maxlen = int(self.config["maxdoclen"])
+
+        def encode(docids):
+            logger.info("embedding %d documents with the %s encoder", len(docids), self.config["pretrained"])
+            self.docs_encoded += len(docids)
+            return self._embed_device([self.index.get_doc(d) for d in docids], maxlen, to_host=True).numpy()
+
         if not cache_fn.exists():
-            logger.info("embedding %d documents with the %s encoder", len(docid_strings), self.config["pretrained"])
-            emb = self._embed_device([self.index.get_doc(d) for d in docid_strings],
-                                     int(self.config["maxdoclen"]), to_host=True).numpy()
-            try:
-                with cached_file(cache_fn, "wb") as f:
-                    np.save(f, emb)
-            except TargetFileExists:
-                pass  # a concurrent process won the race with identical content
+            emb = None
+            prev, prev_gen = ec.find_previous(base_fn, gen)
+            if prev is not None:
+                old = np.load(prev, mmap_mode="r")
+                src = ec.row_sources(ec.read_docids(prev), docid_strings)
+                if ec.identity_remap(src, old.shape[0]):
+                    ec.link_identical(prev, cache_fn)
+                else:
+                    emb = np.empty((len(docid_strings), old.shape[1]), dtype=old.dtype)
+                    reused = ec.fill_kept_rows([emb], [old], src)
+                    new_idx = np.flatnonzero(src < 0)
+                    if len(new_idx):
+                        emb[new_idx] = encode([docid_strings[i] for i in new_idx])
+                    logger.info("dense cache gen %d built from gen %d: reused %d rows, encoded %d new documents",
+                                gen, prev_gen, reused, len(new_idx))
+            else:
+                emb = encode(docid_strings)
+            if emb is not None:
+                try:
+                    with cached_file(cache_fn, "wb") as f:
+                        np.save(f, emb)
+                except TargetFileExists:
+                    pass  # a concurrent process won the race with identical content
         ec.write_docids(cache_fn, docid_strings)
+        ec.prune_old_generations(base_fn, gen)
         return np.load(cache_fn, mmap_mode="r")
 
     def _qmode(self):
@@ -379,8 +412,13 @@ class DenseSearcher(Searcher):
         device, or a ``_HostCorpus`` above ``hbmbudget``. The bf16 matrix is
         zero-padded to whole ``score_block`` blocks (the rows past N never
         reach a selection)."""
-        if getattr(self, "_docs_emb", None) is not None:
+        self.index.create_index()
+        _ = self.index.data  # merges pending index ops; sets _loaded_generation
+        gen = getattr(self.index, "_loaded_generation", 0)
+        if getattr(self, "_docs_emb", None) is not None and getattr(self, "_docs_emb_gen", 0) == gen:
             return self._docs_emb
+        self._docs_emb = None
+        self._docs_emb_gen = gen
         emb = self._doc_embeddings()
         qmode = self._qmode()
         n, d = emb.shape
@@ -435,15 +473,15 @@ class DenseSearcher(Searcher):
         engine the config selects. Shared by the batch pipeline
         (``_search_all``) and ``serving.DenseRetrievalService``, which keeps
         the engine warm across calls. IVF engines are memoized per requested
-        ``hits`` (the build permutes the corpus and drops the original)."""
-        if self._device().type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("dense searcher: torch.backends.cuda.matmul.allow_tf32 is True; the query encoder's "
-                               "and k-means' f32 products must not round through TF32 (ROADMAP.md item 5): set "
-                               "it to False")
+        ``hits`` and index generation (the build permutes the corpus and
+        drops the original)."""
+        self.index.create_index()
+        _ = self.index.data  # merges pending index ops; sets _loaded_generation
+        gen = getattr(self.index, "_loaded_generation", 0)
         requested_hits = int(hits)
         clusters = int(self.config.get("clusters", 0) or 0)
         cached = getattr(self, "_ivf_engine", None)
-        if cached is not None and cached[0] == requested_hits and clusters > 0:
+        if cached is not None and cached[0] == (requested_hits, gen) and clusters > 0:
             _, topk, meta, n_corpus = cached
             return topk, meta, n_corpus
 
@@ -465,7 +503,7 @@ class DenseSearcher(Searcher):
                                   "int4 is the capacity tier — use it with the exact or "
                                   "streamed engines")
             topk, docs = self._ivf_topk(docs, n_corpus, hits, cache_file=self._ivf_cache_file())
-            self._ivf_engine = (requested_hits, topk, docs, n_corpus)
+            self._ivf_engine = ((requested_hits, gen), topk, docs, n_corpus)
         else:
             topk = self._resident_topk(n_corpus, engine_hits)
         if rescore:
@@ -624,7 +662,8 @@ class DenseSearcher(Searcher):
             logger.info("IVF layout restored from %s", cache_file)
         else:
             kdocs = (docs["emb"], docs["scale"]) if quantized else docs
-            centroids, assign = ivf.spherical_kmeans(kdocs, k, int(self.config["kmeansiters"]))
+            with matmul_f32():
+                centroids, assign = ivf.spherical_kmeans(kdocs, k, int(self.config["kmeansiters"]))
             if cache_file is not None:
                 try:
                     with cached_file(cache_file, "wb") as f:

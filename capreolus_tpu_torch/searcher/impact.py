@@ -27,8 +27,11 @@ streaming above ``hbmbudget``, as BM25 is served.
 
 ``pretrained="tiny"`` is a seeded random init of the port's own (encoder and
 head); a ``checkpointfile`` is a trained ``unicoil`` / ``splade`` reranker's
-``dev.best.params`` from either trainer (``bert`` and ``tokweight`` / ``mlm``).
-The searcher runs on ``self.device`` (``None`` means "cuda").
+``dev.best.params`` from either trainer (``bert`` and ``tokweight`` / ``mlm``),
+or a ``trainer.ckpt=sharded`` directory. The raw cache follows the index's
+generations (``embedding_cache.py``): an incremental merge encodes only the
+added docs, and the CSR is re-quantized over the new corpus as a fresh build
+would be. The searcher runs on ``self.device`` (``None`` means "cuda").
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
+from capreolus_tpu_torch.reranker.common import matmul_f32
 from capreolus_tpu_torch.searcher import Searcher
 from capreolus_tpu_torch.utils.caching import TargetFileExists, cached_file, done_file
 from capreolus_tpu_torch.utils.loginit import get_logger
@@ -104,6 +108,7 @@ class ImpactSearcher(Searcher):
         if self.config["gelu"] not in ("tanh", "erf"):
             raise ConfigError(f"impact gelu must be 'tanh' or 'erf', got {self.config['gelu']!r}")
         self.setup_seconds = {"tokenize": 0.0, "encode": 0.0, "csr": 0.0}
+        self.docs_encoded = 0  # documents this searcher's encoder weighted for the cache
 
     def _device(self):
         from capreolus_tpu_torch.serving import resolve_device
@@ -184,7 +189,7 @@ class ImpactSearcher(Searcher):
                 ids = [tok.cls_id] + tok.convert_tokens_to_ids(tok.tokenize(text or "")[: maxlen - 2]) + [tok.sep_id]
                 inp[i, : len(ids)] = ids
             t1 = time.perf_counter()
-            with torch.inference_mode():
+            with torch.inference_mode(), matmul_f32():
                 toks = torch.from_numpy(inp).to(device)
                 out = model.rep(toks) if splade else model.weights(toks)[1]
                 out = out.float().cpu().numpy()
@@ -262,6 +267,7 @@ class ImpactSearcher(Searcher):
         """Encode documents into doc-major raw-impact arrays:
         (doc_offsets [n+1], term_ids [P], raw_impacts f32 [P])."""
         texts = [self.index.get_doc(d) for d in docids]
+        self.docs_encoded += len(texts)
         logger.info("encoding %d documents for the impact index (%s, %s)",
                     len(texts), self.config["encoder"], self.config["pretrained"])
         per_doc = self._doc_term_weights(texts)
@@ -275,35 +281,80 @@ class ImpactSearcher(Searcher):
                 np.concatenate(terms) if terms else np.zeros(0, np.int64),
                 np.concatenate(raws) if raws else np.zeros(0, np.float32))
 
-    def _raw_doc_major(self, docid_strings):
-        """Load or build the raw doc-major cache (generation 0)."""
+    def _raw_doc_major(self, docid_strings, gen):
+        """Load or build the generation's raw doc-major cache, reusing the
+        previous generation's rows for surviving documents (only added docs
+        are encoded; the JAX searcher's rule for a variable-length layout)."""
         from capreolus_tpu_torch.searcher import embedding_cache as ec
 
-        cache_fn = ec.generation_path(self._cache_file(), 0)
-        if not cache_fn.exists():
+        base_fn = self._cache_file()
+        cache_fn = ec.generation_path(base_fn, gen)
+
+        def load(fn):
+            with np.load(fn) as z:
+                return z["doc_offsets"], z["term_ids"], z["raw_impacts"]
+
+        if cache_fn.exists():
+            ec.write_docids(cache_fn, docid_strings)  # repairs a crash-orphaned sidecar
+            return load(cache_fn)
+        prev, prev_gen = ec.find_previous(base_fn, gen)
+        if prev is None:
             offs, terms, raw = self._encode_doc_major(docid_strings)
-            try:
-                with cached_file(cache_fn, "wb") as f:
-                    np.savez(f, doc_offsets=offs, term_ids=terms, raw_impacts=raw)
-            except TargetFileExists:
-                pass
+        else:
+            old_offs, old_terms, old_raw = load(prev)
+            src = ec.row_sources(ec.read_docids(prev), docid_strings)
+            if ec.identity_remap(src, len(old_offs) - 1):
+                ec.link_identical(prev, cache_fn)
+                ec.write_docids(cache_fn, docid_strings)
+                ec.prune_old_generations(base_fn, gen)
+                return load(cache_fn)
+            keep = src >= 0
+            new_idx = np.flatnonzero(~keep)
+            if len(new_idx):
+                e_offs, e_terms, e_raw = self._encode_doc_major([docid_strings[i] for i in new_idx])
+            else:
+                e_offs, e_terms, e_raw = np.zeros(1, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32)
+            # one gather from [old ++ encoded]: per-doc source starts plus within-doc offsets
+            n = len(docid_strings)
+            lengths = np.zeros(n, dtype=np.int64)
+            lengths[keep] = (old_offs[1:] - old_offs[:-1])[src[keep]]
+            lengths[new_idx] = e_offs[1:] - e_offs[:-1]
+            starts = np.zeros(n, dtype=np.int64)
+            starts[keep] = old_offs[:-1][src[keep]]
+            starts[new_idx] = len(old_terms) + e_offs[:-1]
+            offs = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(lengths, out=offs[1:])
+            within = np.arange(int(offs[-1]), dtype=np.int64) - np.repeat(offs[:-1], lengths)
+            gather = np.repeat(starts, lengths) + within
+            terms = np.concatenate([old_terms, e_terms])[gather]
+            raw = np.concatenate([old_raw, e_raw])[gather]
+            logger.info("impact cache gen %d built from gen %d: reused %d docs, encoded %d new",
+                        gen, prev_gen, int(keep.sum()), len(new_idx))
+        try:
+            with cached_file(cache_fn, "wb") as f:
+                np.savez(f, doc_offsets=offs, term_ids=terms, raw_impacts=raw)
+        except TargetFileExists:
+            pass
         ec.write_docids(cache_fn, docid_strings)
-        z = np.load(cache_fn)
-        return z["doc_offsets"], z["term_ids"], z["raw_impacts"]
+        ec.prune_old_generations(base_fn, gen)
+        return offs, terms, raw
 
     def _impact_index(self):
-        """Build (or load) the quantized impact CSR and wrap it in the sparse
-        engine on the searcher's device. Returns (engine, docid_strings, scale)."""
-        cached = getattr(self, "_engine", None)
-        if cached is not None:
-            return cached
+        """Build (or load) the quantized impact CSR of the index's loaded
+        generation and wrap it in the sparse engine on the searcher's device.
+        Returns (engine, docid_strings, scale), assigned in one statement so
+        that a concurrent reader sees the old tuple or the new one."""
         from capreolus_tpu_torch.index.smallfloat import quantize_lengths
         from capreolus_tpu_torch.index.tpu import IndexData
         from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
 
         self.index.create_index()
-        docid_strings = list(self.index.data.docid_strings)
-        offs, term_ids_raw, raw = self._raw_doc_major(docid_strings)
+        docid_strings = list(self.index.data.docid_strings)  # merges pending index ops first
+        gen = getattr(self.index, "_loaded_generation", 0)
+        cached = getattr(self, "_engine", None)
+        if cached is not None and getattr(self, "_engine_gen", 0) == gen:
+            return cached
+        offs, term_ids_raw, raw = self._raw_doc_major(docid_strings, gen)
         t0 = time.perf_counter()
         term_offsets, doc_ids, q_impacts, doclens, scale = self._csr_from_doc_major(
             offs, term_ids_raw, raw, len(docid_strings))
@@ -320,6 +371,7 @@ class ImpactSearcher(Searcher):
         engine = ScoringEngine(DeviceIndex(data, device=self._device(),
                                            hbm_budget=budget * 1e6 if budget > 0 else None))
         self.setup_seconds["csr"] += time.perf_counter() - t0
+        self._engine_gen = gen
         self._engine = (engine, docid_strings, scale)
         return self._engine
 

@@ -1,5 +1,6 @@
 """Late-interaction (ColBERT) retrieval on the GPU: the JAX package's
-``searcher/late_interaction.py``, exact resident engine.
+``searcher/late_interaction.py``: the exact resident engine, the two-stage
+``prefilter`` and host streaming.
 
 Every document's tokens are embedded once with a ColBERT encoder, cached on
 disk as f16, and uploaded to the device as one token-major bf16 tensor
@@ -24,17 +25,40 @@ A chunk holds as many docs as keep its int32 similarities near
 ``rescore`` candidates and re-scores them at full precision from the f16 disk
 cache, as the JAX ``_rescore_wrap`` does.
 
+``prefilter > 0`` is the JAX searcher's two-stage mode (``_prefilter_topk``):
+stage 1 scores every doc by one bf16 product of the query's summed token
+embeddings against the doc's mean valid-token embedding (``pooled``, computed
+once per uploaded corpus; int8 dequantized inside the pooling, as JAX does),
+keeps each query's top ``prefilter`` candidates with ties to the lower
+ordinal, and stage 2 scores exact MaxSim over that query's own candidates:
+K3 on the gathered token-major slab (bf16) or X1 over the gathered int8 rows,
+one launch per query. A candidate's stage-2 score equals the exact engine's
+score for that doc, and the final order is a stable descending sort in
+candidate order (``jax.lax.top_k`` over stage 2). No candidate repeats, so
+no docid is dropped as a duplicate.
+
+A corpus above ``hbmbudget`` streams from the host (``_streamed_topk``):
+slices of ``budget // 2 // row_bytes`` docs, a multiple of ``chunk``, from the
+f16 memmap (converted to bf16 and transposed to K3's token-major layout on
+the host) or from the int8 disk cache beside it (``dense._quantized_disk_cache``,
+rows flattened to [N, Ld*dim]), folded into a running top-k
+(``streamed.streamed_topk``). Its hits equal the resident engine's bit for
+bit: every doc's score is computed by the same arithmetic whatever the other
+docs of its call. int4 is resident-only and refuses ``prefilter``, ``shards``
+and a corpus above the budget, with the JAX searcher's messages.
+
+The doc-embedding cache follows the index's generations
+(``embedding_cache.py``): after an incremental merge the surviving docs' rows
+are copied from the previous generation's cache and only the added docs are
+encoded (``docs_encoded`` counts them).
+
 The searcher runs on ``self.device``, an attribute (not a config option, so
 the device never enters the module path) that the service or the caller sets;
-``None`` means "cuda", which raises without a card.
-
-Not ported yet; each raises ``ConfigError`` naming its ROADMAP item:
-``prefilter > 0``, ``shards > 1``, and corpora above ``hbmbudget`` (host
-streaming), quantized or not. The doc-embedding cache covers generation 0
-only: the port's index has no generations, and incremental reuse comes with
-``refresh``. A ``checkpointfile`` is a trained ``colbert`` reranker's
-``dev.best.params`` from either package's trainer (flax's msgpack bytes,
-``utils/flax_msgpack.py``), its ``dev.best`` stem, or the port's ``.npz``
+``None`` means "cuda", which raises without a card. Not ported yet:
+``shards > 1`` (ROADMAP.md item 6, 'Multi-device'). A ``checkpointfile`` is a
+trained ``colbert`` reranker's ``dev.best.params`` from either package's
+trainer (flax's msgpack bytes, ``utils/flax_msgpack.py``), its ``dev.best``
+stem, a ``trainer.ckpt=sharded`` directory, or the port's ``.npz``
 (``convert.save_params``); each must hold the ``bert`` and ``linear``
 submodules, as the JAX searcher checks.
 """
@@ -51,6 +75,7 @@ import numpy as np
 import torch
 
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
+from capreolus_tpu_torch.reranker.common import matmul_f32
 from capreolus_tpu_torch.searcher import Searcher, _hbm_budget_mb
 from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
 from capreolus_tpu_torch.utils.caching import TargetFileExists, cached_file, done_file
@@ -61,6 +86,7 @@ logger = get_logger(__name__)
 MASKED_BIAS = -1e9  # additive bias of a masked doc token in bias_t, as in the JAX searcher
 UPLOAD_BYTES = 64 << 20  # f16 bytes per host-to-device copy of the corpus
 SIM_CHUNK_BYTES = 1 << 29  # int32 similarities per chunk of the quantized engine (512 MB)
+POOL_DOCS = 2048  # docs per step of prefilter's pooled embeddings (a [Ld, 2048, dim] f32 slice)
 
 
 def quantized_chunk_docs(nq, lq, ld):
@@ -80,9 +106,10 @@ def quantized_maxsim_scores(q_emb, docs, mask, dscale):
     scales. Queries quantize per query (``quantize_rows_torch``); each chunk of
     docs is one ``int8_mm`` (X1 on the card) whose int32 similarities round to
     bf16, masked tokens at bf16(-1e9), the max over doc tokens in bf16, the sum
-    over query tokens in f32, times the query and doc scales; a doc with no
-    valid token scores -inf."""
+    over query tokens in f32 (``ops.maxsim.sum_query_tokens``), times the query and doc
+    scales; a doc with no valid token scores -inf."""
     from capreolus_tpu_torch.ops.int8_matmul import int8_mm
+    from capreolus_tpu_torch.ops.maxsim import sum_query_tokens
     from capreolus_tpu_torch.ops.quantization import quantize_rows_torch, unpack_int4
 
     nq, lq, dim = q_emb.shape
@@ -99,8 +126,29 @@ def quantized_maxsim_scores(q_emb, docs, mask, dscale):
         sim = int8_mm(q2d, d.reshape(c * ld, dim).contiguous()).to(torch.bfloat16).view(nq, lq, c, ld)
         sim.masked_fill_(~mask[c0 : c0 + c][None, None], MASKED_BIAS)
         per_q_token = sim.amax(dim=-1).float()  # [Q, Lq, C]
-        out[:, c0 : c0 + c] = per_q_token.sum(dim=1) * qscale[:, None] * dscale[None, c0 : c0 + c]
+        out[:, c0 : c0 + c] = sum_query_tokens(per_q_token) * qscale[:, None] * dscale[None, c0 : c0 + c]
     return torch.where(mask.any(dim=1)[None, :], out, float("-inf"))
+
+
+class _HostTokens:
+    """A host-resident corpus for the streamed engine (device bytes above
+    ``hbmbudget``): the f16 memmap [N, Ld, dim], or int8 codes [N, Ld*dim]
+    with f32 [N] per-doc scales, and the int8 masks [N, Ld]."""
+
+    def __init__(self, emb, mask, scale=None):
+        self.emb, self.mask, self.scale = emb, mask, scale
+        self.n = emb.shape[0]
+
+
+def prefilter_candidates(q_emb, pooled, n_cand):
+    """Prefilter's stage 1: [Q, n_cand] ordinals, each query's top
+    ``n_cand`` docs by one bf16 product (f32 scores) of its summed bf16 token
+    embeddings (``q_emb`` [Q, Lq, dim]; the sum in f32, rounded once) against
+    ``pooled`` [N, dim] bf16, ties to the lower ordinal."""
+    from capreolus_tpu_torch.searcher.ivf import bf16_sims
+
+    qsum = q_emb.to(torch.bfloat16).float().sum(dim=1).to(torch.bfloat16)
+    return topk_lower_ordinal_first(bf16_sims(qsum, pooled), n_cand)[1]
 
 
 @Searcher.register
@@ -166,17 +214,11 @@ class LateInteractionSearcher(Searcher):
                                                   or int(self.config["prefilter"]) > 0):
             raise ConfigError("colbert quantize=int4 runs the resident exact engine only: "
                               "set shards=1 and prefilter=0 (use int8 for those combos)")
-        unported = (
-            ("prefilter", int(self.config["prefilter"]) > 0,
-             "two-stage candidate generation; ROADMAP.md item 6, 'ColBERT options'"),
-            ("shards", int(self.config["shards"]) > 1,
-             "the doc-sharded engine; ROADMAP.md item 6, 'ColBERT options'"),
-        )
-        for key, selects, what in unported:
-            if selects:
-                raise ConfigError(f"colbert searcher: {key}={self.config[key]!r} selects {what} "
-                                  f"(not ported to PyTorch yet)")
+        if int(self.config["shards"]) > 1:
+            raise ConfigError(f"colbert searcher: shards={self.config['shards']} selects the doc-sharded engine "
+                              f"(not ported to PyTorch yet: ROADMAP.md item 6, 'Multi-device')")
         self.setup_seconds = {"tokenize": 0.0, "encode": 0.0, "quantize": 0.0, "upload": 0.0}
+        self.docs_encoded = 0  # documents this searcher's encoder embedded for the cache
 
     # ------------------------------------------------------------------ encoder
     def _device(self):
@@ -230,7 +272,7 @@ class LateInteractionSearcher(Searcher):
     def encode_queries(self, toks):
         """[B, maxqlen] ids -> [B, maxqlen, dim] f32 query embeddings on the device."""
         model = self._encoder()
-        with torch.inference_mode():
+        with torch.inference_mode(), matmul_f32():
             q_emb, _ = model.encode_query(torch.from_numpy(np.asarray(toks)).to(self._device()))
         return q_emb
 
@@ -258,6 +300,13 @@ class LateInteractionSearcher(Searcher):
     def _mask_file(self):
         return self._mask_for(self._doc_cache_file())
 
+    def _current_doc_cache_file(self):
+        """The generation's cache the loaded corpus came from (set by
+        ``_doc_tensors``): the int4 rescore and the streamed int8 cache read
+        this one, never the generation-0 name."""
+        fn = getattr(self, "_active_cache_fn", None)
+        return fn if fn is not None else self._doc_cache_file()
+
     def _encode_doc_batches(self, docids, maxlen):
         """Encode the given docids' tokens, ``batch`` docs at a time. Returns
         ([n, Ld, dim] f16 embeddings, [n, Ld] int8 masks); adds the host's
@@ -271,12 +320,13 @@ class LateInteractionSearcher(Searcher):
             texts = [self.index.get_doc(d) for d in docids[start : start + batch]]
             toks = torch.from_numpy(self._tokenize(texts, maxlen))
             t1 = time.perf_counter()
-            with torch.inference_mode():
+            with torch.inference_mode(), matmul_f32():
                 e, m = model.encode_doc(toks.to(device))
                 embs.append(e.cpu().numpy().astype(np.float16))
                 masks.append(m.cpu().numpy().astype(np.int8))
             self.setup_seconds["tokenize"] += t1 - t0
             self.setup_seconds["encode"] += time.perf_counter() - t1
+        self.docs_encoded += len(docids)
         dim = int(self.config["dim"])
         emb = np.concatenate(embs) if embs else np.zeros((0, maxlen, dim), np.float16)
         mask = np.concatenate(masks) if masks else np.zeros((0, maxlen), np.int8)
@@ -285,43 +335,95 @@ class LateInteractionSearcher(Searcher):
     def _qmode(self):
         return self.config["quantize"] or "none"  # "none" casts to None
 
-    def _doc_tensors(self):
-        """The device corpus, from the disk cache of f16 embeddings and int8
-        masks (written on first use): (docs_t [Ld, N, dim] bf16, bias_t [Ld, N]
-        f32, valid [N] bool), the f16 values rounded to bf16 on upload (the two
-        roundings of the JAX searcher); or, quantized, (codes, mask [N, Ld]
-        bool, scales [N] f32) from ``_upload_quantized``."""
-        self.index.create_index()
-        if getattr(self, "_docs_emb", None) is not None:
-            return self._docs_emb
-        docid_strings = self.index.data.docid_strings
-        cache_fn = self._doc_cache_file()
+    def _token_cache(self, docid_strings, gen):
+        """The generation's [N, Ld, dim] f16 embeddings and [N, Ld] int8 masks,
+        memory-mapped from the disk cache, written on first use: from the
+        previous generation's cache where one exists (the surviving docs' rows
+        copied, or the files hardlinked when no doc changed), encoding only
+        the docs it lacks (``embedding_cache.py``, the JAX searcher's rule)."""
+        from capreolus_tpu_torch.searcher import embedding_cache as ec
+
+        base_fn = self._doc_cache_file()
+        cache_fn = ec.generation_path(base_fn, gen)
         mask_fn = self._mask_for(cache_fn)
-        if cache_fn.exists() and mask_fn.exists():
-            emb = np.load(cache_fn, mmap_mode="r")
-            mask = np.load(mask_fn, mmap_mode="r")
-        else:
-            logger.info("embedding %d documents' tokens with the %s colbert encoder",
-                        len(docid_strings), self.config["pretrained"])
-            emb, mask = self._encode_doc_batches(docid_strings, int(self.config["maxdoclen"]))
-            # mask first, emb last: the existence check needs both, and each
-            # write is atomic with its own race guard
-            for fn, arr in ((mask_fn, mask), (cache_fn, emb)):
-                try:
-                    with cached_file(fn, "wb") as f:
-                        np.save(f, arr)
-                except TargetFileExists:
-                    pass
+        self._active_cache_fn = cache_fn
+        if not (cache_fn.exists() and mask_fn.exists()):
+            maxlen = int(self.config["maxdoclen"])
+            emb = None
+            prev, prev_gen = ec.find_previous(base_fn, gen)
+            if prev is not None:
+                old_e = np.load(prev, mmap_mode="r")
+                old_m = np.load(self._mask_for(prev), mmap_mode="r")
+                src = ec.row_sources(ec.read_docids(prev), docid_strings)
+                if ec.identity_remap(src, old_e.shape[0]):
+                    ec.link_identical(self._mask_for(prev), mask_fn)
+                    ec.link_identical(prev, cache_fn)
+                else:
+                    emb = np.empty((len(docid_strings),) + old_e.shape[1:], dtype=old_e.dtype)
+                    mask = np.empty((len(docid_strings),) + old_m.shape[1:], dtype=old_m.dtype)
+                    reused = ec.fill_kept_rows([emb, mask], [old_e, old_m], src)
+                    new_idx = np.flatnonzero(src < 0)
+                    if len(new_idx):
+                        emb[new_idx], mask[new_idx] = self._encode_doc_batches(
+                            [docid_strings[i] for i in new_idx], maxlen)
+                    logger.info("colbert cache gen %d built from gen %d: reused %d rows, encoded %d new documents",
+                                gen, prev_gen, reused, len(new_idx))
+            else:
+                logger.info("embedding %d documents' tokens with the %s colbert encoder",
+                            len(docid_strings), self.config["pretrained"])
+                emb, mask = self._encode_doc_batches(docid_strings, maxlen)
+            if emb is not None:
+                # mask first, emb last: the existence check needs both, and
+                # each write is atomic with its own race guard
+                for fn, arr in ((mask_fn, mask), (cache_fn, emb)):
+                    try:
+                        with cached_file(fn, "wb") as f:
+                            np.save(f, arr)
+                    except TargetFileExists:
+                        pass
+        ec.write_docids(cache_fn, docid_strings)
+        ec.prune_old_generations(base_fn, gen)
+        return np.load(cache_fn, mmap_mode="r"), np.load(mask_fn, mmap_mode="r")
+
+    def _doc_tensors(self):
+        """The search-time corpus of the index's loaded generation: on the
+        device (docs_t [Ld, N, dim] bf16, bias_t [Ld, N] f32, valid [N] bool),
+        the f16 values rounded to bf16 on upload (the two roundings of the
+        JAX searcher); or, quantized, (codes, mask [N, Ld] bool, scales [N]
+        f32) from ``_upload_quantized``; or above ``hbmbudget`` a
+        ``_HostTokens`` that the streamed engine reads slice by slice."""
+        self.index.create_index()
+        docid_strings = self.index.data.docid_strings  # merges pending index ops first
+        gen = getattr(self.index, "_loaded_generation", 0)
+        if getattr(self, "_docs_emb", None) is not None and getattr(self, "_docs_emb_gen", 0) == gen:
+            return self._docs_emb
+        self._docs_emb = None
+        self._docs_emb_gen = gen
+        emb, mask = self._token_cache(docid_strings, gen)
         n_docs, ld, dim = emb.shape
         qmode = self._qmode()
         per_doc = {"int8": ld * dim, "int4": (ld * dim + (ld * dim) % 2) // 2}.get(qmode, 2 * ld * dim)
         dev_bytes = n_docs * per_doc + mask.size + (4 * n_docs if qmode != "none" else 0)
         budget_bytes = float(_hbm_budget_mb(self.config)) * 1e6
-        if dev_bytes > budget_bytes:
-            raise ConfigError(f"colbert corpus ({n_docs} docs, {dev_bytes / 1e6:.0f} MB device bytes) exceeds "
-                              f"hbmbudget={budget_bytes / 1e6:.0f} MB: host streaming is not ported to PyTorch "
-                              f"yet (ROADMAP.md item 6, 'ColBERT options'); raise searcher.hbmbudget")
-        self._docs_emb = self._upload(emb, mask) if qmode == "none" else self._upload_quantized(emb, mask, qmode)
+        if dev_bytes <= budget_bytes:
+            self._docs_emb = self._upload(emb, mask) if qmode == "none" else self._upload_quantized(emb, mask, qmode)
+            return self._docs_emb
+        if qmode == "int4":
+            raise ConfigError("colbert quantize=int4 is resident-only; the packed corpus "
+                              f"({dev_bytes / 1e6:.0f} MB) exceeds hbmbudget — raise the "
+                              "budget or use quantize=int8 (which composes with streaming)")
+        logger.info("colbert corpus (%d docs, %.0f MB device bytes) exceeds hbmbudget=%.0f MB: "
+                    "host-streaming mode (chunked uploads + running top-k merge)",
+                    n_docs, dev_bytes / 1e6, budget_bytes / 1e6)
+        if qmode == "int8":
+            from capreolus_tpu_torch.searcher.dense import _quantized_disk_cache
+
+            t0 = time.perf_counter()
+            q2d, scale = _quantized_disk_cache(self._current_doc_cache_file(), emb.reshape(n_docs, ld * dim), "int8")
+            self.setup_seconds["quantize"] += time.perf_counter() - t0
+            self._docs_emb = _HostTokens(q2d, mask, scale)
+        else:
+            self._docs_emb = _HostTokens(emb, mask)
         return self._docs_emb
 
     def _upload_quantized(self, emb, mask, qmode):
@@ -375,18 +477,29 @@ class LateInteractionSearcher(Searcher):
 
     def build_topk(self, hits):
         """``(topk(q_emb, *corpus) -> (scores, ordinals), corpus, n_corpus)``
-        of the exact resident engine: one MaxSim call over the whole corpus
-        (K3 on the card), or ``quantized_maxsim_scores`` over a quantized one,
-        then the top ``hits`` with ties to the lower ordinal. int4 takes the
-        top ``rescore`` and re-scores them (``_rescore_wrap``). Shared by the
+        of the engine the config selects: the host stream above ``hbmbudget``
+        (``corpus`` is then empty), the two-stage ``prefilter``, or the exact
+        resident engine: one MaxSim call over the whole corpus (K3 on the
+        card), or ``quantized_maxsim_scores`` over a quantized one, then the
+        top ``hits`` with ties to the lower ordinal. int4 takes the top
+        ``rescore`` and re-scores them (``_rescore_wrap``). Shared by the
         batch pipeline (``_search_all``) and the serving layer
         (``serving.ColbertRetrievalService``)."""
         from capreolus_tpu_torch.ops.maxsim import maxsim_scores
 
         corpus = self._doc_tensors()
+        prefilter = int(self.config["prefilter"])
+        if isinstance(corpus, _HostTokens):
+            if prefilter > 0:
+                raise ConfigError("colbert streaming (corpus > hbmbudget) runs the exact "
+                                  "single-chip path: set shards=1 and prefilter=0, or raise "
+                                  "hbmbudget (shards already partition the corpus across chips)")
+            return self._streamed_topk(corpus, min(int(hits), corpus.n)), (), corpus.n
         qmode = self._qmode()
         n = corpus[0].shape[1] if qmode == "none" else corpus[0].shape[0]
         hits = min(int(hits), n)
+        if prefilter > 0:
+            return self._prefilter_topk(corpus, n, hits, min(prefilter, n)), corpus, n
         if qmode == "none":
             def topk(q_emb, docs_t, bias_t, valid):
                 return topk_lower_ordinal_first(maxsim_scores(q_emb, docs_t, bias_t, valid), hits)
@@ -401,13 +514,118 @@ class LateInteractionSearcher(Searcher):
 
         return (self._rescore_wrap(topk, n, hits) if rescore else topk), corpus, n
 
+    def pooled_docs(self, corpus):
+        """[N, dim] bf16: each doc's mean valid-token embedding, the JAX
+        stage 1's arithmetic (``m = (dmask > 0)`` in bf16, int8 codes times
+        their bf16 scale in bf16, the sum over tokens, then a bf16 division by
+        the count, at least 1). The sum is taken in f32 and rounded once, as
+        XLA may widen a bf16 reduction. Computed a slice of docs at a time."""
+        quantized = self._qmode() != "none"
+        n = corpus[0].shape[0] if quantized else corpus[0].shape[1]
+        dim = corpus[0].shape[-1]
+        out = torch.empty((n, dim), dtype=torch.bfloat16, device=corpus[0].device)
+        for d0 in range(0, n, POOL_DOCS):
+            if quantized:
+                codes, mask, scale = (t[d0 : d0 + POOL_DOCS] for t in corpus)
+                d = codes.to(torch.bfloat16) * scale.to(torch.bfloat16)[:, None, None]  # [c, Ld, dim]
+                m = mask.to(torch.bfloat16)[..., None]
+                axis = 1
+            else:
+                docs_t, bias_t, _ = corpus
+                d = docs_t[:, d0 : d0 + POOL_DOCS]  # [Ld, c, dim]
+                m = (bias_t[:, d0 : d0 + POOL_DOCS] >= 0).to(torch.bfloat16)[..., None]
+                axis = 0
+            total = (d * m).float().sum(dim=axis).to(torch.bfloat16)
+            count = torch.clamp_min(m.float().sum(dim=axis).to(torch.bfloat16), 1.0)
+            out[d0 : d0 + total.shape[0]] = total / count
+        return out
+
+    def _prefilter_topk(self, corpus, n, hits, n_cand):
+        """The JAX ``_prefilter_topk``: stage 1 is one bf16 product of each
+        query's summed bf16 token embeddings against ``pooled_docs`` (f32
+        scores), whose top ``n_cand`` (ties to the lower ordinal) are the
+        query's candidates; stage 2 scores exact MaxSim over them, one call
+        per query (K3 over the gathered token-major slab, or X1 over the
+        gathered int8 rows), each candidate's score the exact engine's for
+        that doc; the top ``min(hits, n_cand)`` by a stable descending sort in
+        candidate order."""
+        from capreolus_tpu_torch.ops.maxsim import maxsim_scores
+
+        quantized = self._qmode() != "none"
+        pooled = self.pooled_docs(corpus)
+        hits = min(hits, n_cand)
+
+        def topk(q_emb, *corpus_args):
+            cand = prefilter_candidates(q_emb, pooled, n_cand)  # [Q, n_cand]
+            s2 = torch.empty(cand.shape, dtype=torch.float32, device=q_emb.device)
+            for qi in range(q_emb.shape[0]):
+                c = cand[qi]
+                if quantized:
+                    codes, mask, scale = corpus_args
+                    s2[qi] = quantized_maxsim_scores(q_emb[qi : qi + 1], codes[c], mask[c], scale[c])[0]
+                else:
+                    docs_t, bias_t, valid = corpus_args
+                    s2[qi] = maxsim_scores(q_emb[qi : qi + 1], docs_t[:, c].contiguous(), bias_t[:, c].contiguous(),
+                                           valid[c])[0]
+            values, order = torch.sort(s2, dim=1, descending=True, stable=True)
+            return values[:, :hits], torch.gather(cand, 1, order[:, :hits])
+
+        self.prefilter_candidates = n_cand
+        return topk
+
+    def _streamed_topk(self, host, hits):
+        """The JAX ``_streamed_topk`` for a corpus above ``hbmbudget``: per
+        query batch, slices of ``budget // 2 // row_bytes`` docs (JAX's
+        ``row_bytes``), rounded down to a multiple of ``chunk``, are uploaded
+        and folded into a running top-k (``streamed.streamed_topk``, the
+        running list first on ties). A bf16 slice is the f16 memmap's rows
+        converted to bf16 and transposed to [Ld, slice, dim] on the host, then
+        scored by K3; an int8 slice is the disk cache's rows, scored by
+        ``quantized_maxsim_scores``. ``stream_slices`` counts the slices of
+        one query batch, ``stream_slice_docs`` the docs of a slice."""
+        from capreolus_tpu_torch.ops.maxsim import maxsim_scores
+        from capreolus_tpu_torch.searcher.streamed import streamed_topk
+
+        ld = host.mask.shape[1]
+        dim = int(self.config["dim"])
+        quantized = host.scale is not None
+        row_bytes = ld * dim * (1 if quantized else 2) + ld + (4 if quantized else 0)
+        chunk = min(int(self.config["chunk"]), max(host.n, 1))
+        per_upload = int(max(1, float(_hbm_budget_mb(self.config)) * 1e6 // 2 // row_bytes))
+        upload = max(chunk, per_upload - per_upload % chunk)
+        device = self._device()
+
+        def to_device(array):
+            return torch.from_numpy(np.array(array)).to(device)
+
+        def make_chunk(start):
+            mask = np.asarray(host.mask[start : start + upload]) > 0  # [u, Ld]
+            if quantized:
+                rows = np.asarray(host.emb[start : start + upload]).reshape(-1, ld, dim)
+                return to_device(rows), to_device(mask), to_device(host.scale[start : start + upload])
+            rows = torch.from_numpy(np.array(host.emb[start : start + upload]))  # [u, Ld, dim] f16
+            docs_t = torch.empty((ld, rows.shape[0], dim), dtype=torch.bfloat16)
+            docs_t.copy_(rows.transpose(0, 1))  # bf16 and K3's token-major layout in one host pass
+            mask_t = torch.from_numpy(np.ascontiguousarray(mask.T)).to(device)  # [Ld, u], K3's layout
+            return docs_t.to(device), torch.where(mask_t, 0.0, MASKED_BIAS), mask_t.any(dim=0)
+
+        def score_chunk(q_emb, chunk_tensors):
+            if quantized:
+                return quantized_maxsim_scores(q_emb, *chunk_tensors)
+            return maxsim_scores(q_emb, *chunk_tensors)
+
+        self.stream_slices, self.stream_slice_docs = -(-host.n // upload), upload
+        logger.info("streaming colbert search: %d-doc upload slices (%.0f MB each), %d/query-batch",
+                    upload, upload * row_bytes / 1e6, self.stream_slices)
+        return streamed_topk(make_chunk, score_chunk, host.n, upload, hits)
+
     def _rescore_wrap(self, base_topk, n, hits):
         """Two-stage int4 MaxSim (the JAX ``_rescore_wrap``): the packed
         engine's candidates are re-scored at full precision from the
         memory-mapped f16 doc-embedding cache (per query: f32 [Lq, dim] x [dim,
         r*Ld] on the query's device, masked max, sum), and the top ``hits`` of
         those scores come back, ties in the engine's candidate order."""
-        cache_fn = self._doc_cache_file()
+        cache_fn = self._current_doc_cache_file()
         emb_mm = np.load(cache_fn, mmap_mode="r")
         mask_mm = np.load(self._mask_for(cache_fn), mmap_mode="r")
 

@@ -140,12 +140,21 @@ class TpuSearcherMixin:
         return resolve_device(self.device)
 
     def get_engine(self) -> ScoringEngine:
+        """The engine over the index's loaded generation on the searcher's
+        device, rebuilt when either changes. The cache keys on
+        ``_loaded_generation`` (the generation the loaded artifacts came
+        from), never on a fresh read of CURRENT, which another writer may have
+        advanced since the load."""
         self.index.create_index()
         device = self._device()
-        if getattr(self, "_engine", None) is None or self._engine.dindex.device != device:
+        data = self.index.data  # merges any pending incremental ops first
+        gen = getattr(self.index, "_loaded_generation", 0)
+        if (getattr(self, "_engine", None) is None or self._engine.dindex.device != device
+                or getattr(self, "_engine_gen", None) != gen):
             budget_mb = _hbm_budget_mb(self.config)
-            self._engine = ScoringEngine(DeviceIndex(self.index.data, device=device,
+            self._engine = ScoringEngine(DeviceIndex(data, device=device,
                                                      hbm_budget=budget_mb * 1e6 if budget_mb > 0 else None))
+            self._engine_gen = gen
         return self._engine
 
     def grid_params(self):

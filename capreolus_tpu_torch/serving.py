@@ -17,9 +17,18 @@ exhaustive scoring) and streams postings above ``hbm_budget_mb``.
 ``DenseRetrievalService`` serves the dense searcher's engines (K2 in the
 query encoder; bf16, or X1 over an int8 / int4 corpus; IVF, streaming, PRF),
 ``ImpactRetrievalService`` the learned-sparse impact index on the sparse
-engine, and ``HybridRetrievalService`` fuses two services' hit lists. Not
-ported yet: ``shards`` (ROADMAP.md item 6, 'Multi-device'), ``refresh``,
-``snippets`` and the HTTP front end (item 9).
+engine, and ``HybridRetrievalService`` fuses two services' hit lists.
+
+Every service has ``refresh()``, the NRT reopen (Lucene's
+``SearcherManager.maybeRefresh``): it merges the index's pending incremental
+ops (``TpuIndex.add_documents`` / ``delete_documents``) and, when the loaded
+generation moved, swaps in an engine over it in one reference assignment, so
+that an in-flight search keeps the engine it read; it returns True only when
+the served generation changed. The embedding and impact caches are rebuilt
+incrementally (only added docs are encoded). Every service has
+``snippets(query, hits)`` (``analysis/highlight.py``) and ``_docids``, which
+the HTTP front end (``serving_http.py``) reads. Not ported yet: ``shards``
+(ROADMAP.md item 6, 'Multi-device').
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 
 from capreolus_tpu_torch.core import ConfigError
+from capreolus_tpu_torch.reranker.common import matmul_f32
 from capreolus_tpu_torch.utils.loginit import get_logger
 
 logger = get_logger(__name__)
@@ -72,6 +82,29 @@ class RetrievalService:
         self.pruning = bool(pruning)
         self.engine = ScoringEngine(DeviceIndex(index.data, device=self.device,
                                                 hbm_budget=hbm_budget_mb * 1e6 if hbm_budget_mb > 0 else None))
+        self._generation = getattr(index, "_loaded_generation", 0)
+
+    @property
+    def _docids(self):
+        return self.engine.dindex.host.docid_strings
+
+    def refresh(self) -> bool:
+        """NRT reopen: merge the index's pending incremental ops and, when the
+        loaded generation moved, swap in an engine over it (one reference
+        assignment: a search in flight keeps the engine it read). Returns True
+        when the served generation changed."""
+        from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
+
+        if hasattr(self.index, "refresh"):
+            self.index.refresh()
+        data = self.index.data
+        gen = getattr(self.index, "_loaded_generation", 0)
+        if gen == self._generation:
+            return False
+        budget = self._hbm_budget_mb * 1e6 if self._hbm_budget_mb > 0 else None
+        self.engine = ScoringEngine(DeviceIndex(data, device=self.device, hbm_budget=budget))
+        self._generation = gen
+        return True
 
     @classmethod
     def from_config(cls, collection: str = "dummy", collection_path: Optional[str] = None,
@@ -135,6 +168,13 @@ class RetrievalService:
 
     def get_document(self, docid: str) -> Optional[str]:
         return self.index.get_doc(docid)
+
+    def snippets(self, query: str, hits) -> List[str]:
+        """Query-biased snippets of a hit list (``analysis/highlight.py``):
+        the index's analyzer matches terms, idf weighs the window."""
+        from capreolus_tpu_torch.analysis.highlight import snippets_for_hits
+
+        return snippets_for_hits(self.index, query, hits)
 
 
 class RerankingService(RetrievalService):
@@ -235,19 +275,15 @@ class RerankingService(RetrievalService):
             t0 = time.perf_counter()
             batch = self.rerank_batch(f"live{qi}", query, docids)
             features_s += time.perf_counter() - t0
-            if self._calibrate_pending:
-                self.reranker.prepare_inference(batch, self.device)
-                self._calibrate_pending = False
-            with torch.inference_mode():
-                scores = self.reranker.test(batch, self.device).cpu().numpy()
+            with matmul_f32():
+                if self._calibrate_pending:
+                    self.reranker.prepare_inference(batch, self.device)
+                    self._calibrate_pending = False
+                with torch.inference_mode():
+                    scores = self.reranker.test(batch, self.device).cpu().numpy()
             reranked = sorted(zip(docids, map(float, scores)), key=lambda kv: -kv[1])
             results.append(reranked[:k])
         return results, features_s
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet: ROADMAP.md item 9, "
-                               f"'The other serving families'")
 
 
 class _EmbeddingRetrievalService:
@@ -260,8 +296,10 @@ class _EmbeddingRetrievalService:
     compiled shape; the port does not pad (every row is independent, so the
     results are the same, and a one-query request costs one query's work).
     Subclasses provide the searcher's registry name and the query-embedding
-    hook; result filtering (-inf and out-of-corpus slots) lives here.
-    ``refresh`` and ``snippets`` raise (ROADMAP.md item 9).
+    hook; result filtering (-inf and out-of-corpus slots) lives here. The
+    served engine is one tuple (top-k function, corpus, corpus size, docids,
+    max_k), read once per search and replaced in one assignment by
+    ``refresh``.
     """
 
     _searcher_name: str = ""
@@ -270,18 +308,44 @@ class _EmbeddingRetrievalService:
         self.device = resolve_device(device)
         searcher.device = self.device
         self.searcher = searcher
-        self._topk, corpus, self._n = searcher.build_topk(max_k)
-        self._corpus = corpus if isinstance(corpus, tuple) else (corpus,)  # ColBERT's tuple, dense's one corpus
-        self.max_k = min(int(max_k), self._n)
-        self._docids = searcher.index.data.docid_strings
+        self._requested_k = int(max_k)  # refresh re-clamps against the new corpus
+        self._served = self._build_engine()
         self.batch_size = int(searcher.config["batch"])
         self._prepare()
 
+    def _build_engine(self):
+        topk, corpus, n = self.searcher.build_topk(self._requested_k)
+        corpus = corpus if isinstance(corpus, tuple) else (corpus,)  # ColBERT's tuple, dense's one corpus
+        index = self.searcher.index
+        self._generation = getattr(index, "_loaded_generation", 0)
+        return topk, corpus, n, index.data.docid_strings, min(self._requested_k, n)
+
+    # the served engine's parts, each read from the one tuple
+    _topk = property(lambda self: self._served[0])
+    _corpus = property(lambda self: self._served[1])
+    _n = property(lambda self: self._served[2])
+    _docids = property(lambda self: self._served[3])
+    max_k = property(lambda self: self._served[4])
+
     def refresh(self) -> bool:
-        raise _not_ported("refresh (NRT reopen with incremental embedding caches)")
+        """NRT reopen: merge the index's pending incremental ops; on a new
+        generation the searcher rebuilds its embedding cache incrementally
+        (surviving docs' rows copied, only added docs encoded) and the
+        service swaps in an engine over it at the requested ``max_k``, in one
+        assignment. Returns True when the served generation changed."""
+        index = self.searcher.index
+        if hasattr(index, "refresh"):
+            index.refresh()
+        _ = index.data
+        if getattr(index, "_loaded_generation", 0) == self._generation:
+            return False
+        self._served = self._build_engine()
+        return True
 
     def snippets(self, query: str, hits) -> List[str]:
-        raise _not_ported("snippets (analysis/highlight.py)")
+        from capreolus_tpu_torch.analysis.highlight import snippets_for_hits
+
+        return snippets_for_hits(self.searcher.index, query, hits)
 
     def _prepare(self):
         """Subclass hook: warm the query encoder."""
@@ -309,8 +373,8 @@ class _EmbeddingRetrievalService:
     def search_async(self, queries: Sequence[str], k: int = 10):
         """Dispatch-now / collect-later variant of ``search`` (identical results):
         the device work is queued when this returns."""
-        k = min(int(k), self.max_k)
-        topk, corpus, n, docids = self._topk, self._corpus, self._n, self._docids
+        topk, corpus, n, docids, max_k = self._served  # one read: a refresh never mixes two engines
+        k = min(int(k), max_k)
         pending = []
         for start in range(0, len(queries), self.batch_size):
             chunk = list(queries[start : start + self.batch_size])
@@ -402,12 +466,36 @@ class ImpactRetrievalService:
         self.batch_size = max(1, int(searcher.config["batch"]))
         # the (engine, docids, scale) tuple, read once: the hot path never re-derives it
         self._snapshot = searcher._impact_index()
+        self._served_gen = getattr(searcher, "_engine_gen", 0)
+
+    @property
+    def index(self):
+        return self.searcher.index
+
+    @property
+    def _docids(self):
+        return self._snapshot[1]
 
     def refresh(self) -> bool:
-        raise _not_ported("refresh (NRT reopen with incremental impact caches)")
+        """NRT reopen: merge the index's pending incremental ops; on a new
+        generation the searcher re-derives the quantized CSR from the
+        incrementally maintained raw cache (only added docs encoded),
+        re-quantized over the new corpus as a fresh build would be, and the
+        snapshot tuple is swapped in one assignment. Returns True when the
+        served generation changed."""
+        index = self.searcher.index
+        if hasattr(index, "refresh"):
+            index.refresh()
+        self._snapshot = self.searcher._impact_index()
+        gen = getattr(self.searcher, "_engine_gen", 0)
+        changed = gen != self._served_gen
+        self._served_gen = gen
+        return changed
 
     def snippets(self, query: str, hits) -> List[str]:
-        raise _not_ported("snippets (analysis/highlight.py)")
+        from capreolus_tpu_torch.analysis.highlight import snippets_for_hits
+
+        return snippets_for_hits(self.searcher.index, query, hits)
 
     @classmethod
     def from_config(cls, collection: str = "dummy", collection_path: Optional[str] = None, device=None,
@@ -469,7 +557,8 @@ class HybridRetrievalService:
     """Serving-level hybrid retrieval: two warm services' hit lists fused per
     query, ``rrf`` (reciprocal rank fusion, the default) or ``interp``
     (``searcher/fusion.py``'s math over live hit lists). Any two services with
-    the ``search_async(queries, k)`` contract compose; an embedding service's
+    the ``search(queries, k)`` contract compose (a leg without
+    ``search_async`` is searched at dispatch); an embedding service's
     ``max_k`` clamps ``depth`` for BOTH legs, so that fusion sees equal-depth
     lists."""
 
@@ -488,14 +577,24 @@ class HybridRetrievalService:
                            "to %d (build the service with max_k>=%d for deeper fusion)",
                            self.depth, self._depth_limit, self._depth_limit, self.depth)
             self.depth = self._depth_limit
+        self.batch_size = min(getattr(service1, "batch_size", 64), getattr(service2, "batch_size", 64))
+        self._docids = getattr(service1, "_docids", [])  # the HTTP front end's /health corpus_size
 
     def search_async(self, queries: Sequence[str], k: int = 10):
         """Dispatch-now / collect-later variant of ``search`` (identical
-        results): both legs are dispatched before either is collected."""
+        results): both legs are dispatched before either is collected; a leg
+        without ``search_async`` is searched here."""
         depth = max(self.depth, k)
         if self._depth_limit is not None:
             depth = min(depth, self._depth_limit)
-        collectors = [svc.search_async(queries, k=depth) for svc in self.services]
+        collectors = []
+        for svc in self.services:
+            dispatch = getattr(svc, "search_async", None)
+            if callable(dispatch):
+                collectors.append(dispatch(queries, k=depth))
+            else:
+                hits = svc.search(queries, k=depth)
+                collectors.append(lambda h=hits: h)
 
         def collect() -> List[List[Tuple[str, float]]]:
             from capreolus_tpu_torch.searcher.fusion import interp_fuse, rrf_fuse
@@ -517,4 +616,4 @@ class HybridRetrievalService:
         return self.services[0].get_document(docid)
 
     def snippets(self, query: str, hits) -> List[str]:
-        raise _not_ported("snippets (analysis/highlight.py)")
+        return self.services[0].snippets(query, hits)

@@ -69,7 +69,7 @@ import torch
 
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, constants
 from capreolus_tpu_torch.evaluation import eval_runs
-from capreolus_tpu_torch.reranker.common import LOSS_FUNCTIONS, cudnn_f32
+from capreolus_tpu_torch.reranker.common import LOSS_FUNCTIONS, cudnn_f32, matmul_f32
 from capreolus_tpu_torch.trainer import Trainer
 from capreolus_tpu_torch.trainer.amp import amp_mode, bf16_params, round_int8_inference
 from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
@@ -379,7 +379,7 @@ class TorchTrainer(Trainer):
         for g in range(gradacc):
             micro = {k: v[g] for k, v in batches.items()}
             # around the backward too: remat recomputes layers, and cuDNN's backward reads the TF32 flag
-            with bf16_params(model, self.amp_train()), cudnn_f32():
+            with bf16_params(model, self.amp_train()), cudnn_f32(), matmul_f32():
                 loss = self.compute_loss(reranker, micro, device, dropout_generator_seed(step_seed, g))
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
@@ -618,7 +618,7 @@ class TorchTrainer(Trainer):
         was_training = self._model.training
         self._model.eval()
         prepared = False
-        with torch.no_grad(), contextlib.ExitStack() as amp:
+        with torch.no_grad(), matmul_f32(), contextlib.ExitStack() as amp:
             while True:
                 chunk = list(itertools.islice(sample_iter, batch_size))
                 if not chunk:

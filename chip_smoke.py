@@ -9,8 +9,9 @@ Robust04-shaped experiment through ``rank.searcheval``, then serves PARADE,
 CEDR-KNRM, Birch and MoE-BERT and trains them through their tasks, then trains
 LoRA BERT-MaxP, CEDR-KNRM and KNRM under ``trainer.amp`` and the ColBERT
 reranker and serves what they wrote, then serves and trains the reranker zoo,
-then serves dense and learned-sparse retrieval and trains its rerankers, and
-holds every kernel against its plain PyTorch version.
+then serves dense and learned-sparse retrieval and trains its rerankers,
+then drives the ColBERT options, snippets, the HTTP front end and NRT
+refresh, and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py   # needs one CUDA device; builds the kernels
 
@@ -281,6 +282,23 @@ printed only when every phase passed):
    served by ``rank.searcheval`` with hits (its test MAP reported; uniCOIL
    with dropout 0 from its init at trainer seed 53, which trains in the JAX
    package too, where the default seed's dies in both);
+16. the serving families (after 15): 16a the ColBERT options over phase 6's
+   cache (no encoding): ``prefilter`` 200 and 1000 over the bf16 and int8
+   corpora (8 single queries and the 64-query batch; K3 or X1 once per query
+   over its gathered candidates; stage-2 scores equal to the exact engine's
+   bit for bit; top-10 overlap with exact; query 0's top 10 card vs CPU
+   within 1e-2), the host stream at a quarter of the device bytes (slices
+   counted, the top 100 bit-identical to the resident engine) and an int4
+   corpus over the budget raising JAX's message; K3 on gathered candidates
+   and on a streamed slice, X1 on int8 ones, against their plain versions;
+   16c snippets of 8 queries' top 10 on the BM25, ColBERT, bf16 dense and
+   uniCOIL services, equal to a CPU reader's; 16d the HTTP front end over
+   BM25 and bf16 dense on 127.0.0.1: 256 requests from 16 clients (p50, p99,
+   batches), ``/search`` equal to ``search``, ``/health``'s corpus size; 16b,
+   last: 256 seeded docs added and 128 deleted, then ``refresh()`` of the
+   four services (merge and refresh s; exactly the added docs encoded, K2
+   12 times a batch there and held against plain at layer 0; deleted docs
+   absent; 8 queries' hits equal to a new service's over the new generation);
 7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
    ``launches_training`` and ``launches_training_predict``, phase 9's
    launches in training steps and in the trainer's predictions, and K1 and
@@ -290,7 +308,9 @@ printed only when every phase passed):
    runs, training steps and predictions, the served ones also in
    ``launches``; K1 with its error on bf16 rows; K2 and X1 with
    ``launches_phase15`` and ``max_abs_err_phase15``, X1's 1M-doc shape under
-   ``served_shapes``), then the result line.
+   ``served_shapes``; K2, K3 and X1 with ``launches_phase16``, K2's error in
+   16b's encoding, K3's ``phase16`` measurements on gathered candidates and a
+   streamed slice, X1's ``equal_plain_phase16``), then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
 and read just after it.
@@ -5401,6 +5421,490 @@ def add_phase15_launches(kernels, p15):
     kernels[3]["served_shapes"]["dense_1m"] = p15["scale"]["x1"]
 
 
+# ---------------------------------------------------------------- phase 16: the serving families
+P16 = {  # phase 16's counts (none crosses a dispatch threshold)
+    "prefilters": (200, 1000), "queries": 8, "stream_queries": 3, "stream_quarter": 4,
+    "added": 256, "deleted": 128, "http_requests": 256, "http_clients": 16, "snippet_queries": 8,
+}
+RESIDENT16_MS = {"none": (6.36, 17.20), "int8": (8.15, 93.35)}  # PERF.md §5: ColBERT resident, one query / 64
+PREFILTER_CPU_TOL = COLBERT_CPU_TOL  # a prefilter's served top 10 vs the CPU encoder + plain scoring
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def colbert16(cfg, encoder_of=None, corpus_of=None, device="cuda"):
+    """A colbert searcher on ``device``; ``encoder_of`` hands it a loaded
+    encoder (one BERT-base load for the phase), ``corpus_of`` another
+    searcher's uploaded corpus of the same representation (one upload)."""
+    from capreolus_tpu_torch.searcher import Searcher
+
+    searcher = Searcher.create("colbert", json.loads(json.dumps(cfg)))
+    searcher.device = device
+    if encoder_of is not None:
+        searcher._enc, searcher._random_init = encoder_of._encoder(), encoder_of._random_init
+    if corpus_of is not None:
+        searcher._docs_emb, searcher._docs_emb_gen = corpus_of._doc_tensors(), corpus_of._docs_emb_gen
+    return searcher
+
+
+def colbert_cpu_top10(cpu_model, searcher, query, hits, qmode, corpus):
+    """max |served - CPU| over a served top 10: the port's encoder on the CPU
+    for the query, the CPU's plain MaxSim (or int8 scoring) over those docs'
+    rows of the searcher's own cache (f16 then bf16) or int8 corpus."""
+    from capreolus_tpu_torch.ops.maxsim import maxsim_scores_plain
+    from capreolus_tpu_torch.searcher.late_interaction import quantized_maxsim_scores
+
+    ordinal = {d: i for i, d in enumerate(searcher.index.data.docid_strings)}
+    rows = [ordinal[d] for d, _ in hits]
+    with torch.inference_mode():
+        cq, _ = cpu_model.encode_query(torch.from_numpy(searcher._tokenize([query], COLBERT["maxqlen"])))
+    if qmode == "none":
+        cache = searcher._current_doc_cache_file()
+        emb = np.load(cache, mmap_mode="r")[rows]
+        mask = np.load(searcher._mask_for(cache), mmap_mode="r")[rows] > 0
+        docs_t = torch.from_numpy(np.ascontiguousarray(emb.swapaxes(0, 1))).to(torch.bfloat16)
+        mask_t = torch.from_numpy(np.ascontiguousarray(mask.T))
+        cpu = maxsim_scores_plain(cq, docs_t, torch.where(mask_t, 0.0, MASKED_BIAS).float(), mask_t.any(dim=0))[0]
+    else:
+        idx = torch.tensor(rows, device=corpus[0].device)
+        cpu = quantized_maxsim_scores(cq, *(t[idx].cpu() for t in corpus))[0]
+    return float(max(abs(s - float(c)) for (_, s), c in zip(hits, cpu)))
+
+
+def phase_colbert_options(workdir, corpus_dir, topics, none, peaks, device="cuda", shape=P16):
+    """16a: the ColBERT options over phase 6's 20k-doc cache (no encoding):
+    ``prefilter`` 200 and 1000 over the bf16 and int8 corpora (one query,
+    median of 8, and a 64-query batch; stage 2 equal to the exact engine's
+    scores bit for bit; top-10 overlap with exact; query 0's top 10 card vs
+    CPU), the host stream at about a quarter of the corpus's device bytes
+    (bit-identical to the resident engine) and an int4 corpus over the budget
+    (JAX's message). K3 on gathered candidates and on a streamed slice, X1 on
+    int8 candidates and on an int8 slice, held against their plain versions."""
+    from capreolus_tpu_torch.convert import bert_state_dict, load_params
+    from capreolus_tpu_torch.core import ConfigError, constants
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    from capreolus_tpu_torch.ops.maxsim import maxsim_scores
+    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
+    from capreolus_tpu_torch.reranker.bert import get_bert_config
+    from capreolus_tpu_torch.reranker.colbert import ColBERTModel
+    from capreolus_tpu_torch.searcher.late_interaction import prefilter_candidates, quantized_maxsim_scores
+    from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
+    from capreolus_tpu_torch.serving import ColbertRetrievalService
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")  # phase 6's doc-embedding cache
+    cfg = {**COLBERT, "pretrained": "bert-base-uncased", "allowrandominit": True, "checkpointfile": none["ckpt"],
+           "index": {"collection": {"name": "dummy", "path": corpus_dir}}}
+    queries, batch = list(topics[:shape["queries"]]), list(none["batch"])
+    encoder = colbert16(cfg, device=device)
+    cpu_model = ColBERTModel(get_bert_config("bert-base-uncased"), dim=COLBERT["dim"])
+    cpu_model.load_state_dict(bert_state_dict(load_params(none["ckpt"])))
+    cpu_model.eval()
+    out, launches, held = {}, {}, {}
+    for qmode in ("none", "int8"):
+        opts = {} if qmode == "none" else {"quantize": "int8"}
+        t0 = time.perf_counter()
+        exact = colbert16({**cfg, **opts}, encoder_of=encoder, device=device)
+        corpus = exact._doc_tensors()
+        sync(device)
+        setup_s = time.perf_counter() - t0
+        check(exact.docs_encoded == 0, f"16a {qmode}: {exact.docs_encoded} docs encoded; phase 6's cache holds them all")
+        n = corpus[0].shape[1] if qmode == "none" else corpus[0].shape[0]
+        qb = exact.encode_queries(exact._tokenize(batch, COLBERT["maxqlen"]))
+        full = maxsim_scores(qb, *corpus) if qmode == "none" else quantized_maxsim_scores(qb, *corpus)
+        exact_top10 = topk_lower_ordinal_first(full, 10)[1].cpu().numpy()
+        for pf in shape["prefilters"]:
+            label = f"{qmode} prefilter {pf}"
+            svc = ColbertRetrievalService(colbert16({**cfg, **opts, "prefilter": pf}, encoder_of=encoder,
+                                                    corpus_of=exact, device=device), max_k=100, device=device)
+            reset_launch_counts()
+            single_ms, spread = timed_requests(svc, queries)
+            t0 = time.perf_counter()
+            batch_hits = svc.search(batch, k=10)
+            batch_ms = (time.perf_counter() - t0) * 1e3
+            launched = launch_counts()
+            launches[f"prefilter_{qmode}_{pf}"] = launched
+            requests = 1 + len(queries)
+            served_queries = requests + len(batch)
+            check(launched["flash_attention"] == 12 * (requests + 1),
+                  f"16a {label}: K2 launched {launched['flash_attention']} times, not 12 per query batch")
+            if qmode == "none":
+                check(launched["maxsim"] == served_queries and launched["int8_matmul"] == 0,
+                      f"16a {label}: K3 launched {launched['maxsim']} times for {served_queries} queries (one each)")
+            else:
+                check(launched["int8_matmul"] == served_queries and launched["maxsim"] == 0,
+                      f"16a {label}: X1 launched {launched['int8_matmul']} times for {served_queries} queries")
+            check(all(len(h) == 10 and len({d for d, _ in h}) == 10 for h in batch_hits),
+                  f"16a {label}: a request did not return 10 distinct docids")
+            # stage 2 equals the exact engine's scores, bit for bit, over the batch's own embeddings
+            s2, o2 = svc._topk(qb, *svc._corpus)
+            equal = bool(torch.equal(s2, torch.gather(full, 1, o2)))
+            check(equal, f"16a {label}: a candidate's stage-2 score differs from the exact engine's")
+            got10 = o2[:, :10].cpu().numpy()
+            overlap = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got10, exact_top10)]))
+            single0 = svc.search(queries[:1], k=10)[0]
+            err_cpu = colbert_cpu_top10(cpu_model, svc.searcher, queries[0], single0, qmode, svc._corpus)
+            check(err_cpu <= PREFILTER_CPU_TOL, f"16a {label}: query 0's top 10 card vs CPU {err_cpu:.3g}")
+            if pf == max(shape["prefilters"]):  # the kernel on this path's inputs: query 0's gathered candidates
+                q0 = svc.searcher.encode_queries(svc.searcher._tokenize(queries[:1], COLBERT["maxqlen"]))
+                cand = prefilter_candidates(q0, svc.searcher.pooled_docs(corpus), pf)[0]
+                if qmode == "none":
+                    docs_t, bias_t, valid = corpus
+                    held["k3_prefilter"] = k3_measure(q0, docs_t[:, cand].contiguous(), bias_t[:, cand].contiguous(),
+                                                      valid[cand], peaks) if device == "cuda" else None
+                else:
+                    q_codes = quantize_rows_torch(q0)[0].reshape(-1, COLBERT["dim"])
+                    d_codes = corpus[0][cand].reshape(-1, COLBERT["dim"])
+                    held["x1_prefilter_equal"] = bool(torch.equal(int8_matmul(q_codes, d_codes),
+                                                                  int8_matmul_plain(q_codes, d_codes))) \
+                        if device == "cuda" else None
+                    check(held["x1_prefilter_equal"] is not False, "16a: X1 differs from plain on int8 candidates")
+            out[f"prefilter_{qmode}_{pf}"] = {"single_ms": single_ms, "single_spread_ms": spread,
+                                              "batch64_ms": batch_ms, "top10_overlap_exact": overlap,
+                                              "stage2_equals_exact": equal, "max_abs_err_cpu_top10": err_cpu}
+            print(f"[16a colbert {label}] {smi_line() if device == 'cuda' else device}: one query {single_ms:.2f} ms "
+                  f"(spread {spread[0]:.2f}-{spread[1]:.2f}; resident {RESIDENT16_MS[qmode][0]}), 64 queries "
+                  f"{batch_ms:.2f} ms (resident {RESIDENT16_MS[qmode][1]}); top-10 overlap with exact {overlap:.3f}; "
+                  f"stage 2 = exact engine bit for bit; query 0's top 10 card vs CPU {err_cpu:.3g}; launches "
+                  f"{ {k: v for k, v in launched.items() if v} }")
+            del svc
+
+        # the host stream at about a quarter of the device bytes
+        ld, dim = COLBERT["maxdoclen"], COLBERT["dim"]
+        row = ld * dim * (1 if qmode == "int8" else 2) + ld + (4 if qmode == "int8" else 0)
+        budget_mb = n * row / shape["stream_quarter"] / 1e6
+        t0 = time.perf_counter()
+        streamed = colbert16({**cfg, **opts, "hbmbudget": budget_mb}, encoder_of=encoder, device=device)
+        svc = ColbertRetrievalService(streamed, max_k=100, device=device)
+        stream_setup_s = time.perf_counter() - t0
+        reset_launch_counts()
+        stream_ms, stream_spread = timed_requests(svc, queries[:shape["stream_queries"]])
+        launched = launch_counts()
+        launches[f"streamed_{qmode}"] = launched
+        slices = streamed.stream_slices
+        batches = 1 + shape["stream_queries"]
+        kernel = "maxsim" if qmode == "none" else "int8_matmul"
+        check(launched[kernel] == slices * batches, f"16a streamed {qmode}: {kernel} launched {launched[kernel]} "
+                                                    f"times for {batches} query batches of {slices} slices")
+        q8 = qb[: shape["queries"]]
+        got = svc._topk(q8)
+        want = topk_lower_ordinal_first(full[: shape["queries"]], 100)
+        bits = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        check(bits, f"16a streamed {qmode}: the top 100 is not bit-identical to the resident engine's")
+        check(slices >= shape["stream_quarter"], f"16a streamed {qmode}: {slices} slices at a quarter of the bytes")
+        if device == "cuda":  # the kernel on a streamed slice of the corpus
+            host = streamed._docs_emb
+            upload = streamed.stream_slice_docs
+            if qmode == "none":
+                rows = torch.from_numpy(np.array(host.emb[:upload])).to(torch.bfloat16).transpose(0, 1).contiguous()
+                mask_t = torch.from_numpy(np.ascontiguousarray(np.array(host.mask[:upload]).T > 0)).to(device)
+                held["k3_streamed_slice"] = k3_measure(q8, rows.to(device), torch.where(mask_t, 0.0, MASKED_BIAS),
+                                                       mask_t.any(dim=0), peaks)
+            else:
+                q_codes = quantize_rows_torch(q8)[0].reshape(-1, dim)
+                d_codes = torch.from_numpy(np.array(host.emb[:upload])).to(device).reshape(-1, dim)
+                held["x1_streamed_equal"] = bool(torch.equal(int8_matmul(q_codes, d_codes),
+                                                             int8_matmul_plain(q_codes, d_codes)))
+                check(held["x1_streamed_equal"], "16a: X1 differs from plain on an int8 slice")
+        out[f"streamed_{qmode}"] = {"budget_mb": budget_mb, "slices": slices, "setup_s": stream_setup_s,
+                                    "single_ms": stream_ms, "single_spread_ms": stream_spread,
+                                    "equal_resident_bits": bits}
+        print(f"[16a colbert {qmode} streamed] {smi_line() if device == 'cuda' else device}: hbmbudget "
+              f"{budget_mb:.1f} MB, {slices} slices a query batch; set-up {stream_setup_s:.2f} s; one query "
+              f"{stream_ms:.2f} ms (spread {stream_spread[0]:.2f}-{stream_spread[1]:.2f}); top 100 of "
+              f"{shape['queries']} queries bit-identical to the resident engine")
+        out[f"setup_{qmode}_s"] = setup_s
+        del svc, streamed, exact, corpus, full
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # int4 is resident-only: over the budget it raises JAX's message
+    try:
+        colbert16({**cfg, "quantize": "int4", "hbmbudget": 1.0}, encoder_of=encoder, device=device)._doc_tensors()
+        raised = None
+    except ConfigError as e:
+        raised = str(e)
+    check(raised is not None and "quantize=int4 is resident-only" in raised,
+          f"16a: an int4 corpus over hbmbudget did not raise JAX's message ({raised})")
+    out["int4_over_budget"] = raised
+    print(f"[16a colbert int4 over the budget] raises: {raised}")
+    return out, launches, held
+
+
+def phase16_services(workdir, corpus_dir, none, device="cuda"):
+    """The four services phases 16b-16d share: BM25 and the bf16 dense and
+    uniCOIL services over phase 4's index and phase 15's caches, ColBERT over
+    phase 6's index and cache. Returns {family: (service, cache base)}."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.serving import (ColbertRetrievalService, DenseRetrievalService, ImpactRetrievalService,
+                                             RetrievalService)
+
+    where = dict(collection="dummy", collection_path=corpus_dir, device=device)
+    ckpt_dir = os.path.join(workdir, "bert_mlm_15")
+    base = os.path.join(workdir, "cache")
+    constants["CACHE_BASE_PATH"] = base
+    services = {
+        "bm25": (RetrievalService.from_config(**where), base),
+        "dense": (DenseRetrievalService.from_config(max_k=DENSE_HITS, pretrained=ckpt_dir, **where), base),
+        "unicoil": (ImpactRetrievalService.from_config(encoder="unicoil", pretrained=ckpt_dir,
+                                                        checkpointfile=os.path.join(workdir, "unicoil_15.npz"),
+                                                        **where), base),
+    }
+    base_colbert = os.path.join(workdir, "cache_colbert")
+    constants["CACHE_BASE_PATH"] = base_colbert
+    services["colbert"] = (ColbertRetrievalService.from_config(
+        max_k=100, pretrained="bert-base-uncased", allowrandominit=True, checkpointfile=none["ckpt"],
+        **{k: v for k, v in COLBERT.items() if k != "hits"}, **where), base_colbert)
+    constants["CACHE_BASE_PATH"] = base
+    for svc, _ in services.values():
+        if hasattr(svc, "searcher"):
+            check(svc.searcher.docs_encoded == 0, f"16: {type(svc).__name__} encoded documents; the caches hold them")
+    return services
+
+
+def phase_snippets(services, corpus_dir, topics, shape=P16):
+    """16c: snippets of 8 queries' top 10 on each service: host ms, and equal
+    to the port's highlighter over a CPU reader of the same index."""
+    from capreolus_tpu_torch.analysis.highlight import snippets_for_hits
+    from capreolus_tpu_torch.index import Index
+
+    queries = list(topics[:shape["snippet_queries"]])
+    out = {}
+    for family, (svc, _) in services.items():
+        hits = svc.search(queries, k=10)
+        t0 = time.perf_counter()
+        snips = [svc.snippets(q, h) for q, h in zip(queries, hits)]
+        ms = (time.perf_counter() - t0) * 1e3
+        index = svc.index if hasattr(svc, "index") else svc.searcher.index
+        reader = Index.create("tpu", dict(index.config))  # a second reader: the same artifacts, host only
+        reader._load()
+        want = [snippets_for_hits(reader, q, h) for q, h in zip(queries, hits)]
+        check(snips == want, f"16c {family}: snippets differ from the CPU reader's")
+        marked = sum("<em>" in s for per in snips for s in per)
+        out[family] = {"ms": ms, "snippets": sum(len(s) for s in snips), "marked": marked}
+        print(f"[16c snippets {family}] {len(queries)} queries' top 10: {ms:.1f} ms on the host, {marked} of "
+              f"{out[family]['snippets']} with a marked term; equal to the CPU reader's")
+    return out
+
+
+HTTP_CLIENT = """
+import json, sys, time, urllib.request
+base, queries, ms = sys.argv[1], json.loads(sys.argv[2]), []
+for q in queries:
+    t0 = time.perf_counter()
+    req = urllib.request.Request(base + "/search", method="POST", data=json.dumps({"queries": [q], "k": 10}).encode())
+    json.load(urllib.request.urlopen(req, timeout=120))
+    ms.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps(ms))
+"""  # one HTTP client: single-query requests in turn, its latencies (ms) as JSON on stdout
+
+
+def phase_http(services, corpus_dir, topics, shape=P16):
+    """16d: the HTTP front end on 127.0.0.1 (port 0) over the BM25 and the bf16
+    dense services: 256 single-query requests from 16 clients, each a process
+    of its own (``HTTP_CLIENT``: clients inside the server's process would
+    contend for its interpreter lock); client p50 / p99 ms, batches run, the
+    mean batch; /search equal to ``service.search``; /health's corpus size
+    the corpus's."""
+    import threading
+    import urllib.request
+
+    from capreolus_tpu_torch.serving_http import make_server
+
+    out = {}
+    for family in ("bm25", "dense"):
+        svc = services[family][0]
+        server = make_server(svc, host="127.0.0.1", port=0)
+        host, port = server.server_address
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://{host}:{port}"
+
+        def post(queries, k=10):
+            req = urllib.request.Request(f"{base}/search", method="POST",
+                                         data=json.dumps({"queries": queries, "k": k}).encode())
+            return json.load(urllib.request.urlopen(req, timeout=120))["results"]
+
+        try:
+            health = json.load(urllib.request.urlopen(f"{base}/health", timeout=60))
+            check(health == {"ok": True, "corpus_size": len(svc._docids)} and health["corpus_size"] == SERVING_DOCS,
+                  f"16d {family}: /health {health}")
+            queries = [topics[i % len(topics)] + " " + topics[(5 * i + 1) % len(topics)].split()[0]
+                       for i in range(shape["http_requests"])]
+            want = svc.search(queries[:8], k=10)
+            check(post(queries[:8]) == [[[d, s] for d, s in h] for h in want], f"16d {family}: /search != search")
+            per = shape["http_requests"] // shape["http_clients"]
+            before = server.batcher.stats.snapshot()
+            t0 = time.perf_counter()
+            clients = [subprocess.Popen([sys.executable, "-c", HTTP_CLIENT, base, json.dumps(queries[c * per:(c + 1) * per])],
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                       for c in range(shape["http_clients"])]
+            latencies, errors = [], []
+            for proc in clients:
+                stdout, stderr = proc.communicate(timeout=600)
+                if proc.returncode:
+                    errors.append(stderr[-300:])
+                else:
+                    latencies.extend(json.loads(stdout))
+            wall_s = time.perf_counter() - t0
+            stats = server.batcher.stats.snapshot()
+        finally:
+            server.shutdown()
+            server.server_close()
+            server.batcher.close()
+        check(not errors and len(latencies) == shape["http_requests"], f"16d {family}: client errors {errors[:3]}")
+        lat = np.sort(np.asarray(latencies))
+        batches = stats["batches"] - before["batches"]
+        queries_run = stats["queries"] - before["queries"]
+        out[family] = {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+                       "batches": batches, "mean_batch": queries_run / max(1, batches),
+                       "queries_per_s": shape["http_requests"] / wall_s, "errors": stats["errors"]}
+        print(f"[16d http {family}] {shape['http_requests']} requests from {shape['http_clients']} client processes: p50 "
+              f"{out[family]['p50_ms']:.2f} ms, p99 {out[family]['p99_ms']:.2f} ms, {batches} batches (mean "
+              f"{out[family]['mean_batch']:.2f} queries), {out[family]['queries_per_s']:.0f} requests/s; /search = "
+              f"search, /health corpus {health['corpus_size']}")
+    return out
+
+
+def phase_refresh(workdir, services, corpus_dir, topics, device="cuda", shape=P16):
+    """16b, last: 256 seeded docs added and 128 deleted, then ``refresh()`` of
+    the BM25, ColBERT, bf16 dense and uniCOIL services: merge s, docs encoded
+    (exactly the added ones, K2 in that encoding), refresh s; deleted docs
+    absent from the hits; 8 queries' hits equal a new service's over the new
+    generation (reading the caches the refresh wrote)."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.serving import (ColbertRetrievalService, DenseRetrievalService, ImpactRetrievalService,
+                                             RetrievalService)
+
+    added = [(f"N16_{i:05d}", text) for i, (_, text) in enumerate(build_corpus(
+        shape["added"], num_topics=shape["added"] // 120, seed=16, min_len=200, max_len=1200)[0])]
+    queries = list(topics[:shape["queries"]]) + [" ".join(added[0][1].split()[:6])]
+    out, launches, k2_errs = {}, {}, {}
+    ops_done = set()
+    for family in ("colbert", "bm25", "dense", "unicoil"):
+        svc, base = services[family]
+        constants["CACHE_BASE_PATH"] = base
+        index = svc.index if hasattr(svc, "index") else svc.searcher.index
+        docids = list(index.data.docid_strings)
+        rng = np.random.Generator(np.random.PCG64(16))
+        deleted = sorted(docids[i] for i in rng.choice(len(docids), size=shape["deleted"], replace=False))
+        merge_s = 0.0
+        if base not in ops_done:  # one set of ops per index directory
+            index.add_documents(added)
+            index.delete_documents(deleted)
+            t0 = time.perf_counter()
+            index.refresh()
+            merge_s = time.perf_counter() - t0
+            ops_done.add(base)
+        encoded0 = getattr(getattr(svc, "searcher", None), "docs_encoded", 0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        changed = svc.refresh()
+        sync(device)
+        refresh_s = time.perf_counter() - t0
+        launched = launch_counts()
+        launches[family] = launched
+        encoded = getattr(getattr(svc, "searcher", None), "docs_encoded", 0) - encoded0
+        check(changed is True, f"16b {family}: refresh() returned {changed}")
+        check(len(svc._docids) == len(docids) + shape["added"] - shape["deleted"],
+              f"16b {family}: {len(svc._docids)} docs served after the refresh")
+        if family != "bm25":
+            check(encoded == shape["added"], f"16b {family}: {encoded} docs encoded, not the {shape['added']} added")
+            batch = int(svc.searcher.config["batch"])
+            want_k2 = 12 * -(-shape["added"] // batch)
+            check(device != "cuda" or launched["flash_attention"] == want_k2,
+                  f"16b {family}: K2 launched {launched['flash_attention']} times encoding {encoded} docs "
+                  f"(expected {want_k2})")
+        hits = svc.search(queries, k=100)
+        gone = set(deleted) & {d for h in hits for d, _ in h}
+        check(not gone, f"16b {family}: deleted docs served: {sorted(gone)[:5]}")
+        found = any(d == added[0][0] for d, _ in hits[-1][:10])  # seeded weights: BM25's alone is certain
+        check(family != "bm25" or found, f"16b {family}: an added doc's own words do not find it in the top 10")
+        # a new service over the new generation reads the caches the refresh wrote
+        if family == "bm25":
+            fresh = RetrievalService.from_config(collection="dummy", collection_path=corpus_dir, device=device)
+        elif family == "dense":
+            fresh = DenseRetrievalService(dense_searcher(dict(svc.searcher.config), device, encoder_of=svc.searcher),
+                                          max_k=svc.max_k, device=device)
+        elif family == "colbert":
+            fresh = ColbertRetrievalService(colbert16(dict(svc.searcher.config), encoder_of=svc.searcher,
+                                                      device=device), max_k=svc.max_k, device=device)
+        else:
+            from capreolus_tpu_torch.searcher import Searcher
+
+            s = Searcher.create("impact", dict(svc.searcher.config))
+            s.device, s._enc, s._random_init = device, svc.searcher._encoder(), svc.searcher._random_init
+            fresh = ImpactRetrievalService(s, device=device)
+        fresh_encoded = getattr(getattr(fresh, "searcher", None), "docs_encoded", 0)
+        check(fresh_encoded == 0, f"16b {family}: the new service encoded {fresh_encoded} docs")
+        same = fresh.search(queries, k=100) == hits
+        check(same, f"16b {family}: hits differ from a new service's over the new generation")
+        if family == "dense" and device == "cuda":  # K2 on the encoding of added docs, at layer 0
+            searcher = svc.searcher
+            texts = [text for _, text in added[: searcher.config["batch"]]]
+            hold_k2_layer0(searcher._encoder(), lambda: searcher.encode(*searcher._tokenize(texts, 256)),
+                           "16b added docs", k2_errs)
+        out[family] = {"merge_s": merge_s, "refresh_s": refresh_s, "docs_encoded": encoded,
+                       "docs": len(svc._docids), "equal_new_service": same, "added_doc_in_top10": found}
+        print(f"[16b refresh {family}] merge {merge_s:.2f} s, refresh {refresh_s:.2f} s, {encoded} docs encoded "
+              f"(K2 {launched['flash_attention']}), {len(svc._docids)} docs served; deleted docs absent; "
+              f"{len(queries)} queries' hits = a new service's over the new generation")
+        del fresh
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")
+    out["k2_max_abs_err"] = k2_errs
+    return out, launches
+
+
+def phase_serving_families(workdir, corpus_dir, topics, none, peaks, device="cuda", shape=P16):
+    """Phase 16: the ColBERT options (16a), snippets (16c), the HTTP front end
+    (16d) and, last, NRT refresh (16b). Returns the summary with the launches."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def timed16(label, fn, *args, **kwargs):
+        t1 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[label] = round(time.perf_counter() - t1, 1)
+        print(f"[{label} done] {seconds[label]} s")
+        return result
+
+    options, option_launches, held = timed16("16a", phase_colbert_options, workdir, corpus_dir, topics, none, peaks,
+                                             device=device, shape=shape)
+    services = timed16("16 services", phase16_services, workdir, corpus_dir, none, device=device)
+    snippets = timed16("16c", phase_snippets, services, corpus_dir, topics, shape=shape)
+    http = timed16("16d", phase_http, services, corpus_dir, topics, shape=shape)
+    refresh, refresh_launches = timed16("16b", phase_refresh, workdir, services, corpus_dir, topics, device=device,
+                                        shape=shape)
+    summary = {"colbert_options": options, "held": held, "snippets": snippets, "http": http, "refresh": refresh,
+               "launches": {"options": option_launches, "refresh": refresh_launches},
+               "seconds": time.perf_counter() - t0, "seconds_by_part": seconds}
+    print(f"[16 serving families] {smi_line() if device == 'cuda' else device}: every sub-phase passed in "
+          f"{summary['seconds']:.1f} s ({json.dumps(seconds)}); summary " + json.dumps(summary, default=str))
+    return summary
+
+
+def add_phase16_launches(kernels, p16):
+    """Phase 16's K2, K3 and X1 launches in its served runs (16a's prefilter
+    and streamed requests, 16b's refresh encoding) and the kernels' errors on
+    its inputs, into the ``kernels`` line."""
+    runs = {**p16["launches"]["options"], **{f"refresh_{k}": v for k, v in p16["launches"]["refresh"].items()}}
+    for entry in kernels:
+        name = entry["name"]
+        if name not in ("flash_attention", "maxsim", "int8_matmul"):
+            continue
+        total = sum(launches[name] for launches in runs.values())
+        entry["launches"] += total
+        entry["launches_phase16"] = {"served": total, "by_path": {k: v[name] for k, v in runs.items() if v[name]}}
+    held = p16["held"]
+    kernels[1]["max_abs_err_phase16_refresh"] = p16["refresh"]["k2_max_abs_err"]
+    kernels[2]["phase16"] = {key: {k: held[key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                             "bound_by")}
+                             for key in ("k3_prefilter", "k3_streamed_slice")}
+    kernels[3]["equal_plain_phase16"] = {key: held[key] for key in ("x1_prefilter_equal", "x1_streamed_equal")}
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -5445,6 +5949,7 @@ def main():
         p13 = timed(phase_trainer_options, workdir, corpus_dir, topics, qrels, peaks)
         p14 = timed(phase_zoo, workdir, corpus_dir, topics)
         p15 = timed(phase_dense_retrieval, workdir, corpus_dir, topics, peaks)
+        p16 = timed(phase_serving_families, workdir, corpus_dir, topics, none, peaks)
     finally:
         if robust04_host is not None and robust04_host[0].is_alive():
             robust04_host[0].terminate()
@@ -5584,6 +6089,7 @@ def main():
     add_phase13_launches(kernels, p13, k3_fields)
     add_phase14_launches(kernels, p14)
     add_phase15_launches(kernels, p15)
+    add_phase16_launches(kernels, p16)
     for entry in kernels:  # phase 9: launches inside training steps, and inside the trainer's predictions
         entry["launches_training"] = training_launches["train"].get(entry["name"], 0)
         entry["launches_training_predict"] = training_launches["predict"].get(entry["name"], 0)

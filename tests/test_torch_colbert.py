@@ -340,8 +340,7 @@ def test_colbert_retrieval_service_matches_jax(tmpdir_as_cache, torch_cache):
     assert c1() + c2() == port_results[:2]
     assert port_svc.get_document("D003") == jax_svc.get_document("D003")
     assert port_svc.searcher.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_svc.refresh()
+    assert port_svc.refresh() is jax_svc.refresh() is False  # nothing pending: the served generation stays
 
 
 def test_colbert_service_defaults_to_cuda_and_raises_without_a_card(torch_cache):
@@ -366,20 +365,33 @@ def test_checkpoint_without_linear_raises(torch_cache):
 
 @pytest.mark.parametrize("options,match", [
     ({"quantize": "int8", "shards": 2}, "not ported"), ({"quantize": "int4", "prefilter": 2}, "exact engine only"),
-    ({"prefilter": 2}, "not ported"), ({"shards": 2}, "not ported"),
+    ({"prefilter": 2}, None), ({"shards": 2}, "not ported"),
     ({"quantize": "fp4"}, "must be 'none'"), ({"prefilter": 2, "shards": 2}, "single-device"),
     ({"dim": 0}, "must be positive"),
 ])
 def test_unported_and_invalid_options_raise(options, match):
+    """``match`` None: the option is ported and builds (``prefilter``;
+    tests/test_torch_colbert_options.py holds it against JAX)."""
+    if match is None:
+        assert TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True, **options}).config["prefilter"] == 2
+        return
     with pytest.raises(ConfigError, match=match):
         TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True, **options})
 
 
 def test_corpus_above_hbmbudget_raises(torch_cache):
-    searcher = TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True, "hbmbudget": 1e-4})
-    searcher.device = "cpu"
-    with pytest.raises(ConfigError, match="host streaming is not ported"):
-        searcher.query(QUERIES[0])
+    """Only an int4 corpus raises above ``hbmbudget`` (resident-only, JAX's
+    message); bf16 and int8 corpora stream from the host, equal to the
+    resident engine (tests/test_torch_colbert_options.py)."""
+    resident = TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True})
+    searcher = TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True, "hbmbudget": 1e-4, "chunk": 1})
+    int4 = TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True, "hbmbudget": 1e-4,
+                                            "quantize": "int4"})
+    for s in (resident, searcher, int4):
+        s.device = "cpu"
+    assert searcher.query(QUERIES[0]) == resident.query(QUERIES[0]) and searcher.stream_slices > 1
+    with pytest.raises(ConfigError, match="quantize=int4 is resident-only"):
+        int4.query(QUERIES[0])
 
 
 # ---------------------------------------------------------------- helpers copied from the JAX package

@@ -316,13 +316,17 @@ def test_unported_and_invalid_combinations_raise(world):
         port_searcher(world, checkpointfile=str(bad))._encoder()
     with pytest.raises(RuntimeError, match="refusing"):
         port_searcher(world, pretrained="not-a-real-model-xyz", checkpointfile=None)._encoder()
-    on_card = port_searcher(world)
-    on_card._device = lambda: torch.device("cuda")  # refused before anything touches the card
+    # TF32 is no longer refused: the encoder and k-means run under matmul_f32 (tests/test_torch_tf32.py on the card)
+    searcher = port_searcher(world)
+    model = searcher._encoder()
+    seen, forward = [], model.forward
+    model.forward = lambda *a, **k: (seen.append(torch.backends.cuda.matmul.allow_tf32), forward(*a, **k))[1]
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        with pytest.raises(RuntimeError, match="allow_tf32 is True"):
-            on_card.build_topk(10)
+        topk, docs, _ = searcher.build_topk(10)
+        topk(searcher.embed_queries(["galaxy"]), docs)
+        assert seen and not any(seen) and torch.backends.cuda.matmul.allow_tf32 is True
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 

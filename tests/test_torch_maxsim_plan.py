@@ -141,14 +141,15 @@ def split_maxsim(plan, q_emb, docs_t, bias_t, valid):
     Ld ranges, combined by max, then summed over Lq as the plain version sums."""
     n_q, lq, dim = q_emb.shape
     ld, c = docs_t.shape[:2]
-    q2d = q_emb.to(torch.bfloat16).float().reshape(n_q * lq, dim)
-    d = docs_t.to(torch.bfloat16).float()
-    sim = (q2d @ d.reshape(ld * c, dim).T).view(n_q * lq, ld, c).masked_fill((bias_t < 0)[None], float("-inf"))
+    q2d = q_emb.to(torch.bfloat16).double().reshape(n_q * lq, dim)
+    d = docs_t.to(torch.bfloat16).double()
+    sim = (q2d @ d.reshape(ld * c, dim).T).float().view(n_q * lq, ld, c)
+    sim = sim.masked_fill((bias_t < 0)[None], float("-inf"))
     ranges = [maxsim_block(plan, s, n_q, lq, ld, c)[1] for s in range(plan["splits"])]
     best = sim[:, ranges[0].start:ranges[0].stop].amax(dim=1)
     for r in ranges[1:]:
         best = torch.maximum(best, sim[:, r.start:r.stop].amax(dim=1))
-    out = best.view(n_q, lq, c).sum(dim=1)
+    out = ms.sum_query_tokens(best.view(n_q, lq, c))
     return torch.where(valid.bool()[None, :], out, float("-inf"))
 
 

@@ -166,15 +166,23 @@ def test_hybrid_depth_clamp_and_unknown_method(coll, tmpdir_as_cache):
 
 
 def test_refresh_and_snippets_name_their_roadmap_item(coll, tmpdir_as_cache):
-    _, dense = dense_pair(coll, tmpdir_as_cache)
+    """Both are ported (ROADMAP.md item 9): with nothing pending ``refresh``
+    returns False, as JAX's does, and ``snippets`` equal JAX's
+    (tests/test_torch_incremental.py and tests/test_torch_highlight.py hold
+    them further)."""
+    from capreolus_tpu.analysis.highlight import snippets_for_hits as jax_snippets_for_hits
+
+    jax_dense, dense = dense_pair(coll, tmpdir_as_cache)
     impact = port_serving.ImpactRetrievalService.from_config(device="cpu", **service_config(coll))
     hybrid = port_serving.HybridRetrievalService(impact, dense)
+    assert jax_dense.refresh() is False
     for svc in (dense, impact):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
-            svc.refresh()
+        assert svc.refresh() is False
+    hits = dense.search(["galaxy telescope"], k=3)[0]
+    want = jax_snippets_for_hits(jax_dense.searcher.index, "galaxy telescope", hits)
     for svc in (dense, impact, hybrid):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
-            svc.snippets("galaxy", [])
+        assert svc.snippets("galaxy telescope", hits) == want
+        assert svc.snippets("galaxy", []) == []
 
 
 def _parameters(fn):
