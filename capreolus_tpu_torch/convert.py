@@ -49,10 +49,13 @@ def save_params(flat: dict, path) -> Path:
 
 def params_file(path) -> Path:
     """The file a checkpoint path names: ``path`` itself, or for a stem
-    (``dev.best``) that does not exist, the ``.params`` file beside it."""
+    (``dev.best``) that does not exist, the ``.params`` file beside it (or
+    the ``.params.shards`` directory of ``trainer.ckpt=sharded``)."""
     path = Path(path)
-    if not path.exists() and path.with_name(path.name + ".params").exists():
-        return path.with_name(path.name + ".params")
+    if not path.exists():
+        for suffix in (".params", ".params.shards"):
+            if path.with_name(path.name + suffix).exists():
+                return path.with_name(path.name + suffix)
     return path
 
 

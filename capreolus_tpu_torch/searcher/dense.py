@@ -40,8 +40,10 @@ packages give the same embeddings only from the same weights, a checkpoint
 directory or a ``checkpointfile``. A ``checkpointfile`` is a trained
 biencoder's ``dev.best.params`` (its ``bert`` submodule) from either
 package's trainer, its ``dev.best`` stem, a ``trainer.ckpt=sharded``
-directory, or the port's ``.npz``. Not ported yet: ``shards > 1`` (ROADMAP.md
-item 6, 'Multi-device'). The caches follow the index's generations
+directory, or the port's ``.npz``. ``shards > 1`` (the JAX
+``_sharded_topk``) splits the corpus by row range over ``self.devices`` and
+merges the shards' top-k on the first device (bf16 or int8; the refusals of
+streaming, IVF and int4 with shards are JAX's). The caches follow the index's generations
 (``embedding_cache.py``): an incremental merge encodes only the added docs.
 """
 
@@ -179,7 +181,8 @@ class DenseSearcher(Searcher):
         ConfigOption("allowrandominit", False, "allow a randomly-initialized encoder when the "
                      "checkpoint cannot be loaded (smoke tests only)"),
         ConfigOption("shards", 1, "devices to shard the embedding matrix across (doc-partitioned; "
-                     "not ported: 1 only)"),
+                     "per-shard top-k merged on the first device; the searcher's devices attribute "
+                     "lists them)"),
         ConfigOption("topkmode", "exact", "exact or approx (the JAX package's approx_max_k; the port "
                      "selects exactly in both modes: recall 1.0)"),
         ConfigOption("recalltarget", 0.95, "approx_max_k per-operation recall target (topkmode=approx)"),
@@ -211,6 +214,7 @@ class DenseSearcher(Searcher):
     config_keys_not_in_path = ["batch", "shards", "hbmbudget"]  # none changes results
 
     device = None  # set by the service or the caller; None means "cuda"
+    devices = None  # the shards' devices when shards > 1; None means the first ``shards`` cards
 
     def build(self):
         if self.config["pooling"] not in ("mean", "cls"):
@@ -224,9 +228,6 @@ class DenseSearcher(Searcher):
             raise ConfigError(f"dense prf depth ({self.config['prf']}) cannot exceed hits "
                               f"({self.config['hits']}): the first pass reuses the compiled "
                               f"top-k engine")
-        if int(self.config["shards"]) > 1:
-            raise ConfigError(f"dense searcher: shards={self.config['shards']} selects the doc-sharded "
-                              f"engine (not ported to PyTorch yet: ROADMAP.md item 6, 'Multi-device')")
         self.setup_seconds = {"tokenize": 0.0, "encode": 0.0, "quantize": 0.0, "upload": 0.0}
         self.docs_encoded = 0  # documents this searcher's encoder embedded for the cache
 
@@ -407,6 +408,10 @@ class DenseSearcher(Searcher):
     def _qmode(self):
         return self.config.get("quantize", "none") or "none"
 
+    def _device_bytes(self, n, d):
+        """Device bytes of an [n, d] corpus in the configured representation."""
+        return n * {"int8": d + 4, "int4": (d + d % 2) // 2 + 4}.get(self._qmode(), 2 * d)
+
     def _doc_matrix(self):
         """The search-time corpus: bf16 on the device, int8 / int4 dicts on the
         device, or a ``_HostCorpus`` above ``hbmbudget``. The bf16 matrix is
@@ -422,8 +427,7 @@ class DenseSearcher(Searcher):
         emb = self._doc_embeddings()
         qmode = self._qmode()
         n, d = emb.shape
-        bytes_per_row = {"int8": d + 4, "int4": (d + d % 2) // 2 + 4}.get(qmode, 2 * d)
-        dev_bytes = n * bytes_per_row
+        dev_bytes = self._device_bytes(n, d)
         budget_bytes = float(_hbm_budget_mb(self.config)) * 1e6
         device = self._device()
         t0 = time.perf_counter()
@@ -485,6 +489,9 @@ class DenseSearcher(Searcher):
             _, topk, meta, n_corpus = cached
             return topk, meta, n_corpus
 
+        shards = int(self.config["shards"])
+        if shards > 1:
+            return self._sharded_engine(hits, shards, clusters)
         docs = self._doc_matrix()
         n_corpus = self._n_docs
         hits = min(int(hits), n_corpus)
@@ -509,6 +516,93 @@ class DenseSearcher(Searcher):
         if rescore:
             topk = self._rescore_wrap(topk, n_corpus, hits)
         return topk, docs, n_corpus
+
+    def _sharded_engine(self, hits, shards, clusters):
+        """``build_topk`` under ``shards > 1``: JAX's refusals in JAX's order
+        (a corpus over ``hbmbudget``, IVF, int4), then ``_sharded_topk`` over
+        the shards' row ranges, built from the host cache without a resident
+        copy of the whole corpus."""
+        self.index.create_index()
+        _ = self.index.data  # merges pending index ops; sets _loaded_generation
+        gen = getattr(self.index, "_loaded_generation", 0)
+        emb = self._doc_embeddings()
+        n, d = emb.shape
+        if self._device_bytes(n, d) > float(_hbm_budget_mb(self.config)) * 1e6:
+            raise ConfigError("searcher.shards>1 already partitions the corpus across chips; "
+                              "raise hbmbudget or use shards alone (streaming is single-chip)")
+        if clusters > 0:
+            raise ConfigError("searcher.clusters (IVF) cannot be combined with shards>1 yet")
+        if self._qmode() == "int4":
+            raise ConfigError("searcher.shards supports quantize=none/int8; int4 is the "
+                              "single-chip capacity tier (exact or streamed engines)")
+        from capreolus_tpu_torch.parallel.distributed import shard_devices
+        from capreolus_tpu_torch.parallel.sharded_search import cached_shards
+
+        devices = shard_devices(shards, self.devices)
+        parts = cached_shards(self, gen, devices, lambda: self._upload_shards(emb, devices))
+        self._n_docs = n
+        return self._sharded_topk(n, min(int(hits), n), devices), parts, n
+
+    def _upload_shards(self, emb, devices):
+        """Each shard's row range [s*per, (s+1)*per), per = ceil(n/S), on its
+        device: bf16 rows zero-padded to whole ``score_block(n)`` blocks (the
+        resident engine's product shape), or int8 codes padded with zero rows
+        of scale 1. A shard past the corpus end holds pad rows only."""
+        n, d = emb.shape
+        per = -(-n // len(devices))
+        t0 = time.perf_counter()
+        parts = []
+        if self._qmode() == "int8":
+            from capreolus_tpu_torch.ops.quantization import quantize_rows
+            from capreolus_tpu_torch.searcher.streamed import pad_rows
+
+            q, scale = quantize_rows(np.asarray(emb))
+            t1 = time.perf_counter()
+            self.setup_seconds["quantize"] += t1 - t0
+            t0 = t1
+            for s, dev in enumerate(devices):
+                rows = slice(s * per, min(n, (s + 1) * per))
+                parts.append({"emb": torch.from_numpy(pad_rows(q[rows], per)).to(dev),
+                              "scale": torch.from_numpy(pad_rows(scale[rows], per, fill=1)).to(dev)})
+        else:
+            block = score_block(n)
+            for s, dev in enumerate(devices):
+                lo, hi = min(n, s * per), min(n, (s + 1) * per)
+                part = torch.zeros((-(-per // block) * block, d), dtype=torch.bfloat16, device=dev)
+                for s0 in range(lo, hi, UPLOAD_ROWS):
+                    rows = np.array(emb[s0 : min(hi, s0 + UPLOAD_ROWS)], dtype=np.float32)
+                    part[s0 - lo : s0 - lo + len(rows)] = torch.from_numpy(rows).to(dev)
+                parts.append(part)
+        for dev in {dev for dev in devices if dev.type == "cuda"}:
+            torch.cuda.synchronize(dev)
+        self.setup_seconds["upload"] += time.perf_counter() - t0
+        return parts
+
+    def _sharded_topk(self, n, hits, devices):
+        """The JAX ``_sharded_topk``: each shard scores its rows (the bf16
+        product in ``score_block(n)`` blocks, or X1's int32 product and
+        epilogue), masks rows at or past ``n`` to -inf BEFORE its local top
+        ``min(hits, per)`` (a zero pad row scores 0, above real negative
+        cosines), every shard launched before any result is copied; the
+        candidates merge shard-major on the first device, ties to the lower
+        ordinal."""
+        from capreolus_tpu_torch.parallel.sharded_search import merge_shard_candidates
+
+        per = -(-n // len(devices))
+        local_k = min(hits, per)
+        block = score_block(n)
+
+        def topk(q_emb, parts):
+            cands = []
+            for s, (dev, part) in enumerate(zip(devices, parts)):
+                scores = _dense_scores(q_emb.to(dev), part, block)[:, :per].float()
+                ords = torch.arange(per, device=dev) + s * per
+                scores = torch.where(ords[None, :] < n, scores, float("-inf"))
+                sv, so = topk_lower_ordinal_first(scores, local_k)
+                cands.append((sv, so + s * per))
+            return merge_shard_candidates(cands, hits, devices[0])
+
+        return topk
 
     def _resident_topk(self, n, hits):
         """The exact resident engine: every doc scored, rows past ``n`` (the

@@ -54,8 +54,11 @@ encoded (``docs_encoded`` counts them).
 
 The searcher runs on ``self.device``, an attribute (not a config option, so
 the device never enters the module path) that the service or the caller sets;
-``None`` means "cuda", which raises without a card. Not ported yet:
-``shards > 1`` (ROADMAP.md item 6, 'Multi-device'). A ``checkpointfile`` is a
+``None`` means "cuda", which raises without a card. ``shards > 1`` (the JAX
+``_sharded_topk``) splits the corpus by doc range over ``self.devices``
+(``None``: the first ``shards`` cards), one MaxSim call per shard and a
+shard-major merge on the first device; prefilter, int4 and streaming refuse
+shards with JAX's messages. A ``checkpointfile`` is a
 trained ``colbert`` reranker's ``dev.best.params`` from either package's
 trainer (flax's msgpack bytes, ``utils/flax_msgpack.py``), its ``dev.best``
 stem, a ``trainer.ckpt=sharded`` directory, or the port's ``.npz``
@@ -103,21 +106,29 @@ def quantized_maxsim_scores(q_emb, docs, mask, dscale):
     """MaxSim of q_emb [Q, Lq, dim] (float) over a quantized corpus -> [Q, N]
     f32, the JAX scorer's int8 path: docs int8 [N, Ld, dim] or int4 nibbles
     uint8 [N, ceil(Ld*dim/2)], mask [N, Ld] bool, dscale [N] f32 per-doc
-    scales. Queries quantize per query (``quantize_rows_torch``); each chunk of
-    docs is one ``int8_mm`` (X1 on the card) whose int32 similarities round to
-    bf16, masked tokens at bf16(-1e9), the max over doc tokens in bf16, the sum
-    over query tokens in f32 (``ops.maxsim.sum_query_tokens``), times the query and doc
-    scales; a doc with no valid token scores -inf."""
+    scales. Queries quantize per query (``quantize_rows_torch``), then
+    ``quantized_maxsim_codes`` scores them."""
+    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
+
+    return quantized_maxsim_codes(*quantize_rows_torch(q_emb), docs, mask, dscale)
+
+
+def quantized_maxsim_codes(q_i8, qscale, docs, mask, dscale):
+    """``quantized_maxsim_scores`` of queries already quantized: q_i8 int8
+    [Q, Lq, dim] with f32 [Q] scales. Each chunk of docs is one ``int8_mm``
+    (X1 on the card) whose int32 similarities round to bf16, masked tokens at
+    bf16(-1e9), the max over doc tokens in bf16, the sum over query tokens in
+    f32 (``ops.maxsim.sum_query_tokens``), times the query and doc scales; a
+    doc with no valid token scores -inf."""
     from capreolus_tpu_torch.ops.int8_matmul import int8_mm
     from capreolus_tpu_torch.ops.maxsim import sum_query_tokens
-    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch, unpack_int4
+    from capreolus_tpu_torch.ops.quantization import unpack_int4
 
-    nq, lq, dim = q_emb.shape
+    nq, lq, dim = q_i8.shape
     n, ld = mask.shape
-    q_i8, qscale = quantize_rows_torch(q_emb)
     q2d = q_i8.reshape(nq * lq, dim)
     step = quantized_chunk_docs(nq, lq, ld)
-    out = torch.empty((nq, n), dtype=torch.float32, device=q_emb.device)
+    out = torch.empty((nq, n), dtype=torch.float32, device=q_i8.device)
     for c0 in range(0, n, step):
         d = docs[c0 : c0 + step]
         c = d.shape[0]
@@ -200,6 +211,7 @@ class LateInteractionSearcher(Searcher):
     config_keys_not_in_path = ["batch", "chunk", "shards", "hbmbudget"]  # none change results
 
     device = None  # set by the service or the caller; None means "cuda"
+    devices = None  # the shards' devices when shards > 1; None means the first ``shards`` cards
 
     def build(self):
         if int(self.config["dim"]) <= 0 or int(self.config["chunk"]) <= 0:
@@ -214,9 +226,6 @@ class LateInteractionSearcher(Searcher):
                                                   or int(self.config["prefilter"]) > 0):
             raise ConfigError("colbert quantize=int4 runs the resident exact engine only: "
                               "set shards=1 and prefilter=0 (use int8 for those combos)")
-        if int(self.config["shards"]) > 1:
-            raise ConfigError(f"colbert searcher: shards={self.config['shards']} selects the doc-sharded engine "
-                              f"(not ported to PyTorch yet: ROADMAP.md item 6, 'Multi-device')")
         self.setup_seconds = {"tokenize": 0.0, "encode": 0.0, "quantize": 0.0, "upload": 0.0}
         self.docs_encoded = 0  # documents this searcher's encoder embedded for the cache
 
@@ -402,8 +411,7 @@ class LateInteractionSearcher(Searcher):
         emb, mask = self._token_cache(docid_strings, gen)
         n_docs, ld, dim = emb.shape
         qmode = self._qmode()
-        per_doc = {"int8": ld * dim, "int4": (ld * dim + (ld * dim) % 2) // 2}.get(qmode, 2 * ld * dim)
-        dev_bytes = n_docs * per_doc + mask.size + (4 * n_docs if qmode != "none" else 0)
+        dev_bytes = self._device_bytes(emb, mask)
         budget_bytes = float(_hbm_budget_mb(self.config)) * 1e6
         if dev_bytes <= budget_bytes:
             self._docs_emb = self._upload(emb, mask) if qmode == "none" else self._upload_quantized(emb, mask, qmode)
@@ -426,10 +434,18 @@ class LateInteractionSearcher(Searcher):
             self._docs_emb = _HostTokens(emb, mask)
         return self._docs_emb
 
-    def _upload_quantized(self, emb, mask, qmode):
+    def _device_bytes(self, emb, mask):
+        """Device bytes of the [N, Ld, dim] corpus in the configured representation."""
+        n_docs, ld, dim = emb.shape
+        qmode = self._qmode()
+        per_doc = {"int8": ld * dim, "int4": (ld * dim + (ld * dim) % 2) // 2}.get(qmode, 2 * ld * dim)
+        return n_docs * per_doc + mask.size + (4 * n_docs if qmode != "none" else 0)
+
+    def _upload_quantized(self, emb, mask, qmode, device=None):
         """The f16 host cache quantized per doc, as the JAX searcher quantizes
-        it, then on the device: (int8 [N, Ld, dim] or int4 nibbles [N,
-        ceil(Ld*dim/2)] uint8, mask [N, Ld] bool, scales [N] f32)."""
+        it, then on ``device`` (the searcher's by default): (int8 [N, Ld, dim]
+        or int4 nibbles [N, ceil(Ld*dim/2)] uint8, mask [N, Ld] bool, scales
+        [N] f32)."""
         from capreolus_tpu_torch.ops.quantization import quantize_rows, quantize_rows_int4
 
         t0 = time.perf_counter()
@@ -439,7 +455,7 @@ class LateInteractionSearcher(Searcher):
         else:
             codes, scale = quantize_rows(np.asarray(emb))
         t1 = time.perf_counter()
-        device = self._device()
+        device = device or self._device()
         corpus = (torch.from_numpy(codes).to(device), torch.from_numpy(np.asarray(mask) > 0).to(device),
                   torch.from_numpy(scale).to(device))
         if device.type == "cuda":
@@ -448,11 +464,12 @@ class LateInteractionSearcher(Searcher):
         self.setup_seconds["upload"] += time.perf_counter() - t1
         return corpus
 
-    def _upload(self, emb, mask):
-        """The [N, Ld, dim] f16 host cache as the token-major device corpus,
-        copied a few tokens at a time so that no second full copy exists."""
+    def _upload(self, emb, mask, device=None):
+        """The [N, Ld, dim] f16 host cache as the token-major corpus on
+        ``device`` (the searcher's by default), copied a few tokens at a time
+        so that no second full copy exists."""
         t0 = time.perf_counter()
-        device = self._device()
+        device = device or self._device()
         n_docs, ld, dim = emb.shape
         docs_t = torch.empty((ld, n_docs, dim), dtype=torch.bfloat16, device=device)
         step = max(1, UPLOAD_BYTES // max(1, 2 * n_docs * dim))
@@ -487,6 +504,9 @@ class LateInteractionSearcher(Searcher):
         (``serving.ColbertRetrievalService``)."""
         from capreolus_tpu_torch.ops.maxsim import maxsim_scores
 
+        shards = int(self.config["shards"])
+        if shards > 1:
+            return self._sharded_engine(hits, shards)
         corpus = self._doc_tensors()
         prefilter = int(self.config["prefilter"])
         if isinstance(corpus, _HostTokens):
@@ -513,6 +533,68 @@ class LateInteractionSearcher(Searcher):
             return topk_lower_ordinal_first(quantized_maxsim_scores(q_emb, docs, mask, dscale), engine_hits)
 
         return (self._rescore_wrap(topk, n, hits) if rescore else topk), corpus, n
+
+    def _sharded_engine(self, hits, shards):
+        """``build_topk`` under ``shards > 1`` (the JAX ``_sharded_topk``):
+        shard s holds docs [s*per, (s+1)*per), per = ceil(N/S), on the s-th of
+        ``self.devices``, uploaded from the host cache as the resident engine
+        uploads the whole corpus (bf16 token-major, or int8 codes, masks and
+        scales), with no resident copy of the whole. A corpus over
+        ``hbmbudget`` raises JAX's message (streaming is single-device)."""
+        from capreolus_tpu_torch.parallel.distributed import shard_devices
+        from capreolus_tpu_torch.parallel.sharded_search import cached_shards
+
+        self.index.create_index()
+        docid_strings = self.index.data.docid_strings  # merges pending index ops first
+        gen = getattr(self.index, "_loaded_generation", 0)
+        emb, mask = self._token_cache(docid_strings, gen)
+        n = emb.shape[0]
+        qmode = self._qmode()
+        if self._device_bytes(emb, mask) > float(_hbm_budget_mb(self.config)) * 1e6:
+            raise ConfigError("colbert streaming (corpus > hbmbudget) runs the exact "
+                              "single-chip path: set shards=1 and prefilter=0, or raise "
+                              "hbmbudget (shards already partition the corpus across chips)")
+        devices = shard_devices(shards, self.devices)
+        per = -(-n // shards)
+        ranges = [(min(n, s * per), min(n, (s + 1) * per)) for s in range(shards)]
+        parts = cached_shards(self, gen, devices, lambda: tuple(
+            None if lo == hi else  # a shard with no docs contributes nothing
+            (self._upload(emb[lo:hi], mask[lo:hi], dev) if qmode == "none"
+             else self._upload_quantized(emb[lo:hi], mask[lo:hi], qmode, dev))
+            for (lo, hi), dev in zip(ranges, devices)))
+        return self._sharded_topk(n, min(int(hits), n), devices, ranges), parts, n
+
+    def _sharded_topk(self, n, hits, devices, ranges):
+        """Per shard, one MaxSim call over its docs (K3 on a card, or X1 over
+        int8 codes through ``quantized_maxsim_scores``) and its local top
+        ``min(hits, docs)``, ties to the lower ordinal; every shard is
+        launched before any result is copied; the candidates merge
+        shard-major on the first device, ties to the lower ordinal. A doc's
+        score does not depend on the other docs of its call, so it equals the
+        resident engine's bit for bit. An int8 query batch is quantized once
+        and its codes and scales serve every shard. Shards are not padded to a
+        multiple of ``chunk``: K3 and X1 take any number of docs."""
+        from capreolus_tpu_torch.ops.maxsim import maxsim_scores
+        from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
+        from capreolus_tpu_torch.parallel.sharded_search import merge_shard_candidates
+
+        quantized = self._qmode() != "none"
+
+        def topk(q_emb, *parts):
+            codes = quantize_rows_torch(q_emb) if quantized else None
+            cands = []
+            for dev, (lo, hi), part in zip(devices, ranges, parts):
+                if part is None:
+                    continue
+                if quantized:
+                    scores = quantized_maxsim_codes(*(t.to(dev) for t in codes), *part)
+                else:
+                    scores = maxsim_scores(q_emb.to(dev), *part)
+                sv, so = topk_lower_ordinal_first(scores, min(hits, hi - lo))
+                cands.append((sv, so + lo))
+            return merge_shard_candidates(cands, hits, devices[0])
+
+        return topk
 
     def pooled_docs(self, corpus):
         """[N, dim] bf16: each doc's mean valid-token embedding, the JAX

@@ -19,8 +19,10 @@ under the done-file protocol. It dispatches as the JAX loop does:
 
 The searchers run on ``self.device``, an attribute (not a config option, so
 the device never enters the module path) that the rank task or the caller
-sets; ``None`` means "cuda", which raises without a card. ``shards > 1``
-raises ``ConfigError`` (ROADMAP.md item 6, "Multi-device").
+sets; ``None`` means "cuda", which raises without a card. BM25's
+``shards > 1`` scores a doc-sharded index over ``self.devices`` (a list of
+devices, which may repeat one; ``None`` means the first ``shards`` cards):
+``parallel/sharded_search.py``.
 
 On the exact path the port splits an engine call whose dense accumulator
 would exceed ``ACC_BUDGET_ELEMENTS`` over its queries first, then over its
@@ -132,6 +134,7 @@ class TpuSearcherMixin:
 
     model = "bm25"  # scoring model key in SCORING_MODELS
     device = None  # set by the rank task or the caller; None means "cuda"
+    devices = None  # the devices of BM25's shards > 1; None means the first ``shards`` cards
     engine_calls = 0  # engine calls made by this searcher (more than its batches where they split)
 
     def _device(self):
@@ -309,8 +312,9 @@ class _ExpansionSearcherBase(TpuSearcherBase):
 class BM25(TpuSearcherBase):
     """BM25 with k1/b grid search.
 
-    ``shards`` > 1 (postings partitioned across devices) raises ``ConfigError``
-    until multi-device search is ported."""
+    ``shards`` > 1 partitions the postings by document range over that many
+    devices (``parallel/sharded_search.py``); ``maxpostings`` with it raises
+    as in JAX."""
 
     module_name = "BM25"
     model = "bm25"
@@ -332,13 +336,49 @@ class BM25(TpuSearcherBase):
     ]
     config_keys_not_in_path = ["shards", "pruning", "hbmbudget"]  # none changes results
 
-    def build(self):
-        if int(self.config.get("shards", 1)) > 1:
-            raise ConfigError(f"searcher.shards={self.config['shards']}: multi-device search is not ported "
-                              f"to PyTorch yet (ROADMAP.md item 6, 'Multi-device')")
-
     def grid_params(self):
         return {}, {"k1": list(self.config["k1"]), "b": list(self.config["b"])}
+
+    def _search_all(self, topicsfn, output_path):
+        if int(self.config.get("shards", 1)) <= 1:  # msmarcopsgbm25 has no shards key
+            return super()._search_all(topicsfn, output_path)
+        if int(self.config.get("maxpostings", 0)) > 0:
+            raise ConfigError("searcher.maxpostings (early termination) is not yet supported with "
+                              "searcher.shards > 1; drop one of the two options")
+        self._search_all_sharded(topicsfn, output_path)
+
+    def _search_all_sharded(self, topicsfn, output_path):
+        """The JAX ``_search_all_sharded``: the postings split over a
+        ``shard`` mesh of ``self.devices`` (``None``: the first ``shards``
+        cards), one run file per (k1, b), written as the single-device runs."""
+        from capreolus_tpu_torch.parallel import ShardedDeviceIndex, sharded_search
+        from capreolus_tpu_torch.parallel.distributed import make_mesh, shard_devices
+
+        shards = int(self.config["shards"])
+        devices = shard_devices(shards, self.devices)
+        self.index.create_index()
+        data = self.index.data
+        sindex = ShardedDeviceIndex(data, make_mesh({"shard": shards}, devices))
+
+        topics = _load_topics_tsv(topicsfn)
+        hits = min(int(self.config["hits"]), data.num_docs)
+        batches = [topics[s : s + QUERY_BATCH] for s in range(0, len(topics), QUERY_BATCH)]
+        batch_terms = [[self.query_weights(text, None) for _, text in b] for b in batches]
+        for k1, b in itertools.product(self.config["k1"], self.config["b"]):
+            run = {}
+            # pipelined: a batch's merge is fetched while the next batches score
+            pending = _windowed(
+                (bi, sharded_search(sindex, sindex.build_work_units(terms, model="bm25"), num_queries=len(terms),
+                                    topk=hits, model="bm25", params={"k1": k1, "b": b}, materialize=False))
+                for bi, terms in enumerate(batch_terms))
+            for bi, (scores, ords) in pending:
+                scores, ords = scores.cpu().numpy(), ords.cpu().numpy()
+                for qi, (qid, _) in enumerate(batches[bi]):
+                    if batch_terms[bi][qi]:
+                        run[qid] = _ranked(scores[qi], ords[qi], data.docid_strings)
+            tag = self._param_tag({}, {"k1": k1, "b": b})
+            self._write_run(run, output_path / tag)
+            logger.info("wrote sharded (%d-way) run file %s", shards, output_path / tag)
 
 
 @Searcher.register

@@ -27,8 +27,16 @@ that an in-flight search keeps the engine it read; it returns True only when
 the served generation changed. The embedding and impact caches are rebuilt
 incrementally (only added docs are encoded). Every service has
 ``snippets(query, hits)`` (``analysis/highlight.py``) and ``_docids``, which
-the HTTP front end (``serving_http.py``) reads. Not ported yet: ``shards``
-(ROADMAP.md item 6, 'Multi-device').
+the HTTP front end (``serving_http.py``) reads.
+
+``shards > 1`` serves a doc-sharded corpus (the JAX services' mesh of devices
+in one process): ``RetrievalService`` (and ``RerankingService``'s first
+stage) over ``parallel/sharded_search.py``, the dense and ColBERT services
+over their searchers' sharded engines. The shards' devices are
+``RetrievalService``'s ``devices`` (keyword only, beside ``device``) and an
+embedding searcher's ``devices`` attribute: ``None`` takes the first
+``shards`` cards, and too few raise; a list may repeat one device (several
+shards on one card, or on the CPU). Results merge on the first of them.
 """
 
 from __future__ import annotations
@@ -57,20 +65,21 @@ def resolve_device(device=None) -> torch.device:
 
 
 class RetrievalService:
-    """The JAX service's parameters in its order, then ``device`` (keyword
-    only). ``pruning`` serves a model that supports it through the engine's
-    adaptive ``search_pruned``; ``hbm_budget_mb`` (0 = always resident) is the
-    device budget above which the postings stream from the host. ``shards > 1``
-    raises ``ConfigError`` until multi-device serving is ported."""
+    """The JAX service's parameters in its order, then ``device`` and
+    ``devices`` (keyword only). ``pruning`` serves a model that supports it
+    through the engine's adaptive ``search_pruned``; ``hbm_budget_mb`` (0 =
+    always resident) is the device budget above which the postings stream
+    from the host. ``shards > 1`` partitions the postings by document range
+    over ``devices`` (``None``: the first ``shards`` cards; a list may repeat
+    one device), scores each shard on its device and merges the shards'
+    candidates on the first (``parallel/sharded_search.py``); pruning does
+    not apply there, as in JAX."""
 
     def __init__(self, index, model: str = "bm25", params: Optional[dict] = None, batch_size: int = 64,
-                 hbm_budget_mb: float = 12000.0, pruning: bool = True, shards: int = 0, *, device=None):
+                 hbm_budget_mb: float = 12000.0, pruning: bool = True, shards: int = 0, *, device=None,
+                 devices=None):
         from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
 
-        self.shards = int(shards)
-        if self.shards > 1:
-            raise ConfigError(f"shards={self.shards}: multi-device serving is not ported to PyTorch yet "
-                              f"(ROADMAP.md item 6, 'Multi-device')")
         self.device = resolve_device(device)
         index.create_index()
         self.index = index
@@ -80,19 +89,39 @@ class RetrievalService:
         self._hbm_budget_mb = hbm_budget_mb
         # exact block-max pruning; the engine's A/B probe turns it off where it does not pay
         self.pruning = bool(pruning)
-        self.engine = ScoringEngine(DeviceIndex(index.data, device=self.device,
-                                                hbm_budget=hbm_budget_mb * 1e6 if hbm_budget_mb > 0 else None))
+        self.shards = int(shards)
+        self.devices = devices
+        self._sharded = None  # (ShardedDeviceIndex, its IndexData), replaced in one assignment
+        if self.shards > 1:
+            self.engine = None
+            self._build_sharded(index.data)
+        else:
+            self.engine = ScoringEngine(DeviceIndex(index.data, device=self.device,
+                                                    hbm_budget=hbm_budget_mb * 1e6 if hbm_budget_mb > 0 else None))
         self._generation = getattr(index, "_loaded_generation", 0)
+
+    def _build_sharded(self, data):
+        from capreolus_tpu_torch.parallel.distributed import make_mesh, shard_devices
+        from capreolus_tpu_torch.parallel.sharded_search import ShardedDeviceIndex
+
+        devices = shard_devices(self.shards, self.devices, "shards={shards} but only {have} devices present")
+        self._sharded = (ShardedDeviceIndex(data, make_mesh({"shard": self.shards}, devices)), data)
+
+    @property
+    def _sindex(self):
+        return self._sharded[0] if self._sharded is not None else None
 
     @property
     def _docids(self):
+        if self._sharded is not None:
+            return self._sharded[1].docid_strings
         return self.engine.dindex.host.docid_strings
 
     def refresh(self) -> bool:
         """NRT reopen: merge the index's pending incremental ops and, when the
-        loaded generation moved, swap in an engine over it (one reference
-        assignment: a search in flight keeps the engine it read). Returns True
-        when the served generation changed."""
+        loaded generation moved, swap in an engine (or a sharded index) over
+        it (one reference assignment: a search in flight keeps the engine it
+        read). Returns True when the served generation changed."""
         from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
 
         if hasattr(self.index, "refresh"):
@@ -101,15 +130,18 @@ class RetrievalService:
         gen = getattr(self.index, "_loaded_generation", 0)
         if gen == self._generation:
             return False
-        budget = self._hbm_budget_mb * 1e6 if self._hbm_budget_mb > 0 else None
-        self.engine = ScoringEngine(DeviceIndex(data, device=self.device, hbm_budget=budget))
+        if self._sharded is not None:
+            self._build_sharded(data)
+        else:
+            budget = self._hbm_budget_mb * 1e6 if self._hbm_budget_mb > 0 else None
+            self.engine = ScoringEngine(DeviceIndex(data, device=self.device, hbm_budget=budget))
         self._generation = gen
         return True
 
     @classmethod
     def from_config(cls, collection: str = "dummy", collection_path: Optional[str] = None,
                     model: str = "bm25", params: Optional[dict] = None, shards: int = 0, device=None,
-                    **index_config):
+                    devices=None, **index_config):
         import capreolus_tpu_torch
 
         capreolus_tpu_torch.load_all_modules()
@@ -119,7 +151,7 @@ class RetrievalService:
         if collection_path:
             coll_cfg["path"] = collection_path
         index = Index.create("tpu", {**index_config, "collection": coll_cfg})
-        return cls(index, model=model, params=params, shards=shards, device=device)
+        return cls(index, model=model, params=params, shards=shards, device=device, devices=devices)
 
     def _analyze(self, query: str, vocab):
         counts = Counter(self.index.analyze(query))
@@ -132,6 +164,8 @@ class RetrievalService:
         results and builds the hit lists."""
         from capreolus_tpu_torch.searcher.tpu import fetch
 
+        if self._sharded is not None:
+            return self._search_async_sharded(queries, k)
         engine = self.engine
         host = engine.dindex.host
         docids = host.docid_strings
@@ -151,6 +185,38 @@ class RetrievalService:
             for n, res in pending:
                 scores, ords = fetch(res)
                 scores, ords = scores[0], ords[0]
+                for qi in range(n):
+                    hits = []
+                    for s, o in zip(scores[qi], ords[qi]):
+                        if s <= 0.0:
+                            break
+                        hits.append((docids[int(o)], float(s)))
+                    results.append(hits)
+            return results
+
+        return collect
+
+    def _search_async_sharded(self, queries: Sequence[str], k: int):
+        """Doc-sharded dispatch: every batch scored on each shard and merged
+        on the first device (``sharded_search``, unmaterialised); collect
+        copies the merged lists. Same collect-later contract as ``search_async``."""
+        from capreolus_tpu_torch.parallel.sharded_search import sharded_search
+
+        sindex, host = self._sharded  # one read: a refresh never mixes generations
+        docids = host.docid_strings
+        pending = []
+        for start in range(0, len(queries), self.batch_size):
+            batch = queries[start : start + self.batch_size]
+            term_lists = [self._analyze(q, host.vocab) for q in batch]
+            units = sindex.build_work_units(term_lists, model=self.model)
+            scores, ords = sharded_search(sindex, units, num_queries=len(batch), topk=k, model=self.model,
+                                          params=self.params, materialize=False)
+            pending.append((len(batch), scores, ords))
+
+        def collect() -> List[List[Tuple[str, float]]]:
+            results: List[List[Tuple[str, float]]] = []
+            for n, scores, ords in pending:
+                scores, ords = scores.cpu().numpy(), ords.cpu().numpy()
                 for qi in range(n):
                     hits = []
                     for s, o in zip(scores[qi], ords[qi]):

@@ -44,8 +44,12 @@ paths carry over.
 The trainer runs on ``self.device`` (an attribute, not a config option, so it
 never enters the results path; ``None`` means "cuda"), which the rerank task
 sets. Options that select code the port does not have raise ``ConfigError``
-naming their ROADMAP.md item: ``tp``, ``pp``, ``ep``, ``sp``, ``fsdp`` and a
-``ckpt`` other than ``flat`` (item 6, "Multi-device").
+naming their ROADMAP.md item: ``tp``, ``pp``, ``ep``, ``sp`` and ``fsdp``
+(item 6, "Multi-device", the training half of module 11). ``ckpt=sharded``
+and ``sharded_async`` write the JAX package's sharded directories
+(``utils/sharded_ckpt.py``), in async mode from a background thread.
+Validation metrics run on the trainer's device when every metric is
+supported (``evaluation/device_metrics.py``), as the JAX trainer's do.
 
 ``loss=infonce`` trains a reranker with ``encode`` (the biencoder) on the
 in-batch similarity matrix: f32 ``q @ pos.T``, each sample's hard negative
@@ -59,6 +63,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
+import json
 import queue as _queue
 import threading
 import time
@@ -158,6 +163,28 @@ def _unported(what, item):
     return ConfigError(f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
 
 
+# the ROADMAP.md item that holds the parallelism options
+TRAINING_HALF = "item 6, 'Multi-device', the training half of module 11"
+
+
+def _optimizer_tree(state_dict):
+    """A torch optimizer's ``state_dict`` as a tree ``save_sharded`` writes:
+    each parameter's state tensors under its index, the param groups as the
+    bytes of their JSON."""
+    return {"state": {str(i): dict(st) for i, st in state_dict["state"].items()},
+            "param_groups": np.frombuffer(json.dumps(state_dict["param_groups"]).encode(), np.uint8)}
+
+
+def _optimizer_state_dict(tree):
+    """The inverse of ``_optimizer_tree`` over ``load_sharded``'s numpy tree
+    (JSON lists other than ``params``, Adam's ``betas``, back to tuples)."""
+    groups = json.loads(np.asarray(tree["param_groups"], np.uint8).tobytes())
+    return {"state": {int(i): {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+                      for i, st in tree.get("state", {}).items()},
+            "param_groups": [{k: tuple(v) if isinstance(v, list) and k != "params" else v for k, v in g.items()}
+                             for g in groups]}
+
+
 @Trainer.register
 class TorchTrainer(Trainer):
     module_name = "jax"
@@ -175,9 +202,9 @@ class TorchTrainer(Trainer):
         ConfigOption("softmaxloss", False, "use softmax loss instead of hinge"),
         ConfigOption("fastforward", False, "resume from per-iteration checkpoints"),
         ConfigOption("ckpt", "flat", "checkpoint format: flat (single-file flax bytes, gathers "
-                     "to one host), sharded (per-shard raw .npy — each process writes only its "
-                     "addressable shards, restores across different mesh layouts), or "
-                     "sharded_async (sharded + background file writes off the train loop)"),
+                     "to one host), sharded (per-shard raw .npy in the JAX package's manifest "
+                     "format; one shard per leaf on one device), or sharded_async (sharded + "
+                     "background file writes off the train loop)"),
         ConfigOption("validatefreq", 1, "validate every N iterations"),
         ConfigOption("negrefresh", 0, "ANCE-style hard-negative refresh: every N iterations, "
                      "re-score each training query's ORIGINAL candidate pool with the CURRENT "
@@ -219,6 +246,7 @@ class TorchTrainer(Trainer):
     def build(self):
         self._model = None
         self._optimizer = None
+        self.device_validations = 0  # validations whose metrics ran on the device
 
     # ------------------------------------------------------------------ setup
     def _device(self):
@@ -231,15 +259,18 @@ class TorchTrainer(Trainer):
         c = self.config
         for key in ("tp", "pp", "ep"):
             if int(c.get(key, 1)) > 1:
-                raise _unported(f"trainer.{key}={c[key]}", "item 6, 'Multi-device'")
+                raise _unported(f"trainer.{key}={c[key]}", TRAINING_HALF)
         for key in ("sp", "fsdp"):
             if c.get(key):
-                raise _unported(f"trainer.{key}=True", "item 6, 'Multi-device'")
-        if str(c.get("ckpt", "flat")) != "flat":
-            if str(c["ckpt"]) not in ("sharded", "sharded_async"):
-                raise ConfigError(f"trainer.ckpt must be flat, sharded, or sharded_async (got {c['ckpt']!r})")
-            raise _unported(f"trainer.ckpt={c['ckpt']} (sharded checkpoints)", "item 6, 'Multi-device'")
+                raise _unported(f"trainer.{key}=True", TRAINING_HALF)
+        self._ckpt_mode()
         amp_mode(c["amp"])
+
+    def _ckpt_mode(self):
+        mode = str(self.config.get("ckpt", "flat"))
+        if mode not in ("flat", "sharded", "sharded_async"):
+            raise ConfigError(f"trainer.ckpt must be flat, sharded, or sharded_async (got {mode!r})")
+        return mode
 
     def _loss_fn(self):
         loss = self.config["loss"]
@@ -516,7 +547,7 @@ class TorchTrainer(Trainer):
 
                 if (niter + 1) % self.config["validatefreq"] == 0 and dev_data is not None:
                     preds = self.predict(reranker, dev_data)
-                    metrics = eval_runs(preds, qrels, self._validation_metrics(metric), relevance_level)
+                    metrics = self._eval_dev_runs(preds, qrels, self._validation_metrics(metric), relevance_level)
                     logger.info("dev metrics: %s", " ".join(f"{k}={v:0.3f}" for k, v in sorted(metrics.items())))
                     metric_history.append((niter, dict(metrics)))
                     _plot_metrics(metric_history, info_path / "metrics.png")
@@ -579,6 +610,18 @@ class TorchTrainer(Trainer):
     def _validation_metrics(metric):
         base = ["map", "P_20", "ndcg_cut_20"]
         return base if metric in base else base + [metric]
+
+    def _eval_dev_runs(self, preds, qrels, metrics, relevance_level):
+        """Validation metrics on the trainer's device when every metric is
+        supported (``evaluation/device_metrics.py``), the host's ``eval_runs``
+        otherwise, as the JAX trainer chooses; ``device_validations`` counts
+        the validations that took the device path."""
+        from capreolus_tpu_torch.evaluation.device_metrics import device_supported, eval_runs_device
+
+        if device_supported(metrics):
+            self.device_validations += 1
+            return eval_runs_device(preds, qrels, metrics, relevance_level, device=self._device())
+        return eval_runs(preds, qrels, metrics, relevance_level)
 
     def _mine_hard_negatives(self, reranker, train_dataset):
         """Score every (qid, candidate) pair of the train sampler's ORIGINAL
@@ -694,24 +737,66 @@ class TorchTrainer(Trainer):
                                         else np.zeros(0, dtype=np.float32)) for k, v in flat.items()}))
 
     def save_checkpoint(self, path, model, optimizer, reranker):
-        from capreolus_tpu_torch.utils.flax_msgpack import to_bytes
-
+        """``ckpt=flat``: ``<path>.params`` (flax msgpack) and ``<path>.optstate``
+        (``torch.save``). ``sharded`` / ``sharded_async``: the same trees as
+        ``<path>.params.shards`` and ``<path>.optstate.shards`` directories
+        (``utils/sharded_ckpt.py``, the JAX format), written on a background
+        thread in async mode after a host snapshot. ``<path>.done`` comes
+        after both trees (chained on the writer in async mode). Returns the
+        bytes of the trees' data."""
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
-        _ext(path, ".params").write_bytes(to_bytes(self.saveable_params(reranker, model)))
+        saveable = self.saveable_params(reranker, model)
+        if self._ckpt_mode() != "flat":
+            from capreolus_tpu_torch.utils.sharded_ckpt import AsyncCheckpointer, save_sharded
+
+            ac = None
+            if self._ckpt_mode() == "sharded_async":
+                if getattr(self, "_async_ckpt", None) is None:
+                    self._async_ckpt = AsyncCheckpointer()
+                ac = self._async_ckpt
+            written = save_sharded(_ext(path, ".params.shards"), saveable, async_checkpointer=ac)
+            if optimizer is not None:
+                written += save_sharded(_ext(path, ".optstate.shards"), _optimizer_tree(optimizer.state_dict()),
+                                        async_checkpointer=ac)
+            done = _ext(path, ".done")
+            if ac is not None:  # the done file must cover both trees: chain it on the writer
+                ac.after(lambda: done.write_text("done"))
+            else:
+                done.write_text("done")
+            return written
+        from capreolus_tpu_torch.utils.flax_msgpack import to_bytes
+
+        params = to_bytes(saveable)
+        _ext(path, ".params").write_bytes(params)
+        written = len(params)
         if optimizer is not None:
             torch.save(optimizer.state_dict(), _ext(path, ".optstate"))
+            written += _ext(path, ".optstate").stat().st_size
         _ext(path, ".done").write_text("done")
+        return written
+
+    def _wait_for_checkpoints(self):
+        """Join any in-flight asynchronous checkpoint writes (a no-op otherwise)."""
+        ac = getattr(self, "_async_ckpt", None)
+        if ac is not None:
+            ac.wait()
 
     def load_checkpoint(self, path, model, optimizer, reranker):
-        """Restore ``<path>.params`` (either trainer's) into ``model`` through
+        """Restore ``<path>.params`` (either trainer's), or the sharded
+        ``<path>.params.shards`` where it exists, into ``model`` through
         ``reranker.state_dict_from_params``, which refills the frozen leaves a
         checkpoint leaves empty with their values (``_merge_frozen``: a frozen
         KNRM's extractor table and kernel bank, Birch's frozen encoder); and
-        this trainer's ``<path>.optstate`` into ``optimizer`` when given."""
+        this trainer's optimizer state into ``optimizer`` when given. Waits
+        for in-flight asynchronous writes first."""
         from capreolus_tpu_torch.convert import _present, flax_leaves, load_params
+        from capreolus_tpu_torch.utils.sharded_ckpt import is_sharded_checkpoint, load_sharded
 
-        flat = load_params(_ext(path, ".params"))
+        self._wait_for_checkpoints()
+        pdir, odir = _ext(path, ".params.shards"), _ext(path, ".optstate.shards")
+        sharded = is_sharded_checkpoint(pdir)
+        flat = load_params(pdir if sharded else _ext(path, ".params"))
         params = dict(model.named_parameters())
         missing = [key for key, name, *_ in flax_leaves(model)
                    if reranker.trainable(tuple(key.split("/")), params[name]) and not _present(flat, key)]
@@ -724,7 +809,9 @@ class TorchTrainer(Trainer):
             raise RuntimeError(f"checkpoint {path} does not fit the model (a vocabulary-sized table needs the "
                                f"training-time extractor state): {e}") from e
         opt_fn = _ext(path, ".optstate")
-        if optimizer is not None and opt_fn.exists():
+        if optimizer is not None and sharded and is_sharded_checkpoint(odir):
+            optimizer.load_state_dict(_optimizer_state_dict(load_sharded(odir)))
+        elif optimizer is not None and opt_fn.exists():
             optimizer.load_state_dict(torch.load(opt_fn, map_location=next(model.parameters()).device,
                                                  weights_only=True))
         return model, optimizer

@@ -11,7 +11,9 @@ LoRA BERT-MaxP, CEDR-KNRM and KNRM under ``trainer.amp`` and the ColBERT
 reranker and serves what they wrote, then serves and trains the reranker zoo,
 then serves dense and learned-sparse retrieval and trains its rerankers,
 then drives the ColBERT options, snippets, the HTTP front end and NRT
-refresh, and holds every kernel against its plain PyTorch version.
+refresh, then serves doc-sharded BM25, dense and ColBERT over 4 shards on the
+card with device metrics and a sharded checkpoint, and holds every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py   # needs one CUDA device; builds the kernels
 
@@ -299,6 +301,28 @@ printed only when every phase passed):
    four services (merge and refresh s; exactly the added docs encoded, K2
    12 times a batch there and held against plain at layer 0; deleted docs
    absent; 8 queries' hits equal to a new service's over the new generation);
+17. doc-sharded serving, device metrics and sharded checkpoints (after 16),
+   4 shards on one card (``devices=["cuda"] * 4``: no copy between cards is
+   measured): 17a ``RetrievalService(shards=4)`` over phase 10's uniform
+   200k-doc corpus (cached under build/sparse), 2048 queries in batches of
+   256 at k 1000: queries/s beside the single-device service's, 512 queries'
+   rankings held to it (1e-5, near-ties), no port kernel launched; 17c the
+   bf16 and int8 ``DenseRetrievalService`` over phase 15's cache (one query,
+   median of 8, and a 128-query batch, sharded and resident; the sharded top
+   1000 equal to the resident engine's, int8 bit for bit, bf16 within 1e-5;
+   X1 on every shard of every int8 batch) and phase 15b's 1M x 768 matrix at
+   128 queries (each shard's product, its top-k and the merge timed apart);
+   17d ColBERT over phase 6's cache, bf16 (K3 once per shard and query batch)
+   and int8 (X1): one query (median of 4) and the 64-query batch, scores equal
+   to the resident engine's bit for bit, K3 and X1 on shard 0 against their
+   plain versions; 17e device metrics against the host's on a 1000-query x
+   1000-deep run (1e-5, both timed) and phase 9's validations that took the
+   device path; 17f one ``trainer.ckpt=sharded_async`` save and resume of a
+   BERT-base reranker with its Adam state (the caller's blocked time against
+   the writer's, the bytes, equal weights and state); 17b, last (its refresh
+   changes phase 4's index): one ``RerankingService`` request over a sharded
+   first stage equal to the single-device service's (K1 once), and a
+   ``refresh()`` under shards after one added and one deleted doc;
 7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
    ``launches_training`` and ``launches_training_predict``, phase 9's
    launches in training steps and in the trainer's predictions, and K1 and
@@ -310,7 +334,9 @@ printed only when every phase passed):
    ``launches_phase15`` and ``max_abs_err_phase15``, X1's 1M-doc shape under
    ``served_shapes``; K2, K3 and X1 with ``launches_phase16``, K2's error in
    16b's encoding, K3's ``phase16`` measurements on gathered candidates and a
-   streamed slice, X1's ``equal_plain_phase16``), then the result line.
+   streamed slice, X1's ``equal_plain_phase16``; every kernel with
+   ``launches_phase17``, K3 and X1 with their ``phase17_shard0`` measurements),
+   then the result line.
 
 Every kernel's launch count is set to 0 just before each serving path runs
 and read just after it.
@@ -1136,7 +1162,7 @@ def phase_serving(workdir, num_docs, ckpt_seed):
         check(not faults, f"query {qi}: GPU vs CPU reranked top 10: {faults}")
     print(f"[4 serving] {len(queries)} queries: first stage identical on GPU and CPU; reranked "
           f"top-10 agree within {ERR_TOL} (top hit of query 0: {gpu_results[0][0]})")
-    return launches, corpus_dir, topics, qrels
+    return launches, corpus_dir, topics, qrels, (reranker, ckpt)
 
 
 def check_no_head_copies(profiled, num_layers, label):
@@ -5015,24 +5041,15 @@ def phase_dense_serving(workdir, corpus_dir, topics, peaks, ckpt_dir):
     return out, services
 
 
-def phase_dense_scale(workdir, peaks):
-    """15b: the dense engines over a seeded clustered 1M x 768 matrix written
-    straight into the searcher's cache file (no encoding): per engine the
-    128-query batch at k 1000, the product and the selection apart, peak
-    memory and busy share; X1 and the bf16 product at the served shape."""
+def write_scale_matrix(workdir):
+    """15b's seeded clustered n x dim matrix written straight into the dense
+    searcher's cache of a ``SyntheticDenseIndex`` (no encoding). Returns the
+    index and SCALE["queries"] query rows drawn around the same centres."""
     import torch.nn.functional as F
 
-    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
-    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
-    from capreolus_tpu_torch.searcher.dense import _dense_scores, score_block
-    from capreolus_tpu_torch.searcher.ivf import bf16_sims
-    from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
-
     n, dim = SCALE["docs"], SCALE["dim"]
-    t0 = time.perf_counter()
     index = SyntheticDenseIndex(n, os.path.join(workdir, "dense_scale"))
-    first = dense_searcher({"pretrained": "tiny"}, "cuda", index)
-    cache_fn = first._doc_cache_file()
+    cache_fn = dense_searcher({"pretrained": "tiny"}, "cuda", index)._doc_cache_file()
     cache_fn.parent.mkdir(parents=True, exist_ok=True)
     g = torch.Generator(device="cuda").manual_seed(SCALE["seed"])
     centres = F.normalize(torch.randn((SCALE["centres"], dim), generator=g, device="cuda"), dim=1)
@@ -5047,7 +5064,23 @@ def phase_dense_scale(workdir, peaks):
         emb[s0:s0 + 131072] = around(min(131072, n - s0)).cpu().numpy()
     emb.flush()
     del emb
-    q = around(SCALE["queries"])
+    return index, around(SCALE["queries"])
+
+
+def phase_dense_scale(workdir, peaks):
+    """15b: the dense engines over a seeded clustered 1M x 768 matrix written
+    straight into the searcher's cache file (no encoding): per engine the
+    128-query batch at k 1000, the product and the selection apart, peak
+    memory and busy share; X1 and the bf16 product at the served shape."""
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
+    from capreolus_tpu_torch.searcher.dense import _dense_scores, score_block
+    from capreolus_tpu_torch.searcher.ivf import bf16_sims
+    from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
+
+    n, dim = SCALE["docs"], SCALE["dim"]
+    t0 = time.perf_counter()
+    index, q = write_scale_matrix(workdir)
     out = {"write_s": time.perf_counter() - t0, "engines": {}}
     print(f"[15b dense] {n} x {dim} around {SCALE['centres']} centres written to the searcher's cache in "
           f"{out['write_s']:.1f} s")
@@ -5905,6 +5938,576 @@ def add_phase16_launches(kernels, p16):
     kernels[3]["equal_plain_phase16"] = {key: held[key] for key in ("x1_prefilter_equal", "x1_streamed_equal")}
 
 
+P17 = {  # phase 17's counts (none crosses a dispatch threshold)
+    "shards": 4, "bm25_queries": 2048, "bm25_batch": 256, "bm25_k": 1000, "bm25_compared": 512,
+    "dense_queries": 8, "dense_batch": 128, "colbert_queries": 4, "colbert_batch": 64,
+    "metrics_queries": 1000, "metrics_depth": 1000, "scale_queries": 128,
+}
+SHARDED_RTOL = 1e-5  # bf16 dense and BM25, sharded vs the resident engine: f32 sums of one doc's terms (BM25's
+# tree sum over shifted runs in both; the bf16 product in blocks of one shape) may round apart
+DEVICE_METRIC_TOL = 1e-5  # device metrics (f32) vs the host's (f64), the JAX suite's tolerance
+METRICS17 = ["map", "recip_rank", "MRR@10", "ndcg_cut_5", "ndcg_cut_20", "ndcg_cut_1000", "P_5", "P_10", "recall_10",
+             "recall_100", "recall_1000"]
+
+
+class SyntheticSparseIndex:
+    """Phase 10's synthetic postings as a served index: term i is the word
+    ``t<i>``, doc ordinal d the docid ``S<d>`` (the corpus has no text)."""
+
+    def __init__(self, data):
+        data.docid_strings = [f"S{d:06d}" for d in range(data.num_docs)]
+        data.vocab = {f"t{i}": i for i in range(data.num_terms)}
+        self.data = data
+
+    def create_index(self):
+        pass
+
+    def analyze(self, text):
+        return text.split()
+
+
+def hit_arrays(hits, k, ordinal, missing):
+    """[(docid, score)] lists -> (scores, ordinals) [Q, k] arrays, padded with
+    -1 and ``missing``, for ``ranking_rows_faults``."""
+    scores = np.full((len(hits), k), -1.0, np.float32)
+    ords = np.full((len(hits), k), missing, np.int64)
+    for i, row in enumerate(hits):
+        scores[i, : len(row)] = [s for _, s in row]
+        ords[i, : len(row)] = [ordinal(d) for d, _ in row]
+    return scores, ords
+
+
+def served_qps(svc, texts, k, passes=2):
+    """(best queries/s over ``passes`` passes of every text, the hits of the last pass)."""
+    svc.search(texts[: svc.batch_size], k=k)  # warm-up
+    walls, hits = [], None
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        hits = svc.search(texts, k=k)
+        walls.append(time.perf_counter() - t0)
+    return len(texts) / min(walls), hits
+
+
+def engine_ms_per_batch(batches, dispatch, collect):
+    """ms per batch of a pipelined pass of the engine alone: every batch
+    dispatched, then every result copied to the host (no hit lists)."""
+    collect(dispatch(batches[0]))  # warm-up
+    t0 = time.perf_counter()
+    for result in [dispatch(b) for b in batches]:
+        collect(result)
+    return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def phase17_bm25(workdir, device, shape, shards):
+    """17a: ``RetrievalService(shards=4)`` over phase 10's uniform 200k-doc
+    corpus at bench.py's query recipe, 256-query batches at k 1000: queries/s
+    beside the single-device service's, and each engine's pipelined pass
+    alone (the service's hit lists are host Python); the first batches'
+    rankings held to it, no port kernel launched."""
+    from capreolus_tpu_torch.index.synth import synth_uniform_index
+    from capreolus_tpu_torch.parallel.sharded_search import sharded_search
+    from capreolus_tpu_torch.searcher.tpu import fetch
+    from capreolus_tpu_torch.serving import RetrievalService
+
+    n, v, u = SPARSE["num_docs"], SPARSE["num_terms"], SPARSE["avg_unique"]
+    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sparse")
+    os.makedirs(cache_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    data = synth_uniform_index(n, v, u, seed=SPARSE["uniform_seed"],
+                               cache_fn=os.path.join(cache_dir, f"uniform_{n}_{v}_{SPARSE['uniform_seed']}.npz"))
+    index = SyntheticSparseIndex(data)
+    terms = sparse_queries(data, SPARSE["query_seed"], shape["bm25_queries"], SPARSE["terms"], n)
+    texts = [" ".join(f"t{t}" for t, _ in q) for q in terms]
+    load_s = time.perf_counter() - t0
+    k, batch = shape["bm25_k"], shape["bm25_batch"]
+    t0 = time.perf_counter()
+    single = RetrievalService(index, params=SPARSE_PARAMS, batch_size=batch, device=device)
+    single_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = RetrievalService(index, params=SPARSE_PARAMS, batch_size=batch, shards=shards, device=device,
+                               devices=[device] * shards)
+    sync(device)
+    sharded_setup = time.perf_counter() - t0
+    reset_launch_counts()
+    sharded_qps, sharded_hits = served_qps(sharded, texts, k)
+    launched = {name: c for name, c in launch_counts().items() if c}
+    check(not launched, f"17a: sharded BM25 launched a port kernel: {launched}")
+    single_qps, single_hits = served_qps(single, texts, k)
+    batches = [terms[i : i + batch] for i in range(0, len(terms), batch)]
+    sindex = sharded._sindex
+    sharded_engine_ms = engine_ms_per_batch(
+        batches, lambda b: sharded_search(sindex, sindex.build_work_units(b), len(b), k, params=SPARSE_PARAMS,
+                                          materialize=False), lambda r: (r[0].cpu(), r[1].cpu()))
+    single_engine_ms = engine_ms_per_batch(
+        batches, lambda b: single.engine.search_pruned(b, model="bm25", params=SPARSE_PARAMS, topk=k,
+                                                       materialize=False), fetch)
+    m = shape["bm25_compared"]
+    ordinal = lambda d: int(d[1:])  # noqa: E731
+    got = hit_arrays(sharded_hits[:m], k, ordinal, n)
+    want = hit_arrays(single_hits[:m], k, ordinal, n)
+    faults = ranking_rows_faults(got, want, SHARDED_RTOL)
+    check(not faults, f"17a: sharded BM25 vs the single-device service: {faults}")
+    matched = want[0] > 0
+    rel = float(np.max(np.abs(got[0][matched] - want[0][matched]) / want[0][matched])) if matched.any() else 0.0
+    swapped = int((got[1] != want[1]).sum())
+    out = {"docs": n, "postings": int(len(data.doc_ids)), "queries": len(texts), "batch": batch, "k": k,
+           "qps_sharded": sharded_qps, "qps_single": single_qps, "setup_sharded_s": sharded_setup,
+           "setup_single_s": single_setup, "load_s": load_s, "engine_ms_per_batch_sharded": sharded_engine_ms,
+           "engine_ms_per_batch_single": single_engine_ms, "compared_queries": m, "max_rel_score_diff": rel,
+           "positions_at_near_ties": swapped, "docs_per_shard": sharded._sindex.docs_per_shard,
+           "tiles_per_shard": sharded._sindex.n_tiles}
+    print(f"[17a sharded bm25] {smi_line() if device == 'cuda' else device}: {n} docs ({out['postings']} postings) over "
+          f"{shards} shards on one card ({sharded._sindex.n_tiles} tiles each); {len(texts)} queries in batches of "
+          f"{batch} at k {k}: {sharded_qps:.1f} queries/s sharded, {single_qps:.1f} single-device through the "
+          f"services (set-up {sharded_setup:.2f} s / {single_setup:.2f} s); the engines alone, pipelined: "
+          f"{sharded_engine_ms:.2f} ms a batch sharded, {single_engine_ms:.2f} single-device (pruned, adaptive); "
+          f"{m} queries' rankings = the single-device service's "
+          f"(max rel score diff {rel:.3g}; {swapped} positions at near-ties); no port kernel launched")
+    return out
+
+
+def phase17_rerank_refresh(workdir, corpus_dir, topics, knrm, device, shards):
+    """17b: one ``RerankingService`` request over a sharded first stage
+    (phase 4's KNRM and its extractor state; K1 once), equal to the
+    single-device service's; then a ``refresh()`` under shards after one
+    added and one deleted doc (on phase 16b's merged generation): the added
+    doc served, the deleted one gone, hits equal to a single-device service
+    over the new generation."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.serving import RerankingService, RetrievalService
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")  # phase 4's index
+    coll = {"name": "dummy", "path": corpus_dir}
+    index = Index.create("tpu", {"collection": coll})
+    index.create_index()
+    reranker, ckpt = knrm
+    devices = [device] * shards
+    sharded_rr = RerankingService(index, reranker, ckpt, topn=100, device=device, shards=shards, devices=devices)
+    single_rr = RerankingService(index, reranker, ckpt, topn=100, device=device)
+    query = topics[0]
+    first_sh = RetrievalService.search_async(sharded_rr, [query], k=100)()[0]
+    first_si = RetrievalService.search_async(single_rr, [query], k=100)()[0]
+    check([d for d, _ in first_sh] == [d for d, _ in first_si], "17b: the sharded first stage's top 100 differ")
+    rel = max(abs(a - b) / b for (_, a), (_, b) in zip(first_sh, first_si))
+    check(rel <= SHARDED_RTOL, f"17b: sharded first-stage scores {rel:.3g} from the single-device service's")
+    single_rr.search([query], k=10)  # warm-up of the single service's path
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sharded_rr.search([query], k=10)[0]
+    request_ms = (time.perf_counter() - t0) * 1e3
+    launched = launch_counts()
+    want = single_rr.search([query], k=10)[0]
+    check(got == want, f"17b: reranked top 10 over the sharded first stage {got[:3]} != {want[:3]}")
+    check(launched["knrm_pool"] == 1, f"17b: K1 launched {launched['knrm_pool']} times in one request")
+
+    svc = RetrievalService(index, shards=shards, device=device, devices=devices)
+    added = ("N17_00000", "quokka numbat wombat quokka " + " ".join(query.split()[:3]))
+    deleted = index.data.docid_strings[1]
+    index.add_documents([added])
+    index.delete_documents([deleted])
+    t0 = time.perf_counter()
+    index.refresh()
+    merge_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    changed = svc.refresh()
+    sync(device)
+    refresh_s = time.perf_counter() - t0
+    check(changed is True, f"17b: refresh() under shards returned {changed}")
+    hits = svc.search(["quokka numbat wombat", query], k=100)
+    check(hits[0] and hits[0][0][0] == added[0], f"17b: the added doc is not served first: {hits[0][:3]}")
+    check(deleted not in {d for h in hits for d, _ in h} and deleted not in svc._docids,
+          "17b: the deleted doc is still served")
+    fresh = RetrievalService(index, device=device).search(["quokka numbat wombat", query], k=100)
+    check([[d for d, _ in h] for h in hits] == [[d for d, _ in h] for h in fresh],
+          "17b: hits after the refresh differ from a single-device service over the new generation")
+    out = {"rerank_request_ms": request_ms, "first_stage_max_rel_diff": rel, "launches": launched,
+           "merge_s": merge_s, "refresh_s": refresh_s, "docs": len(svc._docids)}
+    print(f"[17b sharded rerank, refresh] reranked request over {shards} shards {request_ms:.2f} ms, its top 10 = "
+          f"the single-device service's (first-stage top 100 identical, max rel diff {rel:.3g}; K1 once); refresh "
+          f"under shards after 1 added and 1 deleted doc: merge {merge_s:.2f} s, refresh {refresh_s:.2f} s; the "
+          f"added doc served first, the deleted one gone, hits = a single-device service's")
+    return out, launched
+
+
+def hold_sharded_engine(label, sharded, resident, q, exact_scores):
+    """The sharded engine's top k against the resident engine's on the same
+    query embeddings: ordinals identical, scores bit for bit (``exact_scores``)
+    or within SHARDED_RTOL. Returns the max relative score difference."""
+    gs, go = sharded._topk(q, *sharded._corpus)
+    ws, wo = resident._topk(q, *resident._corpus)
+    check(torch.equal(go.cpu(), wo.cpu()), f"{label}: sharded ordinals differ from the resident engine's")
+    gs, ws = gs.float().cpu(), ws.float().cpu()
+    finite = torch.isfinite(ws)
+    check(torch.equal(torch.isfinite(gs), finite), f"{label}: -inf slots differ from the resident engine's")
+    rel = float(((gs[finite] - ws[finite]).abs() / ws[finite].abs().clamp_min(1e-30)).max()) if finite.any() else 0.0
+    check(rel == 0.0 if exact_scores else rel <= SHARDED_RTOL,
+          f"{label}: sharded scores {rel:.3g} from the resident engine's ({'bit for bit' if exact_scores else SHARDED_RTOL})")
+    return rel
+
+
+def time_service(svc, queries, batch):
+    single_ms, spread = timed_requests(svc, queries)
+    t0 = time.perf_counter()
+    svc.search(batch, k=10)
+    return single_ms, spread, (time.perf_counter() - t0) * 1e3
+
+
+def phase17_dense(workdir, corpus_dir, topics, device, shape, shards):
+    """17c: ``DenseRetrievalService`` at BERT-base over phase 15's cache of
+    phase 4's corpus (the generation 16b merged), bf16 and int8, sharded and
+    resident: one query (median of 8) and a 128-query batch; the sharded
+    engines held to the resident ones (int8 bit for bit); X1 once per shard
+    and query batch in int8."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.serving import DenseRetrievalService
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")
+    cfg = {"pretrained": os.path.join(workdir, "bert_mlm_15"), "index": {"collection": {"name": "dummy",
+                                                                                        "path": corpus_dir}}}
+    queries = list(topics[: shape["dense_queries"]])
+    batch = [topics[i % len(topics)] for i in range(shape["dense_batch"])]
+    encoder = dense_searcher(cfg, device)
+    out, launches = {}, {}
+    for qmode in ("none", "int8"):
+        opts = {} if qmode == "none" else {"quantize": "int8"}
+        resident = DenseRetrievalService(dense_searcher({**cfg, **opts}, device, encoder_of=encoder),
+                                         max_k=DENSE_HITS, device=device)
+        searcher = dense_searcher({**cfg, **opts, "shards": shards}, device, encoder_of=encoder)
+        searcher.devices = [device] * shards
+        t0 = time.perf_counter()
+        sharded = DenseRetrievalService(searcher, max_k=DENSE_HITS, device=device)
+        sync(device)
+        setup_s = time.perf_counter() - t0
+        check(searcher.docs_encoded == 0 and resident.searcher.docs_encoded == 0,
+              f"17c {qmode}: documents were encoded; phase 15's cache holds them")
+        reset_launch_counts()
+        single_ms, spread, batch_ms = time_service(sharded, queries, batch)
+        launched = launch_counts()
+        launches[f"dense_{qmode}"] = launched
+        requests = 2 + len(queries)
+        check(launched["flash_attention"] == 12 * requests, f"17c {qmode}: K2 launched {launched['flash_attention']}")
+        check((launched["int8_matmul"] >= shards * requests) if qmode == "int8" else launched["int8_matmul"] == 0,
+              f"17c {qmode}: X1 launched {launched['int8_matmul']} times over {requests} query batches")
+        r_single, _, r_batch = time_service(resident, queries, batch)
+        rel = hold_sharded_engine(f"17c dense {qmode}", sharded, resident, sharded._embed_batch(batch[:32]),
+                                  exact_scores=qmode == "int8")
+        out[qmode] = {"setup_s": setup_s, "single_ms": single_ms, "single_spread_ms": spread, "batch128_ms": batch_ms,
+                      "resident_single_ms": r_single, "resident_batch128_ms": r_batch, "max_rel_diff": rel,
+                      "launches": launched}
+        print(f"[17c sharded dense {qmode}] {smi_line() if device == 'cuda' else device}: {len(sharded._docids)} docs "
+              f"over {shards} shards: one query {single_ms:.2f} ms (spread {spread[0]:.2f}-{spread[1]:.2f}; resident "
+              f"{r_single:.2f}), 128 queries {batch_ms:.2f} ms (resident {r_batch:.2f}); set-up {setup_s:.2f} s; "
+              f"top 1000 = the resident engine's ({'bit for bit' if qmode == 'int8' else f'max rel diff {rel:.3g}'}); "
+              f"launches {launched}")
+        del sharded, resident, searcher
+    return out, launches
+
+
+def phase17_dense_scale(workdir, device, shape, shards):
+    """17c': phase 15b's 1M x 768 matrix (its cache) over 4 shards, 128
+    queries at k 1000 in bf16: the batch, each shard's product and top-k and
+    the merge timed apart, held to the resident engine."""
+    from capreolus_tpu_torch.parallel.sharded_search import merge_shard_candidates
+    from capreolus_tpu_torch.searcher.dense import _dense_scores, score_block
+    from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
+
+    n, dim, hits = SCALE["docs"], SCALE["dim"], SCALE["hits"]
+    index = SyntheticDenseIndex(n, os.path.join(workdir, "dense_scale"))
+    resident = dense_searcher({"pretrained": "tiny"}, device, index)
+    r_topk, r_docs, _ = resident.build_topk(hits)
+    searcher = dense_searcher({"pretrained": "tiny", "shards": shards}, device, index)
+    searcher.devices = [device] * shards
+    t0 = time.perf_counter()
+    topk, parts, n_corpus = searcher.build_topk(hits)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    g = torch.Generator(device="cpu").manual_seed(SCALE["seed"] + 17)
+    q = torch.nn.functional.normalize(torch.randn((shape["scale_queries"], dim), generator=g), dim=1).to(device)
+    reset_launch_counts()
+    scores, ords = topk(q, parts)
+    sync(device)
+    launched = launch_counts()
+    check(not any(launched.values()), f"17c 1M: the bf16 engine launched a port kernel: {launched}")
+    want_s, want_o = r_topk(q, r_docs)
+    check(torch.equal(ords.cpu(), want_o.cpu()), "17c 1M: sharded ordinals differ from the resident engine's")
+    rel = float(((scores - want_s).abs() / want_s.abs().clamp_min(1e-30)).max())
+    check(rel <= SHARDED_RTOL, f"17c 1M: sharded scores {rel:.3g} from the resident engine's")
+    per, block = -(-n // shards), score_block(n)
+    local_k = min(hits, per)
+    part_scores = [_dense_scores(q, part, block)[:, :per] for part in parts]
+    cands = [(sv, so + i * per) for i, (sv, so) in enumerate(topk_lower_ordinal_first(s, local_k) for s in part_scores)]
+
+    def merge():
+        return merge_shard_candidates(cands, hits, device)
+
+    if device == "cuda":
+        out = {"batch_ms": cuda_ms(lambda: topk(q, parts), rounds=3, calls=2),
+               "resident_batch_ms": cuda_ms(lambda: r_topk(q, r_docs), rounds=3, calls=2),
+               "shard_product_ms": [cuda_ms(lambda p=p: _dense_scores(q, p, block), rounds=3, calls=2) for p in parts],
+               "shard_topk_ms": [cuda_ms(lambda s=s: topk_lower_ordinal_first(s, local_k), rounds=3, calls=2)
+                                 for s in part_scores],
+               "merge_ms": cuda_ms(merge, rounds=3, calls=2)}
+    else:
+        out = {}
+    out.update(setup_s=setup_s, max_rel_diff=rel, docs_per_shard=per, rows_per_shard=int(parts[0].shape[0]))
+    print(f"[17c sharded dense 1M] {smi_line() if device == 'cuda' else device}: {n} x {dim} over {shards} shards "
+          f"on one card, {shape['scale_queries']} queries at k {hits}: "
+          + (f"{out['batch_ms']:.2f} ms (resident {out['resident_batch_ms']:.2f}); per shard product "
+             f"{out['shard_product_ms'][0]:.3f} ms, top {local_k} {out['shard_topk_ms'][0]:.3f} ms; merge "
+             f"{out['merge_ms']:.3f} ms; " if device == "cuda" else "")
+          + f"set-up {setup_s:.2f} s; top {hits} = the resident engine's (max rel diff {rel:.3g})")
+    del parts, r_docs, part_scores, cands
+    return out
+
+
+def phase17_colbert(workdir, corpus_dir, topics, none, peaks, device, shape, shards):
+    """17d: ColBERT over phase 6's cache (the generation 16b merged), bf16
+    (K3 once per shard and query batch) and int8 (X1), sharded and resident:
+    one query (median of 4) and phase 6's 64-query batch; sharded scores
+    equal to the resident engine's bit for bit; K3 and X1 on shard 0 against
+    their plain versions, timed."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    from capreolus_tpu_torch.ops.quantization import quantize_rows_torch
+    from capreolus_tpu_torch.serving import ColbertRetrievalService
+
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")
+    cfg = {**COLBERT, "pretrained": "bert-base-uncased", "allowrandominit": True, "checkpointfile": none["ckpt"],
+           "index": {"collection": {"name": "dummy", "path": corpus_dir}}}
+    queries, batch = list(topics[: shape["colbert_queries"]]), list(none["batch"])[: shape["colbert_batch"]]
+    encoder = colbert16(cfg, device=device)
+    out, launches, held = {}, {}, {}
+    for qmode in ("none", "int8"):
+        opts = {} if qmode == "none" else {"quantize": "int8"}
+        resident = ColbertRetrievalService(colbert16({**cfg, **opts}, encoder_of=encoder, device=device), max_k=100,
+                                           device=device)
+        searcher = colbert16({**cfg, **opts, "shards": shards}, encoder_of=encoder, device=device)
+        searcher.devices = [device] * shards
+        t0 = time.perf_counter()
+        sharded = ColbertRetrievalService(searcher, max_k=100, device=device)
+        sync(device)
+        setup_s = time.perf_counter() - t0
+        check(searcher.docs_encoded == 0, f"17d {qmode}: documents were encoded; phase 6's cache holds them")
+        reset_launch_counts()
+        single_ms, spread, batch_ms = time_service(sharded, queries, batch)
+        launched = launch_counts()
+        launches[f"colbert_{qmode}"] = launched
+        requests = 2 + len(queries)
+        check(launched["maxsim"] == (shards * requests if qmode == "none" else 0),
+              f"17d {qmode}: K3 launched {launched['maxsim']} times over {requests} query batches on {shards} shards")
+        check((launched["int8_matmul"] >= shards * requests) if qmode == "int8" else launched["int8_matmul"] == 0,
+              f"17d {qmode}: X1 launched {launched['int8_matmul']} times over {requests} query batches")
+        r_single, _, r_batch = time_service(resident, queries, batch)
+        q = searcher.encode_queries(searcher._tokenize(batch, COLBERT["maxqlen"]))
+        hold_sharded_engine(f"17d colbert {qmode}", sharded, resident, q, exact_scores=True)
+        part = sharded._corpus[0]  # shard 0's docs
+        q1 = q[:1]
+        if qmode == "none" and device == "cuda":
+            held["k3_shard0"] = k3_measure(q1, *part, peaks)
+        elif device == "cuda":
+            q_codes = quantize_rows_torch(q1)[0].reshape(-1, COLBERT["dim"])
+            d_codes = part[0].reshape(-1, COLBERT["dim"])
+            equal = bool(torch.equal(int8_matmul(q_codes, d_codes), int8_matmul_plain(q_codes, d_codes)))
+            check(equal, "17d: X1 differs from its plain version on shard 0's codes")
+            bound, by = x1_bound_ms(q_codes.shape[0], COLBERT["dim"], d_codes.shape[0], peaks)
+            held["x1_shard0"] = {"shape": f"M={q_codes.shape[0]} K={COLBERT['dim']} N={d_codes.shape[0]}",
+                                 "max_abs_err": 0, "equal_plain": equal,
+                                 "ms": cuda_ms(lambda: int8_matmul(q_codes, d_codes), rounds=5, calls=4),
+                                 "plain_ms": cuda_ms(lambda: int8_matmul_plain(q_codes, d_codes), rounds=2, calls=1),
+                                 "library_ms": cuda_ms(lambda: torch._int_mm(q_codes, d_codes.T), rounds=5, calls=4),
+                                 "bound_ms": bound, "bound_by": by}
+        out[qmode] = {"setup_s": setup_s, "single_ms": single_ms, "single_spread_ms": spread, "batch64_ms": batch_ms,
+                      "resident_single_ms": r_single, "resident_batch64_ms": r_batch, "launches": launched,
+                      "docs_per_shard": [int(p[0].shape[1] if qmode == "none" else p[0].shape[0])
+                                         for p in sharded._corpus if p is not None]}
+        print(f"[17d sharded colbert {qmode}] {smi_line() if device == 'cuda' else device}: {len(sharded._docids)} docs "
+              f"over {shards} shards ({out[qmode]['docs_per_shard']}): one query {single_ms:.2f} ms (spread "
+              f"{spread[0]:.2f}-{spread[1]:.2f}; resident {r_single:.2f}), {len(batch)} queries {batch_ms:.2f} ms "
+              f"(resident {r_batch:.2f}); set-up {setup_s:.2f} s; scores = the resident engine's bit for bit; "
+              f"launches {launched}")
+        del sharded, resident, searcher, part
+    if "k3_shard0" in held:
+        print(k3_line("[17d K3 shard 0]", held["k3_shard0"]))
+    if "x1_shard0" in held:
+        x = held["x1_shard0"]
+        print(f"[17d X1 shard 0] {x['shape']}: equal to plain, {x['ms']:.4f} ms (torch._int_mm {x['library_ms']:.4f}, "
+              f"plain {x['plain_ms']:.3f}, bound {x['bound_ms']:.4f} by {x['bound_by']})")
+    return out, launches, held
+
+
+def synthetic_experiment(nq, depth, seed=17, num_docs=200_000):
+    """(qrels, runs) of ``nq`` queries ranked ``depth`` deep, 50 judged docs
+    a query (30 of them retrieved), grades 0-2."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    runs, qrels = {}, {}
+    for q in range(nq):
+        docs = rng.choice(num_docs, size=depth, replace=False)
+        runs[f"q{q}"] = {f"d{d}": float(s) for d, s in zip(docs, rng.random(depth))}
+        judged = np.concatenate([docs[rng.choice(depth, size=min(30, depth), replace=False)],
+                                 rng.choice(num_docs, size=20)])
+        qrels[f"q{q}"] = {f"d{d}": int(rng.integers(0, 3)) for d in judged}
+    return qrels, runs
+
+
+def phase17_metrics(validations, device, shape):
+    """17e: device metrics against the host's on a 1000-query x 1000-deep
+    synthetic run, both timed; phase 9's validations that took the device path."""
+    from capreolus_tpu_torch.evaluation import eval_runs
+    from capreolus_tpu_torch.evaluation.device_metrics import eval_runs_device
+
+    qrels, runs = synthetic_experiment(shape["metrics_queries"], shape["metrics_depth"])
+    eval_runs_device(runs, qrels, METRICS17[:2], device=device)  # warm-up
+    t0 = time.perf_counter()
+    dev = eval_runs_device(runs, qrels, METRICS17, device=device)
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = eval_runs(runs, qrels, METRICS17)
+    host_s = time.perf_counter() - t0
+    err = max(abs(dev[m] - host[m]) for m in METRICS17)
+    check(err <= DEVICE_METRIC_TOL, f"17e: device metrics {err:.3g} from the host's")
+    check(validations["phase9"]["device"] > 0 and validations["phase9"]["host"] == 0,
+          f"17e: phase 9's validations {validations['phase9']}: every one should take the device path")
+    out = {"device_s": device_s, "host_s": host_s, "max_abs_diff": err, "validations": validations}
+    print(f"[17e device metrics] {shape['metrics_queries']} queries x {shape['metrics_depth']} deep, "
+          f"{len(METRICS17)} metrics: device {device_s:.3f} s, host {host_s:.3f} s, max |diff| {err:.3g} "
+          f"(tolerance {DEVICE_METRIC_TOL}); phase 9's validations on the device: {validations['phase9']['device']} "
+          f"of {validations['phase9']['device'] + validations['phase9']['host']}")
+    return out
+
+
+CKPT17_PRETRAINED = "bert-base-uncased"  # 17f's reranker width (seeded init)
+
+
+def phase17_checkpoint(workdir, device):
+    """17f: one ``trainer.ckpt=sharded_async`` save and resume of a BERT-base
+    reranker with a populated Adam state: the time the caller is blocked
+    against the writer's, the bytes written, weights and Adam state equal
+    after the resume."""
+    import copy
+
+    from capreolus_tpu_torch.reranker import Reranker
+
+    rr = Reranker.create("BERTMaxP", {"pretrained": CKPT17_PRETRAINED, "allowrandominit": True,
+                                      "trainer": {"ckpt": "sharded_async"}})
+    trainer = rr.trainer
+    trainer.device = device
+    model = rr.init_params(17).to(device)
+    optimizer = trainer.make_optimizer(rr, model)
+    g = torch.Generator(device=device).manual_seed(17)
+    for p in model.parameters():  # one Adam step from seeded gradients: the state holds every tensor
+        if p.requires_grad:
+            p.grad = torch.randn(p.shape, generator=g, device=device) * 1e-3
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    path = Path(workdir) / "ckpt17" / "dev.best"
+    sync(device)
+    t0 = time.perf_counter()
+    written = trainer.save_checkpoint(path, model, optimizer, rr)
+    blocked_s = time.perf_counter() - t0
+    trainer._wait_for_checkpoints()
+    writer_s = time.perf_counter() - t0
+    done = path.parent / "dev.best.done"
+    check(done.exists(), "17f: no done file after the writes")
+    on_disk = sum(f.stat().st_size for d in ("dev.best.params.shards", "dev.best.optstate.shards")
+                  for f in (path.parent / d).iterdir())
+    fresh = copy.deepcopy(model)
+    fresh_opt = trainer.make_optimizer(rr, fresh)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.add_(1.0)
+    t0 = time.perf_counter()
+    trainer.load_checkpoint(path, fresh, fresh_opt, rr)
+    sync(device)
+    load_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(model.parameters(), fresh.parameters()))
+    check(same, "17f: weights differ after the resume")
+    want, got = optimizer.state_dict()["state"], fresh_opt.state_dict()["state"]
+    same_opt = all(torch.equal(want[i][k].cpu(), got[i][k].cpu()) for i in want for k in want[i])
+    check(same_opt and len(want) == len(got), "17f: Adam's state differs after the resume")
+    out = {"bytes_written": written, "bytes_on_disk": on_disk, "blocked_s": blocked_s, "writer_s": writer_s,
+           "load_s": load_s, "params": sum(p.numel() for p in model.parameters())}
+    print(f"[17f sharded checkpoint] BERT-base reranker ({out['params']} parameters) and Adam, ckpt=sharded_async: "
+          f"the caller blocked {blocked_s:.3f} s (host snapshot), the writer done after {writer_s:.3f} s; "
+          f"{written / 1e9:.3f} GB of leaves ({on_disk / 1e9:.3f} GB on disk); resume {load_s:.3f} s, weights and "
+          f"Adam state equal")
+    shutil.rmtree(path.parent, ignore_errors=True)
+    del model, fresh, optimizer, fresh_opt
+    return out
+
+
+def phase_sharded_serving(workdir, corpus_dir, topics, none, knrm, validations, peaks, device="cuda", shape=P17):
+    """Phase 17: doc-sharded serving over 4 shards on one card (BM25, its
+    reranking and refresh, dense at 20k and 1M docs, ColBERT), device metrics
+    and a sharded asynchronous checkpoint. Returns the summary with the launches."""
+    t0 = time.perf_counter()
+    shards = shape["shards"]
+    seconds = {}
+
+    def timed17(label, fn, *args, **kwargs):
+        t1 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[label] = round(time.perf_counter() - t1, 1)
+        print(f"[{label} done] {seconds[label]} s")
+        return result
+
+    print(f"[17 sharded serving] {shards} shards share one card ({device}): no copy between cards is measured; "
+          f"each shard's work is launched before any result is copied, and the merge runs on the first device")
+    bm25 = timed17("17a", phase17_bm25, workdir, device, shape, shards)
+    dense, dense_launches = timed17("17c", phase17_dense, workdir, corpus_dir, topics, device, shape, shards)
+    scale = timed17("17c 1M", phase17_dense_scale, workdir, device, shape, shards)
+    colbert, colbert_launches, held = timed17("17d", phase17_colbert, workdir, corpus_dir, topics, none, peaks,
+                                              device, shape, shards)
+    metrics = timed17("17e", phase17_metrics, validations, device, shape)
+    ckpt = timed17("17f", phase17_checkpoint, workdir, device)
+    # last: its refresh changes phase 4's index, whose caches 17c reads
+    rerank, rerank_launches = timed17("17b", phase17_rerank_refresh, workdir, corpus_dir, topics, knrm, device, shards)
+    summary = {"bm25": bm25, "rerank_refresh": rerank, "dense": dense, "dense_1m": scale, "colbert": colbert,
+               "device_metrics": metrics, "checkpoint": ckpt, "held": held,
+               "launches": {"rerank": rerank_launches, **dense_launches, **colbert_launches},
+               "seconds": time.perf_counter() - t0, "seconds_by_part": seconds}
+    print(f"[17 sharded serving] {smi_line() if device == 'cuda' else device}: every sub-phase passed in "
+          f"{summary['seconds']:.1f} s ({json.dumps(seconds)}); summary " + json.dumps(summary, default=str))
+    return summary
+
+
+def add_phase17_launches(kernels, p17):
+    """Phase 17's launches in its served runs (17b's reranked request, 17c's
+    and 17d's sharded services) into the ``kernels`` line, and K3's and X1's
+    shard-0 measurements."""
+    runs = p17["launches"]
+    for entry in kernels:
+        total = sum(launches[entry["name"]] for launches in runs.values())
+        entry["launches"] += total
+        entry["launches_phase17"] = {"served": total, "by_path": {k: v[entry["name"]] for k, v in runs.items()
+                                                                  if v[entry["name"]]}}
+    held = p17["held"]
+    kernels[2]["phase17_shard0"] = {k: held["k3_shard0"][k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                                      "bound_ms", "bound_by")}
+    kernels[3]["phase17_shard0"] = held["x1_shard0"]
+
+
+@contextlib.contextmanager
+def counted_validations(into):
+    """Count the trainer's validations by the path their metrics took
+    (``into["device"]``, ``into["host"]``) while the block runs."""
+    from capreolus_tpu_torch.trainer.torch_trainer import TorchTrainer
+
+    real = TorchTrainer._eval_dev_runs
+
+    def counted(self, preds, qrels, metrics, relevance_level):
+        before = self.device_validations
+        out = real(self, preds, qrels, metrics, relevance_level)
+        into["device" if self.device_validations > before else "host"] += 1
+        return out
+
+    TorchTrainer._eval_dev_runs = counted
+    try:
+        yield into
+    finally:
+        TorchTrainer._eval_dev_runs = real
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -5931,7 +6534,7 @@ def main():
         x1 = timed(phase_x1_check, peaks)
         q1 = timed(phase_q1_check, peaks)
         q1["scales_differing_from_cpu"] = timed(phase_scales_check)
-        k1_launches, corpus_dir, topics, qrels = timed(phase_serving, workdir, SERVING_DOCS, ckpt_seed=3)
+        k1_launches, corpus_dir, topics, qrels, knrm = timed(phase_serving, workdir, SERVING_DOCS, ckpt_seed=3)
         robust04_host = start_robust04_host_side(workdir)  # phase 11's card-free work, beside phases 5-10
         k2_launches, k2_served, f32 = timed(phase_bert_serving, workdir, corpus_dir, topics, peaks)
         bert_int8_launches, bert_int8 = timed(phase_bert_int8_serving, workdir, corpus_dir, topics, f32)
@@ -5939,8 +6542,10 @@ def main():
         colbert_int8_launches, colbert_int8 = timed(phase_colbert_int8_serving, workdir, corpus_dir, topics, none)
         timed(phase_rank_task, workdir)
         training_launches, training_held = {"train": {}, "predict": {}}, {}
-        golden = timed(phase_train_golden, workdir, training_launches, training_held)
-        training = timed(phase_training, workdir, corpus_dir, topics, qrels, training_launches, training_held)
+        validations = {"phase9": {"device": 0, "host": 0}}
+        with counted_validations(validations["phase9"]):  # phase 17 reads how phase 9 validated
+            golden = timed(phase_train_golden, workdir, training_launches, training_held)
+            training = timed(phase_training, workdir, corpus_dir, topics, qrels, training_launches, training_held)
         print("[9 training] summary " + json.dumps({"golden": golden, "full_width": training}, default=str))
         timed(phase_sparse_engine, workdir)
         timed(phase_robust04, workdir, robust04_host)
@@ -5950,6 +6555,8 @@ def main():
         p14 = timed(phase_zoo, workdir, corpus_dir, topics)
         p15 = timed(phase_dense_retrieval, workdir, corpus_dir, topics, peaks)
         p16 = timed(phase_serving_families, workdir, corpus_dir, topics, none, peaks)
+        p17 = timed(phase_sharded_serving, workdir, corpus_dir, topics, none, knrm, validations, peaks)
+        print(f"[17 total] the script has run {time.perf_counter() - t_start:.1f} s")
     finally:
         if robust04_host is not None and robust04_host[0].is_alive():
             robust04_host[0].terminate()
@@ -6090,6 +6697,7 @@ def main():
     add_phase14_launches(kernels, p14)
     add_phase15_launches(kernels, p15)
     add_phase16_launches(kernels, p16)
+    add_phase17_launches(kernels, p17)
     for entry in kernels:  # phase 9: launches inside training steps, and inside the trainer's predictions
         entry["launches_training"] = training_launches["train"].get(entry["name"], 0)
         entry["launches_training_predict"] = training_launches["predict"].get(entry["name"], 0)

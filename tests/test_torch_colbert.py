@@ -364,16 +364,20 @@ def test_checkpoint_without_linear_raises(torch_cache):
 
 
 @pytest.mark.parametrize("options,match", [
-    ({"quantize": "int8", "shards": 2}, "not ported"), ({"quantize": "int4", "prefilter": 2}, "exact engine only"),
-    ({"prefilter": 2}, None), ({"shards": 2}, "not ported"),
+    # ids kept from when shards > 1 was refused as "not ported"
+    pytest.param({"quantize": "int8", "shards": 2}, None, id="options0-not ported"),
+    ({"quantize": "int4", "prefilter": 2}, "exact engine only"),
+    ({"prefilter": 2}, None), pytest.param({"shards": 2}, None, id="options3-not ported"),
     ({"quantize": "fp4"}, "must be 'none'"), ({"prefilter": 2, "shards": 2}, "single-device"),
     ({"dim": 0}, "must be positive"),
 ])
 def test_unported_and_invalid_options_raise(options, match):
     """``match`` None: the option is ported and builds (``prefilter``;
-    tests/test_torch_colbert_options.py holds it against JAX)."""
+    tests/test_torch_colbert_options.py holds it against JAX; ``shards``,
+    tests/test_torch_sharded_embeddings.py)."""
     if match is None:
-        assert TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True, **options}).config["prefilter"] == 2
+        config = TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True, **options}).config
+        assert all(config[k] == v for k, v in options.items())
         return
     with pytest.raises(ConfigError, match=match):
         TorchSearcher.create("colbert", {**SEARCHER, "allowrandominit": True, **options})

@@ -304,8 +304,17 @@ def test_validation_messages_match_jax(world, options):
 
 
 def test_unported_and_invalid_combinations_raise(world):
-    with pytest.raises(ConfigError, match="item 6, 'Multi-device'"):
-        port_searcher(world, shards=2)
+    """``shards > 1`` raised here until the doc-sharded engine was ported
+    (tests/test_torch_sharded_embeddings.py holds it against JAX): without
+    ``devices`` its shards are cards, and too few raise JAX's ValueError,
+    as too short an explicit ``devices`` list does on every machine."""
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="searcher.shards=2 but only 0 devices are available"):
+            port_searcher(world, shards=2).build_topk(10)
+    one_device = port_searcher(world, shards=2)
+    one_device.devices = ["cpu"]
+    with pytest.raises(ValueError, match="searcher.shards=2 but only 1 devices are available"):
+        one_device.build_topk(10)
     with pytest.raises(ConfigError, match="needs the corpus device-resident"):
         port_searcher(world, clusters=2, hbmbudget=0).build_topk(10)
     with pytest.raises(ConfigError, match="int4 is the capacity tier"):

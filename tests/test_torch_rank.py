@@ -510,18 +510,21 @@ def test_second_search_writes_nothing(torch_cache, monkeypatch):
 
 @pytest.mark.parametrize("searcher,match", [
     ({"name": "BM25", "maxpostings": 2}, "item 5"),
-    ({"name": "BM25", "shards": 2}, "item 6, 'Multi-device'"),
+    # the id it had while shards > 1 raised, naming its ROADMAP item
+    pytest.param({"name": "BM25", "shards": 2}, None, id="searcher1-item 6, 'Multi-device'"),
     ({"name": "fusion"}, None),  # searcher2 defaults to dense
 ])
 def test_unported_options_raise(tmpdir_as_cache, torch_cache, searcher, match):
-    """``shards > 1`` still raises, naming the ROADMAP item that queues it.
-    ``maxpostings`` (item 5) is ported: the capped tiered search writes the
-    JAX package's run file, docid for docid. So is fusion's default dense
+    """Each of these was refused until the port had it. ``maxpostings``
+    (item 5) is ported: the capped tiered search writes the JAX package's run
+    file, docid for docid. So is ``shards > 1`` (module 11): the doc-sharded
+    search over two shards (the port's on the CPU twice, JAX's on two of its
+    host devices) writes JAX's run file. So is fusion's default dense
     leg: from one biencoder checkpoint (JAX's init, written by the JAX
     trainer) as the dense searcher's ``checkpointfile`` in both packages, the
     fused run equals JAX's run file."""
     config = {"benchmark": {"name": "dummy"}, "searcher": searcher}
-    if "maxpostings" not in searcher and searcher["name"] != "fusion":
+    if "maxpostings" not in searcher and "shards" not in searcher and searcher["name"] != "fusion":
         with pytest.raises(ConfigError, match=match):
             TorchTask.create("rank", config)
         return
@@ -535,6 +538,8 @@ def test_unported_options_raise(tmpdir_as_cache, torch_cache, searcher, match):
                                                        "checkpointfile": str(tmpdir_as_cache / "dev.best.params")})
     port_task, jax_task = TorchTask.create("rank", config), JaxTask.create("rank", config)
     port_task.device = "cpu"
+    if "shards" in searcher:
+        port_task.searcher.devices = ["cpu"] * searcher["shards"]
     port_out, jax_out = port_task.search(), jax_task.search()
     if "maxpostings" in searcher:
         assert port_task.searcher.get_engine().exact_path(max_postings_per_term=2) is False

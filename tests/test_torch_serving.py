@@ -230,13 +230,20 @@ def test_retrieval_service_binds_positional_arguments_as_jax(torch_cache):
 
 @pytest.mark.parametrize("how", ["constructor", "from_config"])
 def test_sharded_serving_raises_config_error(torch_cache, how):
-    from capreolus_tpu_torch.core import ConfigError
-
-    with pytest.raises(ConfigError, match="item 6, 'Multi-device'"):
+    """``shards > 1`` raised ``ConfigError`` until sharded serving was ported
+    (tests/test_torch_parallel.py holds it against JAX). It now raises
+    only where the devices are too few, with JAX's ``ValueError``, and never
+    falls back to one device: without ``devices`` the shards are cards."""
+    few = {"devices": ["cpu"]} if torch.cuda.is_available() else {}
+    with pytest.raises(ValueError, match=r"shards=2 but only [01] devices present"):
         if how == "constructor":
-            RetrievalService(TorchIndex.create("tpu", {"collection": {"name": "dummy"}}), shards=2, device="cpu")
+            RetrievalService(TorchIndex.create("tpu", {"collection": {"name": "dummy"}}), shards=2, device="cpu",
+                             **few)
         else:
-            RetrievalService.from_config(collection="dummy", shards=2, device="cpu")
+            RetrievalService.from_config(collection="dummy", shards=2, device="cpu", **few)
+    svc = RetrievalService.from_config(collection="dummy", shards=2, device="cpu", devices=["cpu", "cpu"])
+    assert svc.search(["galaxies collide"], k=3) == RetrievalService.from_config(
+        collection="dummy", device="cpu").search(["galaxies collide"], k=3)
 
 
 def test_reranking_service_refuses_an_extractor_state_path(torch_cache, tmp_path):

@@ -734,8 +734,21 @@ def test_unported_trainer_options_raise(corpus, tmp_path, trainer, item):
     ``amp`` was refused here until the port had it: those cases now train,
     and step 1 of KNRM under the mode agrees with the JAX trainer's cast
     parameter tree (the loss within GRAD_TOL, ``tests/test_torch_amp.py``
-    holds every model's amp forward and gradients in full)."""
+    holds every model's amp forward and gradients in full). So was ``ckpt``
+    ``sharded`` / ``sharded_async``: those cases now train, write dev.best as
+    the JAX trainer's sharded directories and load it back
+    (``tests/test_torch_sharded_ckpt.py`` holds them against JAX and flat)."""
     jax_rr, port_rr = knrm_pair(corpus, trainer=dict({"niters": 1, "itersize": 4, "batch": 4}, **trainer))
+    if "ckpt" in trainer:
+        metrics, _, _ = _train(port_rr, corpus, tmp_path)
+        assert np.isfinite(metrics["map"])
+        port_rr.trainer._wait_for_checkpoints()  # training returns before an async writer ends
+        best = tmp_path / "train" / "dev.best"
+        for tree in (".params.shards", ".optstate.shards"):
+            assert (best.parent / (best.name + tree) / "manifest.json").exists(), tree
+        assert (best.parent / "dev.best.done").exists() and not (best.parent / "dev.best.params").exists()
+        port_rr.trainer.load_best_model(port_rr, tmp_path / "train")
+        return
     if "amp" in trainer:
         samples = draw(samplers(corpus, (jax_rr, port_rr))[0], 4)
         params = carry_over(jax_rr, port_rr, samples)
