@@ -26,7 +26,10 @@ head. ``lora > 0`` (BERTMaxP and its aliases) adds rank-r adapters to every
 attention's query and value projections and freezes the rest of the encoder:
 the optimizer holds the adapters and the head, and ``dev.best`` holds them
 alone, the frozen leaves empty; serving fills those from the pretrained
-encoder (``state_dict_from_params``). The pipeline views are not ported yet.
+encoder (``state_dict_from_params``). BERTMaxP and its aliases are
+``pp_compatible``: ``pp_view`` / ``pp_canonical`` stack and unstack the
+encoder's layers, and ``score_pp`` scores through the GPipe pipeline
+(``parallel/pipeline_parallel.py``).
 """
 
 from __future__ import annotations
@@ -305,6 +308,38 @@ class BertRerankerBase(Reranker):
     def test(self, batch, device):
         return self._score_doc(*self._inputs(batch, "pos", device))
 
+    # ------------------------------------------------------------------ pipeline parallelism
+    pp_compatible = False  # True on rerankers whose model is the plain _BertScorer
+
+    def pp_view(self, params):
+        """The scorer's flax tree -> the {"rest", "stacked"} pipeline view
+        (the layers' leaves stacked along a leading axis)."""
+        from capreolus_tpu_torch.parallel import pipeline_parallel as ppmod
+
+        rest, stacked = ppmod.split_scorer_params(params, self.build_train_model().config)
+        return {"rest": rest, "stacked": stacked}
+
+    def pp_canonical(self, view):
+        """Inverse of pp_view: the pipeline view -> the scorer's flax tree."""
+        from capreolus_tpu_torch.parallel import pipeline_parallel as ppmod
+
+        return ppmod.merge_scorer_params(view["rest"], view["stacked"], self.build_train_model().config)
+
+    def _score_doc_pp(self, view, inp, mask, seg, mesh, microbatches, dropout_seed=None):
+        from capreolus_tpu_torch.parallel import pipeline_parallel as ppmod
+
+        inp, mask, seg = self._shape_inputs(inp, mask, seg)
+        raw = ppmod.pipelined_scorer_forward(self.build_train_model().config, view["rest"], view["stacked"], inp,
+                                             mask, seg, mesh, microbatches, dropout_seed=dropout_seed)
+        return self._head_scores(raw, mask)
+
+    def score_pp(self, view, batch, mesh, microbatches, dropout_seed=None):
+        """Pairwise scores through the GPipe pipeline (``trainer.pp > 1``) of a
+        pipeline view on ``mesh``, the inputs on its first device."""
+        device = mesh.devices.flat[0]
+        return [self._score_doc_pp(view, *self._inputs(batch, side, device), mesh, microbatches,
+                                   self.fold_seed(dropout_seed, i)) for i, side in enumerate(("pos", "neg"))]
+
 
 class _PooledReranker(BertRerankerBase):
     """A reranker whose model takes a document's passages together, [B, P, L],
@@ -327,6 +362,7 @@ class BERTMaxP(BertRerankerBase):
     reference's configs."""
 
     module_name = "BERTMaxP"
+    pp_compatible = True  # plain _BertScorer model: trainer.pp>1 pipelines the encoder
     config_spec = [
         ConfigOption("pretrained", "bert-base-uncased", "pretrained model: bert-base-uncased, "
                      "Capreolus/bert-base-msmarco, electra-base, or tiny (offline)"),

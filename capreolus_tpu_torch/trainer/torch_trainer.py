@@ -43,11 +43,25 @@ paths carry over.
 
 The trainer runs on ``self.device`` (an attribute, not a config option, so it
 never enters the results path; ``None`` means "cuda"), which the rerank task
-sets. Options that select code the port does not have raise ``ConfigError``
-naming their ROADMAP.md item: ``tp``, ``pp``, ``ep``, ``sp`` and ``fsdp``
-(item 6, "Multi-device", the training half of module 11). ``ckpt=sharded``
-and ``sharded_async`` write the JAX package's sharded directories
-(``utils/sharded_ckpt.py``), in async mode from a background thread.
+sets, and over ``self.devices`` (likewise an attribute; ``None`` means every
+visible CUDA device when ``device`` is CUDA, else ``[device]``). ``_mesh``
+builds the JAX trainer's mesh over them, with its rules and messages: the
+batch over ``data`` (the data axis shrinking until it divides the batch),
+and ``tp`` over ``model``, ``pp`` over ``pipe`` (with tp, the 3D (data, pipe,
+model) mesh), ``ep`` over ``expert``; ``fsdp`` shards the state over
+``data``; ``sp`` splits the tokens over ``model``. One device is no mesh:
+the single-device path. On a mesh the weights live in a
+``parallel/placement.py`` ``Placement`` (one process, explicit per-device
+tensors): each training step cuts every micro-batch over the data shards,
+runs each shard's forward on its devices, gathers the outputs to the first
+device for the loss of the whole batch (``mesh_loss``), and autograd sums
+the gradients back into the placement's blocks, which Adam steps;
+predictions are cut over the data shards the same way. Each data shard's
+dropout seed is the step's folded with its index. ``ckpt=sharded`` and
+``sharded_async`` write the JAX package's sharded directories
+(``utils/sharded_ckpt.py``), in async mode from a background thread; on a
+mesh a sharded leaf is written as its blocks and restored onto the
+placement's own layout, whatever layout wrote it.
 Validation metrics run on the trainer's device when every metric is
 supported (``evaluation/device_metrics.py``), as the JAX trainer's do.
 
@@ -159,12 +173,8 @@ def _plot_metrics(history, path):
         logger.debug("metrics figure not written: %s", e)
 
 
-def _unported(what, item):
-    return ConfigError(f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
-
-
-# the ROADMAP.md item that holds the parallelism options
-TRAINING_HALF = "item 6, 'Multi-device', the training half of module 11"
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
 
 def _optimizer_tree(state_dict):
@@ -219,13 +229,25 @@ class TorchTrainer(Trainer):
         ConfigOption("decayiters", 3, "iterations over which exponential decay spreads"),
         ConfigOption("amp", "none", "bfloat16 mixed precision: none/False, train, pred, both, or True "
                      "(string values match the reference pytorch trainer, pytorch.py:43)", value_type="str"),
-        ConfigOption("tp", 1, "tensor-parallel degree (not ported: 1 only)"),
-        ConfigOption("pp", 1, "pipeline-parallel degree (not ported: 1 only)"),
-        ConfigOption("ep", 1, "expert-parallel degree (not ported: 1 only)"),
-        ConfigOption("sp", False, "sequence parallelism (not ported)"),
-        ConfigOption("microbatches", 0, "pipeline microbatches per step (0 = auto; pipeline "
-                     "parallelism is not ported)"),
-        ConfigOption("fsdp", False, "fully-sharded data parallelism (not ported)"),
+        ConfigOption("tp", 1, "tensor-parallel degree: shard BERT matmuls over a 'model' mesh axis "
+                     "(Megatron-style column/row split; for bert-large/PARADE-large)"),
+        ConfigOption("pp", 1, "pipeline-parallel degree: split the BERT layer stack into stages over "
+                     "a 'pipe' mesh axis (GPipe microbatched schedule; each device stores only its "
+                     "stage's layers); composes with tp>1 into a 3D (data, pipe, model) mesh where "
+                     "each stage's matmuls are Megatron-sharded"),
+        ConfigOption("ep", 1, "expert-parallel degree: shard MoE expert weights (reranker.moeexperts>0) "
+                     "over an 'expert' mesh axis; each device computes its experts' FFNs and the gated "
+                     "outputs are summed back (parallel/expert_parallel.py)"),
+        ConfigOption("sp", False, "sequence parallelism (requires tp>1): shard the token axis over the "
+                     "'model' mesh axis so token-independent work (embeddings, layernorm, residuals, "
+                     "dropout) runs sequence-sharded; tokens are gathered only before the column-parallel "
+                     "matmuls (Megatron-SP semantics)"),
+        ConfigOption("microbatches", 0, "pipeline microbatches per step (0 = auto: largest divisor "
+                     "of the per-data-shard batch <= 2*pp)"),
+        ConfigOption("fsdp", False, "fully-sharded data parallelism (ZeRO-3): shard every parameter, "
+                     "gradient, and Adam moment over the 'data' mesh axis along its largest divisible "
+                     "dim; weights are gathered at use and gradients reduce-scattered "
+                     "(parallel/fsdp.py). Each device stores 1/dp of model+optimizer state"),
         ConfigOption("boardname", "default", "experiment label for artifacts"),
         ConfigOption("profile", False, "capture a torch profiler trace of the first iteration"),
         ConfigOption("evalbatch", 0, "prediction batch size (0 = use the training batch size)"),
@@ -240,12 +262,17 @@ class TorchTrainer(Trainer):
     config_keys_not_in_path = ["fastforward", "boardname", "validatefreq", "profile",
                                "evalbatch", "eager", "usecache", "multithread", "storage", "tpuname", "tpuzone"]
     device = None  # set by the rerank task or the caller; None means "cuda"
+    # the devices a mesh may span (not a config option: config keys change result paths); None means
+    # every visible CUDA device when ``device`` is CUDA, else ``[device]``; a list may repeat a device
+    devices = None
     PREDICT_CACHE_BYTES = 2 << 30  # materialize+cache pred features up to 2 GiB
     _TB_HISTOGRAM_PARAM_LIMIT = 1 << 22  # ~4M params
 
     def build(self):
         self._model = None
         self._optimizer = None
+        self._data_mesh = None
+        self._placement = None
         self.device_validations = 0  # validations whose metrics ran on the device
 
     # ------------------------------------------------------------------ setup
@@ -254,17 +281,130 @@ class TorchTrainer(Trainer):
 
         return resolve_device(self.device)
 
-    def _check_unported(self):
-        """Refuse the options whose code the port does not have."""
-        c = self.config
-        for key in ("tp", "pp", "ep"):
-            if int(c.get(key, 1)) > 1:
-                raise _unported(f"trainer.{key}={c[key]}", TRAINING_HALF)
-        for key in ("sp", "fsdp"):
-            if c.get(key):
-                raise _unported(f"trainer.{key}=True", TRAINING_HALF)
+    def _check_options(self):
         self._ckpt_mode()
-        amp_mode(c["amp"])
+        amp_mode(self.config["amp"])
+
+    def _devices(self):
+        """The devices a mesh may span: ``self.devices``, else every visible
+        CUDA device when the trainer's device is CUDA, else that device."""
+        from capreolus_tpu_torch.parallel.distributed import normalize_device, visible_devices
+
+        if self.devices is not None:
+            return [normalize_device(d) for d in self.devices]
+        device = self._device()
+        return visible_devices() if device.type == "cuda" else [device]
+
+    def _mesh(self, batch_size):
+        """The device mesh, with the JAX trainer's rules and messages: 1D
+        ("data",) for data parallelism, ("data", "model") when tp>1, ("data",
+        "pipe") or ("data", "pipe", "model") when pp>1, ("data", "expert") when
+        ep>1; the data axis shrinks until it divides ``batch_size``. None on
+        one device (the single-device path)."""
+        from capreolus_tpu_torch.parallel.distributed import Mesh
+
+        devices = self._devices()
+        n = len(devices)
+        c = self.config
+        tp, pp, ep = int(c.get("tp", 1)), int(c.get("pp", 1)), int(c.get("ep", 1))
+
+        def mesh(count, shape, names):
+            arr = np.empty(count, dtype=object)
+            arr[:] = devices[:count]
+            return Mesh(arr.reshape(shape), names)
+
+        def data_size(per):
+            dp = n // per
+            while dp > 1 and batch_size % dp != 0:
+                dp -= 1
+            return dp
+
+        if c.get("fsdp") and (tp > 1 or pp > 1 or ep > 1):
+            raise ConfigError("trainer.fsdp shards state over the pure-DP 'data' mesh; "
+                              "it cannot be combined with tp/pp/ep")
+        if ep > 1:
+            if tp > 1 or pp > 1:
+                raise ConfigError("trainer.ep cannot be combined with tp/pp yet; pick one")
+            if n % ep != 0:
+                raise ConfigError(f"trainer.ep={ep} does not divide the {n} available devices")
+            dp = data_size(ep)
+            return mesh(dp * ep, (dp, ep), ("data", "expert"))
+        if c.get("sp") and tp <= 1:
+            raise ConfigError("trainer.sp=True requires trainer.tp>1 (sequence shards ride the "
+                              "'model' mesh axis, Megatron-SP style)")
+        if pp > 1:
+            if c.get("sp"):
+                raise ConfigError("trainer.sp cannot be combined with trainer.pp yet")
+            if n % (pp * tp) != 0:
+                raise ConfigError(f"trainer.pp={pp} x trainer.tp={tp} does not divide the "
+                                  f"{n} available devices")
+            dp = data_size(pp * tp)
+            if tp > 1:
+                return mesh(dp * pp * tp, (dp, pp, tp), ("data", "pipe", "model"))
+            return mesh(dp * pp, (dp, pp), ("data", "pipe"))
+        if tp > 1:
+            if n % tp != 0:
+                raise ConfigError(f"trainer.tp={tp} does not divide the {n} available devices")
+            dp = data_size(tp)
+            return mesh(dp * tp, (dp, tp), ("data", "model"))
+        while n > 1 and batch_size % n != 0:
+            n -= 1
+        if n <= 1:
+            return None
+        return mesh(n, (n,), ("data",))
+
+    def _mesh_kind(self, mesh):
+        """The placement of ``mesh`` and its log line's name."""
+        axes = mesh.axis_names
+        if "pipe" in axes:
+            return "pp", "pipeline+tensor+data-parallel" if "model" in axes else "pipeline+data-parallel"
+        if "model" in axes:
+            return "tp", "tensor+data-parallel"
+        if "expert" in axes:
+            return "ep", "expert+data-parallel"
+        if self.config.get("fsdp"):
+            return "fsdp", "fully-sharded data-parallel (ZeRO-3)"
+        return "dp", "data-parallel"
+
+    def _pp_setup(self, reranker, model, trainable):
+        """The pipeline placement, with the JAX trainer's refusals."""
+        from capreolus_tpu_torch.parallel.placement import Placement
+
+        if not getattr(reranker, "pp_compatible", False):
+            raise ConfigError(
+                f"trainer.pp>1 supports plain-BERT cross-encoders (BERTMaxP/TFVanillaBERT); "
+                f"{type(reranker).module_name} is not pipeline-compatible")
+        if self.config["loss"] == "lce":
+            raise ConfigError("trainer.pp>1 does not support loss=lce yet")
+        if self.config["loss"] == "infonce":
+            raise ConfigError("trainer.loss=infonce is not wired through the GPipe schedule "
+                              "(score_pp returns pair scores, not embeddings); use dp/tp/fsdp")
+        num_layers = reranker.build_train_model().config.num_layers
+        pp = int(self.config["pp"])
+        if num_layers % pp != 0:
+            raise ConfigError(f"trainer.pp={pp} does not divide the {num_layers} encoder layers")
+        return Placement(model, self._data_mesh, "pp", trainable, amp=self.amp_train(),
+                         microbatches=self.config.get("microbatches", 0))
+
+    def _place_params(self, reranker, model):
+        """The trainer's placement of ``model`` on ``self._data_mesh`` (None
+        without a mesh): replicated (DP), Megatron column / row-split over
+        ``model`` (tp>1), expert-split (ep>1), ZeRO-3 over ``data`` (fsdp) or
+        the GPipe stages (pp>1). Logs the kind and the mesh, as JAX does."""
+        from capreolus_tpu_torch.convert import flax_leaves
+        from capreolus_tpu_torch.parallel.placement import Placement
+
+        mesh = self._data_mesh
+        if mesh is None:
+            return None
+        kind, label = self._mesh_kind(mesh)
+        logger.info("%s training over %d devices (mesh %s)", label, mesh.devices.size, mesh.shape)
+        params = dict(model.named_parameters())
+        trainable = [key for key, name, *_ in flax_leaves(model)
+                     if reranker.trainable(tuple(key.split("/")), params[name])]
+        if kind == "pp":
+            return self._pp_setup(reranker, model, trainable)
+        return Placement(model, mesh, kind, trainable, sp=bool(self.config.get("sp")), amp=self.amp_train())
 
     def _ckpt_mode(self):
         mode = str(self.config.get("ckpt", "flat"))
@@ -314,16 +454,24 @@ class TorchTrainer(Trainer):
                 labels[name] = "other"
         return labels
 
-    def make_optimizer(self, reranker, model):
+    def make_optimizer(self, reranker, model, placement=None):
         """Adam over the trainable parameters in the ``other`` and ``bert``
-        groups; frozen parameters stop requiring grad and stay outside."""
+        groups; frozen parameters stop requiring grad and stay outside. With
+        a ``placement`` the groups hold its blocks (each leaf's distinct
+        blocks, on their devices), so Adam's moments are per block."""
         labels = self.param_labels(reranker, model)
         groups = {"other": [], "bert": []}
         for name, p in model.named_parameters():
             if labels[name] == "frozen":
                 p.requires_grad_(False)
-            else:
+            elif placement is None:
                 groups[labels[name]].append(p)
+        if placement is not None:
+            for key in placement.store:
+                name = placement.leaves[key][0] if key in placement.leaves else \
+                    placement.leaves[placement.stacked_from(key)[0]][0]
+                if labels[name] != "frozen":
+                    groups[labels[name]].extend(placement.store[key].blocks.values())
         base = {"other": self.config["lr"], "bert": self.config["bertlr"]}
         param_groups = [{"params": ps, "lr": float(base[g]), "base_lr": float(base[g])}
                         for g, ps in groups.items() if ps]
@@ -367,41 +515,74 @@ class TorchTrainer(Trainer):
 
     def compute_loss(self, reranker, micro, device, dropout_seed=None):
         """The training loss of one micro-batch (a training forward)."""
-        loss_fn = self._loss_fn()
         kwargs = {"dropout_seed": dropout_seed} if reranker.accepts_rngs else {}
+        return self._loss_of(reranker, micro, device, self._forward(reranker, micro, device, kwargs), kwargs)
+
+    def _forward(self, reranker, micro, device, kwargs):
+        """The training forward's outputs of one micro-batch: (scores,) for
+        lce, (q, pos, neg, scale) for infonce, else (pos, neg)."""
         name = self.config["loss"]
         if name == "lce":
-            return self._regularized(reranker, micro, device, kwargs,
-                                     loss_fn(reranker.score_lce(micro, device, **kwargs), None))
+            return (reranker.score_lce(micro, device, **kwargs),)
         if name == "infonce":
-            q, pos, neg, scale = reranker.encode(micro, device, **kwargs)
+            return tuple(reranker.encode(micro, device, **kwargs))
+        return tuple(reranker.score(micro, device, **kwargs))
+
+    def _loss_of(self, reranker, micro, device, outputs, kwargs):
+        """The loss of ``_forward``'s outputs over ``micro``, plus the reranker's regularizer."""
+        loss_fn = self._loss_fn()
+        name = self.config["loss"]
+        if name == "lce":
+            loss = loss_fn(outputs[0], None)
+        elif name == "infonce":
+            q, pos, neg, scale = outputs
             logits = q.float() @ pos.float().T
             if neg is not None:
                 logits = torch.cat([logits, q.float() @ neg.float().T], dim=1)
-            labels = torch.arange(logits.shape[0], device=logits.device)
-            return self._regularized(reranker, micro, device, kwargs, loss_fn(scale * logits, labels))
-        pos, neg = reranker.score(micro, device, **kwargs)
-        if name == "crossentropy":
-            return self._regularized(reranker, micro, device, kwargs, loss_fn(
-                torch.stack([neg, pos], dim=1).float(), reranker.put(micro, "label", device)))
-        if name == "margin_mse":
-            loss = loss_fn(pos.float().reshape(-1), neg.float().reshape(-1),
-                           reranker.put(micro, "teacher_margin", device).float().reshape(-1))
+            loss = loss_fn(scale * logits, torch.arange(logits.shape[0], device=logits.device))
         else:
-            loss = loss_fn([pos.float(), neg.float()])
-        return self._regularized(reranker, micro, device, kwargs, loss)
-
-    @staticmethod
-    def _regularized(reranker, micro, device, kwargs, loss):
-        """The loss plus the reranker's training regularizer, where it has one."""
+            pos, neg = outputs
+            if name == "crossentropy":
+                loss = loss_fn(torch.stack([neg, pos], dim=1).float(), reranker.put(micro, "label", device))
+            elif name == "margin_mse":
+                loss = loss_fn(pos.float().reshape(-1), neg.float().reshape(-1),
+                               reranker.put(micro, "teacher_margin", device).float().reshape(-1))
+            else:
+                loss = loss_fn([pos.float(), neg.float()])
         if hasattr(reranker, "regularizer"):
             loss = loss + reranker.regularizer(micro, device, **kwargs)
         return loss
 
+    def mesh_loss(self, reranker, micro, dropout_seed=None):
+        """The training loss of one micro-batch over the placement's data
+        shards: each shard's forward on its first device (its seed folded
+        with the shard index), the outputs gathered to the first shard's
+        device, and the loss of the whole micro-batch there, as GSPMD
+        computes the global batch's loss. Run inside ``placement.bind()``."""
+        from capreolus_tpu_torch.reranker.bert.encoder import dropout_generator_seed
+
+        placement = self._placement
+        lead = placement.lead(0)
+        parts = []
+        for r, (device, shard) in enumerate(placement.split(micro)):
+            seed = None if dropout_seed is None else dropout_generator_seed(dropout_seed, r)
+            kwargs = {"dropout_seed": seed} if reranker.accepts_rngs else {}
+            parts.append(self._forward(reranker, shard, device, kwargs))
+        outputs = []
+        for pieces in zip(*parts):
+            if pieces[0] is None or not torch.is_tensor(pieces[0]) or pieces[0].dim() == 0:
+                outputs.append(pieces[0].to(lead) if torch.is_tensor(pieces[0]) else pieces[0])
+            else:
+                outputs.append(torch.cat([x.to(lead) for x in pieces]))
+        kwargs = {"dropout_seed": dropout_seed} if reranker.accepts_rngs else {}
+        return self._loss_of(reranker, micro, lead, tuple(outputs), kwargs)
+
     def train_step(self, reranker, model, optimizer, batches, step, step_seed):
         """One optimizer step over ``batches`` ([gradacc, batch, ...] arrays) at
-        optimizer step ``step``; returns the mean micro-batch loss (a tensor)."""
-        device = next(model.parameters()).device
+        optimizer step ``step``; returns the mean micro-batch loss (a tensor).
+        With a placement, each micro-batch's loss is ``mesh_loss``'s."""
+        placement = self._placement
+        device = placement.lead(0) if placement is not None else next(model.parameters()).device
         gradacc = self.config["gradacc"]
         optimizer.zero_grad(set_to_none=True)
         from capreolus_tpu_torch.reranker.bert.encoder import dropout_generator_seed
@@ -409,10 +590,16 @@ class TorchTrainer(Trainer):
         loss_sum = torch.zeros((), device=device)
         for g in range(gradacc):
             micro = {k: v[g] for k, v in batches.items()}
+            seed = dropout_generator_seed(step_seed, g)
             # around the backward too: remat recomputes layers, and cuDNN's backward reads the TF32 flag
-            with bf16_params(model, self.amp_train()), cudnn_f32(), matmul_f32():
-                loss = self.compute_loss(reranker, micro, device, dropout_generator_seed(step_seed, g))
-                loss.backward()
+            if placement is not None:
+                with placement.bind(), cudnn_f32(), matmul_f32():
+                    loss = self.mesh_loss(reranker, micro, seed)
+                    loss.backward()
+            else:
+                with bf16_params(model, self.amp_train()), cudnn_f32(), matmul_f32():
+                    loss = self.compute_loss(reranker, micro, device, seed)
+                    loss.backward()
             loss_sum = loss_sum + loss.detach()
         if gradacc > 1:
             for group in optimizer.param_groups:
@@ -438,7 +625,7 @@ class TorchTrainer(Trainer):
     # ------------------------------------------------------------------ public API
     def train(self, reranker, train_dataset, train_output_path, dev_data, dev_output_path,
               qrels, metric="map", relevance_level=1):
-        self._check_unported()
+        self._check_options()
         device = self._device()
         train_output_path = Path(train_output_path)
         dev_output_path = Path(dev_output_path)
@@ -466,7 +653,10 @@ class TorchTrainer(Trainer):
         if self.config["loss"] == "infonce":
             self._check_infonce_stream(first_samples[0], train_dataset)
         model = reranker.init_params(self.config["seed"]).to(device)
-        optimizer = self.make_optimizer(reranker, model)
+        # the mesh, as the JAX trainer's: the batch over 'data', the weights placed as its kind says
+        self._data_mesh = self._mesh(batch_size)
+        self._placement = self._place_params(reranker, model)
+        optimizer = self.make_optimizer(reranker, model, self._placement)
 
         initial_iter = 0
         train_loss = []
@@ -578,6 +768,8 @@ class TorchTrainer(Trainer):
                 profiler.stop()
             if tb is not None:
                 tb.close()
+        if self._placement is not None:
+            self._placement.sync_model()  # the canonical weights, as the JAX trainer keeps _params
         return dev_best_metrics
 
     @staticmethod
@@ -640,11 +832,36 @@ class TorchTrainer(Trainer):
         preds = self.predict(reranker, mining)
         return select_hard_negatives(preds, int(self.config["neghard"]))
 
+    def _prediction_placement(self, reranker):
+        """The placement predictions run on, after the model's own weights are
+        made the store's (the canonical tree): the training placement, except
+        under pp, where the canonical tree is replicated over the data shards'
+        first devices, as the JAX trainer predicts on its canonical tree. None
+        (the whole batch on the trainer's device) without a mesh, and for an
+        int8 reranker or amp predictions, whose scoring model is rounded or
+        quantized from the canonical weights."""
+        from capreolus_tpu_torch.parallel.distributed import Mesh
+        from capreolus_tpu_torch.parallel.placement import Placement
+
+        placement = self._placement
+        if placement is None:
+            return None
+        placement.sync_model()
+        if getattr(reranker, "quantized", False) or self.amp_pred():
+            return None
+        if placement.kind != "pp":
+            return placement
+        leads = np.empty(placement.dp, dtype=object)
+        leads[:] = [placement.lead(r) for r in range(placement.dp)]
+        return Placement(self._model, Mesh(leads, ("data",)), "dp")
+
     def predict(self, reranker, pred_data, pred_fn=None):
         """Score all (qid, docid) pairs of a PredSampler with the trained (or
         loaded) model; returns {qid: {docid: score}} and writes a TREC run file
-        to ``pred_fn`` when given."""
-        self._check_unported()
+        to ``pred_fn`` when given. On a mesh (``_prediction_placement``) each
+        batch is cut over the data shards, the last one padded with its last
+        sample to a multiple of them, and each shard scored on its devices."""
+        self._check_options()
         device = self._device()
         if self._model is None:
             raise RuntimeError("predict() needs a model: train() or load_best_model() first")
@@ -652,11 +869,22 @@ class TorchTrainer(Trainer):
         sample_iter = self._predict_samples(pred_data)
         preds = {}
         pending = collections.deque()
+        placement = self._prediction_placement(reranker)
 
         def _drain_one():
             scores, pairs = pending.popleft()
             for (qid, docid), score in zip(pairs, scores.cpu().numpy()):
                 preds.setdefault(qid, {})[docid] = float(score)
+
+        def score(chunk):
+            if placement is None:
+                return reranker.test(collate(chunk, ARRAY_KEYS), device)
+            n = len(chunk)
+            chunk = chunk + chunk[-1:] * ((-n) % placement.dp)
+            lead = placement.lead(0)
+            with placement.bind():
+                parts = [reranker.test(shard, d) for d, shard in placement.split(collate(chunk, ARRAY_KEYS))]
+            return torch.cat([x.to(lead) for x in parts])[:n]
 
         was_training = self._model.training
         self._model.eval()
@@ -666,9 +894,9 @@ class TorchTrainer(Trainer):
                 chunk = list(itertools.islice(sample_iter, batch_size))
                 if not chunk:
                     break
-                batch = collate(chunk, ARRAY_KEYS)
                 if not prepared:
                     prepared = True
+                    batch = collate(chunk, ARRAY_KEYS)
                     if hasattr(reranker, "prepare_inference"):
                         # int8 calibration against the current f32 weights, every predict
                         reranker.prepare_inference(batch, device)
@@ -677,7 +905,7 @@ class TorchTrainer(Trainer):
                         if getattr(reranker, "quantized", False):
                             round_int8_inference(model)
                         amp.enter_context(bf16_params(model))
-                pending.append((reranker.test(batch, device), [(s["qid"], s["posdocid"]) for s in chunk]))
+                pending.append((score(chunk), [(s["qid"], s["posdocid"]) for s in chunk]))
                 if len(pending) >= PREDICT_PIPELINE_DEPTH:
                     _drain_one()
             while pending:
@@ -743,10 +971,27 @@ class TorchTrainer(Trainer):
         (``utils/sharded_ckpt.py``, the JAX format), written on a background
         thread in async mode after a host snapshot. ``<path>.done`` comes
         after both trees (chained on the writer in async mode). Returns the
-        bytes of the trees' data."""
+        bytes of the trees' data.
+
+        On a mesh the optimizer tree is ``_placement_optimizer_tree``'s, and
+        a sharded checkpoint writes each sharded leaf as one slab per
+        distinct block, never gathered (under pp the canonical tree, as the
+        JAX trainer writes it); a flat one writes the canonical tree."""
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
+        placement = self._placement
+        sharded_params = placement is not None and placement.kind != "pp" and self._ckpt_mode() != "flat"
+        if placement is not None and not sharded_params:
+            placement.sync_model()
         saveable = self.saveable_params(reranker, model)
+        if sharded_params:
+            saveable = self._sharded_saveable(saveable)
+        if optimizer is None:
+            opt_tree = None
+        elif placement is not None:
+            opt_tree = self._placement_optimizer_tree(optimizer, gather=self._ckpt_mode() == "flat")
+        else:
+            opt_tree = _optimizer_tree(optimizer.state_dict())
         if self._ckpt_mode() != "flat":
             from capreolus_tpu_torch.utils.sharded_ckpt import AsyncCheckpointer, save_sharded
 
@@ -756,9 +1001,8 @@ class TorchTrainer(Trainer):
                     self._async_ckpt = AsyncCheckpointer()
                 ac = self._async_ckpt
             written = save_sharded(_ext(path, ".params.shards"), saveable, async_checkpointer=ac)
-            if optimizer is not None:
-                written += save_sharded(_ext(path, ".optstate.shards"), _optimizer_tree(optimizer.state_dict()),
-                                        async_checkpointer=ac)
+            if opt_tree is not None:
+                written += save_sharded(_ext(path, ".optstate.shards"), opt_tree, async_checkpointer=ac)
             done = _ext(path, ".done")
             if ac is not None:  # the done file must cover both trees: chain it on the writer
                 ac.after(lambda: done.write_text("done"))
@@ -771,10 +1015,62 @@ class TorchTrainer(Trainer):
         _ext(path, ".params").write_bytes(params)
         written = len(params)
         if optimizer is not None:
-            torch.save(optimizer.state_dict(), _ext(path, ".optstate"))
+            torch.save(optimizer.state_dict() if placement is None else
+                       _tree_map(lambda x: torch.as_tensor(np.array(x)), opt_tree), _ext(path, ".optstate"))
             written += _ext(path, ".optstate").stat().st_size
         _ext(path, ".done").write_text("done")
         return written
+
+    def _sharded_saveable(self, saveable):
+        """``saveable``'s tree with each trainable leaf the placement's
+        ``ShardedArray`` (frozen leaves stay empty)."""
+        store = self._placement.store
+
+        def walk(node, prefix):
+            return {k: walk(v, f"{prefix}/{k}") if isinstance(v, dict) else
+                    (store[f"{prefix}/{k}"[1:]] if np.asarray(v).size else v) for k, v in node.items()}
+
+        return walk(saveable, "")
+
+    def _placement_optimizer_tree(self, optimizer, gather=False):
+        """Adam's state by leaf, whatever the layout: {"state": {store key with
+        "." for "/": {"step", "exp_avg", "exp_avg_sq"}}, "param_groups": JSON
+        bytes}; each moment a ``ShardedArray`` of the leaf's layout, or with
+        ``gather`` the whole moment on the host."""
+        from capreolus_tpu_torch.parallel.distributed import ShardedArray
+
+        state = {}
+        for key, arr in self._placement.store.items():
+            held = [(index, optimizer.state.get(block)) for index, block in arr.blocks.items()]
+            if not held or not held[0][1]:
+                continue  # frozen, or not stepped yet
+            entry = {"step": np.asarray(float(held[0][1]["step"]), np.float32)}
+            for m in ("exp_avg", "exp_avg_sq"):
+                moment = ShardedArray(arr.sharding, arr.shape, {index: st[m] for index, st in held})
+                entry[m] = moment.at("cpu").detach() if gather else moment
+            state[key.replace("/", ".")] = entry
+        groups = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.state_dict()["param_groups"]]
+        return {"state": state, "param_groups": np.frombuffer(json.dumps(groups).encode(), np.uint8)}
+
+    def _by_leaf(self, tree, reranker, model):
+        """An optimizer tree (this trainer's on one device, keyed by the
+        optimizer's parameter index, or ``_placement_optimizer_tree``'s) as
+        {canonical or store key: {"step", "exp_avg", "exp_avg_sq"}} of whole
+        flax-layout arrays."""
+        from capreolus_tpu_torch.convert import flax_leaves
+
+        state = tree.get("state", {})
+        if all(str(k).isdigit() for k in state):
+            labels = self.param_labels(reranker, model)
+            names = [n for g in ("other", "bert") for n, _ in model.named_parameters() if labels[n] == g]
+            layout = {name: (key, to_flax) for key, name, to_flax, _, _ in flax_leaves(model)}
+            out = {}
+            for i, st in state.items():
+                key, to_flax = layout[names[int(i)]]
+                out[key] = {k: (np.asarray(v) if k == "step" else to_flax(torch.as_tensor(np.asarray(v))).numpy())
+                            for k, v in st.items()}
+            return out
+        return {k.replace(".", "/"): {m: np.asarray(v) for m, v in st.items()} for k, st in state.items()}
 
     def _wait_for_checkpoints(self):
         """Join any in-flight asynchronous checkpoint writes (a no-op otherwise)."""
@@ -789,32 +1085,92 @@ class TorchTrainer(Trainer):
         checkpoint leaves empty with their values (``_merge_frozen``: a frozen
         KNRM's extractor table and kernel bank, Birch's frozen encoder); and
         this trainer's optimizer state into ``optimizer`` when given. Waits
-        for in-flight asynchronous writes first."""
-        from capreolus_tpu_torch.convert import _present, flax_leaves, load_params
+        for in-flight asynchronous writes first. On a mesh every leaf lands on
+        the placement's own layout, as the JAX trainer restores onto its
+        template's shardings: a sharded directory through ``load_sharded``'s
+        ``shardings`` (assembled by global index ranges, whatever layout wrote
+        it), and Adam's state by leaf, cut into this layout's blocks."""
+        from capreolus_tpu_torch.convert import _present, flatten_tree, flax_leaves, load_params
         from capreolus_tpu_torch.utils.sharded_ckpt import is_sharded_checkpoint, load_sharded
 
         self._wait_for_checkpoints()
+        placement = self._placement
         pdir, odir = _ext(path, ".params.shards"), _ext(path, ".optstate.shards")
         sharded = is_sharded_checkpoint(pdir)
-        flat = load_params(pdir if sharded else _ext(path, ".params"))
         params = dict(model.named_parameters())
+        if sharded and placement is not None and placement.kind != "pp":
+            like = self.saveable_params(reranker, model)
+            shardings = self._sharded_saveable(like)
+            shardings = _tree_map(lambda x: getattr(x, "sharding", None), shardings)
+            flat = flatten_tree(load_sharded(pdir, like=like, shardings=shardings))
+        else:
+            flat = load_params(pdir if sharded else _ext(path, ".params"))
         missing = [key for key, name, *_ in flax_leaves(model)
                    if reranker.trainable(tuple(key.split("/")), params[name]) and not _present(flat, key)]
         if missing:
             raise KeyError(f"checkpoint {path} lacks trainable parameters {missing[:3]}...")
+        placed = False
+        if placement is not None:
+            from capreolus_tpu_torch.parallel.distributed import ShardedArray
+
+            with torch.no_grad():  # a loaded ShardedArray already has this layout's blocks
+                for key, v in flat.items():
+                    if isinstance(v, ShardedArray):
+                        placed = True
+                        for index, block in placement.store[key].blocks.items():
+                            block.copy_(v.blocks[index])
+            flat = {k: (v.numpy() if isinstance(v, ShardedArray) else v) for k, v in flat.items()}
         own = model.state_dict()  # an f32 training model of an int8 reranker has no int8 stats
         try:
             model.load_state_dict({k: v for k, v in reranker.state_dict_from_params(flat, model).items() if k in own})
         except (RuntimeError, ValueError) as e:
             raise RuntimeError(f"checkpoint {path} does not fit the model (a vocabulary-sized table needs the "
                                f"training-time extractor state): {e}") from e
+        if placement is not None and not placed:
+            placement.load_flat({key: placement.leaves[key][1](params[name].detach())
+                                 for key, (name, _, _) in placement.leaves.items()})
         opt_fn = _ext(path, ".optstate")
-        if optimizer is not None and sharded and is_sharded_checkpoint(odir):
-            optimizer.load_state_dict(_optimizer_state_dict(load_sharded(odir)))
-        elif optimizer is not None and opt_fn.exists():
-            optimizer.load_state_dict(torch.load(opt_fn, map_location=next(model.parameters()).device,
-                                                 weights_only=True))
+        if optimizer is None:
+            return model, optimizer
+        if sharded and is_sharded_checkpoint(odir):
+            tree = load_sharded(odir)
+        elif opt_fn.exists():
+            tree = torch.load(opt_fn, map_location="cpu", weights_only=True)
+        else:
+            return model, optimizer
+        if placement is None and all(str(k).isdigit() for k in tree.get("state", {})):
+            # this trainer's own on one device: torch's state dict, or its sharded tree
+            optimizer.load_state_dict(tree if isinstance(tree["param_groups"], list) else _optimizer_state_dict(tree))
+        else:
+            self._load_optimizer_by_leaf(optimizer, self._by_leaf(tree, reranker, model), model)
         return model, optimizer
+
+    def _load_optimizer_by_leaf(self, optimizer, by_leaf, model):
+        """Set Adam's state from {key: whole flax-layout moments}: on a mesh
+        each block takes its index ranges, on one device each parameter its
+        torch layout."""
+        from capreolus_tpu_torch.convert import flax_leaves
+
+        def entry(st, cut, device):
+            return {"step": torch.tensor(float(st["step"]), dtype=torch.float32),
+                    **{m: torch.as_tensor(np.ascontiguousarray(cut(np.asarray(st[m])))).to(device)
+                       for m in ("exp_avg", "exp_avg_sq")}}
+
+        placement = self._placement
+        if placement is None:
+            params = dict(model.named_parameters())
+            for key, name, _, from_flax, _ in flax_leaves(model):
+                if key in by_leaf:
+                    optimizer.state[params[name]] = entry(
+                        by_leaf[key], lambda a, f=from_flax: f(torch.as_tensor(a)).contiguous().numpy(),
+                        params[name].device)
+            return
+        for key, arr in placement.store.items():
+            if key not in by_leaf:
+                continue
+            for index, block in arr.blocks.items():
+                optimizer.state[block] = entry(by_leaf[key], lambda a, i=index: a[tuple(slice(x, y) for x, y in i)],
+                                               block.device)
 
     def _fastforward(self, weights_path, loss_fn_path, model, optimizer, reranker):
         if not loss_fn_path.exists():

@@ -4,9 +4,12 @@
 - ``save_sharded`` writes one raw ``.npy`` per (leaf, unique shard) and a
   ``manifest.json`` naming each leaf's flattened key path ("a/b/0"), global
   shape and dtype, and each shard file's global index ranges, into a tmp
-  directory renamed into place, then a ``done`` file. On one device every
-  leaf is one shard (``<leaf>_000_p0.npy``, its full range), which any
-  layout of the JAX package's ``load_sharded`` reassembles. A bf16 leaf is
+  directory renamed into place, then a ``done`` file. A tensor leaf is one
+  shard (``<leaf>_000_p0.npy``, its full range); a ``ShardedArray`` leaf (a
+  trainer's mesh placement) is one slab per distinct block, named by its
+  position (``<leaf>_<position>_p0.npy``) with its global ranges, never
+  gathered to one device, as JAX writes its addressable shards. Any layout
+  of either package's ``load_sharded`` reassembles both. A bf16 leaf is
   stored as its uint16 bits, the manifest keeping the name ``bfloat16``, as
   JAX stores it. Leaves are numpy arrays, torch tensors (on any device) or
   Python scalars; dicts flatten in sorted key order and lists / tuples by
@@ -15,8 +18,8 @@
   memory-mapped, one leaf at a time), whatever layout wrote them, onto the
   host (numpy) or one ``device`` (torch tensors); with ``like`` it rebuilds
   that tree's structure and checks every leaf path, without it the nested
-  dicts of the manifest's paths. Loading onto a mesh of devices belongs to
-  the training half of multi-device (ROADMAP.md, module 11).
+  dicts of the manifest's paths; with ``shardings`` each leaf lands on its
+  target ``NamedSharding`` as a ``ShardedArray`` (resharding).
 - ``AsyncCheckpointer`` moves the file writes off the training loop:
   ``save_sharded(..., async_checkpointer=ac)`` snapshots every leaf to the
   host first (every device-to-host copy started before one wait), then a
@@ -79,21 +82,24 @@ def _snapshot_tree(tree):
     entries], {filename: array}). Device-to-host copies of CUDA tensors are
     all started before one synchronisation; host leaves are copied, so the
     caller may change its tensors as soon as this returns."""
+    from capreolus_tpu_torch.parallel.distributed import ShardedArray
+
     entries, pending, cuda = [], [], set()
     for li, (path, leaf) in enumerate(_flatten(tree)):
         fn = f"{li:05d}_000_p0.npy"
+        if isinstance(leaf, ShardedArray):  # one slab per distinct block, never the gathered leaf
+            shards = []
+            for si, (_, index, replica, block) in enumerate(leaf.addressable_shards):
+                if replica != 0:
+                    continue
+                fn = f"{li:05d}_{si:03d}_p0.npy"
+                t, dtype = _host_copy(block, cuda)
+                shards.append({"file": fn, "ranges": [list(r) for r in index]})
+                pending.append((fn, t, dtype == "bfloat16"))
+            entries.append({"path": "/".join(path), "shape": list(leaf.shape), "dtype": dtype, "shards": shards})
+            continue
         if isinstance(leaf, torch.Tensor):
-            t = leaf.detach()
-            if t.dtype == torch.bfloat16:
-                t = t.view(torch.int16)  # the bits; the manifest keeps the dtype's name
-                dtype = "bfloat16"
-            else:
-                dtype = str(t.dtype).replace("torch.", "")
-            if t.device.type == "cuda":
-                cuda.add(t.device)
-                host = t.to("cpu", non_blocking=True)
-            else:
-                host = t.clone()
+            host, dtype = _host_copy(leaf, cuda)
         else:
             host = np.array(leaf)  # a copy
             dtype = str(host.dtype)
@@ -108,6 +114,21 @@ def _snapshot_tree(tree):
         a = host.numpy() if isinstance(host, torch.Tensor) else host
         blocks[fn] = a.view(np.uint16) if bf16 else a
     return entries, blocks
+
+
+def _host_copy(tensor, cuda):
+    """(a host copy of ``tensor``, its dtype's name): bf16 as its int16 bits,
+    a CUDA tensor's copy started without a wait (its device added to ``cuda``)."""
+    t = tensor.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)  # the bits; the manifest keeps the dtype's name
+        dtype = "bfloat16"
+    else:
+        dtype = str(t.dtype).replace("torch.", "")
+    if t.device.type == "cuda":
+        cuda.add(t.device)
+        return t.to("cpu", non_blocking=True), dtype
+    return t.clone(), dtype
 
 
 def _write_blocks(out_dir: Path, manifest_leaves, blocks, finalize: bool = True):
@@ -189,16 +210,24 @@ def restore_params(ckpt_path):
     return from_bytes(p.read_bytes())
 
 
-def load_sharded(in_dir, like=None, device=None):
+def load_sharded(in_dir, like=None, device=None, shardings=None):
     """Reassemble a sharded checkpoint written by either package under any
     layout: numpy leaves on the host, or torch tensors on ``device``. With
     ``like`` (a tree of the saved structure) its structure comes back and
     every leaf path must match the manifest's; a template leaf that is a bf16
-    tensor gets its bf16 back."""
+    tensor gets its bf16 back. ``shardings`` (a tree of ``like``'s structure
+    of ``NamedSharding``s, or None per leaf) places each leaf on its target
+    layout as a ``ShardedArray``: assembly is by global index ranges, so a
+    checkpoint written under one layout loads onto any other."""
+    from capreolus_tpu_torch.parallel.distributed import ShardedArray
+
     in_dir = Path(in_dir)
     manifest = json.loads((in_dir / MANIFEST).read_text())
+    targets = [s for _, s in _flatten(shardings)] if shardings is not None else None
 
-    def place(arr, tmpl=None):
+    def place(arr, tmpl=None, target=None):
+        if target is not None:
+            return ShardedArray.from_tensor(np.ascontiguousarray(arr), target)
         if device is None:
             return arr
         t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
@@ -212,11 +241,11 @@ def load_sharded(in_dir, like=None, device=None):
         raise ValueError(f"sharded checkpoint {in_dir} has {len(manifest['leaves'])} leaves; "
                          f"the template tree has {len(leaves)}")
     out = []
-    for (path, tmpl), entry in zip(leaves, manifest["leaves"]):
+    for li, ((path, tmpl), entry) in enumerate(zip(leaves, manifest["leaves"])):
         if "/".join(path) != entry["path"]:
             raise ValueError(f"checkpoint leaf order mismatch: template {'/'.join(path)!r} "
                              f"vs saved {entry['path']!r}")
-        out.append(place(_assemble_leaf(in_dir, entry), tmpl))
+        out.append(place(_assemble_leaf(in_dir, entry), tmpl, targets[li] if targets is not None else None))
     return _unflatten(like, out)
 
 

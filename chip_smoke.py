@@ -6507,6 +6507,260 @@ def counted_validations(into):
     finally:
         TorchTrainer._eval_dev_runs = real
 
+# ---------------------------------------------------------------- phase 18: multi-device training
+P18 = {"batch": 8, "seq": 256, "query": 20, "timed_steps": 3, "pred_docs": 2, "pred_passages": 4, "seed": 18,
+       "pretrained": "bert-base-uncased"}
+# (label, trainer options, MoE): BERT-base BERTMaxP at phase 9b's training shape ([8, 256] token rows of
+# bertpassage's default maxseqlen), MoE-BERTMaxP (12d's 4 experts, top-2) for ep
+MODES18 = (("dp4", {}, False), ("fsdp4", {"fsdp": True, "ckpt": "sharded"}, False), ("tp2xdp2", {"tp": 2}, False),
+           ("tp2+sp", {"tp": 2, "sp": True}, False), ("pp2", {"pp": 2, "microbatches": 4}, False),
+           ("pp2xtp2", {"pp": 2, "tp": 2, "microbatches": 4}, False), ("ep2", {"ep": 2}, True))
+
+
+def mesh_devices18(device):
+    """Four distinct cards where the machine has them, else one card (or the
+    CPU, in a rehearsal) named four times."""
+    if device != "cuda":
+        return [device] * 4
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(4)] if n >= 4 else ["cuda:0"] * 4
+
+
+def batch18(shape18, rows, passages=None, seed=P18["seed"]):
+    """A bertpassage-shaped batch of seeded token ids: ``rows`` training triples
+    ([rows, L] pos and neg), or with ``passages`` [rows, passages, L] docs:
+    a 20-token query (segment 0) then the passage (segment 1), the last 16
+    positions padding."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    shape = (rows, shape18["seq"]) if passages is None else (rows, passages, shape18["seq"])
+    out = {}
+    for side in ("pos", "neg"):
+        mask = np.ones(shape, np.int64)
+        mask[..., -16:] = 0
+        seg = np.ones(shape, np.int64)
+        seg[..., :shape18["query"]] = 0
+        out[f"{side}_bert_input"] = rng.integers(1000, 30000, size=shape).astype(np.int64) * mask
+        out[f"{side}_mask"], out[f"{side}_seg"] = mask, seg
+    return out
+
+
+def reranker18(shape18, opts, moe):
+    from capreolus_tpu_torch.reranker import Reranker
+
+    cfg = {"pretrained": shape18["pretrained"], "allowrandominit": True, "hidden_dropout_prob": 0.0,
+           "trainer": dict({"batch": shape18["batch"], "lr": 1e-4, "bertlr": 1e-4}, **opts)}
+    if moe:
+        cfg.update(moeexperts=MOE_EXPERTS, moetopk=MOE_TOPK)
+    return Reranker.create("BERTMaxP", cfg)
+
+
+def grads_by_key18(placement, model, device):
+    """{flax key: gradient} of a step: a placement's blocks assembled (a stacked
+    leaf cut into its layers), or the model's parameters in the flax layout."""
+    from capreolus_tpu_torch.convert import flax_leaves
+    from capreolus_tpu_torch.parallel.distributed import assemble_blocks
+
+    if placement is None:
+        named = dict(model.named_parameters())
+        return {key: to_flax(named[name].grad) for key, name, to_flax, _, _ in flax_leaves(model)}
+    out = {}
+    for key, arr in placement.store.items():
+        full = assemble_blocks([(i, b.grad) for i, b in arr.blocks.items()], device)
+        if key.startswith("stacked/"):
+            out.update({k: full[i] for i, k in enumerate(placement.stacked_from(key))})
+        else:
+            out[key] = full
+    return out
+
+
+def step_error18(got, want):
+    """Each gradient tensor's largest error against its own largest entry, or
+    GRAD_NOISE_FLOOR of the model's largest where that is larger (9a's measure)."""
+    floor = GRAD_NOISE_FLOOR * max(float(g.abs().max()) for g in want.values())
+    errs = {k: float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), floor, 1e-30) for k in want}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def timed_steps18(shape18, trainer, rr, model, optimizer, batches, device):
+    """The timed optimizer steps after the parity step: ms per step (host
+    clock to a synchronize) and the peak device memory (GB; None on the CPU)."""
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    for i in range(shape18["timed_steps"]):
+        loss = trainer.train_step(rr, model, optimizer, batches, i + 1, trainer.step_seed(0, i + 1))
+    if cuda:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / shape18["timed_steps"]
+    check(bool(torch.isfinite(loss)), "18: a non-finite training loss")
+    if not cuda:
+        return ms, None
+    return ms, max(torch.cuda.max_memory_allocated(d) for d in range(torch.cuda.device_count())) / 1e9
+
+
+def phase18_reference(shape18, moe, micro, batches, device):
+    """Step 1 on one device (its loss and gradients) and its step time."""
+    from capreolus_tpu_torch.reranker.common import cudnn_f32, matmul_f32
+
+    rr = reranker18(shape18, {}, moe)
+    trainer = rr.trainer
+    trainer.device = device
+    model = rr.build_train_model()
+    model.load_state_dict(rr.state_dict_from_params(seeded_model_params(model, shape18["seed"])))
+    model.to(device)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    optimizer = trainer.make_optimizer(rr, model)
+    with cudnn_f32(), matmul_f32():  # a training forward (dropout 0): attention_plain, as train_step runs it
+        loss = trainer.compute_loss(rr, micro, torch.device(device), dropout_seed=trainer.step_seed(0, 0))
+        loss.backward()
+    grads = {k: g.detach().clone() for k, g in grads_by_key18(None, model, device).items()}
+    optimizer.zero_grad(set_to_none=True)
+    ms, peak = timed_steps18(shape18, trainer, rr, model, optimizer, batches, device)
+    # the model and its init serve every mode of its kind (each mode's placement copies the weights)
+    out = {"loss": float(loss.detach()), "grads": grads, "model": model, "init": init, "step_ms": ms,
+           "peak_gb": peak, "layers": model.config.num_layers}
+    del rr, trainer, optimizer
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase18_k2(shape18, rr, placement, peaks, layers):
+    """A tp prediction forward of 2 docs x 4 passages over the mesh: K2's launches
+    (counted from 0 just before, read just after), then K2 against its plain
+    version on model shard 0's first call (its H / tp heads), timed."""
+    from capreolus_tpu_torch.ops import flash_attention as fa
+
+    batch = batch18(shape18, shape18["pred_docs"], shape18["pred_passages"], seed=shape18["seed"] + 1)
+    seen, real = [], fa.multihead_attention
+
+    def recording(q, k, v, mask, **kw):
+        if not seen:
+            seen.append((q, k, v, mask))
+        return real(q, k, v, mask, **kw)
+
+    fa.multihead_attention = recording
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with torch.no_grad(), placement.bind():
+            scores = [rr.test(shard, d) for d, shard in placement.split(batch)]
+        torch.cuda.synchronize()
+        launched = launch_counts()["flash_attention"]
+    finally:
+        fa.multihead_attention = real
+    check(all(bool(torch.isfinite(x).all()) for x in scores), "18: non-finite tp prediction scores")
+    tp, dp = placement.mesh.shape["model"], placement.dp
+    check(launched == layers * tp * dp, f"18: K2 launched {launched} times in the tp prediction forward, expected "
+                                        f"{layers} layers x {tp} model shards x {dp} data shards")
+    q, k, v, mask = seen[0]
+    err, _ = k2_error(q, k, v, mask)
+    timing = k2_time(q, k, v, mask, peaks)
+    return {"launches": launched, "shape": list(q.shape), "max_abs_err": err,
+            **{key: timing[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
+def phase_training_mesh(workdir, peaks, device="cuda", shape18=P18):
+    """Phase 18: the training half of multi-device on the card. BERT-base
+    BERTMaxP (MoE-BERTMaxP for ep) trained over four devices (four cards, or
+    one card named four times) in each mode: step 1 from one init and one
+    batch against the single-device step (the loss and each gradient within
+    STEP_RTOL), then timed steps; K2 in a tp prediction forward; an fsdp=4
+    sharded checkpoint resumed under tp=2 x dp=2. ``device="cpu"`` with a
+    tiny ``shape18`` rehearses the phase without a card (K2 left out)."""
+    import capreolus_tpu_torch
+    from capreolus_tpu_torch.reranker.common import cudnn_f32, matmul_f32
+
+    capreolus_tpu_torch.load_all_modules()
+    t_phase = time.perf_counter()
+    devices = mesh_devices18(device)
+    distinct = len(set(devices)) == len(devices)
+    micro = batch18(shape18, shape18["batch"])
+    batches = {k: v[None] for k, v in micro.items()}
+    card = smi_line() if device == "cuda" else device
+    print(f"[18 mesh training] {card}; devices {devices} ({'four cards' if distinct else 'one card named four times'}"
+          f"): the step times below are the cost of the single-process mesh (copies, Python dispatch), not scaling")
+    refs = {moe: phase18_reference(shape18, moe, micro, batches, device) for moe in (False, True)}
+    for moe, ref in refs.items():
+        print(f"[18 one device] {'MoE-' if moe else ''}BERTMaxP: step-1 loss {ref['loss']:.6f}, "
+              f"{ref['step_ms']:.1f} ms per step, peak {ref['peak_gb']} GB")
+    modes, k2, ckpt = {}, None, {}
+    for label, opts, moe in MODES18:
+        t0 = time.perf_counter()
+        rr = reranker18(shape18, opts, moe)
+        trainer = rr.trainer
+        trainer.device, trainer.devices = device, devices
+        rr.model = model = refs[moe]["model"]  # built once per kind, back at its init
+        model.load_state_dict(refs[moe]["init"])
+        model.zero_grad(set_to_none=True)
+        trainer._data_mesh = trainer._mesh(shape18["batch"])
+        placement = trainer._placement = trainer._place_params(rr, model)
+        optimizer = trainer.make_optimizer(rr, model, placement)
+        trainer._model, trainer._optimizer = model, optimizer
+        before = launch_counts()["flash_attention"]
+        with placement.bind(), cudnn_f32(), matmul_f32():
+            loss = trainer.mesh_loss(rr, micro, trainer.step_seed(0, 0))
+            loss.backward()
+        grad_err, worst = step_error18(grads_by_key18(placement, model, device), refs[moe]["grads"])
+        loss_err = abs(float(loss.detach()) - refs[moe]["loss"]) / max(abs(refs[moe]["loss"]), 1e-12)
+        optimizer.zero_grad(set_to_none=True)
+        ms, peak = timed_steps18(shape18, trainer, rr, model, optimizer, batches, device)
+        check(launch_counts()["flash_attention"] == before, f"18 {label}: K2 launched inside training steps")
+        modes[label] = {"mesh": trainer._data_mesh.shape, "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                        "worst": worst, "step_ms": ms, "peak_gb": peak, "seconds": time.perf_counter() - t0}
+        print(f"[18 {label}] mesh {trainer._data_mesh.shape}: step 1 against one device: loss rel err {loss_err:.3g}, "
+              f"largest gradient error {grad_err:.3g} of its tensor's scale ({worst}; tolerance {STEP_RTOL}); "
+              f"{ms:.1f} ms per step ({shape18['timed_steps']} steps), peak {peak} GB; {card}")
+        check(loss_err <= STEP_RTOL and grad_err <= STEP_RTOL, f"18 {label}: step 1 differs from one device's")
+        if label == "fsdp4":  # a sharded checkpoint with a populated Adam state, resumed under tp=2 x dp=2 below
+            ckpt["path"] = Path(workdir) / "ckpt18" / "dev.best"
+            trainer.save_checkpoint(ckpt["path"], model, optimizer, rr)
+            ckpt["weights"] = {k: a.at("cpu").detach() for k, a in placement.store.items()}
+            ckpt["adam"] = trainer._placement_optimizer_tree(optimizer, gather=True)["state"]
+        if label == "tp2xdp2" and device == "cuda":
+            k2 = phase18_k2(shape18, rr, placement, peaks, refs[moe]["layers"])
+            print(f"[18 K2] {k2['launches']} launches in the tp prediction forward; model shard 0's call "
+                  f"{k2['shape']}: max |K2 - plain| {k2['max_abs_err']:.3g} (tolerance {K2_TOL[torch.float32]}), "
+                  f"{k2_line(k2 | {'bound_ms_cuda_core': None})}")
+        if label == "tp2xdp2":
+            trainer.load_checkpoint(ckpt["path"], model, optimizer, rr)
+            same_w = all(torch.equal(placement.store[k].at("cpu"), w) for k, w in ckpt["weights"].items())
+            got = trainer._placement_optimizer_tree(optimizer, gather=True)["state"]
+            same_adam = got.keys() == ckpt["adam"].keys() and all(
+                torch.equal(torch.as_tensor(got[k][m]), torch.as_tensor(ckpt["adam"][k][m]))
+                for k in got for m in ("exp_avg", "exp_avg_sq", "step"))
+            check(same_w and same_adam, "18: the fsdp=4 checkpoint resumed under tp=2 x dp=2 differs")
+            blocks = len(placement.store["params/bert/layer_0/attention/query/kernel"].blocks)
+            ckpt.update(resumed={"weights_equal": same_w, "adam_equal": same_adam, "query_kernel_blocks": blocks})
+            print(f"[18 checkpoint] fsdp=4 sharded dev.best (Adam after {shape18['timed_steps']} steps) resumed "
+                  f"under tp=2 x dp=2 ({blocks} column blocks of each query kernel): weights and Adam state equal")
+        del rr, trainer, model, optimizer, placement
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    shutil.rmtree(Path(workdir) / "ckpt18", ignore_errors=True)
+    out = {"devices": devices, "distinct_cards": distinct, "card": card, "modes": modes, "k2": k2,
+           "one_device": {("moe" if m else "dense"): {k: r[k] for k in ("loss", "step_ms", "peak_gb")}
+                          for m, r in refs.items()},
+           "checkpoint": ckpt["resumed"], "seconds": time.perf_counter() - t_phase}
+    del refs
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[18 mesh training] every mode passed in {out['seconds']:.1f} s; summary " + json.dumps(out, default=str))
+    return out
+
+
+def add_phase18_launches(kernels, p18):
+    """Phase 18's K2 launches in its tp prediction forward, and K2 on model shard 0."""
+    k2 = kernels[1]
+    k2["launches"] += p18["k2"]["launches"]
+    k2["launches_phase18"] = p18["k2"]["launches"]
+    k2["phase18_shard0"] = {k: p18["k2"][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "bound_by")}
+
 
 def main():
     t_start = time.perf_counter()
@@ -6557,6 +6811,7 @@ def main():
         p16 = timed(phase_serving_families, workdir, corpus_dir, topics, none, peaks)
         p17 = timed(phase_sharded_serving, workdir, corpus_dir, topics, none, knrm, validations, peaks)
         print(f"[17 total] the script has run {time.perf_counter() - t_start:.1f} s")
+        p18 = timed(phase_training_mesh, workdir, peaks)
     finally:
         if robust04_host is not None and robust04_host[0].is_alive():
             robust04_host[0].terminate()
@@ -6698,6 +6953,7 @@ def main():
     add_phase15_launches(kernels, p15)
     add_phase16_launches(kernels, p16)
     add_phase17_launches(kernels, p17)
+    add_phase18_launches(kernels, p18)
     for entry in kernels:  # phase 9: launches inside training steps, and inside the trainer's predictions
         entry["launches_training"] = training_launches["train"].get(entry["name"], 0)
         entry["launches_training_predict"] = training_launches["predict"].get(entry["name"], 0)
@@ -6711,5 +6967,27 @@ def main():
     return 0
 
 
+def main_phase18():
+    """``--only 18``: the kernels' build and phase 18 alone (the quickest proof
+    that multi-device training still runs on the card, on four cards where
+    the machine has them); the last line as ``main``'s."""
+    name = phase_device()
+    peaks = card_peaks(name)
+    workdir = tempfile.mkdtemp(prefix="capreolus_tpu_torch_smoke18_")
+    os.environ["CAPREOLUS_CACHE"] = os.path.join(workdir, "cache")
+    os.environ["CAPREOLUS_RESULTS"] = os.path.join(workdir, "results")
+    os.environ["CAPREOLUS_OFFLINE"] = "1"
+    try:
+        phase_build()
+        p18 = phase_training_mesh(workdir, peaks)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"phase18": {k: p18[k] for k in ("devices", "distinct_cards", "modes", "k2", "checkpoint")}},
+                     default=str))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_phase18() if sys.argv[1:] == ["--only", "18"] else main())

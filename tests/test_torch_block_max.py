@@ -139,12 +139,23 @@ def test_pruned_bit_identical(random_corpus, clustered, topk):
                           exhaustive(engine, queries, topk))
 
 
-def test_pruning_drops_tiles_on_the_clustered_corpus(clustered):
+def test_pruning_drops_tiles_on_the_clustered_corpus(clustered, monkeypatch):
     """On a topically clustered corpus pruning skips lanes AND whole tiles
-    while staying bit-identical; the probe leaves a sticky decision."""
+    while staying bit-identical; the probe leaves a sticky decision. The
+    probe's clock is the test's (``FakeTime``, advanced by each scoring call:
+    a pruned pass 6 ms, an exhaustive one 10 ms), so its A/B settles a
+    verdict whatever the host's load."""
     _, pdata, queries = clustered
     engine = engine_of(pdata)
     ref = exhaustive(engine, queries)
+    clock, search = FakeTime(), engine.search
+
+    def ticking_search(*a, **kw):
+        clock.t += 0.006 if kw.get("prune_spans") is not None else 0.010
+        return search(*a, **kw)
+
+    engine.search = ticking_search
+    monkeypatch.setattr(scoring.time, "perf_counter", clock.perf_counter)
     assert_bits_equal(engine.search_pruned(queries, model="bm25", params=PARAMS, topk=10), ref)
     st = engine.last_prune_stats
     assert st["kept_lanes"] < 0.7 * st["total_lanes"], st

@@ -721,8 +721,12 @@ def test_negrefresh_swaps_in_the_hardest_negatives(corpus, tmp_path):
 
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize("trainer,item", [
-    ({"tp": 2}, "Multi-device"), ({"pp": 2}, "Multi-device"), ({"ep": 2}, "Multi-device"),
-    ({"sp": True}, "Multi-device"), ({"fsdp": True}, "Multi-device"), ({"ckpt": "sharded"}, "Multi-device"),
+    pytest.param({"tp": 2}, "trains", id="trainer0-Multi-device"),
+    pytest.param({"pp": 2}, "KNRM is not pipeline-compatible", id="trainer1-Multi-device"),
+    pytest.param({"ep": 2}, "trains", id="trainer2-Multi-device"),
+    pytest.param({"sp": True}, "requires trainer.tp>1", id="trainer3-Multi-device"),
+    pytest.param({"fsdp": True}, "trains", id="trainer4-Multi-device"),
+    ({"ckpt": "sharded"}, "Multi-device"),
     ({"ckpt": "sharded_async"}, "Multi-device"), ({"amp": "both"}, "amp slice"), ({"amp": "train"}, "amp slice"),
     ({"loss": "infonce"}, "needs a reranker exposing embeddings"),
 ])
@@ -731,6 +735,14 @@ def test_unported_trainer_options_raise(corpus, tmp_path, trainer, item):
     ``loss=infonce`` is ported: with KNRM, which has no ``encode``, it raises
     the JAX trainer's message (``tests/test_torch_dense_rerankers.py`` holds
     the biencoder's infonce steps against JAX).
+    ``tp``, ``pp``, ``ep``, ``sp`` and ``fsdp`` were refused here until the
+    port had multi-device training: over the 8-device list ``["cpu"] * 8``
+    KNRM now does what the JAX trainer does on its 8 host devices. tp=2, ep=2
+    and fsdp train, on the mesh the JAX trainer's ``_mesh`` builds for the
+    batch (KNRM has no leaf the tp / ep rules split, so its weights stay
+    whole); pp=2 and sp without tp raise the JAX trainer's ConfigError, as
+    its own ``train`` does on the same config (``tests/test_torch_*_parallel.py``
+    and ``tests/test_torch_fsdp.py`` hold each mode against JAX).
     ``amp`` was refused here until the port had it: those cases now train,
     and step 1 of KNRM under the mode agrees with the JAX trainer's cast
     parameter tree (the loss within GRAD_TOL, ``tests/test_torch_amp.py``
@@ -739,6 +751,22 @@ def test_unported_trainer_options_raise(corpus, tmp_path, trainer, item):
     the JAX trainer's sharded directories and load it back
     (``tests/test_torch_sharded_ckpt.py`` holds them against JAX and flat)."""
     jax_rr, port_rr = knrm_pair(corpus, trainer=dict({"niters": 1, "itersize": 4, "batch": 4}, **trainer))
+    if {"tp", "pp", "ep", "sp", "fsdp"} & set(trainer):
+        port_rr.trainer.devices = ["cpu"] * 8
+        if item == "trains":
+            metrics, _, _ = _train(port_rr, corpus, tmp_path)
+            assert np.isfinite(metrics["map"])
+            assert port_rr.trainer._data_mesh.shape == dict(jax_rr.trainer._mesh(4).shape)
+            return
+        with pytest.raises(ConfigError, match=item):
+            _train(port_rr, corpus, tmp_path)
+        import capreolus_tpu.core
+
+        jax_train = JaxSampler.create("triplet")
+        jax_train.prepare(corpus["run"], corpus["qrels"], jax_rr.extractor)
+        with pytest.raises(capreolus_tpu.core.ConfigError, match=item):
+            jax_rr.trainer.train(jax_rr, jax_train, tmp_path / "jax", None, tmp_path / "jaxdev", corpus["qrels"])
+        return
     if "ckpt" in trainer:
         metrics, _, _ = _train(port_rr, corpus, tmp_path)
         assert np.isfinite(metrics["map"])
@@ -788,14 +816,19 @@ def _distill_train(port_rr, corpus, tmp_path):
     port_rr.trainer.train(port_rr, train_s, tmp_path / "t", None, tmp_path / "d", corpus["qrels"])
 
 
-@pytest.mark.parametrize("options,match", [({"lora": 4}, "item 4"), ({"moeexperts": 2}, "item 6")])
+@pytest.mark.parametrize("options,match", [
+    ({"lora": 4}, "item 4"),
+    pytest.param({"moeexperts": 2}, "trainer.ep=2 does not divide the 1 available devices", id="options1-item 6"),
+])
 def test_unported_bert_options_name_their_roadmap_item(corpus, tmp_path, options, match):
     """LoRA and MoE were refused here until the port had them. LoRA now
     trains: its adapters in the ``bert`` group and the head in ``other``, as
     the JAX labels put them, the base encoder frozen (``tests/test_torch_lora.py``
     holds it against JAX). MoE's experts train in the ``bert`` group; the
-    expert-parallel degree it would shard over is not ported, and
-    ``trainer.ep > 1`` names item 6."""
+    expert-parallel degree was refused too until the port had it: ``trainer.ep
+    = 2`` on the one CPU device now raises the JAX trainer's ConfigError (the
+    degree does not divide the devices), and ``tests/test_torch_expert_parallel.py``
+    trains it over ``["cpu"] * 8``."""
     if "lora" in options:
         _, port_rr = bert_pair(corpus, trainer={"niters": 1, "itersize": 4, "batch": 2}, **options)
         labels = port_rr.trainer.param_labels(port_rr, port_rr.init_params(0))
@@ -810,7 +843,7 @@ def test_unported_bert_options_name_their_roadmap_item(corpus, tmp_path, options
         _, port_rr = bert_pair(corpus, trainer={"ep": 2, "niters": 1, "itersize": 4, "batch": 2}, **options)
         labels = port_rr.trainer.param_labels(port_rr, port_rr.init_params(0))
         assert labels["bert.layer_0.moe.experts_wi"] == labels["bert.layer_1.moe.gate.weight"] == "bert"
-        with pytest.raises(ConfigError, match=f"{match}, 'Multi-device'"):
+        with pytest.raises(ConfigError, match=match):
             _train(port_rr, corpus, tmp_path)
 
 
