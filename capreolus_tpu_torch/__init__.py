@@ -61,6 +61,11 @@ def load_all_modules():
     _loaded = True
 
 
+def parse_config_string(config_string: str) -> dict:
+    """Parse a whitespace-delimited 'a.b=1 c=2' string into a nested config dict."""
+    return config_string_to_dict(config_string)
+
+
 __all__ = [
     "ConfigError",
     "ConfigOption",
@@ -71,4 +76,5 @@ __all__ = [
     "get_logger",
     "load_all_modules",
     "module_registry",
+    "parse_config_string",
 ]

@@ -91,6 +91,9 @@ class EnglishAnalyzer:
     def __call__(self, text: str) -> List[str]:
         return self.analyze(text)
 
+    def cache_key(self) -> str:
+        return f"english_stem-{self.stemmer}_keepstops-{self.keep_stopwords}"
+
 
 class WhitespaceAnalyzer:
     """Trivial analyzer: lowercase + whitespace split (useful for tests/fixtures)."""
@@ -99,6 +102,9 @@ class WhitespaceAnalyzer:
         return text.lower().split()
 
     __call__ = analyze
+
+    def cache_key(self) -> str:
+        return "whitespace"
 
 
 def get_analyzer(stemmer: str = "porter", keep_stopwords: bool = False):

@@ -14,3 +14,6 @@ class DummyCollection(Collection):
     @property
     def _path(self):
         return constants["PACKAGE_PATH"] / "data" / "dummy" / "data"
+
+    def doc_count_hint(self):
+        return 3

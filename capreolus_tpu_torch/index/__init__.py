@@ -1,5 +1,5 @@
 """Index modules (the JAX package's ``index/__init__.py``): idempotent
-``create_index`` via a done file, and ``get_doc``/``get_df``/``get_idf``."""
+``create_index`` via a done file, and ``get_doc``/``get_docs``/``get_df``/``get_idf``."""
 
 from __future__ import annotations
 
@@ -30,6 +30,9 @@ class Index(ModuleBase):
 
     def get_doc(self, docid):
         raise NotImplementedError
+
+    def get_docs(self, docids):
+        return [self.get_doc(docid) for docid in docids]
 
     def get_df(self, term):
         raise NotImplementedError

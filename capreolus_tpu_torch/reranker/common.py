@@ -116,6 +116,13 @@ def cosine_similarity_matrix(q_emb, d_emb, query_tok, doc_tok, eps=1e-9):
     return _mask_padding(sim, query_tok, doc_tok)
 
 
+def stacked_similarity_matrix(query_embeds, doc_embeds, query_tok, doc_tok):
+    """Per-layer cosine simmats stacked on axis 1 -> [B, L, Q, D]."""
+    sims = [cosine_similarity_matrix(q_emb, d_emb, query_tok, doc_tok)
+            for q_emb, d_emb in zip(query_embeds, doc_embeds)]
+    return torch.stack(sims, dim=1)
+
+
 def similarity_matrix(embedding_matrix, query_tok, doc_tok):
     """Cosine channel on in-vocab ids + exact-match channel on negative OOV ids
     (padding is 0, OOV terms carry negative ids; the two channels are summed)."""

@@ -1,5 +1,6 @@
 """Common utilities (the JAX package's ``utils/common.py``): download with hash
-verification, gated by ``CAPREOLUS_OFFLINE``, file hashing and padding."""
+verification, gated by ``CAPREOLUS_OFFLINE``, file hashing, padding and an
+insertion-ordered default dict."""
 
 from __future__ import annotations
 
@@ -70,3 +71,18 @@ def padlist(items, padlen, pad_token=0):
     """Pad (right) or truncate a list to exactly ``padlen`` items."""
     items = list(items[:padlen])
     return items + [pad_token] * (padlen - len(items))
+
+
+class OrderedDefaultDict(dict):
+    """A dict with ``defaultdict``'s missing-key factory that keeps insertion order."""
+
+    def __init__(self, default_factory=None):
+        super().__init__()
+        self.default_factory = default_factory
+
+    def __missing__(self, key):
+        if self.default_factory is None:
+            raise KeyError(key)
+        value = self.default_factory()
+        self[key] = value
+        return value

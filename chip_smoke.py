@@ -12,21 +12,25 @@ reranker and serves what they wrote, then serves and trains the reranker zoo,
 then serves dense and learned-sparse retrieval and trains its rerankers,
 then drives the ColBERT options, snippets, the HTTP front end and NRT
 refresh, then serves doc-sharded BM25, dense and ColBERT over 4 shards on the
-card with device metrics and a sharded checkpoint, and holds every kernel
-against its plain PyTorch version.
+card with device metrics and a sharded checkpoint, then trains BERT-MaxP
+over a mesh of four devices, then runs the rank task over ``irds.*``
+benchmarks, and holds every kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py   # needs one CUDA device; builds the kernels
+    python3 chip_smoke.py            # needs one CUDA device; builds the kernels
+    python3 chip_smoke.py --only 18  # the build and phase 18 alone
+    python3 chip_smoke.py --only 19  # phase 19 alone
 
 Phases (each prints a line; any fault exits non-zero, and the last line is
 printed only when every phase passed):
 
 1. device: the card, its power limit (nvidia-smi), TF32 off for matmul/cuDNN;
+2b. native (before 2): ``native_status()`` must show the port's three C++ host
+   helpers (``native/analyzer.cpp``, ``trec_reader.cpp``, ``pruner.cpp``)
+   built by g++ and loaded (g++'s version and each library's build seconds
+   printed); no phase may fall back to the numpy and Python paths; then
+   phase 4's card-free set-up starts in a process of its own;
 2. build: nvcc builds every kernel of the port from ``capreolus_tpu_torch/csrc``,
    one process per source, all started together;
-2b. native: ``native_status()`` must show the port's three C++ host helpers
-   (``native/analyzer.cpp``, ``trec_reader.cpp``, ``pruner.cpp``) built by
-   g++ and loaded (g++'s version and each library's build seconds printed);
-   no phase may fall back to the numpy and Python paths;
 3. kernel check, with CUDA-event times of each kernel and its plain version:
    K1 (``knrm_pool``) against ``knrm_pool_plain`` at the serving shape, at a
    small ragged shape and at one with D off its split and an all-pad batch
@@ -70,12 +74,15 @@ printed only when every phase passed):
    then the weight, GELU and ColBERT query scales (and their codes) computed
    on the card must equal the CPU's bit for bit;
 4. KNRM serving: a seeded synthetic TREC corpus (20k docs of 200-1200 words),
-   the port's index and a ``RerankingService(device="cuda")`` with KNRM at its
+   the port's index (the corpus, the index and the extractor's state over the
+   corpus built and timed by the set-up process beside phases 2-3, read back
+   from the cache here) and a ``RerankingService(device="cuda")`` with KNRM at its
    published width (random300 embeddings, maxqlen 4, maxdoclen 800, 11 RBF
    kernels, topn 100, frozen kernels and embeddings, so the forward pass runs
    K1) serve 8 queries; the launch counts are read around that run, and the
    same queries served on the CPU must agree;
-5. monoBERT serving: the same corpus, fresh caches, BERTMaxP at BERT-base width
+5. monoBERT serving: the same corpus, caches of its own (phase 4's two
+   indexes of the corpus copied in: phase 4 built and timed them), BERTMaxP at BERT-base width
    and depth (seeded N(0, 0.02) weights; hash-wordpiece tokenizer) over
    bertpassage at its defaults (maxseqlen 256, 16 passages of 150 tokens,
    stride 100), topn 100: one warm-up request, then 2 served queries with 12
@@ -91,7 +98,7 @@ printed only when every phase passed):
    intermediate, ffn_output in 12 layers: 60 in the f32 epilogue, 12 in the
    int8-gelu one), 36 Q1 launches (three per layer), no zero-padded copy and
    12 K2 launches each, and the run's peak device memory; one profiled
-   request, with the copy check of phase 5; query 0's two top candidates on
+   request, with the copy check of phase 5; query 0's top candidate on
    the GPU against the port's int8 path on the CPU with the same stats, layer
    by layer from the
    card's input to each layer (max |err| <= 5e-2: a code on a rounding
@@ -99,7 +106,8 @@ printed only when every phase passed):
    last layer (<= 1e-3); the end-to-end GPU-vs-CPU gap, the card's own gap
    when its embeddings move by 1e-7, and the int8-vs-f32 score gap and top-10
    overlap of query 0 are reported;
-6. ColBERT serving: the same corpus, fresh caches, ``ColbertRetrievalService``
+6. ColBERT serving: the same corpus, caches of its own (phase 4's index
+   copied in), ``ColbertRetrievalService``
    on "cuda" at the searcher's defaults (BERT-base encoder with seeded
    N(0, 0.02) weights and projection to dim 128 from an .npz checkpoint,
    maxqlen 32 with query augmentation, maxdoclen 180, exact resident search):
@@ -121,7 +129,9 @@ printed only when every phase passed):
 8. the rank task (after 6b): the JAX suite's 50k-doc golden corpus
    (``tests/test_e2e_golden.py::_build_corpus``, as ``golden_corpus``) with its
    qrels, registered as the port's ``e2e_golden`` collection and benchmark;
-   both indexes built (plain and with positions, timed); the port's
+   both indexes built (plain and with positions, timed; the corpus and the
+   builds in a process of its own, started after phase 4 beside phases 5-7,
+   with phase 10's corpora); the port's
    ``rank.searcheval`` on "cuda" for BM25, BM25Grid (its default 100-point
    grid), QLDirichlet, BM25RM3, SDM and fusion (RRF of BM25 and QLDirichlet)
    at 1000 hits: PARITY.md's five pins (MAP, nDCG@20) within 2e-3, BM25Grid's
@@ -147,7 +157,7 @@ printed only when every phase passed):
    plain version on the frozen KNRM's step-1 batch, and K2 against its plain
    version at every layer of tiny BERT's first prediction batch. 9b, full width
    over phase 4's corpus and indexes, its 25 topics graded by the recipe in one
-   fold of 15 / 5 / 5, threshold 100: KNRM at its published width with frozen
+   fold of 15 / 5 / 5, threshold 50: KNRM at its published width with frozen
    kernels and embeddings (K1 in every step) and monoBERT-MaxP at BERT-base
    width and depth (seeded N(0, 0.02) weights, bertpassage defaults, batch 32,
    itersize 256, 1 iteration, dropout 0.1), each with its seconds per
@@ -161,7 +171,8 @@ printed only when every phase passed):
    trainer's own test prediction;
 10. the sparse engine at scale (after 9): ``index/synth.py``'s uniform and
    clustered 200k-doc corpora (bench.py's headline shape, cached under the
-   gitignored ``build/sparse``), bench.py's traffic (2048 queries of 4 terms
+   gitignored ``build/sparse``, built by phase 8's set-up process beside
+   phases 5-9), bench.py's traffic (2048 queries of 4 terms
    of 50 < df < 20k, batches of 256, k = 1000, BM25 k1 = 0.9 b = 0.4); per
    corpus the modes exact, tiered (``search_stream``, bench.py's bf16 scores
    and packed ordinals; and in f32), pruned adaptive and forced
@@ -204,21 +215,21 @@ printed only when every phase passed):
    device ops) and its launches counted from 0: 12a PARADE at BERT-base width
    (``aggregation=transformer``; pooledbertpassage as
    ``config_parade.txt``: 16 passages of 150, stride 75), 1 query in f32
-   (K2 14 times a request: 12 encoder and 2 aggregation layers), 2 docs card
+   (K2 14 times a request: 12 encoder and 2 aggregation layers), 1 doc card
    vs CPU within 1e-3, K2 held against its plain version at every attention
    of a served forward (L 256 and the aggregation layers' L 17), then 2 in
    int8 (84 X1 and 42 Q1 a request, the aggregation layers calibrated and,
    from the card's input, within 5e-2 of the CPU's, the head within 1e-3; the
    int8-vs-f32 gap and top-10 overlap reported); 12b CEDR-KNRM at
    electra-base width as ``config_cedrknrm_pt.txt`` (13 simmat layers, cls
-   avg, combine_hidden 1024, 4 passages of 225), 1 query, 4 docs within
+   avg, combine_hidden 1024, 4 passages of 225), 1 query, 2 docs within
    1e-3; 12c Birch at bert-large width over a seeded
    ``BertForNextSentencePrediction`` checkpoint it writes with ``torch.save``
    under the gitignored ``build/`` (the encoder and NSP head on the card equal
    to the tensors written; frozen; birchbertpassage with ``sentences=True``,
    through the splitter), 1 query, 24 K2 launches a request, 1 doc within
    2e-3; 12d BERTMaxP with 4 experts of top-2 in every layer (a dense
-   checkpoint refused), 1 query, 2 docs on the CPU layer by layer from the
+   checkpoint refused), 1 query, 1 doc on the CPU layer by layer from the
    card's input (tokens routed alike within 1e-3; routing flips counted, at
    most 1e-3 of the tokens) and the head from the card's last layer within
    1e-3; 12e
@@ -228,7 +239,7 @@ printed only when every phase passed):
    ``rererank.traineval`` with KNRM then tiny BERT-MaxP over the top 3, each
    test MAP reported;
 13. what the trainer left (after 12), over phase 4's corpus and topics in
-   phase 9b's fold (benchmark ``trainer_options``), threshold 100: 13a
+   phase 9b's fold (benchmark ``trainer_options``), threshold 50: 13a
    BERTMaxP at BERT-base width with ``lora=8``, ``loraalpha=16`` over a seeded
    BERT-base checkpoint directory it writes, trained by ``rerank.traineval``
    (batch 32, 1 iteration of 8 steps): seconds per iteration, step ms, peak
@@ -242,16 +253,17 @@ printed only when every phase passed):
    ``config_cedrknrm_pt.txt`` (``amp=both``, batch 6, 4 passages of 225, 13
    simmat layers, evalbatch 128): step 1 card vs CPU on 1 of its samples with
    dropout off (loss 1e-4, gradients 2^-8 of each tensor's largest entry), 4
-   steps timed, a prediction of 100 docs in amp and in f32 (the score gap, 12
+   steps timed, a prediction of 50 docs in amp and in f32 (the score gap, 12
    K2 each); a frozen KNRM at phase 9's width under ``amp=both`` through the
    rerank task, K1 twice a step and once a prediction forward, held against
    its plain version on the bf16-normalised rows amp hands it (RBF kernels
    2e-4, the exact-match kernel 1e-3); one monoBERT ``amp=pred`` prediction
-   of 100 docs beside f32; 13c the ``colbert`` reranker at BERT-base width
+   of 50 docs beside f32; 13c the ``colbert`` reranker at BERT-base width
    (dim 128, maxqlen 32, maxdoclen 180) trained by the rerank task (batch 32,
    8 steps; no K3 and no K2 in a step, 24 K2 per prediction forward), its
    dev.best the ``checkpointfile`` of ``ColbertRetrievalService`` over the
-   20k-doc bf16 corpus: set-up, 8 single queries and one 64-query batch (9 K3
+   first 4,000 docs of phase 4's corpus in bf16 (exact resident search, 100
+   hits, either size): set-up, 8 single queries and one 64-query batch (9 K3
    launches), K3 timed on the served corpus, query 0's top 10 card vs CPU
    within 1e-2;
 15. dense and learned-sparse retrieval (after 14), over a seeded BERT-base
@@ -273,8 +285,8 @@ printed only when every phase passed):
    cache (MS MARCO passage's width, cut from 8.8M rows): a 128-query batch at
    k 1000, the product and the selection apart, peak memory and busy share;
    X1 and the bf16 product at [128 x 768] x [1M x 768]; 15c
-   ``ImpactRetrievalService`` for uniCOIL over the 20k docs and SPLADE over a
-   4000-doc prefix: set-up, postings, requests, raw impacts of 8 docs card vs
+   ``ImpactRetrievalService`` for uniCOIL and SPLADE over the first 4,000
+   docs of phase 4's corpus (exact scoring at either size): set-up, postings, requests, raw impacts of 8 docs card vs
    CPU (1e-3) and rankings from the card's CSR equal on both devices; 15e the
    biencoder (``loss=infonce``), uniCOIL and SPLADE (with its regularizer)
    at BERT-base width: step 1 card vs CPU on 2 samples (1e-4; SPLADE's
@@ -323,6 +335,13 @@ printed only when every phase passed):
    changes phase 4's index): one ``RerankingService`` request over a sharded
    first stage equal to the single-device service's (K1 once), and a
    ``refresh()`` under shards after one added and one deleted doc;
+19. the rank task over ``irds.*`` benchmarks (after 18): the seeded stand-in
+   of ``tests/torch_irds_standin.py`` in ``sys.modules`` as ``ir_datasets``
+   (4,000 docs, two datasets of 8 queries over one parent); ``get_irds``
+   registers each dataset (one collection, no path, so one index), then
+   ``rank.searcheval`` with BM25 on "cuda" and on the CPU: per dataset the
+   run files docid for docid with scores within 1e-6 relative, every metric
+   equal, no port kernel launched;
 7. the seconds each phase took, a ``kernels`` JSON line (each kernel also with
    ``launches_training`` and ``launches_training_predict``, phase 9's
    launches in training steps and in the trainer's predictions, and K1 and
@@ -365,6 +384,9 @@ K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # K2 vs its plain version:
 BERT_CPU_TOL = 1e-3  # BERT-base scores, GPU vs CPU: 12 layers of f32 matmuls
 # summed in other orders on the two devices
 SERVING_DOCS = 20000  # corpus of the serving phases
+PREFIX_DOCS = 4000  # the prefix of that corpus that phase 13c's trained ColBERT (exact resident search, 100 hits)
+# and phase 15's impact services (uniCOIL, SPLADE; exact scoring either side of it, EXACT_MAX_DOCS) serve: no
+# dispatch rule of theirs turns on the corpus size there. SPLADE's f32 decoder is ~12 GFLOP a document
 TIMED_ROUNDS = 25  # timed rounds of 20 back-to-back calls per kernel (median)
 BERT_QUERIES = 2  # served monoBERT queries after the warm-up request
 K2_SHAPE = (1600, 12, 256, 64)  # 100 docs x 16 passages, BERT-base heads, maxseqlen 256
@@ -385,6 +407,7 @@ X1_BERT_SERVED = (  # (label, M, K, N) of the int8 products of a served monoBERT
     ("ffn_output", 409600, 3072, 768),    # the FFN down-projection
 )
 X1_CHECK_ROWS = 8192  # rows of each served product compared with the plain version
+INT8_CPU_DOCS = 2  # query 0's top candidates that phase 5b runs on the CPU too, layer by layer and end to end
 INT8_LAYER_TOL = 5e-2  # an int8 BERT-base layer, GPU vs CPU from the same input: a code
 # on a rounding boundary can flip by one step between the devices; a 1e-7 move of the
 # input moved such a layer's output by 9.5e-3 where the f32 layer's moved by 1.4e-6
@@ -733,6 +756,46 @@ def write_trec(docs, directory, files=4):
                 fh.write(f"<DOC>\n<DOCNO>{docid}</DOCNO>\n<TEXT>\n{text}\n</TEXT>\n</DOC>\n")
 
 
+def corpus_prefix(workdir, corpus_dir):
+    """The first PREFIX_DOCS docs of phase 4's corpus as a TREC directory of
+    their own, written once from phase 4's index."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.index import Index
+
+    n = PREFIX_DOCS
+    out = os.path.join(workdir, f"corpus_prefix_{n}")
+    if not os.path.isdir(out):
+        base = constants["CACHE_BASE_PATH"]
+        constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")
+        try:
+            index = Index.create("tpu", {"collection": {"name": "dummy", "path": corpus_dir}})
+            index.create_index()
+            write_trec([(d, index.get_doc(d)) for d in index.data.docid_strings[:n]], out)
+        finally:
+            constants["CACHE_BASE_PATH"] = base
+    return out
+
+
+EXTRACTOR_INDEX = {"indexstops": True, "stemmer": "none"}  # the extractors' index options over a corpus
+
+
+def copy_phase4_indexes(workdir, corpus_dir, *options):
+    """Phase 4's indexes of its corpus (one per index options dict: ``{}``
+    the first stage's, ``EXTRACTOR_INDEX`` the extractors') copied into the
+    current cache base, where a later phase serves the same corpus from
+    caches of its own; phase 4 built and timed each. Returns the seconds."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.index import Index
+
+    t0 = time.perf_counter()
+    for opts in options:
+        rel = Index.create("tpu", {**opts, "collection": {"name": "dummy", "path": corpus_dir}}).get_module_path()
+        src = Path(workdir) / "cache" / rel / "index"
+        check((src / "done").exists(), f"phase 4 built no index at {src}")
+        shutil.copytree(src, Path(constants["CACHE_BASE_PATH"]) / rel / "index")
+    return time.perf_counter() - t0
+
+
 # ---------------------------------------------------------------- timing
 def cuda_ms(fn, rounds=TIMED_ROUNDS, calls=20):
     """Device time per call (ms): the median over ``rounds`` of CUDA-event time
@@ -1077,7 +1140,44 @@ def phase_k2_check(peaks):
     return out
 
 
-def phase_serving(workdir, num_docs, ckpt_seed):
+def knrm_serving_config(corpus_dir):
+    """Phase 4's KNRM reranker config over the corpus at ``corpus_dir``."""
+    return {"gradkernels": False, "finetune": False,
+            "extractor": {"embeddings": "random300", "maxqlen": 4, "maxdoclen": 800,
+                          "index": {"collection": {"name": "dummy", "path": corpus_dir}}}}
+
+
+def serving_setup(workdir, num_docs=SERVING_DOCS):
+    """Phase 4's card-free set-up: the seeded corpus written under
+    ``workdir/corpus``, its first-stage index and the KNRM extractor's state
+    over it, built into the cache base of this process. Returns the corpus
+    directory, topics, qrels and the seconds of each step."""
+    import capreolus_tpu_torch
+    from capreolus_tpu_torch.index import Index
+    from capreolus_tpu_torch.reranker import Reranker
+
+    capreolus_tpu_torch.load_all_modules()
+    t0 = time.perf_counter()
+    docs, topics, qrels = build_corpus(num_docs, num_topics=25, seed=20260819, min_len=200, max_len=1200)
+    corpus_dir = os.path.join(workdir, "corpus")
+    write_trec(docs, corpus_dir)
+    out = {"corpus_dir": corpus_dir, "num_docs": num_docs, "topics": topics, "qrels": qrels,
+           "corpus_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    index = Index.create("tpu", {"collection": {"name": "dummy", "path": corpus_dir}})
+    index.create_index()
+    out["index_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()  # the state RerankingService's preprocess reads back from the extractor's cache
+    Reranker.create("KNRM", knrm_serving_config(corpus_dir)).extractor.preprocess(
+        [], list(index.data.docid_strings), {})
+    out["extractor_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_serving(workdir, setup, ckpt_seed):
+    """Phase 4 over ``setup`` (``serving_setup``'s result, here or in the
+    set-up process, whose index and extractor state the service reads back
+    from the cache)."""
     import capreolus_tpu_torch
     from capreolus_tpu_torch.convert import save_params
     from capreolus_tpu_torch.index import Index
@@ -1086,17 +1186,9 @@ def phase_serving(workdir, num_docs, ckpt_seed):
     from capreolus_tpu_torch.serving import RerankingService, RetrievalService
 
     capreolus_tpu_torch.load_all_modules()
-    t0 = time.perf_counter()
-    docs, topics, qrels = build_corpus(num_docs, num_topics=25, seed=20260819,
-                                       min_len=200, max_len=1200)
-    corpus_dir = os.path.join(workdir, "corpus")
-    write_trec(docs, corpus_dir)
-    t_corpus = time.perf_counter() - t0
-
+    corpus_dir, topics, qrels = setup["corpus_dir"], setup["topics"], setup["qrels"]
     coll = {"name": "dummy", "path": corpus_dir}
-    rr_cfg = {"gradkernels": False, "finetune": False,
-              "extractor": {"embeddings": "random300", "maxqlen": 4, "maxdoclen": 800,
-                            "index": {"collection": coll}}}
+    rr_cfg = knrm_serving_config(corpus_dir)
     rng = np.random.Generator(np.random.PCG64(ckpt_seed))
     ckpt = save_params({"params/combine/kernel": (rng.standard_normal((11, 1)) * 0.1).astype(np.float32),
                         "params/combine/bias": np.zeros(1, np.float32)},
@@ -1111,9 +1203,10 @@ def phase_serving(workdir, num_docs, ckpt_seed):
     svc = RerankingService(index, reranker, ckpt, topn=100, device="cuda")
     torch.cuda.synchronize()
     t_service = time.perf_counter() - t0
-    print(f"[4 serving] set-up: corpus {t_corpus:.1f} s ({num_docs} docs), first-stage index "
-          f"{t_index:.1f} s, service {t_service:.1f} s (of which extractor over the corpus "
-          f"{svc.extractor_seconds:.1f} s: host tokenization)")
+    print(f"[4 serving] set-up before this phase: corpus {setup['corpus_s']:.1f} s ({setup['num_docs']} docs), "
+          f"first-stage index {setup['index_s']:.1f} s, extractor over the corpus {setup['extractor_s']:.1f} s (host "
+          f"tokenization); here: index read in {t_index:.1f} s, service {t_service:.1f} s (of which the "
+          f"extractor's state read from its cache {svc.extractor_seconds:.1f} s)")
 
     queries = topics[:8]
     svc.search(topics[8:9], k=10)  # warm-up request: CUDA context, kernel load
@@ -1225,16 +1318,15 @@ def phase_bert_serving(workdir, corpus_dir, topics, peaks):
     from capreolus_tpu_torch.serving import RerankingService, RetrievalService
 
     label = "[5 monobert]"
-    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")  # a fresh serving process
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_bert")  # a serving process's own caches
     coll = {"name": "dummy", "path": corpus_dir}
     config = get_bert_config("bert-base-uncased")
     t0 = time.perf_counter()
     ckpt = save_params(seeded_bert_params(config, seed=4), os.path.join(workdir, "bert.npz"))
     t_ckpt = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    t_index = copy_phase4_indexes(workdir, corpus_dir, {}, EXTRACTOR_INDEX)  # built and timed by phase 4
     index = Index.create("tpu", {"collection": coll})
     index.create_index()
-    t_index = time.perf_counter() - t0
     rr_cfg = {"pretrained": "bert-base-uncased", "allowrandominit": True, "extractor": {"index": {"collection": coll}}}
     t0 = time.perf_counter()
     reranker = Reranker.create("BERTMaxP", rr_cfg)
@@ -1243,8 +1335,8 @@ def phase_bert_serving(workdir, corpus_dir, topics, peaks):
     t_service = time.perf_counter() - t0
     ext = reranker.extractor.config
     print(f"{label} set-up: seeded BERT-base checkpoint {t_ckpt:.1f} s ({os.path.getsize(ckpt) / 1e6:.0f} MB), "
-          f"first-stage index {t_index:.1f} s, service {t_service:.1f} s (of which the bertpassage extractor's "
-          f"own index over the corpus {svc.extractor_seconds:.1f} s; the rest builds the model, loads the "
+          f"phase 4's first-stage and extractor indexes copied in {t_index:.1f} s, service {t_service:.1f} s (of "
+          f"which the bertpassage extractor {svc.extractor_seconds:.1f} s; the rest builds the model, loads the "
           f"weights and moves them to the card); bertpassage maxseqlen {ext['maxseqlen']} numpassages "
           f"{ext['numpassages']} passagelen {ext['passagelen']} stride {ext['stride']} maxqlen {ext['maxqlen']}")
 
@@ -1403,13 +1495,13 @@ def phase_bert_int8_serving(workdir, corpus_dir, topics, f32):
     overlap = len({d for d, _ in results[0]} & {d for d, _ in f32["results"][0]})
     spread = max(f32["scores0"].values()) - min(f32["scores0"].values())
 
-    # query 0's two top first-stage candidates, the card against the CPU with the same weights and
+    # query 0's top INT8_CPU_DOCS first-stage candidates, the card against the CPU with the same weights and
     # stats. int8 makes each layer a step function of its input: where the two devices' f32
     # LayerNorm, softmax and GELU round apart, a code on a rounding boundary flips by one step, and
     # over 12 layers the flips add up (measured below: the card's own scores move about as much when
     # the embeddings move by 1e-7). So the CPU runs each layer from the card's input to that layer.
     hits = RetrievalService.search_async(svc, [queries[0]], k=svc.topn)()[0]
-    docids = [d for d, _ in hits[:2]]
+    docids = [d for d, _ in hits[:INT8_CPU_DOCS]]
     batch = svc.rerank_batch("smoke_int8", queries[0], docids)
     cpu_reranker = Reranker.create("BERTMaxP", rr_cfg)
     cpu_model = cpu_reranker.build_model().eval()
@@ -1454,8 +1546,8 @@ def phase_bert_int8_serving(workdir, corpus_dir, topics, f32):
                                             f"per layer {layer_err}")
     check(err_head <= BERT_CPU_TOL, f"int8 BERT-base scores of {docids} from the card's last hidden states: GPU "
                                     f"{gpu_two} vs CPU head {head_two}")
-    print(f"{label} query 0's top-2 first-stage docs {docids}, GPU vs CPU ({cpu_s:.1f} s with the CPU): each layer "
-          f"from the card's input, max |err| {max(layer_err):.3g} (per layer {', '.join(f'{x:.2g}' for x in layer_err)};"
+    print(f"{label} query 0's top {len(docids)} first-stage docs {docids}, GPU vs CPU ({cpu_s:.1f} s with the CPU): "
+          f"each layer from the card's input, max |err| {max(layer_err):.3g} (per layer {', '.join(f'{x:.2g}' for x in layer_err)};"
           f" tolerance {INT8_LAYER_TOL}); scores from the card's last layer {err_head:.3g} (tolerance {BERT_CPU_TOL}); end to end GPU {gpu_two.tolist()} "
           f"vs CPU {cpu_two.tolist()}: {err_e2e:.3g}, and the card's scores with the embeddings moved by 1e-7: "
           f"{moved_err:.3g} (reported, not pinned)")
@@ -1898,7 +1990,7 @@ def phase_colbert_serving(workdir, corpus_dir, topics, peaks):
     from capreolus_tpu_torch.serving import ColbertRetrievalService
 
     label = "[6 colbert]"
-    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")  # a fresh serving process
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")  # a serving process's own caches
     config = get_bert_config("bert-base-uncased")
     t0 = time.perf_counter()
     ckpt = str(save_params(colbert_params(config, COLBERT["dim"], seed=7), os.path.join(workdir, "colbert.npz")))
@@ -1906,9 +1998,8 @@ def phase_colbert_serving(workdir, corpus_dir, topics, peaks):
     searcher = Searcher.create("colbert", {**COLBERT, "pretrained": "bert-base-uncased", "allowrandominit": True,
                                            "checkpointfile": ckpt,
                                            "index": {"collection": {"name": "dummy", "path": corpus_dir}}})
-    t0 = time.perf_counter()
+    t_index = copy_phase4_indexes(workdir, corpus_dir, {})  # built and timed by phase 4
     searcher.index.create_index()
-    t_index = time.perf_counter() - t0
     t0 = time.perf_counter()
     svc = ColbertRetrievalService(searcher, max_k=100, device="cuda")
     torch.cuda.synchronize()
@@ -1916,7 +2007,8 @@ def phase_colbert_serving(workdir, corpus_dir, topics, peaks):
     corpus = svc._corpus
     corpus_gb = sum(t.numel() * t.element_size() for t in corpus) / 1e9
     setup = searcher.setup_seconds
-    print(f"{label} set-up: seeded checkpoint {t_ckpt:.1f} s, index {t_index:.1f} s, service {t_service:.1f} s, "
+    print(f"{label} set-up: seeded checkpoint {t_ckpt:.1f} s, phase 4's index copied in {t_index:.1f} s, service "
+          f"{t_service:.1f} s, "
           f"of which corpus tokenization {setup['tokenize']:.1f} s, encoding {setup['encode']:.1f} s (K2 in every "
           f"layer), upload {setup['upload']:.2f} s; resident corpus {corpus_gb:.3f} GB on the card "
           f"(docs_t {tuple(corpus[0].shape)} bf16, bias, valid); config {COLBERT}")
@@ -2243,31 +2335,108 @@ def run_faults(a_runs, b_runs, rtol, atol=0.0, near_ties=True):
     return faults
 
 
-def phase_rank_task(workdir):
-    """The rank task on the card over the JAX suite's 50k-doc golden corpus:
-    index builds, the six searchers against PARITY.md's pins and against the
-    CPU, BM25Grid's split and memory, a repeated BM25 search, the CLI, and one
-    profiled BM25 search."""
+def rank_golden_setup(workdir):
+    """Phase 8's card-free set-up: the golden corpus written under
+    ``workdir/golden``, registered, and both its indexes (plain, with
+    positions) built under ``workdir/cache_rank``. Returns what phase 8 reads:
+    the files, topics and qrels, and the seconds of each step."""
     from capreolus_tpu_torch.core import constants
-    from capreolus_tpu_torch.evaluation import DEFAULT_METRICS
     from capreolus_tpu_torch.index import Index
-    from capreolus_tpu_torch.searcher.tpu import ACC_BUDGET_ELEMENTS
 
-    label = "[8 rank task]"
     t0 = time.perf_counter()
     docs, topics, qrels = golden_corpus()
     corpus_dir, qrel_fn, topic_fn = write_golden(docs, topics, qrels, os.path.join(workdir, "golden"))
     register_golden(corpus_dir, qrel_fn, topic_fn, sorted(topics))
-    print(f"{label} golden corpus: {len(docs)} docs, {len(topics)} topics, "
-          f"{sum(len(q) for q in qrels.values())} judgements; made in {time.perf_counter() - t0:.1f} s")
+    out = {"files": (corpus_dir, qrel_fn, topic_fn), "docs": len(docs), "topics": topics, "qrels": qrels,
+           "corpus_s": time.perf_counter() - t0, "builds": {}}
     constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_rank")
-    builds = {}
     for positions in (False, True):
         index = Index.create("tpu", {"storepositions": positions, "collection": {"name": "e2e_golden"}})
         t0 = time.perf_counter()
         index.create_index()
-        builds["positions" if positions else "plain"] = round(time.perf_counter() - t0, 2)
-    print(f"{label} index build seconds: plain {builds['plain']}, with positions {builds['positions']}")
+        out["builds"]["positions" if positions else "plain"] = round(time.perf_counter() - t0, 2)
+    return out
+
+
+SETUP_WAIT_S = 600  # how long phase 4 or 8 waits for its set-up process
+
+
+def prebuild_setup(workdir):
+    """The card-free set-up of phases 8 and 10 (``rank_golden_setup``,
+    ``sparse_corpora``), run in a process of its own beside phases 5-7
+    (``start_host_side``): what phase 8 reads, and each corpus's seconds."""
+    return {"rank": rank_golden_setup(workdir),
+            "sparse_s": {name: secs for name, (_, secs) in sparse_corpora().items()}}
+
+
+def phase_setup_wait(host, label):
+    """What a set-up process (``start_host_side``) wrote, once it has ended."""
+    built, waited = wait_host_side(host, SETUP_WAIT_S, label)
+    print(f"{label} its set-up process ({host[0].name}) ended; waited {waited:.1f} s for it")
+    return built
+
+
+def _host_main(side, out_fn, *args):
+    """``side(*args)``, its result pickled to ``out_fn`` through a temporary
+    file, so that a reader finds it whole or not at all."""
+    import pickle
+
+    try:
+        result = side(*args)
+    except SmokeFailure as e:
+        print(f"FAILED: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)
+    with open(out_fn + ".tmp", "wb") as fh:
+        pickle.dump(result, fh)
+    os.replace(out_fn + ".tmp", out_fn)
+
+
+def start_host_side(workdir, side, *args):
+    """Start ``side(workdir, *args)``, card-free work of a later phase, in a
+    spawned process that pickles its result. Returns (process, out_fn)."""
+    import multiprocessing
+
+    out_fn = os.path.join(workdir, f"{side.__name__}.pkl")
+    proc = multiprocessing.get_context("spawn").Process(target=_host_main, args=(side, out_fn, workdir, *args),
+                                                         name=side.__name__)
+    proc.start()
+    return proc, out_fn
+
+
+def wait_host_side(host, timeout, label):
+    """What a ``start_host_side`` process wrote, once it has ended, and the
+    seconds waited for it."""
+    import pickle
+
+    proc, out_fn = host
+    t0 = time.perf_counter()
+    proc.join(timeout=timeout)
+    waited = time.perf_counter() - t0
+    check(not proc.is_alive(), f"{label} the host side did not end within {timeout} s")
+    check(proc.exitcode == 0 and os.path.exists(out_fn), f"{label} the host side failed (exit code {proc.exitcode})")
+    with open(out_fn, "rb") as fh:
+        return pickle.load(fh), waited
+
+
+def phase_rank_task(workdir, setup):
+    """The rank task on the card over the JAX suite's 50k-doc golden corpus,
+    made and indexed by ``setup`` (``rank_golden_setup``'s result, here or in
+    the set-up process): the index builds' seconds, the six searchers against
+    PARITY.md's pins and against the CPU, BM25Grid's split and memory, a
+    repeated BM25 search, the CLI, and one profiled BM25 search."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.evaluation import DEFAULT_METRICS
+    from capreolus_tpu_torch.searcher.tpu import ACC_BUDGET_ELEMENTS
+
+    label = "[8 rank task]"
+    register_golden(*setup["files"], sorted(setup["topics"]))  # into this process's registry
+    corpus_dir, qrel_fn, topic_fn = setup["files"]
+    topics, qrels, builds = setup["topics"], setup["qrels"], setup["builds"]
+    print(f"{label} golden corpus: {setup['docs']} docs, {len(topics)} topics, "
+          f"{sum(len(q) for q in qrels.values())} judgements; made in {setup['corpus_s']:.1f} s before this phase")
+    print(f"{label} index build seconds: plain {builds['plain']}, with positions {builds['positions']} (before "
+          f"this phase)")
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_rank")
 
     reset_launch_counts()
     results, secs, metrics, runs, card_searchers = {}, {}, {}, {}, {}
@@ -2367,7 +2536,7 @@ def phase_rank_task(workdir):
 
 # ---------------------------------------------------------------- phase 9: training
 TRAIN_SPLIT = (15, 5, 5)  # train / dev / test topics of the 20k serving corpus's 25
-TRAIN_THRESHOLD = 100  # threshold = testthreshold of the full-width training runs
+TRAIN_THRESHOLD = 50  # threshold = testthreshold of the full-width training runs: the depth of their predictions
 STEP_RTOL = 1e-4  # step 1's loss, and each gradient tensor against its largest entry, card vs CPU from
 # one init and one batch: f32 sums in other orders (K1's pooled features sit within 2e-4 of the
 # plain path's on log sums of up to ~10, so a frozen KNRM's combine gradients move by ~2e-5)
@@ -3114,27 +3283,41 @@ def sparse_crossover(label, data, shape):
     return {"ms_by_docs": rows, "tiered_faster_from_docs": crossover, "engine_rule_max_exact_docs": EXACT_MAX_DOCS}
 
 
-def phase_sparse_engine(workdir, shape=SPARSE, cache_dir=None):
-    """The sparse engine at bench.py's 200k-doc shape on the card: a uniform
-    corpus (no doc-id locality) and a clustered one, bench.py's traffic, every
-    mode timed and profiled and held against the others and the CPU, the
-    exact/tiered crossover, and no port kernel launched."""
+def sparse_corpora(shape=SPARSE, cache_dir=None):
+    """Phase 10's two synthetic corpora, each built once into its cache file
+    under ``cache_dir`` (the gitignored ``build/sparse`` by default) and read
+    from it after: {name: (IndexData, seconds)}."""
     from capreolus_tpu_torch.index.synth import synth_clustered_index, synth_uniform_index
 
-    label = "[10 sparse engine]"
     cache_dir = cache_dir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sparse")
     os.makedirs(cache_dir, exist_ok=True)
     n, v, u = shape["num_docs"], shape["num_terms"], shape["avg_unique"]
-    reset_launch_counts()
-    summary = {"shape": shape}
+    out = {}
     for name, build, seed in (("uniform", synth_uniform_index, shape["uniform_seed"]),
                               ("clustered", synth_clustered_index, shape["clustered_seed"])):
         t0 = time.perf_counter()
         data = build(n, v, u, seed=seed, cache_fn=os.path.join(cache_dir, f"{name}_{n}_{v}_{seed}.npz"))
-        built = time.perf_counter() - t0
+        out[name] = (data, time.perf_counter() - t0)
+    return out
+
+
+def phase_sparse_engine(workdir, built_s, shape=SPARSE, cache_dir=None):
+    """The sparse engine at bench.py's 200k-doc shape on the card: a uniform
+    corpus (no doc-id locality) and a clustered one, bench.py's traffic, every
+    mode timed and profiled and held against the others and the CPU, the
+    exact/tiered crossover, and no port kernel launched. ``sparse_corpora``
+    built the corpora into their cache files before this phase, in
+    ``built_s[name]`` seconds; they are read from there."""
+    label = "[10 sparse engine]"
+    n = shape["num_docs"]
+    reset_launch_counts()
+    summary = {"shape": shape}
+    for name, (data, read_s) in sparse_corpora(shape, cache_dir).items():
         queries = sparse_queries(data, shape["query_seed"], shape["queries"], shape["terms"], n)
         batches = [queries[i:i + shape["batch"]] for i in range(0, len(queries), shape["batch"])]
-        print(f"{label} {name} corpus: {data.num_docs} docs, {len(data.doc_ids)} postings, built in {built:.1f} s; "
+        built = built_s[name]
+        print(f"{label} {name} corpus: {data.num_docs} docs, {len(data.doc_ids)} postings, built in {built:.1f} s "
+              f"before this phase, read here in {read_s:.1f} s; "
               f"{len(queries)} queries of {shape['terms']} terms in {len(batches)} batches, k={shape['topk']}")
         summary[name] = sparse_corpus_phase(f"{label} {name}", data, batches, shape,
                                             queries[:SPARSE_CPU_QUERIES], corpus=name)
@@ -3266,15 +3449,13 @@ def index_arrays_equal(a, b):
         np.array_equal(da.prune_tables[k], db.prune_tables[k]) for k in da.prune_tables)
 
 
-def robust04_host_side(workdir, out_fn, shape=ROBUST04_SHAPED, cache_dir=None, threads=ROBUST04_HOST_THREADS):
+def robust04_host_side(workdir, shape=ROBUST04_SHAPED, cache_dir=None, threads=ROBUST04_HOST_THREADS):
     """Phase 11's work that needs no card, run in a process of its own while
-    the card runs phases 5-10 (``start_robust04_host_side``): the corpus read
+    the card runs phases 5-10 (``start_host_side``): the corpus read
     by the native TREC reader, the index builds (native porter on every doc;
     the Python path and krovetz on a prefix) under ``workdir``'s
     ``cache_robust04``, and BM25 and BM25RM3 through ``rank.searcheval`` on the
-    CPU with ``threads`` threads. Pickles what phase 11 reads to ``out_fn``."""
-    import pickle
-
+    CPU with ``threads`` threads. Returns what phase 11 reads."""
     from capreolus_tpu_torch.core import constants
     from capreolus_tpu_torch.index import Index
     from capreolus_tpu_torch.native import native_status
@@ -3325,39 +3506,15 @@ def robust04_host_side(workdir, out_fn, shape=ROBUST04_SHAPED, cache_dir=None, t
         _, out["secs"][name], out["metrics"][name], out["runs"][name] = rank_search(
             config, "cpu", os.path.join(workdir, "results_robust04_cpu"), benchmark)
     out["seconds"] = round(time.perf_counter() - t_start, 1)
-    with open(out_fn + ".tmp", "wb") as fh:
-        pickle.dump(out, fh)
-    os.replace(out_fn + ".tmp", out_fn)
-
-
-def _robust04_host_main(workdir, out_fn, shape):
-    try:
-        robust04_host_side(workdir, out_fn, shape)
-    except SmokeFailure as e:
-        print(f"FAILED: {e}", file=sys.stderr, flush=True)
-        sys.exit(1)
-
-
-def start_robust04_host_side(workdir, shape=ROBUST04_SHAPED):
-    """Start phase 11's card-free work (``robust04_host_side``) in a spawned
-    process. Returns (process, the file it writes)."""
-    import multiprocessing
-
-    out_fn = os.path.join(workdir, "robust04_host_side.pkl")
-    proc = multiprocessing.get_context("spawn").Process(target=_robust04_host_main, args=(workdir, out_fn, shape),
-                                                         name="robust04_host_side")
-    proc.start()
-    return proc, out_fn
+    return out
 
 
 def phase_robust04(workdir, host, shape=ROBUST04_SHAPED):
     """A Robust04-shaped experiment through ``rank.searcheval``: the corpus, the
-    index builds and the CPU's runs from ``host`` (``start_robust04_host_side``,
-    waited for here), then BM25 and BM25RM3 on ``robust04.yang19``'s five folds
-    on the card, their run files and metrics against the CPU's, and the
+    index builds and the CPU's runs from ``host`` (``start_host_side`` of
+    ``robust04_host_side``, waited for here), then BM25 and BM25RM3 on
+    ``robust04.yang19``'s five folds on the card, their run files and metrics against the CPU's, and the
     significance test of BM25 against RM3 on each device."""
-    import pickle
-
     from capreolus_tpu_torch.core import constants
     from capreolus_tpu_torch.evaluation import DEFAULT_METRICS
     from capreolus_tpu_torch.evaluation.significance import compare_runs
@@ -3369,14 +3526,7 @@ def phase_robust04(workdir, host, shape=ROBUST04_SHAPED):
 
     capreolus_tpu_torch.load_all_modules()
     label = "[11 robust04-shaped]"
-    proc, out_fn = host
-    t0 = time.perf_counter()
-    proc.join(timeout=ROBUST04_HOST_WAIT_S)
-    waited = time.perf_counter() - t0
-    check(not proc.is_alive(), f"{label} the host side did not end within {ROBUST04_HOST_WAIT_S} s")
-    check(proc.exitcode == 0 and os.path.exists(out_fn), f"{label} the host side failed (exit code {proc.exitcode})")
-    with open(out_fn, "rb") as fh:
-        cpu = pickle.load(fh)
+    cpu, waited = wait_host_side(host, ROBUST04_HOST_WAIT_S, label)
     n, per_file, builds = shape["num_docs"], shape["docs_per_file"], cpu["builds_s"]
     qrels = load_qrels(cpu["qrel_fn"])
     check(cpu["num_docs"] == n, f"{label} the index holds {cpu['num_docs']} docs, not {n}")
@@ -4312,8 +4462,8 @@ def phase_amp(workdir, coll, qids, topic_of):
 
 def phase_colbert_training(workdir, coll, qids, corpus_dir, topics, peaks):
     """13c: the colbert reranker trained by the rerank task at BERT-base width,
-    its dev.best the checkpointfile of ColbertRetrievalService over phase 4's
-    bf16 corpus."""
+    its dev.best the checkpointfile of ColbertRetrievalService over the first
+    PREFIX_DOCS docs of phase 4's corpus in bf16."""
     from capreolus_tpu_torch.convert import bert_state_dict, load_params
     from capreolus_tpu_torch.core import constants
     from capreolus_tpu_torch.ops.maxsim import maxsim_scores_plain
@@ -4356,10 +4506,11 @@ def phase_colbert_training(workdir, coll, qids, corpus_dir, topics, peaks):
     del task, reranker, trainer
     torch.cuda.empty_cache()
 
-    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")  # phase 6's index
+    prefix = {"name": "dummy", "path": corpus_prefix(workdir, corpus_dir)}
+    constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_colbert")
     config = get_bert_config("bert-base-uncased")
     searcher = Searcher.create("colbert", {**COLBERT, "pretrained": "bert-base-uncased", "allowrandominit": True,
-                                           "checkpointfile": str(ckpt), "index": {"collection": coll}})
+                                           "checkpointfile": str(ckpt), "index": {"collection": prefix}})
     t0 = time.perf_counter()
     searcher.index.create_index()
     svc = ColbertRetrievalService(searcher, max_k=100, device="cuda")
@@ -4824,7 +4975,6 @@ SCALE_ENGINES = {  # 15b's engines over the synthetic 1M x 768 matrix (MS MARCO 
     "ivf_nprobe8": {"clusters": 1024, "nprobe": 8}, "ivf_nprobe32": {"clusters": 1024, "nprobe": 32},
     "streamed": {"hbmbudget": "chunks"},
 }
-SPLADE_DOCS = 4000  # 15c's SPLADE corpus: a prefix of phase 4's (its f32 decoder is ~12 GFLOP a document)
 IMPACT_QUERIES = 8
 IMPACT_RAW_TOL = 1e-3  # raw impacts of 8 docs, card vs CPU, against the largest: 12 f32 BERT-base layers (BERT_CPU_TOL)
 IMPACT_SCORE_RTOL = SPARSE_RTOL  # one CSR and one query on both devices: the sparse engine's contract
@@ -5192,8 +5342,8 @@ def term_weight_err(card, cpu, cut):
 
 
 def phase_impact_serving(workdir, corpus_dir, topics, ckpt_dir):
-    """15c: ImpactRetrievalService over phase 4's corpus (uniCOIL) and its
-    first SPLADE_DOCS docs (SPLADE); raw impacts and rankings card vs CPU."""
+    """15c: ImpactRetrievalService (uniCOIL, SPLADE) over ``corpus_dir`` (the
+    first PREFIX_DOCS docs of phase 4's corpus); raw impacts and rankings card vs CPU."""
     from capreolus_tpu_torch.searcher import Searcher
     from capreolus_tpu_torch.searcher.scoring import DeviceIndex, ScoringEngine
     from capreolus_tpu_torch.serving import ImpactRetrievalService
@@ -5203,19 +5353,11 @@ def phase_impact_serving(workdir, corpus_dir, topics, ckpt_dir):
     batch_queries = [topics[i % len(topics)] for i in range(DENSE_BATCH)]
     out = {}
     for encoder in ("unicoil", "splade"):
-        coll_path = corpus_dir
-        if encoder == "splade":
-            from capreolus_tpu_torch.index import Index
-
-            index = Index.create("tpu", {"collection": {"name": "dummy", "path": corpus_dir}})
-            index.create_index()
-            docs = [(d, index.get_doc(d)) for d in index.data.docid_strings[:SPLADE_DOCS]]
-            coll_path = os.path.join(workdir, "corpus_splade")
-            write_trec(docs, coll_path)
         config = {"encoder": encoder, "pretrained": ckpt_dir, "checkpointfile": ckpts[encoder]}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        svc = ImpactRetrievalService.from_config(collection="dummy", collection_path=coll_path, device="cuda", **config)
+        svc = ImpactRetrievalService.from_config(collection="dummy", collection_path=corpus_dir, device="cuda",
+                                                 **config)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         engine, docids, scale = svc._snapshot
@@ -5426,7 +5568,7 @@ def phase_dense_retrieval(workdir, corpus_dir, topics, peaks):
     torch.cuda.empty_cache()
     scale = timed15("15b", phase_dense_scale, workdir, peaks)
     constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache")
-    impact = timed15("15c", phase_impact_serving, workdir, corpus_dir, topics, ckpt_dir)
+    impact = timed15("15c", phase_impact_serving, workdir, corpus_prefix(workdir, corpus_dir), topics, ckpt_dir)
     training = timed15("15e", phase_dense_training, workdir, corpus_dir, topics, ckpt_dir)
     summary = {"dense": dense, "scale": scale, "impact": impact, "hybrid": hybrid, "training": training,
                "seconds": time.perf_counter() - t0, "seconds_by_part": seconds}
@@ -5667,14 +5809,16 @@ def phase_colbert_options(workdir, corpus_dir, topics, none, peaks, device="cuda
 
 
 def phase16_services(workdir, corpus_dir, none, device="cuda"):
-    """The four services phases 16b-16d share: BM25 and the bf16 dense and
-    uniCOIL services over phase 4's index and phase 15's caches, ColBERT over
-    phase 6's index and cache. Returns {family: (service, cache base)}."""
+    """The four services phases 16b-16d share: BM25 over phase 4's index, the
+    bf16 dense service over phase 15's cache of it, uniCOIL over phase 15's
+    prefix and cache, ColBERT over phase 6's index and cache. Returns
+    {family: (service, cache base)}."""
     from capreolus_tpu_torch.core import constants
     from capreolus_tpu_torch.serving import (ColbertRetrievalService, DenseRetrievalService, ImpactRetrievalService,
                                              RetrievalService)
 
     where = dict(collection="dummy", collection_path=corpus_dir, device=device)
+    prefix = dict(where, collection_path=corpus_prefix(workdir, corpus_dir))
     ckpt_dir = os.path.join(workdir, "bert_mlm_15")
     base = os.path.join(workdir, "cache")
     constants["CACHE_BASE_PATH"] = base
@@ -5683,7 +5827,7 @@ def phase16_services(workdir, corpus_dir, none, device="cuda"):
         "dense": (DenseRetrievalService.from_config(max_k=DENSE_HITS, pretrained=ckpt_dir, **where), base),
         "unicoil": (ImpactRetrievalService.from_config(encoder="unicoil", pretrained=ckpt_dir,
                                                         checkpointfile=os.path.join(workdir, "unicoil_15.npz"),
-                                                        **where), base),
+                                                        **prefix), base),
     }
     base_colbert = os.path.join(workdir, "cache_colbert")
     constants["CACHE_BASE_PATH"] = base_colbert
@@ -5824,13 +5968,13 @@ def phase_refresh(workdir, services, corpus_dir, topics, device="cuda", shape=P1
         rng = np.random.Generator(np.random.PCG64(16))
         deleted = sorted(docids[i] for i in rng.choice(len(docids), size=shape["deleted"], replace=False))
         merge_s = 0.0
-        if base not in ops_done:  # one set of ops per index directory
+        if str(index.get_index_path()) not in ops_done:  # one set of ops per index directory
             index.add_documents(added)
             index.delete_documents(deleted)
             t0 = time.perf_counter()
             index.refresh()
             merge_s = time.perf_counter() - t0
-            ops_done.add(base)
+            ops_done.add(str(index.get_index_path()))
         encoded0 = getattr(getattr(svc, "searcher", None), "docs_encoded", 0)
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -6762,46 +6906,140 @@ def add_phase18_launches(kernels, p18):
                                                       "bound_ms", "bound_by")}
 
 
+IRDS19 = {"docs": 4000, "queries": 8, "seed": 19, "hits": 1000}  # the stand-in's corpus and each dataset's queries
+
+
+def irds_standin():
+    """``tests/torch_irds_standin.py`` of this checkout, which imports no JAX."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_irds_standin.py"
+    spec = importlib.util.spec_from_file_location("torch_irds_standin", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_irds(workdir, device="cuda", shape=IRDS19):
+    """Phase 19: the rank task over ``irds.*`` benchmarks. A seeded stand-in
+    for ``ir_datasets`` in ``sys.modules`` serves a docs-only parent and two
+    datasets over it; ``get_irds`` registers each (one collection, so one
+    index for both), then ``rank.searcheval`` with BM25 on ``device`` and on
+    the CPU: per dataset the run files with the same docids in the same order
+    and scores within SPARSE_RTOL relative, the cross-validated metrics equal,
+    and no port kernel launched (BM25 has no Pallas kernel)."""
+    from capreolus_tpu_torch.core import constants
+    from capreolus_tpu_torch.utils.irds import get_irds
+
+    t0 = time.perf_counter()
+    standin = irds_standin()
+    saved = sys.modules.get("ir_datasets")
+    sys.modules["ir_datasets"] = standin.make_standin(num_docs=shape["docs"], num_queries=shape["queries"],
+                                                     seed=shape["seed"])
+    card = smi_line() if device == "cuda" else device
+    out = {}
+    try:
+        constants["CACHE_BASE_PATH"] = os.path.join(workdir, "cache_irds")
+        for name in standin.DATASETS:
+            collection, benchmark = get_irds(name)
+            reset_launch_counts()
+            task, secs, scores, runs = rank_search({"name": "BM25", "hits": shape["hits"]}, device,
+                                                   os.path.join(workdir, f"results_irds_{device}"),
+                                                   benchmark={"name": benchmark})
+            launched = {k: c for k, c in launch_counts().items() if c}
+            check(not launched, f"19 {name}: the BM25 path launched a port kernel: {launched}")
+            _, cpu_secs, cpu_scores, cpu_runs = rank_search({"name": "BM25", "hits": shape["hits"]}, "cpu",
+                                                            os.path.join(workdir, "results_irds_cpu_ref"),
+                                                            benchmark={"name": benchmark})
+            check(sorted(runs) == sorted(cpu_runs) and runs,
+                  f"19 {name}: run files {sorted(runs)} vs {sorted(cpu_runs)}")
+            rel, hits = 0.0, 0
+            for fn, run in runs.items():
+                check(list(run) == list(cpu_runs[fn]), f"19 {name}: {fn}'s queries differ from the CPU's")
+                for qid, docs in run.items():
+                    want = cpu_runs[fn][qid]
+                    check(list(docs) == list(want), f"19 {name} {fn} {qid}: docids differ from the CPU's")
+                    got_s, want_s = np.array(list(docs.values())), np.array(list(want.values()))
+                    rel = max(rel, float(np.max(np.abs(got_s - want_s) / np.maximum(np.abs(want_s), 1e-30))))
+                    hits += len(docs)
+            check(rel <= SPARSE_RTOL, f"19 {name}: scores card vs CPU {rel:.3g} > {SPARSE_RTOL} relative")
+            check(scores == cpu_scores, f"19 {name}: metrics {scores} vs the CPU's {cpu_scores}")
+            check(task.benchmark.collection.get_path() is None, f"19 {name}: the irds collection has a path")
+            out[name] = {"collection": collection, "benchmark": benchmark,
+                         "queries": len(task.benchmark.topics["title"]), "hits": hits, "search_s": secs, "search_s_cpu": cpu_secs, "score_rel_err": rel,
+                         "map": scores["map"], "ndcg_cut_20": scores["ndcg_cut_20"]}
+            print(f"[19 irds {name}] {card}: rank.searcheval benchmark.name={benchmark} (collection {collection}, "
+                  f"no path) with BM25: search {secs:.2f} s on {device}, {cpu_secs:.2f} s on the CPU; {hits} hits, "
+                  f"run files equal docid for docid, scores within {rel:.3g} relative (tolerance {SPARSE_RTOL}); "
+                  f"map {scores['map']:.4f} ndcg_cut_20 {scores['ndcg_cut_20']:.4f}, every metric equal to the CPU's")
+        check(len({entry["collection"] for entry in out.values()}) == 1, "19: the datasets do not share a collection")
+    finally:
+        if saved is None:
+            sys.modules.pop("ir_datasets", None)
+        else:
+            sys.modules["ir_datasets"] = saved
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[19 irds] ir_datasets is a stand-in (tests/torch_irds_standin.py: {shape['docs']} seeded docs, "
+          f"{shape['queries']} queries in each of {len(standin.DATASETS)} datasets); {card}; every check passed in "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
+def smoke_workdir(prefix):
+    """A new work directory, which the port's caches and results go under."""
+    workdir = tempfile.mkdtemp(prefix=prefix)
+    os.environ["CAPREOLUS_CACHE"] = os.path.join(workdir, "cache")
+    os.environ["CAPREOLUS_RESULTS"] = os.path.join(workdir, "results")
+    os.environ["CAPREOLUS_OFFLINE"] = "1"  # every file a module reads is local: a download must fail, not be tried
+    return workdir
+
+
+def last_line(name):
+    """The contract's last line, printed only when every phase passed."""
+    return json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
     peaks = card_peaks(name)
-    workdir = tempfile.mkdtemp(prefix="capreolus_tpu_torch_smoke_")
-    os.environ["CAPREOLUS_CACHE"] = os.path.join(workdir, "cache")
-    os.environ["CAPREOLUS_RESULTS"] = os.path.join(workdir, "results")
-    os.environ["CAPREOLUS_OFFLINE"] = "1"  # every file a module reads is local: a download must fail, not be tried
+    workdir = smoke_workdir("capreolus_tpu_torch_smoke_")
     seconds = {}
-    robust04_host = None
+    serving_host = robust04_host = prebuild = None
 
-    def timed(phase, *args, **kwargs):
+    def timed(phase, *args, key=None, **kwargs):
         t0 = time.perf_counter()
         result = phase(*args, **kwargs)
-        seconds[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 1)
+        seconds[key or phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 1)
         return result
 
     try:
+        timed(phase_native)  # before the set-up process, which builds an index with its libraries
+        serving_host = start_host_side(workdir, serving_setup)  # phase 4's card-free set-up, beside 2-3
         timed(phase_build)
-        timed(phase_native)
         k1 = timed(phase_k1_check, peaks)
         k2 = timed(phase_k2_check, peaks)
         k3 = timed(phase_k3_check, peaks)
         x1 = timed(phase_x1_check, peaks)
         q1 = timed(phase_q1_check, peaks)
         q1["scales_differing_from_cpu"] = timed(phase_scales_check)
-        k1_launches, corpus_dir, topics, qrels, knrm = timed(phase_serving, workdir, SERVING_DOCS, ckpt_seed=3)
-        robust04_host = start_robust04_host_side(workdir)  # phase 11's card-free work, beside phases 5-10
+        setup = timed(phase_setup_wait, serving_host, "[4 serving]", key="serving_setup_wait")
+        k1_launches, corpus_dir, topics, qrels, knrm = timed(phase_serving, workdir, setup, ckpt_seed=3)
+        robust04_host = start_host_side(workdir, robust04_host_side)  # phase 11's card-free work, beside phases 5-10
+        prebuild = start_host_side(workdir, prebuild_setup)  # phase 8's and 10's card-free set-up, beside 5-7
         k2_launches, k2_served, f32 = timed(phase_bert_serving, workdir, corpus_dir, topics, peaks)
         bert_int8_launches, bert_int8 = timed(phase_bert_int8_serving, workdir, corpus_dir, topics, f32)
         colbert_launches, k3_served, none = timed(phase_colbert_serving, workdir, corpus_dir, topics, peaks)
         colbert_int8_launches, colbert_int8 = timed(phase_colbert_int8_serving, workdir, corpus_dir, topics, none)
-        timed(phase_rank_task, workdir)
+        prebuilt = timed(phase_setup_wait, prebuild, "[8 rank task]", key="prebuild_wait")
+        timed(phase_rank_task, workdir, prebuilt["rank"])
         training_launches, training_held = {"train": {}, "predict": {}}, {}
         validations = {"phase9": {"device": 0, "host": 0}}
         with counted_validations(validations["phase9"]):  # phase 17 reads how phase 9 validated
             golden = timed(phase_train_golden, workdir, training_launches, training_held)
             training = timed(phase_training, workdir, corpus_dir, topics, qrels, training_launches, training_held)
         print("[9 training] summary " + json.dumps({"golden": golden, "full_width": training}, default=str))
-        timed(phase_sparse_engine, workdir)
+        timed(phase_sparse_engine, workdir, prebuilt["sparse_s"])
         timed(phase_robust04, workdir, robust04_host)
         other_launches = {}
         other = timed(phase_other_rerankers, workdir, corpus_dir, topics, other_launches)
@@ -6812,10 +7050,12 @@ def main():
         p17 = timed(phase_sharded_serving, workdir, corpus_dir, topics, none, knrm, validations, peaks)
         print(f"[17 total] the script has run {time.perf_counter() - t_start:.1f} s")
         p18 = timed(phase_training_mesh, workdir, peaks)
+        timed(phase_irds, workdir)
     finally:
-        if robust04_host is not None and robust04_host[0].is_alive():
-            robust04_host[0].terminate()
-            robust04_host[0].join()
+        for host in (serving_host, robust04_host, prebuild):
+            if host is not None and host[0].is_alive():
+                host[0].terminate()
+                host[0].join()
         shutil.rmtree(workdir, ignore_errors=True)
 
     serving = k1["serving"]
@@ -6962,32 +7202,42 @@ def main():
     print(f"[7 done] every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase: "
           f"{json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    print(last_line(name))
     return 0
 
 
-def main_phase18():
+def only18(workdir, name):
     """``--only 18``: the kernels' build and phase 18 alone (the quickest proof
     that multi-device training still runs on the card, on four cards where
-    the machine has them); the last line as ``main``'s."""
+    the machine has them)."""
+    phase_build()
+    p18 = phase_training_mesh(workdir, card_peaks(name))
+    return {"phase18": {k: p18[k] for k in ("devices", "distinct_cards", "modes", "k2", "checkpoint")}}
+
+
+def only19(workdir, name):
+    """``--only 19``: phase 19 alone (the irds bridge through the rank task on
+    the card, with the native helpers it builds its index with)."""
+    phase_native()
+    return {"phase19": phase_irds(workdir)}
+
+
+ONLY = {"18": only18, "19": only19}
+
+
+def main_only(phase):
+    """``--only <phase>``: ``ONLY[phase]`` in a work directory of its own, what
+    it returns as one JSON line, then the last line as ``main``'s."""
     name = phase_device()
-    peaks = card_peaks(name)
-    workdir = tempfile.mkdtemp(prefix="capreolus_tpu_torch_smoke18_")
-    os.environ["CAPREOLUS_CACHE"] = os.path.join(workdir, "cache")
-    os.environ["CAPREOLUS_RESULTS"] = os.path.join(workdir, "results")
-    os.environ["CAPREOLUS_OFFLINE"] = "1"
+    workdir = smoke_workdir(f"capreolus_tpu_torch_smoke{phase}_")
     try:
-        phase_build()
-        p18 = phase_training_mesh(workdir, peaks)
+        result = ONLY[phase](workdir, name)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print(json.dumps({"phase18": {k: p18[k] for k in ("devices", "distinct_cards", "modes", "k2", "checkpoint")}},
-                     default=str))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps(result, default=str))
+    print(last_line(name))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main_phase18() if sys.argv[1:] == ["--only", "18"] else main())
+    sys.exit(main_only(sys.argv[2]) if sys.argv[1:2] == ["--only"] else main())
