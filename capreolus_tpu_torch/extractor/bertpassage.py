@@ -24,6 +24,7 @@ from capreolus_tpu_torch.core import ConfigOption, Dependency
 from capreolus_tpu_torch.extractor import Extractor
 from capreolus_tpu_torch.utils.common import padlist
 from capreolus_tpu_torch.utils.exceptions import MissingDocError
+from capreolus_tpu_torch.utils.tracing import span
 
 PASSAGE_CACHE_DOCS = 200000  # docs whose passages stay tokenized in memory
 
@@ -87,13 +88,14 @@ class BertPassage(Extractor):
     def _get_passages(self, docid):
         if docid in self._doc_passage_cache:
             return self._doc_passage_cache[docid]
-        doc = self.index.get_doc(docid)
-        if doc is None:
-            raise MissingDocError("?", docid)
-        if self.config["sentences"]:
-            passages = self._get_sent_passages(doc)
-        else:
-            passages = self._get_sliding_window_passages(doc)
+        with span("features.doc_tokens"):  # a passage-cache miss: the doc read and tokenized
+            doc = self.index.get_doc(docid)
+            if doc is None:
+                raise MissingDocError("?", docid)
+            if self.config["sentences"]:
+                passages = self._get_sent_passages(doc)
+            else:
+                passages = self._get_sliding_window_passages(doc)
         if len(self._doc_passage_cache) < PASSAGE_CACHE_DOCS:
             self._doc_passage_cache[docid] = passages
         return passages

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from capreolus_tpu_torch.core import Dependency, ModuleBase, import_all_modules, register_module_type
+from capreolus_tpu_torch.utils.tracing import span
 
 
 @register_module_type
@@ -72,7 +73,9 @@ class Reranker(ModuleBase):
 
     @staticmethod
     def put(batch, key, device):
-        return torch.from_numpy(np.asarray(batch[key])).to(device)
+        """The batch's array ``key`` as a tensor on ``device`` (a ``reranker.inputs`` span)."""
+        with span("reranker.inputs"):
+            return torch.from_numpy(np.asarray(batch[key])).to(device)
 
     def score(self, batch, device, dropout_seed=None):
         """[pos_scores, neg_scores] for a training batch."""

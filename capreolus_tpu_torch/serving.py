@@ -51,6 +51,7 @@ import torch
 from capreolus_tpu_torch.core import ConfigError
 from capreolus_tpu_torch.reranker.common import matmul_f32
 from capreolus_tpu_torch.utils.loginit import get_logger
+from capreolus_tpu_torch.utils.tracing import TimedSpan, span
 
 logger = get_logger(__name__)
 
@@ -62,6 +63,26 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False; "
                            "pass device='cpu' to run on the CPU")
     return dev
+
+
+def _hit_lists(fetched, docids, keep) -> List[List[Tuple[str, float]]]:
+    """Per query of each fetched (queries, scores, ords) batch, in rank order,
+    its (docid, score) pairs at the slots ``keep(scores, ords)`` marks (a
+    boolean array of the batch's shape)."""
+    results: List[List[Tuple[str, float]]] = []
+    with span("search.hits"):
+        for n, scores, ords in fetched:
+            kept = keep(scores, ords)
+            for qi in range(n):
+                row = kept[qi]
+                results.append([(docids[int(o)], float(s)) for s, o in zip(scores[qi][row], ords[qi][row])])
+    return results
+
+
+def _positive_prefix(scores, ords):
+    """Each row's slots before its first score <= 0 (scores descend; the zero
+    or sentinel tail follows)."""
+    return np.logical_and.accumulate(~(scores <= 0.0), axis=1)
 
 
 class RetrievalService:
@@ -172,27 +193,21 @@ class RetrievalService:
         pending = []
         for start in range(0, len(queries), self.batch_size):
             batch = queries[start : start + self.batch_size]
-            term_lists = [self._analyze(q, host.vocab) for q in batch]
-            if self.pruning and engine.supports_pruning(self.model):
-                res = engine.search_pruned(term_lists, model=self.model, params=self.params, topk=k,
-                                           materialize=False)
-            else:
-                res = engine.search(term_lists, model=self.model, params=self.params, topk=k, materialize=False)
+            with span("search.analyze"):
+                term_lists = [self._analyze(q, host.vocab) for q in batch]
+            with span("search.score"):
+                if self.pruning and engine.supports_pruning(self.model):
+                    res = engine.search_pruned(term_lists, model=self.model, params=self.params, topk=k,
+                                               materialize=False)
+                else:
+                    res = engine.search(term_lists, model=self.model, params=self.params, topk=k,
+                                        materialize=False)
             pending.append((len(batch), res))
 
         def collect() -> List[List[Tuple[str, float]]]:
-            results: List[List[Tuple[str, float]]] = []
-            for n, res in pending:
-                scores, ords = fetch(res)
-                scores, ords = scores[0], ords[0]
-                for qi in range(n):
-                    hits = []
-                    for s, o in zip(scores[qi], ords[qi]):
-                        if s <= 0.0:
-                            break
-                        hits.append((docids[int(o)], float(s)))
-                    results.append(hits)
-            return results
+            with span("search.fetch"):
+                fetched = [(n, fetch(res)) for n, res in pending]
+            return _hit_lists(((n, scores[0], ords[0]) for n, (scores, ords) in fetched), docids, _positive_prefix)
 
         return collect
 
@@ -207,24 +222,18 @@ class RetrievalService:
         pending = []
         for start in range(0, len(queries), self.batch_size):
             batch = queries[start : start + self.batch_size]
-            term_lists = [self._analyze(q, host.vocab) for q in batch]
-            units = sindex.build_work_units(term_lists, model=self.model)
-            scores, ords = sharded_search(sindex, units, num_queries=len(batch), topk=k, model=self.model,
-                                          params=self.params, materialize=False)
+            with span("search.analyze"):
+                term_lists = [self._analyze(q, host.vocab) for q in batch]
+            with span("search.score"):
+                units = sindex.build_work_units(term_lists, model=self.model)
+                scores, ords = sharded_search(sindex, units, num_queries=len(batch), topk=k, model=self.model,
+                                              params=self.params, materialize=False)
             pending.append((len(batch), scores, ords))
 
         def collect() -> List[List[Tuple[str, float]]]:
-            results: List[List[Tuple[str, float]]] = []
-            for n, scores, ords in pending:
-                scores, ords = scores.cpu().numpy(), ords.cpu().numpy()
-                for qi in range(n):
-                    hits = []
-                    for s, o in zip(scores[qi], ords[qi]):
-                        if s <= 0.0:
-                            break
-                        hits.append((docids[int(o)], float(s)))
-                    results.append(hits)
-            return results
+            with span("search.fetch"):
+                fetched = [(n, scores.cpu().numpy(), ords.cpu().numpy()) for n, scores, ords in pending]
+            return _hit_lists(fetched, docids, _positive_prefix)
 
         return collect
 
@@ -293,20 +302,24 @@ class RerankingService(RetrievalService):
         """Two-stage dispatch/collect split: dispatch queues the first-stage
         retrieval; collect runs extraction and the reranker.
 
-        Each collect sets ``last_stage_ms``: ``first_stage`` from dispatch until
-        the first-stage hits are on the host, ``rerank`` from there until the
-        reranked lists are built (both stages end in a device-to-host copy, so
-        each span holds its own device work), and ``features``, the part of
-        ``rerank`` the host spends building the reranker's input."""
-        t0 = time.perf_counter()
-        first_collect = RetrievalService.search_async(self, queries, k=max(self.topn, k))
+        Each collect sets ``last_stage_ms``, read from the stages' spans
+        (``utils/tracing.py``): ``first_stage`` from dispatch until the
+        first-stage hits are on the host (the two ``rerank.first_stage``
+        spans and the caller's time between them), ``rerank`` from there
+        until the reranked lists are built (``rerank.stage``; both stages end
+        in a device-to-host copy, so each holds its own device work), and
+        ``features``, the part of ``rerank`` the host spends building the
+        reranker's input (the ``rerank.features`` spans)."""
+        with TimedSpan("rerank.first_stage") as dispatched:
+            first_collect = RetrievalService.search_async(self, queries, k=max(self.topn, k))
 
         def collect():
-            first_stage = first_collect()
-            t1 = time.perf_counter()
-            results, features_s = self._rerank_stage(queries, first_stage, k)
-            self.last_stage_ms = {"first_stage": (t1 - t0) * 1e3, "rerank": (time.perf_counter() - t1) * 1e3,
-                                  "features": features_s * 1e3}
+            with TimedSpan("rerank.first_stage") as fetched:
+                first_stage = first_collect()
+            with TimedSpan("rerank.stage") as rerank:
+                results, features_s = self._rerank_stage(queries, first_stage, k)
+            self.last_stage_ms = {"first_stage": (fetched.stop - dispatched.start) * 1e3,
+                                  "rerank": rerank.seconds * 1e3, "features": features_s * 1e3}
             return results
 
         return collect
@@ -319,37 +332,43 @@ class RerankingService(RetrievalService):
         (numpy arrays; for a BERT reranker ``pos_bert_input``, ``pos_mask`` and
         ``pos_seg`` of shape [docs, numpassages, maxseqlen])."""
         extractor = self.reranker.extractor
-        q_toks = extractor.tokenizer.tokenize(query)
-        extractor.qid2toks[qid] = q_toks
-        # live queries were never seen at preprocess time: fetch their idf
-        # from the index now (idf-gated models read the query_idf feature)
-        if hasattr(extractor, "idf") and extractor.config.get("calcidf", True):
-            for tok in q_toks:
-                if tok not in extractor.idf:
-                    extractor.idf[tok] = self.index.get_idf(tok)
-        samples = [extractor.id2vec(qid, docid, label=[1, 0], training=False) for docid in docids]
-        return self._collate(samples, self._keys)
+        with span("features.query"):
+            q_toks = extractor.tokenizer.tokenize(query)
+            extractor.qid2toks[qid] = q_toks
+            # live queries were never seen at preprocess time: fetch their idf
+            # from the index now (idf-gated models read the query_idf feature)
+            if hasattr(extractor, "idf") and extractor.config.get("calcidf", True):
+                for tok in q_toks:
+                    if tok not in extractor.idf:
+                        extractor.idf[tok] = self.index.get_idf(tok)
+        samples = []
+        for docid in docids:
+            with span("features.inputs"):
+                samples.append(extractor.id2vec(qid, docid, label=[1, 0], training=False))
+        with span("features.collate"):
+            return self._collate(samples, self._keys)
 
     def _rerank_stage(self, queries: Sequence[str], first_stage, k: int):
         """Returns (the reranked lists, host seconds spent building features)."""
-        results, features_s = [], 0.0
+        results, features = [], TimedSpan("rerank.features")
         for qi, (query, hits) in enumerate(zip(queries, first_stage)):
             if not hits:
                 results.append([])
                 continue
             docids = [d for d, _ in hits]
-            t0 = time.perf_counter()
-            batch = self.rerank_batch(f"live{qi}", query, docids)
-            features_s += time.perf_counter() - t0
+            with features:
+                batch = self.rerank_batch(f"live{qi}", query, docids)
             with matmul_f32():
                 if self._calibrate_pending:
-                    self.reranker.prepare_inference(batch, self.device)
+                    with span("rerank.calibrate"):
+                        self.reranker.prepare_inference(batch, self.device)
                     self._calibrate_pending = False
-                with torch.inference_mode():
+                with span("rerank.model"), torch.inference_mode():
                     scores = self.reranker.test(batch, self.device).cpu().numpy()
-            reranked = sorted(zip(docids, map(float, scores)), key=lambda kv: -kv[1])
+            with span("rerank.sort"):
+                reranked = sorted(zip(docids, map(float, scores)), key=lambda kv: -kv[1])
             results.append(reranked[:k])
-        return results, features_s
+        return results, features.seconds
 
 
 class _EmbeddingRetrievalService:
@@ -444,22 +463,17 @@ class _EmbeddingRetrievalService:
         pending = []
         for start in range(0, len(queries), self.batch_size):
             chunk = list(queries[start : start + self.batch_size])
-            scores, ords = topk(self._embed_batch(chunk), *corpus)
+            q_emb = self._embed_batch(chunk)
+            with span("search.score"):
+                scores, ords = topk(q_emb, *corpus)
             pending.append((len(chunk), scores, ords))
 
         def collect() -> List[List[Tuple[str, float]]]:
-            results: List[List[Tuple[str, float]]] = []
-            for cn, dscores, dords in pending:
-                scores, ords = dscores.cpu().numpy(), dords.cpu().numpy()
-                for qi in range(cn):
-                    hits = []
-                    for s, o in zip(scores[qi][:k], ords[qi][:k]):
-                        # -inf slots (fewer valid docs than k) never surface
-                        if int(o) >= n or not np.isfinite(s):
-                            continue
-                        hits.append((docids[int(o)], float(s)))
-                    results.append(hits)
-            return results
+            with span("search.fetch"):
+                fetched = [(cn, scores.cpu().numpy()[:, :k], ords.cpu().numpy()[:, :k])
+                           for cn, scores, ords in pending]
+            # -inf slots (fewer valid docs than k) never surface
+            return _hit_lists(fetched, docids, lambda scores, ords: (ords < n) & np.isfinite(scores))
 
         return collect
 
@@ -489,7 +503,10 @@ class ColbertRetrievalService(_EmbeddingRetrievalService):
         self.searcher._encoder()
 
     def _embed_batch(self, chunk):
-        return self.searcher.encode_queries(self.searcher._tokenize(chunk, self.maxqlen))
+        with span("search.tokenize"):
+            toks = self.searcher._tokenize(chunk, self.maxqlen)
+        with span("search.encode"):
+            return self.searcher.encode_queries(toks)
 
 
 class DenseRetrievalService(_EmbeddingRetrievalService):
@@ -508,9 +525,11 @@ class DenseRetrievalService(_EmbeddingRetrievalService):
         self.searcher._encoder()
 
     def _embed_batch(self, chunk):
-        q_emb = self.searcher.embed_queries(chunk)
+        with span("search.encode"):  # the query's tokenization too
+            q_emb = self.searcher.embed_queries(chunk)
         if int(self.searcher.config["prf"]) > 0:
-            q_emb = self.searcher._prf_expand(q_emb, self._topk, *self._corpus)
+            with span("search.prf"):
+                q_emb = self.searcher._prf_expand(q_emb, self._topk, *self._corpus)
         return q_emb
 
 
@@ -588,26 +607,20 @@ class ImpactRetrievalService:
         pending = []
         for start in range(0, len(queries), self.batch_size):
             batch = list(queries[start : start + self.batch_size])
-            term_lists = self.searcher.term_lists(engine, scale, self.searcher.query_weights_batch(batch))
-            res = engine.search(term_lists, model="impact", params={}, topk=k,
-                                max_postings_per_term=maxpost, materialize=False)
+            with span("search.encode"):
+                weights = self.searcher.query_weights_batch(batch)
+            with span("search.analyze"):
+                term_lists = self.searcher.term_lists(engine, scale, weights)
+            with span("search.score"):
+                res = engine.search(term_lists, model="impact", params={}, topk=k,
+                                    max_postings_per_term=maxpost, materialize=False)
             pending.append((len(batch), res))
 
         def collect() -> List[List[Tuple[str, float]]]:
-            results: List[List[Tuple[str, float]]] = []
-            for n, res in pending:
-                scores, ords = fetch(res)
-                scores, ords = scores[0], ords[0]
-                for qi in range(n):
-                    hits = []
-                    for s, o in zip(scores[qi], ords[qi]):
-                        if s <= 0.0:
-                            break  # scores descend; the zero / sentinel tail follows
-                        if int(o) >= len(docids):
-                            continue
-                        hits.append((docids[int(o)], float(s)))
-                    results.append(hits)
-            return results
+            with span("search.fetch"):
+                fetched = [(n, fetch(res)) for n, res in pending]
+            return _hit_lists(((n, scores[0], ords[0]) for n, (scores, ords) in fetched), docids,
+                              lambda scores, ords: _positive_prefix(scores, ords) & (ords < len(docids)))
 
         return collect
 

@@ -31,7 +31,7 @@ import threading
 import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from capreolus_tpu_torch.utils.loginit import get_logger
@@ -48,13 +48,17 @@ class ServingStats:
     under pipelining this INCLUDES time parked in flight behind up to
     ``pipeline_depth - 1`` older batches, i.e. what a request experiences;
     ``service_ms`` is the service call (collect) duration alone, the number
-    to watch for engine regressions independent of pipeline depth.
+    to watch for engine regressions independent of pipeline depth. A third,
+    ``queue_wait_ms``, is each query's wait from ``submit`` until its batch
+    is dispatched: the batching window and the time spent behind batches in
+    flight.
     """
 
     def __init__(self, maxlen: int = 4096):
         self._lock = threading.Lock()
         self._lat = deque(maxlen=maxlen)
         self._svc = deque(maxlen=maxlen)
+        self._wait = deque(maxlen=maxlen)
         self.queries = 0
         self.batches = 0
         self.errors = 0
@@ -92,6 +96,11 @@ class ServingStats:
             if service_seconds is not None:
                 self._svc.append(service_seconds)
 
+    def record_queue_waits(self, seconds: Sequence[float]):
+        """Each query's wait from submit to its batch's dispatch."""
+        with self._lock:
+            self._wait.extend(seconds)
+
     def record_error(self):
         with self._lock:
             self.errors += 1
@@ -100,6 +109,7 @@ class ServingStats:
         with self._lock:
             lat = sorted(self._lat)
             svc = sorted(self._svc)
+            wait = sorted(self._wait)
             out = {"queries": self.queries, "batches": self.batches, "errors": self.errors,
                    "hedges": self.hedges, "hedge_wins": self.hedge_wins,
                    "mean_batch_size": round(self.queries / self.batches, 2) if self.batches else 0.0}
@@ -113,6 +123,8 @@ class ServingStats:
             out["batch_latency_ms"] = _pcts(lat)
         if svc:
             out["service_ms"] = _pcts(svc)
+        if wait:
+            out["queue_wait_ms"] = _pcts(wait)
         return out
 
 
@@ -169,7 +181,7 @@ class MicroBatcher:
         """Enqueue one query; returns a slot to pass to ``result``. Submitting
         several queries before collecting lets one caller's batch coalesce
         internally as well as with concurrent callers."""
-        slot = {"event": threading.Event(), "result": None, "error": None}
+        slot = {"event": threading.Event(), "result": None, "error": None, "submitted": time.monotonic()}
         with self._lock:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
@@ -313,6 +325,7 @@ class MicroBatcher:
                 queries = [q for q, _, _ in batch]
                 k_max = max(k for _, k, _ in batch)
                 t0 = time.monotonic()
+                self.stats.record_queue_waits([t0 - slot["submitted"] for _, _, slot in batch])
                 try:
                     if self._dispatch is not None:
                         inflight.append((batch, self._dispatch(queries, k=k_max), t0,

@@ -17,7 +17,9 @@ paths carry over.
   ``validatefreq`` iterations, ``dev.best`` on the optimized metric, the loss
   and metric files, TensorBoard events, ``negrefresh`` (ANCE-style hard
   negatives), ``fastforward`` from per-iteration checkpoints, ``profile`` (one
-  ``torch.profiler`` trace of the first iteration) and ``evalbatch``.
+  ``torch.profiler`` trace of the first iteration, with the trainer's spans:
+  ``trainer.wait_batch``, ``trainer.step`` and its parts, ``utils/tracing.py``)
+  and ``evalbatch``.
 - Dropout: a training forward of a reranker with ``accepts_rngs`` gets a seed
   deterministic in (seed + 0x5eed, iteration, step, micro-batch), so
   fastforward replays the same masks; the masks differ from JAX's.
@@ -93,6 +95,7 @@ from capreolus_tpu_torch.trainer import Trainer
 from capreolus_tpu_torch.trainer.amp import amp_mode, bf16_params, round_int8_inference
 from capreolus_tpu_torch.trainer.collate import ARRAY_KEYS, collate
 from capreolus_tpu_torch.utils.loginit import get_logger
+from capreolus_tpu_torch.utils.tracing import span
 
 logger = get_logger(__name__)
 
@@ -580,34 +583,43 @@ class TorchTrainer(Trainer):
     def train_step(self, reranker, model, optimizer, batches, step, step_seed):
         """One optimizer step over ``batches`` ([gradacc, batch, ...] arrays) at
         optimizer step ``step``; returns the mean micro-batch loss (a tensor).
-        With a placement, each micro-batch's loss is ``mesh_loss``'s."""
-        placement = self._placement
-        device = placement.lead(0) if placement is not None else next(model.parameters()).device
-        gradacc = self.config["gradacc"]
-        optimizer.zero_grad(set_to_none=True)
-        from capreolus_tpu_torch.reranker.bert.encoder import dropout_generator_seed
+        With a placement, each micro-batch's loss is ``mesh_loss``'s. Spans
+        (``utils/tracing.py``): ``trainer.step`` holding, per micro-batch,
+        ``trainer.forward`` (its inputs' copies, ``reranker.inputs``, inside)
+        and ``trainer.backward``, then ``trainer.optimizer``."""
+        with span("trainer.step"):
+            placement = self._placement
+            device = placement.lead(0) if placement is not None else next(model.parameters()).device
+            gradacc = self.config["gradacc"]
+            optimizer.zero_grad(set_to_none=True)
+            from capreolus_tpu_torch.reranker.bert.encoder import dropout_generator_seed
 
-        loss_sum = torch.zeros((), device=device)
-        for g in range(gradacc):
-            micro = {k: v[g] for k, v in batches.items()}
-            seed = dropout_generator_seed(step_seed, g)
-            # around the backward too: remat recomputes layers, and cuDNN's backward reads the TF32 flag
-            if placement is not None:
-                with placement.bind(), cudnn_f32(), matmul_f32():
-                    loss = self.mesh_loss(reranker, micro, seed)
-                    loss.backward()
-            else:
-                with bf16_params(model, self.amp_train()), cudnn_f32(), matmul_f32():
-                    loss = self.compute_loss(reranker, micro, device, seed)
-                    loss.backward()
-            loss_sum = loss_sum + loss.detach()
-        if gradacc > 1:
-            for group in optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(gradacc)
-        self.optimizer_step(optimizer, step)
-        return loss_sum / gradacc
+            loss_sum = torch.zeros((), device=device)
+            for g in range(gradacc):
+                micro = {k: v[g] for k, v in batches.items()}
+                seed = dropout_generator_seed(step_seed, g)
+                # around the backward too: remat recomputes layers, and cuDNN's backward reads the TF32 flag
+                if placement is not None:
+                    with placement.bind(), cudnn_f32(), matmul_f32():
+                        with span("trainer.forward"):
+                            loss = self.mesh_loss(reranker, micro, seed)
+                        with span("trainer.backward"):
+                            loss.backward()
+                else:
+                    with bf16_params(model, self.amp_train()), cudnn_f32(), matmul_f32():
+                        with span("trainer.forward"):
+                            loss = self.compute_loss(reranker, micro, device, seed)
+                        with span("trainer.backward"):
+                            loss.backward()
+                loss_sum = loss_sum + loss.detach()
+            with span("trainer.optimizer"):
+                if gradacc > 1:
+                    for group in optimizer.param_groups:
+                        for p in group["params"]:
+                            if p.grad is not None:
+                                p.grad.div_(gradacc)
+                self.optimizer_step(optimizer, step)
+            return loss_sum / gradacc
 
     def optimizer_step(self, optimizer, step):
         """Apply the gradients at optimizer step ``step``: each group's rate from
@@ -716,7 +728,8 @@ class TorchTrainer(Trainer):
                 model.train()
                 iter_loss = []
                 for step_i in range(self.steps_per_iter):
-                    item = batch_queue.get()
+                    with span("trainer.wait_batch"):
+                        item = batch_queue.get()
                     if isinstance(item, BaseException):
                         raise item
                     step = niter * self.steps_per_iter + step_i
