@@ -19,7 +19,9 @@ quantize per query on the device, and each chunk of docs is one int8 product
 [Q*Lq, dim] x [C*Ld, dim]^T (X1, ``ops/int8_matmul.py``, on the card) whose
 int32 similarities are rounded to bf16, as the JAX scorer's
 ``preferred_element_type=bfloat16`` rounds them, then masked, maxed over doc
-tokens and summed over query tokens in f32, times the query and doc scales.
+tokens and summed over query tokens in f32, times the query and doc scales:
+one pass of the epilogue kernel over the valid tokens' similarities on the
+card (``ops/maxsim_epilogue.py``, ``csrc/maxsim_epilogue.cu``).
 A chunk holds as many docs as keep its int32 similarities near
 ``SIM_CHUNK_BYTES``; the chunk size changes no result. int4 retrieves
 ``rescore`` candidates and re-scores them at full precision from the f16 disk
@@ -78,6 +80,7 @@ import numpy as np
 import torch
 
 from capreolus_tpu_torch.core import ConfigError, ConfigOption, Dependency
+from capreolus_tpu_torch.ops.maxsim_epilogue import MASKED_BIAS, chunk_scores
 from capreolus_tpu_torch.reranker.common import matmul_f32
 from capreolus_tpu_torch.searcher import Searcher, _hbm_budget_mb
 from capreolus_tpu_torch.searcher.streamed import topk_lower_ordinal_first
@@ -86,7 +89,6 @@ from capreolus_tpu_torch.utils.loginit import get_logger
 
 logger = get_logger(__name__)
 
-MASKED_BIAS = -1e9  # additive bias of a masked doc token in bias_t, as in the JAX searcher
 UPLOAD_BYTES = 64 << 20  # f16 bytes per host-to-device copy of the corpus
 SIM_CHUNK_BYTES = 1 << 29  # int32 similarities per chunk of the quantized engine (512 MB)
 POOL_DOCS = 2048  # docs per step of prefilter's pooled embeddings (a [Ld, 2048, dim] f32 slice)
@@ -119,9 +121,9 @@ def quantized_maxsim_codes(q_i8, qscale, docs, mask, dscale):
     (X1 on the card) whose int32 similarities round to bf16, masked tokens at
     bf16(-1e9), the max over doc tokens in bf16, the sum over query tokens in
     f32 (``ops.maxsim.sum_query_tokens``), times the query and doc scales; a
-    doc with no valid token scores -inf."""
+    doc with no valid token scores -inf: ``ops.maxsim_epilogue.chunk_scores``,
+    the epilogue kernel on the card."""
     from capreolus_tpu_torch.ops.int8_matmul import int8_mm
-    from capreolus_tpu_torch.ops.maxsim import sum_query_tokens
     from capreolus_tpu_torch.ops.quantization import unpack_int4
 
     nq, lq, dim = q_i8.shape
@@ -134,11 +136,9 @@ def quantized_maxsim_codes(q_i8, qscale, docs, mask, dscale):
         c = d.shape[0]
         if d.dtype == torch.uint8:  # int4: this chunk alone unpacks to int8
             d = unpack_int4(d)[:, : ld * dim]
-        sim = int8_mm(q2d, d.reshape(c * ld, dim).contiguous()).to(torch.bfloat16).view(nq, lq, c, ld)
-        sim.masked_fill_(~mask[c0 : c0 + c][None, None], MASKED_BIAS)
-        per_q_token = sim.amax(dim=-1).float()  # [Q, Lq, C]
-        out[:, c0 : c0 + c] = sum_query_tokens(per_q_token) * qscale[:, None] * dscale[None, c0 : c0 + c]
-    return torch.where(mask.any(dim=1)[None, :], out, float("-inf"))
+        chunk_scores(int8_mm(q2d, d.reshape(c * ld, dim).contiguous()), mask[c0 : c0 + c], qscale,
+                     dscale[c0 : c0 + c], out, c0)
+    return out
 
 
 class _HostTokens:

@@ -71,6 +71,11 @@ printed only when every phase passed):
    called on the path); Q1
    (``quantize_per_token``) exactly against ``quantize_per_token_plain`` at
    the served [409,600 x 768] and at ragged shapes, timed beside its bound;
+   the int8 ColBERT engine's MaxSim epilogue (``maxsim_epilogue``) bit for bit
+   against ``maxsim_epilogue_plain`` at the served 64-query chunk [2,048 x
+   65,520], at prefilter's one query over 1,000 docs and at ragged shapes,
+   timed beside its bound (one launch per X1 launch of the engine in phases
+   6b, 16a and 17d);
    then the weight, GELU and ColBERT query scales (and their codes) computed
    on the card must equal the CPU's bit for bit;
 4. KNRM serving: a seeded synthetic TREC corpus (20k docs of 200-1200 words),
@@ -1899,6 +1904,81 @@ def phase_q1_check(peaks):
     return out
 
 
+def epilogue_bound_ms(nq, lq, valid_tokens, c, ld, peaks):
+    """Least time for the MaxSim epilogue of one chunk: the int32 similarities
+    of the valid tokens read once (``valid_tokens`` over the chunk's docs), the
+    mask and the scales read once and the [nq, c] f32 scores written once,
+    over the HBM rate. Its operations (a conversion and a max a similarity, lq
+    adds a score) lie far below the f32 peak."""
+    nbytes = 4.0 * nq * lq * valid_tokens + c * ld + 4.0 * (nq + c) + 4.0 * nq * c
+    return nbytes / peaks["bw"] * 1e3
+
+
+def epilogue_chunk(nq, lq, c, ld, gen):
+    """A chunk of the int8 ColBERT engine on the card: sim [nq*lq, c*ld] over
+    the int8 products' range, doc lengths from the int8 benchmark's lognormal
+    (median 66 tokens, sigma 0.45, clipped to 8-ld; mean 72.6 at ld 180) as
+    prefixes, every 7th doc with holes, doc 3 with no valid token; the query
+    and doc scales."""
+    top = 127 * 127 * 128
+    sim = torch.randint(-top, top + 1, (nq * lq, c * ld), generator=gen, device="cuda", dtype=torch.int32)
+    normal = torch.randn(c, generator=gen, device="cuda")
+    lengths = torch.exp(np.log(66.0) + 0.45 * normal).round().clamp(min(8, ld), ld)
+    mask = torch.arange(ld, device="cuda")[None, :] < lengths[:, None]
+    mask[::7] = torch.rand(mask[::7].shape, generator=gen, device="cuda") > 0.5
+    mask[3 % c] = False
+    qscale = torch.rand(nq, generator=gen, device="cuda") * 1e-2 + 1e-3
+    dscale = torch.rand(c, generator=gen, device="cuda") * 1e-2 + 1e-3
+    return sim, mask.contiguous(), qscale, dscale
+
+
+def phase_epilogue_check(peaks):
+    """The int8 ColBERT engine's MaxSim epilogue kernel against its plain
+    version, bit for bit: at the served chunk (64 queries of 32 tokens over
+    ``quantized_chunk_docs`` docs of 180 slots: [2,048 x 65,520]), at
+    prefilter's one query over 1,000 candidates, and at ragged shapes (an odd
+    Lq, Ld off 4 and off 2, a chunk with no valid doc), each writing into the
+    middle of a wider score matrix; timed at the served chunk beside its bound
+    and the plain version."""
+    from capreolus_tpu_torch.ops.maxsim_epilogue import maxsim_epilogue, maxsim_epilogue_plain
+    from capreolus_tpu_torch.searcher.late_interaction import quantized_chunk_docs
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    lq, ld = COLBERT["maxqlen"], COLBERT["maxdoclen"]
+    c = quantized_chunk_docs(64, lq, ld)
+    for label, (nq, q_len, docs, d_len, none_valid) in (
+            ("prefilter", (1, lq, 1000, ld, False)), ("odd_lq", (3, 5, 70, ld, False)),
+            ("ld_13", (2, 7, 45, 13, False)), ("ld_6", (5, 3, 40, 6, False)), ("no_valid_doc", (4, lq, 50, ld, True))):
+        sim, mask, qscale, dscale = epilogue_chunk(nq, q_len, docs, d_len, gen)
+        if none_valid:
+            mask[:] = False
+        got = maxsim_epilogue(sim, mask, qscale, dscale, torch.full((nq, docs + 21), 7.0, device="cuda"), 13)
+        want = maxsim_epilogue_plain(sim, mask, qscale, dscale, torch.full((nq, docs + 21), 7.0, device="cuda"), 13)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"maxsim_epilogue {label} [{nq * q_len} x {docs * d_len}]: differs from plain")
+    sim, mask, qscale, dscale = epilogue_chunk(64, lq, c, ld, gen)
+    scores = torch.empty((64, c), device="cuda")
+    got = maxsim_epilogue(sim, mask, qscale, dscale, scores, 0)
+    want = maxsim_epilogue_plain(sim, mask, qscale, dscale, torch.empty_like(scores), 0)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"maxsim_epilogue served chunk [{64 * lq} x {c * ld}]: differs from plain")
+    valid = int(mask.sum())
+    out = {"shape": f"Q=64 Lq={lq} C={c} Ld={ld} (sim [{64 * lq} x {c * ld}] int32)", "max_abs_err": 0.0,
+           "valid_token_share": valid / (c * ld),
+           "ms": cuda_ms(lambda: maxsim_epilogue(sim, mask, qscale, dscale, scores, 0), rounds=10, calls=10),
+           "plain_ms": cuda_ms(lambda: maxsim_epilogue_plain(sim, mask, qscale, dscale, scores, 0), rounds=5,
+                               calls=2),
+           "bound_ms": epilogue_bound_ms(64, lq, valid, c, ld, peaks), "bound_by": "bytes",
+           "library_ms": None}  # no single PyTorch call computes the masked max and the tree sum
+    print(f"[3 kernel] maxsim_epilogue {out['shape']}: bit-identical to plain (and at prefilter's 1 x 1,000, an odd "
+          f"Lq, Ld 13 and 6, a chunk with no valid doc); {out['valid_token_share']:.3f} of the slots valid; "
+          f"{out['ms']:.4f} ms (plain {out['plain_ms']:.3f}, bound {out['bound_ms']:.4f} by bytes)")
+    del sim, mask, scores, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_scales_check():
     """The int8 scales besides Q1's, computed on the card and on the CPU from
     the same values: the weight scales (``Int8Linear.quantize_weight``, with
@@ -1945,12 +2025,13 @@ def launch_counts():
     from capreolus_tpu_torch.ops.flash_attention import flash_attention
     from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
     from capreolus_tpu_torch.ops.maxsim import maxsim
+    from capreolus_tpu_torch.ops.maxsim_epilogue import maxsim_epilogue
     from capreolus_tpu_torch.ops.quantization import quantize_per_token
     from capreolus_tpu_torch.ops.simmat import knrm_pool
 
     return {"knrm_pool": knrm_pool.launches, "flash_attention": flash_attention.launches,
             "maxsim": maxsim.launches, "int8_matmul": int8_matmul.launches,
-            "quantize_per_token": quantize_per_token.launches}
+            "quantize_per_token": quantize_per_token.launches, "maxsim_epilogue": maxsim_epilogue.launches}
 
 
 def reset_launch_counts():
@@ -1958,11 +2039,12 @@ def reset_launch_counts():
     from capreolus_tpu_torch.ops.flash_attention import flash_attention
     from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
     from capreolus_tpu_torch.ops.maxsim import maxsim
+    from capreolus_tpu_torch.ops.maxsim_epilogue import maxsim_epilogue
     from capreolus_tpu_torch.ops.quantization import quantize_per_token
     from capreolus_tpu_torch.ops.simmat import knrm_pool
 
     knrm_pool.launches = flash_attention.launches = maxsim.launches = int8_matmul.launches = 0
-    quantize_per_token.launches = int8_matmul.pad_copies = 0
+    quantize_per_token.launches = int8_matmul.pad_copies = maxsim_epilogue.launches = 0
     int8_matmul.mode_launches = dict.fromkeys(int8_matmul.mode_launches, 0)
 
 
@@ -2120,6 +2202,7 @@ def phase_colbert_int8_serving(workdir, corpus_dir, topics, none):
     from capreolus_tpu_torch.core import constants
     from capreolus_tpu_torch.ops.flash_attention import flash_attention
     from capreolus_tpu_torch.ops.int8_matmul import int8_matmul
+    from capreolus_tpu_torch.ops.maxsim_epilogue import maxsim_epilogue
     from capreolus_tpu_torch.reranker.bert import get_bert_config
     from capreolus_tpu_torch.reranker.colbert import ColBERTModel
     from capreolus_tpu_torch.convert import bert_state_dict, load_params
@@ -2159,16 +2242,20 @@ def phase_colbert_int8_serving(workdir, corpus_dir, topics, none):
     t0 = time.perf_counter()
     batch_results = svc.search(none["batch"], k=10)
     batch_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"int8_matmul": int8_matmul.launches, "flash_attention": flash_attention.launches}
+    launches = {"int8_matmul": int8_matmul.launches, "flash_attention": flash_attention.launches,
+                "maxsim_epilogue": maxsim_epilogue.launches}
     int32_launches = int8_matmul.mode_launches["int32"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = len(queries) * colbert_x1_launches(1, n_docs) + colbert_x1_launches(len(none["batch"]), n_docs)
     print(f"{label} per request (median of {len(queries)}): {np.median(request_ms):.2f} ms (spread "
           f"{min(request_ms):.2f}-{max(request_ms):.2f}); one {len(none['batch'])}-query batch {batch_ms:.2f} ms; "
           f"peak device memory of the served run {peak_gb:.2f} GB; launches in the run: int8_matmul "
-          f"{launches['int8_matmul']} (one per chunk of docs), flash_attention {launches['flash_attention']}")
+          f"{launches['int8_matmul']} (one per chunk of docs), maxsim_epilogue {launches['maxsim_epilogue']}, "
+          f"flash_attention {launches['flash_attention']}")
     check(launches["int8_matmul"] == want, f"int8_matmul launched {launches['int8_matmul']} times, expected {want}")
     check(int32_launches == want, f"only {int32_launches} of the ColBERT int8 X1 launches ran the int32 epilogue")
+    check(launches["maxsim_epilogue"] == want, f"maxsim_epilogue launched {launches['maxsim_epilogue']} times, "
+                                               f"expected one per X1 launch ({want})")
     check(launches["flash_attention"] == config.num_layers * (len(queries) + 1),
           f"flash_attention launched {launches['flash_attention']} times in the int8 ColBERT run")
     check(all(len(hits) == 10 and all(np.isfinite(s) for _, s in hits) for hits in results + batch_results),
@@ -2209,9 +2296,12 @@ def phase_colbert_int8_serving(workdir, corpus_dir, topics, none):
     torch.cuda.synchronize()
     int4_ms = (time.perf_counter() - t0) * 1e3
     launches["int8_matmul_int4"] = int8_matmul.launches
-    check(launches["int8_matmul_int4"] == colbert_x1_launches(1, n_docs) == int8_matmul.mode_launches["int32"],
+    launches["maxsim_epilogue_int4"] = maxsim_epilogue.launches
+    check(launches["int8_matmul_int4"] == colbert_x1_launches(1, n_docs) == int8_matmul.mode_launches["int32"]
+          == launches["maxsim_epilogue_int4"],
           f"int4: int8_matmul launched {launches['int8_matmul_int4']} times for one query "
-          f"({int8_matmul.mode_launches['int32']} in the int32 epilogue)")
+          f"({int8_matmul.mode_launches['int32']} in the int32 epilogue), maxsim_epilogue "
+          f"{launches['maxsim_epilogue_int4']}")
     check(len(top4) == 10, f"int4 + rescore returned {len(top4)} hits")
     faults = ranking_faults(top4, none["top10"], COLBERT_CPU_TOL)
     check(not faults, f"int4 + rescore top 10 vs quantize=none: {faults}")
@@ -5709,8 +5799,10 @@ def phase_colbert_options(workdir, corpus_dir, topics, none, peaks, device="cuda
                 check(launched["maxsim"] == served_queries and launched["int8_matmul"] == 0,
                       f"16a {label}: K3 launched {launched['maxsim']} times for {served_queries} queries (one each)")
             else:
-                check(launched["int8_matmul"] == served_queries and launched["maxsim"] == 0,
-                      f"16a {label}: X1 launched {launched['int8_matmul']} times for {served_queries} queries")
+                check(launched["int8_matmul"] == served_queries == launched["maxsim_epilogue"]
+                      and launched["maxsim"] == 0,
+                      f"16a {label}: X1 launched {launched['int8_matmul']} times for {served_queries} queries, the "
+                      f"MaxSim epilogue {launched['maxsim_epilogue']}")
             check(all(len(h) == 10 and len({d for d, _ in h}) == 10 for h in batch_hits),
                   f"16a {label}: a request did not return 10 distinct docids")
             # stage 2 equals the exact engine's scores, bit for bit, over the batch's own embeddings
@@ -5763,6 +5855,9 @@ def phase_colbert_options(workdir, corpus_dir, topics, none, peaks, device="cuda
         kernel = "maxsim" if qmode == "none" else "int8_matmul"
         check(launched[kernel] == slices * batches, f"16a streamed {qmode}: {kernel} launched {launched[kernel]} "
                                                     f"times for {batches} query batches of {slices} slices")
+        check(launched["maxsim_epilogue"] == (launched["int8_matmul"] if qmode == "int8" else 0),
+              f"16a streamed {qmode}: the MaxSim epilogue launched {launched['maxsim_epilogue']} times, X1 "
+              f"{launched['int8_matmul']}")
         q8 = qb[: shape["queries"]]
         got = svc._topk(q8)
         want = topk_lower_ordinal_first(full[: shape["queries"]], 100)
@@ -6063,13 +6158,13 @@ def phase_serving_families(workdir, corpus_dir, topics, none, peaks, device="cud
 
 
 def add_phase16_launches(kernels, p16):
-    """Phase 16's K2, K3 and X1 launches in its served runs (16a's prefilter
-    and streamed requests, 16b's refresh encoding) and the kernels' errors on
-    its inputs, into the ``kernels`` line."""
+    """Phase 16's K2, K3, X1 and MaxSim epilogue launches in its served runs
+    (16a's prefilter and streamed requests, 16b's refresh encoding) and the
+    kernels' errors on its inputs, into the ``kernels`` line."""
     runs = {**p16["launches"]["options"], **{f"refresh_{k}": v for k, v in p16["launches"]["refresh"].items()}}
     for entry in kernels:
         name = entry["name"]
-        if name not in ("flash_attention", "maxsim", "int8_matmul"):
+        if name not in ("flash_attention", "maxsim", "int8_matmul", "maxsim_epilogue"):
             continue
         total = sum(launches[name] for launches in runs.values())
         entry["launches"] += total
@@ -6442,6 +6537,9 @@ def phase17_colbert(workdir, corpus_dir, topics, none, peaks, device, shape, sha
               f"17d {qmode}: K3 launched {launched['maxsim']} times over {requests} query batches on {shards} shards")
         check((launched["int8_matmul"] >= shards * requests) if qmode == "int8" else launched["int8_matmul"] == 0,
               f"17d {qmode}: X1 launched {launched['int8_matmul']} times over {requests} query batches")
+        check(launched["maxsim_epilogue"] == launched["int8_matmul"],
+              f"17d {qmode}: the MaxSim epilogue launched {launched['maxsim_epilogue']} times, X1 "
+              f"{launched['int8_matmul']}")
         r_single, _, r_batch = time_service(resident, queries, batch)
         q = searcher.encode_queries(searcher._tokenize(batch, COLBERT["maxqlen"]))
         hold_sharded_engine(f"17d colbert {qmode}", sharded, resident, q, exact_scores=True)
@@ -7022,6 +7120,7 @@ def main():
         k3 = timed(phase_k3_check, peaks)
         x1 = timed(phase_x1_check, peaks)
         q1 = timed(phase_q1_check, peaks)
+        epilogue = timed(phase_epilogue_check, peaks)
         q1["scales_differing_from_cpu"] = timed(phase_scales_check)
         setup = timed(phase_setup_wait, serving_host, "[4 serving]", key="serving_setup_wait")
         k1_launches, corpus_dir, topics, qrels, knrm = timed(phase_serving, workdir, setup, ckpt_seed=3)
@@ -7187,6 +7286,19 @@ def main():
         "bound_ms": q1["bound_ms"],
         "bound_by": q1["bound_by"],
         "library_ms": None,  # no single PyTorch call computes per-token quantization
+    }, {
+        "name": "maxsim_epilogue",
+        "route": "cuda",
+        "source": "capreolus_tpu_torch/csrc/maxsim_epilogue.cu",
+        # no TPU kernel: the JAX searcher's int8 MaxSim after its bf16 dot (mask, max, sum, scales), left to XLA
+        "replaces": "capreolus_tpu/searcher/late_interaction.py:414 (chunk_scores_q, no pl.pallas_call)",
+        "shape": epilogue["shape"] + ", a served 64-query chunk",
+        # ColBERT's int8 run and its int4 + rescore query: one per X1 launch of the engine
+        "launches": colbert_int8_launches["maxsim_epilogue"] + colbert_int8_launches["maxsim_epilogue_int4"],
+        "launches_colbert_int8": colbert_int8_launches["maxsim_epilogue"],
+        "launches_colbert_int4": colbert_int8_launches["maxsim_epilogue_int4"],
+        **{key: epilogue[key] for key in ("max_abs_err", "valid_token_share", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
     }]
     add_phase13_launches(kernels, p13, k3_fields)
     add_phase14_launches(kernels, p14)

@@ -512,6 +512,80 @@ def test_x1_wrapper_rejects_what_the_kernel_does_not_take(card):
                        torch.zeros((1, 1 << 17), dtype=torch.int8, device=card))
 
 
+def _colbert_chunk(nq, lq, c, ld, seed, device, valid_docs=True):
+    """One chunk of the int8 ColBERT engine on ``device``: sim [nq*lq, c*ld]
+    int32 over the int8 products' whole range (|value| <= 127^2 * 128, ties of
+    bf16 rounding included), a mask whose docs hold prefixes of 8-ld valid
+    tokens, every 7th doc with holes, doc 3 none (all none where
+    ``valid_docs`` is false), and the query and doc scales."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    top = 127 * 127 * 128
+    sim = rng.integers(-top, top + 1, size=(nq * lq, c * ld), dtype=np.int32)
+    sim[0, : min(ld, 64)] = (1 << 20) + np.arange(min(ld, 64), dtype=np.int32) * 4096  # halfway between bf16s
+    lengths = rng.integers(min(8, ld), ld + 1, size=c)
+    mask = np.arange(ld)[None, :] < lengths[:, None]
+    mask[::7] = rng.random((len(mask[::7]), ld)) > 0.5
+    mask[3 % c] = False
+    if not valid_docs:
+        mask[:] = False
+    qscale = (rng.random(nq) * 1e-2 + 1e-3).astype(np.float32)
+    dscale = (rng.random(c) * 1e-2 + 1e-3).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (sim, mask, qscale, dscale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,lq,c,ld,valid_docs", [
+    (64, 32, 364, 180, True),  # the served chunk: 64 queries over 364 docs of 180 tokens
+    (1, 32, 1000, 180, True),  # prefilter's stage 2: one query over its 1,000 candidates
+    (3, 5, 70, 180, True),     # an odd query length, a last tile of 6 docs
+    (2, 7, 45, 13, True),      # Ld off a multiple of 2: one-token vectors
+    (5, 3, 40, 6, True),       # two-token vectors
+    (4, 32, 50, 180, False),   # a chunk with no valid doc
+])
+def test_maxsim_epilogue_kernel_equals_plain(card, nq, lq, c, ld, valid_docs):
+    from capreolus_tpu_torch.ops import maxsim_epilogue as mx
+
+    sim, mask, qscale, dscale = _colbert_chunk(nq, lq, c, ld, seed=nq + lq + c + ld, device=card,
+                                               valid_docs=valid_docs)
+    n, col0 = c + 21, 13
+    before = mx.maxsim_epilogue.launches
+    got = mx.maxsim_epilogue(sim, mask, qscale, dscale, torch.full((nq, n), 7.0, device=card), col0)
+    torch.cuda.synchronize()
+    assert mx.maxsim_epilogue.launches == before + 1
+    want = mx.maxsim_epilogue_plain(sim, mask, qscale, dscale, torch.full((nq, n), 7.0, device=card), col0)
+    assert torch.equal(got, want)
+    assert torch.equal(mx.chunk_scores(sim, mask, qscale, dscale, torch.full((nq, n), 7.0, device=card), col0), got)
+    assert mx.maxsim_epilogue.launches == before + 2
+    assert bool((got[:, :col0] == 7.0).all()) and bool((got[:, col0 + c :] == 7.0).all())
+    assert bool(torch.isneginf(got[:, col0 + 3 % c]).all())
+    if not valid_docs:
+        assert bool(torch.isneginf(got[:, col0 : col0 + c]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", ["int8", "int4"])
+def test_quantized_engine_on_the_card_equals_the_cpus_bits(card, quantize, monkeypatch):
+    """The whole engine, X1 and the epilogue kernel over several chunks, from
+    the same codes: the card's scores are the CPU's plain path's bit for bit."""
+    from capreolus_tpu_torch.ops import maxsim_epilogue as mx
+    from capreolus_tpu_torch.ops import quantization as pq
+    from capreolus_tpu_torch.searcher import late_interaction as li
+
+    rng = np.random.Generator(np.random.PCG64(23))
+    n, ld, dim, nq, lq = 300, 180, 128, 4, 32
+    emb = (rng.standard_normal((n, ld, dim)) * 0.3).astype(np.float32)
+    mask = torch.from_numpy(np.arange(ld)[None, :] < rng.integers(8, ld + 1, size=n)[:, None])
+    mask[5] = False
+    codes, scale = pq.quantize_rows(emb) if quantize == "int8" else pq.quantize_rows_int4(emb.reshape(n, -1))
+    q_i8, qscale = pq.quantize_rows_torch(torch.from_numpy(rng.standard_normal((nq, lq, dim)).astype(np.float32)))
+    monkeypatch.setattr(li, "SIM_CHUNK_BYTES", 4 * nq * lq * ld * 64)  # 64 docs a chunk: 5 chunks
+    args = (q_i8, qscale, torch.from_numpy(codes), mask, torch.from_numpy(scale))
+    before = mx.maxsim_epilogue.launches
+    got = li.quantized_maxsim_codes(*(a.to(card) for a in args))
+    assert mx.maxsim_epilogue.launches == before + 5
+    assert torch.equal(got.cpu(), li.quantized_maxsim_codes(*args))
+
+
 def _epilogue_vectors(m, n, seed, device):
     """x_scales [M], w_scales, bias and GELU out_scales [N] at the magnitudes of
     a served BERT-base layer: products of about 1e5 dequantize to a few units."""
